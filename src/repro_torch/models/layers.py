@@ -1,0 +1,278 @@
+"""Layers of the dense GQA LM as plain functions over a flat param dict.
+
+Port of the dense subset of `repro.models.layers`. Conventions follow the
+JAX module: `params` is a flat dict[str, Tensor] under the JAX keys, a
+per-layer view `lp` indexes the stacked (L, ...) tensors, `qparams` maps
+quantizer sites (`<name>.wq`, `<site>.aq`) to `QuantParams`, activations
+run in the config's dtype and softmax/norm in f32.
+
+Projections go through `dense_proj`, which routes a weight to the GEMM
+kernel whose epilogue decodes it: fake-quant for dense weights with a
+quantizer, dequant for `<name>.codes`, unpack-dequant for
+`<name>.packed{bits}`. Prefill attention, norms, rope and SiLU are plain
+PyTorch, as they were plain XLA in the JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.quant import PACKED_STORAGE_BITS, QuantParams, fake_quant
+from repro_torch.kernels import ops as Kops
+
+# Components whose 2-D weights execute through `dense_proj`.
+ROUTED_COMPONENTS = ("attn", "mlp", "mamba", "rwkv", "shared")
+# `<name>.packed{bits}` suffixes, widest first, as `compress_lm` emits them.
+PACKED_PARAM_BITS = tuple(sorted(PACKED_STORAGE_BITS, reverse=True))
+
+
+def not_in_this_slice(what: str, where: str) -> NotImplementedError:
+    """The error every path outside the serving slice raises."""
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet; it comes with {where}")
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerShapes:
+    """Physical dims one sublayer executes at (the dense config's here;
+    pruned widths come with slim serving)."""
+    d_model: int
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    d_head: int = 0
+    d_ff: int = 0
+
+    @classmethod
+    def from_config(cls, cfg: ModelConfig) -> "LayerShapes":
+        return cls(d_model=cfg.d_model, n_heads=cfg.n_heads,
+                   n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
+                   d_ff=cfg.d_ff)
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def qw(params: dict, qparams: Optional[dict], name: str) -> torch.Tensor:
+    """Weight fetch through the (optional) parameterized quantizer."""
+    w = params[name]
+    qp = qparams.get(name + ".wq") if qparams is not None else None
+    if qp is not None:
+        w = fake_quant(w, qp.d, qp.q_m, qp.t)
+    return w
+
+
+def qa(x: torch.Tensor, qparams: Optional[dict], site: str) -> torch.Tensor:
+    """Activation pass through the (optional) parameterized quantizer."""
+    qp = qparams.get(site) if qparams is not None else None
+    if qp is not None:
+        x = fake_quant(x, qp.d, qp.q_m, qp.t)
+    return x
+
+
+def dense_proj(x: torch.Tensor, lp: dict, qp: Optional[dict],
+               name: str) -> torch.Tensor:
+    """x @ T(w) for one 2-D weight, routed by what the param dict holds:
+
+    - `<name>.packed{bits}` + `<name>.scale` -> packed_quant_matmul_op
+    - `<name>.codes` + `<name>.scale`       -> quant_matmul_op
+    - dense weight with a `<name>.wq` site   -> fq_matmul_op
+    - dense weight, no site                  -> x @ w (torch.matmul)
+    """
+    if name + ".colmask" in lp:
+        raise not_in_this_slice("column-masked projection (`.colmask`)",
+                                "the training slice (ROADMAP Queue 1 item 5)")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    for pbits in PACKED_PARAM_BITS:
+        packed = lp.get(f"{name}.packed{pbits}")
+        if packed is not None:
+            y = Kops.packed_quant_matmul_op(x2, packed, pbits,
+                                            lp[name + ".scale"])
+            return y.reshape(*lead, packed.shape[-1])
+    codes = lp.get(name + ".codes")
+    if codes is not None:
+        y = Kops.quant_matmul_op(x2, codes, lp[name + ".scale"])
+        return y.reshape(*lead, codes.shape[-1])
+    w = lp[name]
+    qpw: Optional[QuantParams] = qp.get(name + ".wq") if qp else None
+    if qpw is None or w.ndim != 2:
+        if qpw is not None:
+            w = fake_quant(w, qpw.d, qpw.q_m, qpw.t)
+        return x @ w
+    y = Kops.fq_matmul_op(x2, w, qpw.d, qpw.q_m, qpw.t)
+    return y.reshape(*lead, w.shape[-1])
+
+
+# ------------------------------------------------------------------ norms
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
+            ) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32)).to(x.dtype)
+
+
+# ------------------------------------------------------------------- rope
+def rope_freqs(d_head: int, theta: float, device) -> torch.Tensor:
+    return torch.pow(torch.tensor(theta, dtype=torch.float32, device=device),
+                     -torch.arange(0, d_head, 2, dtype=torch.float32,
+                                   device=device) / d_head)
+
+
+def rope_tables(seq_len: int, d_head: int, theta: float, offset: int = 0,
+                device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    pos = torch.arange(offset, offset + seq_len, dtype=torch.float32,
+                       device=device)
+    ang = pos[:, None] * rope_freqs(d_head, theta, device)[None, :]
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """x: (B, S, H, dh); cos/sin: (S, dh/2), or (B, S, dh/2) when every
+    sequence sits at its own absolute position (per-slot decode)."""
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    if cos.ndim == 3:
+        c, s = cos[:, :, None, :], sin[:, :, None, :]
+    else:
+        c, s = cos[None, :, None, :], sin[None, :, None, :]
+    return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c],
+                     dim=-1).to(x.dtype)
+
+
+# -------------------------------------------------------------- attention
+def attention_dense(q, k, v, *, q_offset: int = 0) -> torch.Tensor:
+    """Full materialized causal attention. q: (B, Sq, H, dh); k/v:
+    (B, Sk, KV, dh), GQA by reshape."""
+    B, Sq, H, dh = q.shape
+    KV = k.shape[2]
+    g = H // KV
+    qh = q.reshape(B, Sq, KV, g, dh)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qh.to(torch.float32),
+                          k.to(torch.float32)) / math.sqrt(dh)
+    qi = torch.arange(Sq, device=q.device)[:, None] + q_offset
+    ki = torch.arange(k.shape[1], device=q.device)[None, :]
+    scores = torch.where((ki <= qi)[None, None, None], scores,
+                         torch.tensor(-1e30, dtype=torch.float32,
+                                      device=q.device))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(torch.float32))
+    return out.reshape(B, Sq, H, dh).to(q.dtype)
+
+
+def attention(q, k, v, cfg: ModelConfig, *, q_offset: int = 0
+              ) -> torch.Tensor:
+    S = q.shape[1]
+    if S > cfg.attn_block_threshold and S % cfg.attn_block_size == 0 \
+            and q.shape[1] == k.shape[1]:
+        raise not_in_this_slice(
+            f"blockwise attention (S={S} > attn_block_threshold="
+            f"{cfg.attn_block_threshold})", "ROADMAP Queue 1 item 4")
+    return attention_dense(q, k, v, q_offset=q_offset)
+
+
+def _normal(gen: torch.Generator, shape, dtype, std: float) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, dtype=dtype,
+                       device=gen.device) * std
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, prefix: str,
+                   n_layers: int, dtype) -> dict:
+    D, Q, KVd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    std = D ** -0.5
+    L = (n_layers,)
+    p = {f"{prefix}.wq": _normal(gen, L + (D, Q), dtype, std),
+         f"{prefix}.wk": _normal(gen, L + (D, KVd), dtype, std),
+         f"{prefix}.wv": _normal(gen, L + (D, KVd), dtype, std),
+         f"{prefix}.wo": _normal(gen, L + (Q, D), dtype, std)}
+    if cfg.qkv_bias:
+        z = lambda n: torch.zeros(L + (n,), dtype=dtype, device=gen.device)
+        p.update({f"{prefix}.bq": z(Q), f"{prefix}.bk": z(KVd),
+                  f"{prefix}.bv": z(KVd)})
+    return p
+
+
+def attn_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
+               rope: tuple, prefix: str, cache: Optional[tuple] = None,
+               q_offset: int = 0, shapes: Optional[LayerShapes] = None,
+               chunked: bool = False, pages=None):
+    """Attention sublayer; lp is one layer's view of the params.
+
+    Three branches: the full sequence (no cache), the one-shot prefill
+    (cache and S > 1: the prompt's K/V go to rows [0, S) of a zeroed cache
+    and attention runs over the prompt itself), and the contiguous decode
+    (cache and S == 1: the token's K/V go to row `pos` of each slot and
+    the flash-decode kernel attends over the arena). cache is (k_cache,
+    v_cache, pos) with k/v (B, S_max, KVh, dh) views of the stacked arena;
+    both cache branches write it IN PLACE (advanced-index assignment into
+    the view) and return the same tensors. Returns (out, new_cache)."""
+    if chunked:
+        raise not_in_this_slice(
+            "chunked cache scoring (speculative verify, chunked prefill)",
+            "ROADMAP Queue 1 items 10-11")
+    if pages is not None:
+        raise not_in_this_slice("the paged KV arena",
+                                "ROADMAP Queue 1 item 9")
+    B, S, _ = x.shape
+    shapes = shapes or LayerShapes.from_config(cfg)
+    H, KVh, dh = shapes.n_heads, shapes.n_kv_heads, shapes.d_head
+    q = dense_proj(x, lp, qp, f"{prefix}.wq")
+    k = dense_proj(x, lp, qp, f"{prefix}.wk")
+    v = dense_proj(x, lp, qp, f"{prefix}.wv")
+    if cfg.qkv_bias:
+        q = q + lp[f"{prefix}.bq"]
+        k = k + lp[f"{prefix}.bk"]
+        v = v + lp[f"{prefix}.bv"]
+    q = apply_rope(q.reshape(B, S, H, dh), *rope)
+    k = apply_rope(k.reshape(B, S, KVh, dh), *rope)
+    v = v.reshape(B, S, KVh, dh)
+
+    new_cache = None
+    if cache is not None and S > 1:
+        ck, cv, pos = cache
+        ck[:, :S] = k.to(ck.dtype)
+        cv[:, :S] = v.to(cv.dtype)
+        out = attention(q, k, v, cfg)
+        new_cache = (ck, cv, pos + S)
+    elif cache is not None:
+        ck, cv, pos = cache
+        pos = torch.as_tensor(pos, dtype=torch.int64,
+                              device=x.device).reshape(-1).expand(B)
+        # an idle slot may sit past the arena's end: clamp its write the
+        # way the JAX reference's dynamic_update_slice does
+        rows = torch.clamp(pos, max=ck.shape[1] - 1)
+        slots = torch.arange(B, device=x.device)
+        ck[slots, rows] = k[:, 0].to(ck.dtype)
+        cv[slots, rows] = v[:, 0].to(cv.dtype)
+        out = Kops.decode_attn_op(q.reshape(B, KVh, H // KVh, dh), ck, cv,
+                                  pos)
+        out = out.reshape(B, 1, H, dh).to(x.dtype)
+        new_cache = (ck, cv, pos + 1)
+    else:
+        out = attention(q, k, v, cfg, q_offset=q_offset)
+    out = qa(out.reshape(B, S, H * dh), qp, f"{prefix}.attn_out.aq")
+    return dense_proj(out, lp, qp, f"{prefix}.wo"), new_cache
+
+
+# -------------------------------------------------------------------- mlp
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, prefix: str,
+             n_layers: int, dtype) -> dict:
+    D, F = cfg.d_model, cfg.d_ff
+    L = (n_layers,)
+    return {f"{prefix}.w_gate": _normal(gen, L + (D, F), dtype, D ** -0.5),
+            f"{prefix}.w_up": _normal(gen, L + (D, F), dtype, D ** -0.5),
+            f"{prefix}.w_down": _normal(gen, L + (F, D), dtype, F ** -0.5)}
+
+
+def mlp_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
+              prefix: str) -> torch.Tensor:
+    g = dense_proj(x, lp, qp, f"{prefix}.w_gate")
+    u = dense_proj(x, lp, qp, f"{prefix}.w_up")
+    h = torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype) * u
+    h = qa(h, qp, f"{prefix}.mlp_act.aq")
+    return dense_proj(h, lp, qp, f"{prefix}.w_down")
