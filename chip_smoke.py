@@ -13,10 +13,15 @@ Phases, each printing its own lines:
    prefill (M = 512): the GEMM core's fake_quant_rhs (bf16 weights),
    dequant (int8) and unpack_dequant (bits 2, 3, 4, 8) epilogues over
    K->N = 2048->2048, 2048->1024, 2048->8192, 8192->2048 and 2048->92672,
-   and flash-decode attention at B = 4, 8 (KVh 8, g 2, dh 128, S 576,
-   bf16 K/V). Outputs compare in f32 at rtol 1e-4, atol 1e-4 * max|y|.
-   Each case prints the kernel's time, the plain version's, one PyTorch
-   library call's (timed only; the port never calls it) and the bound.
+   flash-decode attention at B = 4, 8 (KVh 8, g 2, dh 128, S 576, bf16
+   K/V), and page-indirect flash decode at the same shapes over pages of
+   16 rows in a shuffled order, with bf16, int8 and int4 pages. Outputs
+   compare in f32 at rtol 1e-4, atol 1e-4 * max|y|; on bf16 pages the
+   paged kernel must also equal the contiguous kernel on the gathered
+   rows bit for bit. Each case prints the kernel's time, the plain
+   version's, one PyTorch library call's (timed only; the port never
+   calls it; for the paged kernel SDPA over the already gathered and
+   decoded rows, since no single PyTorch call reads pages) and the bound.
 4. Correctness: at full width, the compressed model's one-shot prefill of
    a 32-token prompt (plain attention) against 32 sequential decode steps
    (flash-decode kernel); and the smoke config's engine tokens on the
@@ -27,7 +32,16 @@ Phases, each printing its own lines:
    4-bit modes. Launch counts are zeroed right before and read right
    after; every kernel of the path must have launched. Packed tokens must
    equal those of an int8 run with the same 4-bit quantizer init.
-6. Two JSON lines: the kernel table, then the device line (last).
+6. The paged main path: the same engine and requests from the paged KV
+   arena (pages of 16 rows). With bf16 pages its tokens must equal phase
+   5's in each weight mode; packed 4-bit weights with int8 and with int4
+   pages must serve full-length outputs with the bf16 run's first tokens
+   from a smaller pool; with 4 of the 8 requests on one prompt, prefix
+   sharing must hit at least 3 times and leave the tokens of a run
+   without sharing unchanged. Counts are zeroed right before and read
+   right after; the page-indirect kernel must launch 24 times (once per
+   layer) per decode step, and in every page storage of the path.
+7. Two JSON lines: the kernel table, then the device line (last).
 
 Times are CUDA-event medians with the 50 MB L2 flushed before each launch
 (each decode-step launch finds its weights cold). Bounds: the larger of
@@ -57,6 +71,11 @@ GEMM_MS = [4, 8, 512]
 PROMPT_LENS = [64, 128, 256, 512, 96, 200, 32, 384]
 GEN = 64
 SLOTS = 4
+PAGE = 16
+SHARED = (1, 3, 5, 7)     # requests that carry request 5's prompt (200
+                          # tokens: 12 full pages and a shared tail page)
+PAGED_KERNELS = ("paged_decode_attn.bf16", "paged_decode_attn.int8",
+                 "paged_decode_attn.int4")
 REPORT_SHAPE = (4, 2048, 8192)      # the JSON line's GEMM row: w_gate at decode
 
 
@@ -227,7 +246,86 @@ def phase_kernels(torch, timer) -> tuple[list, dict, list]:
               f"err={err:.2e} tol={tol:.2e} {'ok' if ok else 'FAIL'}")
         if B == SLOTS:
             report["decode_attn"] = row
+        for storage in ("bf16", "int8", "int4"):
+            row = _paged_check(torch, timer, gen, B, S, KVh, g, dh, storage)
+            rows.append(row)
+            if not row["ok"]:
+                failures.append(row)
+            if B == SLOTS:
+                report[f"paged_decode_attn.{storage}"] = row
     return rows, report, failures
+
+
+def _paged_check(torch, timer, gen, B, S, KVh, g, dh, storage) -> dict:
+    """The page-indirect kernel on B slots of S rows in pages of PAGE rows,
+    each slot's pages in a shuffled order, against its plain version (and,
+    on bf16 pages, bitwise against the contiguous kernel on the gathered
+    rows)."""
+    from repro_torch.core.quant import kv_quant_encode
+    from repro_torch.kernels import decode_attn as da
+    from repro_torch.kernels import ref
+    Lp = S // PAGE
+    n_pages = 2 + B * Lp
+    table = (torch.randperm(n_pages - 2, generator=gen, device="cuda")
+             + 2).reshape(B, Lp).to(torch.int32)
+    q = torch.randn((B, KVh, g, dh), generator=gen, device="cuda")
+    pools = [torch.randn((n_pages, PAGE, KVh, dh), generator=gen,
+                         device="cuda") for _ in range(2)]
+    kw = dict(page_size=PAGE, seq_len=S)
+    if storage == "bf16":
+        kp, vp = (p.to(torch.bfloat16) for p in pools)
+    else:
+        bits = int(storage[-1])
+        (kp, ks), (vp, vs) = (kv_quant_encode(p, bits) for p in pools)
+        kw.update(kv_bits=bits, k_scale=ks, v_scale=vs)
+    del pools
+    pos = torch.tensor([S - 1, 0, 300, 63, 64, 575, 17, 200][:B],
+                       dtype=torch.int32, device="cuda")
+    y = da.paged_decode_attn(q, kp, vp, pos, table, **kw)
+    want = ref.paged_decode_attn_ref(q, kp, vp, pos, table, **kw)
+    torch.cuda.synchronize()
+    err = (y - want).abs().max().item()
+    tol = 1e-4 * want.abs().max().item()
+    ok = bool(torch.allclose(y, want, rtol=1e-4, atol=tol)
+              and torch.isfinite(y).all())
+    # the gathered (and decoded) rows: the contiguous kernel's input on
+    # bf16 pages, and the library yardstick's in every storage
+    rows_k, rows_v = (ref.gather_pages(pool, kw.get(sc), table, PAGE, S,
+                                       kw.get("kv_bits"))
+                      for pool, sc in ((kp, "k_scale"), (vp, "v_scale")))
+    row = {"kernel": f"paged_decode_attn.{storage}", "B": B, "S": S,
+           "P": PAGE, "KVh": KVh, "g": g, "dh": dh, "max_abs_err": err,
+           "atol": tol}
+    if storage == "bf16":
+        contiguous = da.decode_attn(q, rows_k, rows_v, pos)
+        torch.cuda.synchronize()
+        row["contiguous_max_abs_err"] = (y - contiguous).abs().max().item()
+        ok = ok and torch.equal(y, contiguous)
+    row["ok"] = ok
+    ql = q.reshape(B, KVh * g, 1, dh).to(torch.bfloat16)
+    kl, vl = (r.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+              .to(torch.bfloat16) for r in (rows_k, rows_v))
+    mask = (torch.arange(S, device="cuda")[None, :]
+            < torch.clamp(pos.long() + 1, max=S)[:, None])[:, None, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row["ms"] = timer(lambda: da.paged_decode_attn(q, kp, vp, pos, table,
+                                                   **kw))
+    row["plain_ms"] = timer(lambda: ref.paged_decode_attn_ref(
+        q, kp, vp, pos, table, **kw))
+    row["library_ms"] = timer(lambda: sdpa(ql, kl, vl, attn_mask=mask))
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        da.paged_bytes_moved(q, kp, pos, PAGE, S, kw.get("kv_bits")),
+        da.paged_flops(q, pos, S))
+    bitwise = (f" vs contiguous kernel max|diff|="
+               f"{row['contiguous_max_abs_err']:.1e}"
+               if storage == "bf16" else "")
+    print(f"[3 kernels] paged_decode_attn {storage} B={B} S={S} P={PAGE} "
+          f"KVh={KVh} g={g} dh={dh} ms={row['ms']:.4f} "
+          f"plain_ms={row['plain_ms']:.4f} "
+          f"library_ms={row['library_ms']:.4f} (SDPA on gathered rows) "
+          f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+          f"err={err:.2e} tol={tol:.2e}{bitwise} {'ok' if ok else 'FAIL'}")
+    return row
 
 
 def phase_correctness(torch) -> list[str]:
@@ -282,7 +380,7 @@ def phase_correctness(torch) -> list[str]:
     return failures
 
 
-def phase_engine(torch) -> tuple[dict, list[str]]:
+def phase_engine(torch) -> tuple[dict, dict, list[str]]:
     from repro_torch.kernels import ops
     from repro_torch.launch.engine import WEIGHT_MODES, engine_serve
     expect = {"dense": "gemm_core.fake_quant_rhs",
@@ -312,13 +410,14 @@ def phase_engine(torch) -> tuple[dict, list[str]]:
               f"({stats['prefill_tokens']} tokens in "
               f"{stats['prefill_s']:.3f} s), param_bytes "
               f"{stats['param_bytes']}, kv_bytes {stats['kv_bytes']}, "
-              f"launches {delta}, wall {wall:.1f} s {'ok' if ok else 'FAIL'}")
+              f"launches {_nonzero(delta)}, wall {wall:.1f} s "
+              f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"engine {mode}")
     counts = ops.launch_counts()
-    print(f"[5 engine] main-path launch counts: {counts}")
-    for name, n in counts.items():
-        if n <= 0:
+    print(f"[5 engine] main-path launch counts: {_nonzero(counts)}")
+    for name in [*expect.values(), "gemm_core.reduce_splits", "decode_attn"]:
+        if counts[name] <= 0:
             failures.append(f"{name} never launched on the main path")
     ref_int8 = engine_serve(ARCH, False, PROMPT_LENS, GEN, max_slots=SLOTS,
                             verbose=False, device="cuda", compressed=True,
@@ -329,6 +428,102 @@ def phase_engine(torch) -> tuple[dict, list[str]]:
           f"4-bit quantizer init ({len(ref_int8)} requests x {GEN} tokens)")
     if not same:
         failures.append("packed tokens differ from int8 tokens")
+    return counts, outs, failures
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _serve_paged(torch, prompts, kw) -> tuple[dict, dict]:
+    """One paged engine at full width: build, submit, warm up, drain.
+    Returns its tokens and stats, with the page-indirect launches per
+    decode step counted over the drain."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import build_engine
+    eng, _ = build_engine(ARCH, False, max_slots=SLOTS,
+                          max_seq=max(PROMPT_LENS) + GEN, device="cuda",
+                          paged=True, page_size=PAGE, **kw)
+    for p in prompts:
+        eng.submit(p, GEN)
+    eng.warmup()
+    before = ops.launch_counts()
+    out = eng.run()
+    paged = sum(v - before[k] for k, v in ops.launch_counts().items()
+                if k.startswith("paged_decode_attn."))
+    stats = dict(eng.stats, **eng.throughput(), kv_bytes=eng.kv_bytes(),
+                 kv_pool_bytes=eng.kv_pool_bytes(),
+                 paged_per_step=paged / max(eng.stats["decode_steps"], 1))
+    del eng
+    torch.cuda.empty_cache()
+    return out, stats
+
+
+def phase_paged(torch, contiguous: dict) -> tuple[dict, list[str]]:
+    """The paged main path at full width (see the module docstring)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import WEIGHT_MODES, synthetic_prompts
+    failures = []
+    prompts = synthetic_prompts(get_arch(ARCH), PROMPT_LENS, seed=0)
+    n_layers = get_arch(ARCH).n_layers
+
+    def report(label, out, st, ok):
+        full = (len(out) == len(prompts)
+                and all(len(t) == GEN for t in out.values()))
+        ok = ok and full and st["paged_per_step"] == n_layers
+        print(f"[6 paged] {label}: decode {st['decode_tok_per_s']:.1f} tok/s "
+              f"({st['decode_tokens']} tokens, {st['decode_steps']} steps), "
+              f"prefill {st['prefill_tok_per_s']:.1f} tok/s "
+              f"({st['prefills']} prefills, {st['prefix_hits']} prefix "
+              f"hits), kv_bytes {st['kv_bytes']}, kv_pool_bytes "
+              f"{st['kv_pool_bytes']}, paged_decode_attn launches per "
+              f"decode step {st['paged_per_step']:.2f} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"paged {label}")
+
+    ops.reset_launch_counts()
+    runs = {}
+    for mode, kw in WEIGHT_MODES.items():
+        out, st = _serve_paged(torch, prompts, kw)
+        same = all((out[r] == contiguous[mode][r]).all() for r in out)
+        report(f"{mode}, bf16 pages, tokens "
+               f"{'equal' if same else 'DIFFER FROM'} the contiguous run's",
+               out, st, same)
+        runs[mode] = (out, st)
+    bf16_out, bf16_st = runs["packed_b4"]
+    for bits in (8, 4):
+        out, st = _serve_paged(torch, prompts, dict(WEIGHT_MODES["packed_b4"],
+                                                    kv_bits=bits))
+        first = all(out[r][0] == bf16_out[r][0] for r in out)
+        smaller = st["kv_pool_bytes"] < bf16_st["kv_pool_bytes"]
+        report(f"packed_b4, int{bits} pages, first tokens "
+               f"{'equal' if first else 'DIFFER FROM'} the bf16-page run's, "
+               f"pool {st['kv_pool_bytes']} B vs {bf16_st['kv_pool_bytes']} "
+               f"B", out, st, first and smaller)
+    shared = [prompts[5] if i in SHARED else p for i, p in enumerate(prompts)]
+    kw = WEIGHT_MODES["compressed"]
+    want, st = _serve_paged(torch, shared, dict(kw, prefix_sharing=False))
+    same = all((want[i] == want[SHARED[0]]).all() for i in SHARED)
+    report(f"compressed, {len(SHARED)} of {len(shared)} requests on one "
+           f"prompt, no prefix sharing: their tokens "
+           f"{'agree' if same else 'DIFFER'}", want, st, same)
+    got, st = _serve_paged(torch, shared, kw)
+    same = all((got[r] == want[r]).all() for r in got)
+    report(f"compressed, {len(SHARED)} of {len(shared)} requests on one "
+           f"prompt, prefix sharing: tokens "
+           f"{'equal' if same else 'DIFFER FROM'} the run without sharing",
+           got, st, same and st["prefix_hits"] >= len(SHARED) - 1)
+    counts = ops.launch_counts()
+    print(f"[6 paged] main-path launch counts: {_nonzero(counts)}")
+    for name in ("gemm_core.fake_quant_rhs", "gemm_core.dequant",
+                 "gemm_core.unpack_dequant", "gemm_core.reduce_splits",
+                 *PAGED_KERNELS):
+        if counts[name] <= 0:
+            failures.append(f"{name} never launched on the paged path")
+    if counts["decode_attn"]:
+        failures.append("the paged path launched the contiguous kernel")
     return counts, failures
 
 
@@ -356,34 +551,42 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     failures = [f"{r['kernel']} {r}" for r in failures]
     failures += phase_correctness(torch)
-    counts, engine_failures = phase_engine(torch)
+    counts, outs, engine_failures = phase_engine(torch)
     failures += engine_failures
+    paged_counts, paged_failures = phase_paged(torch, outs)
+    failures += paged_failures
 
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(
-            {"device": kind, "rows": rows, "launches": counts}, indent=1))
+            {"device": kind, "rows": rows, "launches": counts,
+             "paged_launches": paged_counts}, indent=1))
     if failures:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
         return 1
-    sources = {"decode_attn": ("src/repro_torch/kernels/csrc/decode_attn.cu",
-                               "src/repro/kernels/decode_attn.py:63")}
+    attn = ("src/repro_torch/kernels/csrc/decode_attn.cu",
+            "src/repro/kernels/decode_attn.py:63")
+    paged = ("src/repro_torch/kernels/csrc/decode_attn.cu",
+             "src/repro/kernels/decode_attn.py:238")
+    gemm = ("src/repro_torch/kernels/csrc/gemm_core.cu",
+            "src/repro/kernels/gemm_core.py:127")
     kernels = []
     for name in ("gemm_core.fake_quant_rhs", "gemm_core.dequant",
-                 "gemm_core.unpack_dequant", "decode_attn"):
+                 "gemm_core.unpack_dequant", "decode_attn", *PAGED_KERNELS):
         row = report[name]
-        src, replaces = sources.get(name, (
-            "src/repro_torch/kernels/csrc/gemm_core.cu",
-            "src/repro/kernels/gemm_core.py:127"))
-        shape = (f"B={row['B']} S={row['S']} KVh={row['KVh']} g={row['g']} "
-                 f"dh={row['dh']}" if name == "decode_attn" else
-                 f"M={row['M']} K={row['K']} N={row['N']}"
-                 + (" bits=4" if "unpack" in name else ""))
+        src, replaces = (paged if name in PAGED_KERNELS else
+                         attn if name == "decode_attn" else gemm)
+        launches = (paged_counts if name in PAGED_KERNELS else counts)[name]
+        shape = (f"M={row['M']} K={row['K']} N={row['N']}"
+                 + (" bits=4" if "unpack" in name else "")
+                 if name.startswith("gemm") else
+                 f"B={row['B']} S={row['S']} KVh={row['KVh']} g={row['g']} "
+                 f"dh={row['dh']}" + (f" P={row['P']}" if "P" in row else ""))
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": counts[name],
+            "replaces": replaces, "launches": launches,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

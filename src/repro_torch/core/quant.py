@@ -7,7 +7,9 @@ The forward and serving subset of `repro.core.quant`, on torch tensors:
     b   = log2((q_m)^t / d + 1) + 1                                 (Eq 3)
 
 plus the deployment containers: clamped integer codes (`quantize_int`) and
-the K-packed sub-byte int32 word streams (`pack_codes` / `unpack_codes`).
+the K-packed sub-byte int32 word streams (`pack_codes` / `unpack_codes`),
+and the per-row int8/int4 codes of the paged KV arena
+(`kv_quant_encode` / `kv_quant_decode`).
 Every function runs in float32 with the same operation order as the JAX
 module, so codes, containers and packed words come out bit-equal to it.
 `torch.round` rounds half to even, like `jnp.round`.
@@ -168,3 +170,59 @@ def unpack_codes(packed: torch.Tensor, bits: int, size: int, *,
     vals = (vals ^ sgn) - sgn
     out = vals.reshape((w.shape[0] * cpw,) + tuple(w.shape[1:]))[:size]
     return torch.movedim(out, 0, axis).contiguous()
+
+
+# ------------------------------------------------------------ KV page codes
+# Storage widths the paged KV arena can hold codes at. Weight containers
+# pack along the GEMM K axis into int32 words (`pack_codes`); KV pages pack
+# along d_head into int8 bytes, so the kernel's nibble unpack is a shift.
+KV_STORAGE_BITS = (4, 8)
+
+
+def _check_kv_bits(bits) -> int:
+    bits = int(bits)
+    if bits not in KV_STORAGE_BITS:
+        raise ValueError(f"kv bits must be one of {KV_STORAGE_BITS}, "
+                         f"got {bits}")
+    return bits
+
+
+def kv_quant_encode(x: torch.Tensor, bits: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric absmax quantization of KV-cache rows.
+
+    x: (..., dh) float rows. Returns (codes int8, scale f32 (...,)) with
+    scale = absmax / qmax per row, so every row encodes on its own (a new
+    decode row never rescales its page). All-zero rows give codes 0 and
+    scale 0, which decode to exact zeros. bits=4 packs code pairs along
+    the last axis into (..., dh // 2) bytes, low nibble first."""
+    bits = _check_kv_bits(bits)
+    qmax = (1 << (bits - 1)) - 1
+    x32 = x.to(torch.float32)
+    scale = torch.amax(torch.abs(x32), dim=-1) / qmax
+    d = torch.where(scale > 0, scale, torch.ones_like(scale))
+    codes = torch.clamp(torch.round(x32 / d[..., None]), -qmax, qmax
+                        ).to(torch.int32)
+    if bits == 4:
+        if x32.shape[-1] % 2:
+            raise ValueError(f"kv bits=4 packs code pairs; d_head="
+                             f"{x32.shape[-1]} must be even")
+        # the byte (c0 & 0xF) | (c1 & 0xF) << 4, as JAX's int32 -> int8
+        # cast wraps it, is the signed value c1 * 16 + (c0 & 0xF), which
+        # lies in [-112, 127]: no wrap needed
+        codes = (codes[..., 1::2] << 4) | (codes[..., 0::2] & 0xF)
+    return codes.to(torch.int8), scale
+
+
+def kv_quant_decode(codes: torch.Tensor, scale: torch.Tensor, bits: int
+                    ) -> torch.Tensor:
+    """Invert `kv_quant_encode`: int8 codes and per-row scales to f32 rows
+    (exact zeros for zero rows)."""
+    bits = _check_kv_bits(bits)
+    w = codes.to(torch.int32)
+    if bits == 4:
+        lo = ((w & 0xF) ^ 8) - 8            # sign-extend the low nibble
+        hi = (((w >> 4) & 0xF) ^ 8) - 8     # then the high one
+        w = torch.stack([lo, hi], dim=-1).reshape(
+            w.shape[:-1] + (w.shape[-1] * 2,))
+    return w.to(torch.float32) * scale[..., None].to(torch.float32)

@@ -39,6 +39,8 @@ SIGNATURES = {
                    _P, _I, _I, _I, _I, _I, _P),
     "repro_decode_attn": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                           _LL, _LL, _LL, _LL, _LL, _LL, _F, _P),
+    "repro_paged_decode_attn": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
+                                _I, _I, _I, _I, _I, _F, _P),
 }
 
 _lock = threading.Lock()

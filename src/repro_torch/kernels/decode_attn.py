@@ -1,17 +1,21 @@
-"""Single-query flash-decode attention over the contiguous slot KV arena.
+"""Single-query flash-decode attention over the contiguous slot KV arena
+and over the paged KV pool.
 
-Port of `repro.kernels.decode_attn` (the contiguous kernel; the paged one
-comes with the paged arena). `decode_attn` decides by device: a CPU
-tensor goes to the plain PyTorch version (`ref.decode_attn_ref`); a CUDA
-tensor goes to the hand-written kernel in `csrc/decode_attn.cu`, or
-raises if the library did not build or the launch failed.
+Port of `repro.kernels.decode_attn`. `decode_attn` and
+`paged_decode_attn` decide by device: a CPU tensor goes to the plain
+PyTorch version (`ref.decode_attn_ref`, `ref.paged_decode_attn_ref`); a
+CUDA tensor goes to the hand-written kernel in `csrc/decode_attn.cu`
+(one kernel body, two row-addressing policies), or raises if the library
+did not build or the launch failed.
 
-`decode_attn.launches` counts kernel launches; only the CUDA path adds to
-it, once per launch.
+`decode_attn.launches` counts kernel launches, and
+`paged_decode_attn.launches` counts them by page storage (f32, bf16, int8,
+int4); only the CUDA path adds to them, once per launch.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -79,4 +83,112 @@ def flops(q: torch.Tensor, k: torch.Tensor, pos) -> int:
     """q.k and p.v over the valid rows: 4 * rows * KVh * g * dh."""
     B, KVh, g, dh = q.shape
     rows = int(torch.clamp(pos.to(torch.int64) + 1, max=k.shape[1]).sum())
+    return 4 * rows * KVh * g * dh
+
+
+# page storage -> the launcher's `kind`
+PAGE_KINDS = {"f32": 0, "bf16": 1, "int8": 2, "int4": 3}
+_DENSE = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def paged_decode_attn(q: torch.Tensor, kpool: torch.Tensor,
+                      vpool: torch.Tensor, pos: torch.Tensor,
+                      page_table: torch.Tensor, *, page_size: int,
+                      seq_len: int, kv_bits: Optional[int] = None,
+                      k_scale: Optional[torch.Tensor] = None,
+                      v_scale: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """Attention of one query token per slot over its pages.
+
+    q: (B, KVh, g, dh). kpool/vpool: (n_pages, page_size, KVh, dh) f32 or
+    bf16 pages, or int8 codes of width dh (kv_bits 8) or dh // 2
+    (kv_bits 4, low nibble first) with f32 per-row scales k_scale/v_scale
+    (n_pages, page_size, KVh). page_table: (B, Lp) int logical -> physical
+    page per slot, Lp * page_size >= seq_len; the kernel trusts every entry
+    to be < n_pages. pos: (B,) int; row b attends over its
+    min(pos[b] + 1, seq_len) rows. Returns (B, KVh, g, dh) f32."""
+    B, KVh, g, dh = q.shape
+    P = int(page_size)
+    if kv_bits not in (None, 4, 8):
+        raise ValueError(f"paged_decode_attn: kv_bits {kv_bits}")
+    dhs = dh // 2 if kv_bits == 4 else dh
+    shape = (kpool.shape[0], P, KVh, dhs)
+    if (tuple(kpool.shape) != shape or tuple(vpool.shape) != shape
+            or page_table.ndim != 2 or page_table.shape[0] != B
+            or page_table.shape[1] * P < seq_len):
+        raise ValueError(
+            f"paged_decode_attn: q {tuple(q.shape)}, pools "
+            f"{tuple(kpool.shape)}/{tuple(vpool.shape)}, table "
+            f"{tuple(page_table.shape)}, page_size {P}, seq_len {seq_len}")
+    scales = (k_scale, v_scale) if kv_bits is not None else ()
+    if any(s is None or tuple(s.shape) != shape[:3] for s in scales):
+        raise ValueError(f"paged_decode_attn: kv_bits={kv_bits} needs "
+                         f"scales of shape {shape[:3]}")
+    if q.device.type == "cpu":
+        return ref.paged_decode_attn_ref(
+            q, kpool, vpool, pos, page_table, page_size=P, seq_len=seq_len,
+            kv_bits=kv_bits, k_scale=k_scale, v_scale=v_scale)
+    tensors = (kpool, vpool, page_table, *scales)
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError("paged_decode_attn: the kernel takes CUDA tensors "
+                         "on one device")
+    if kv_bits is None:
+        kind = _DENSE.get(kpool.dtype)
+        ok = kind is not None and vpool.dtype == kpool.dtype
+    else:
+        kind = f"int{kv_bits}"
+        ok = (kpool.dtype == vpool.dtype == torch.int8
+              and all(s.dtype == torch.float32 for s in scales))
+    if not ok:
+        raise ValueError(f"paged_decode_attn: pools {kpool.dtype}/"
+                         f"{vpool.dtype} with kv_bits={kv_bits}")
+    if (g > G_MAX or dh > DH_MAX
+            or not all(t.is_contiguous() for t in (kpool, vpool, *scales))):
+        raise ValueError(f"paged_decode_attn: the kernel takes g <= {G_MAX}, "
+                         f"dh <= {DH_MAX} and contiguous pools (g={g}, "
+                         f"dh={dh})")
+    q32 = q.to(torch.float32).contiguous()
+    pos32 = pos.to(device=q.device, dtype=torch.int32).reshape(B).contiguous()
+    table = page_table.to(torch.int32).contiguous()
+    out = torch.empty((B, KVh, g, dh), dtype=torch.float32, device=q.device)
+    ks, vs = (k_scale.data_ptr(), v_scale.data_ptr()) if scales else (None,
+                                                                       None)
+    lib = build.load()
+    err = lib.repro_paged_decode_attn(
+        q32.data_ptr(), kpool.data_ptr(), vpool.data_ptr(), ks, vs,
+        PAGE_KINDS[kind],
+        table.data_ptr(), pos32.data_ptr(), out.data_ptr(), B, KVh, g, dh,
+        P, table.shape[1], int(seq_len), 1.0 / math.sqrt(dh),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, f"paged_decode_attn (B={B}, KVh={KVh}, g={g}, P={P}, "
+                     f"kv_bits={kv_bits})")
+    paged_decode_attn.launches[kind] += 1
+    return out
+
+
+paged_decode_attn.launches = dict.fromkeys(PAGE_KINDS, 0)
+
+
+def paged_bytes_moved(q: torch.Tensor, kpool: torch.Tensor, pos,
+                      page_size: int, seq_len: int,
+                      kv_bits: Optional[int] = None) -> int:
+    """Bytes one paged call must move at least: q and pos once, the table
+    entries of the pages that hold valid rows, the valid K and V rows'
+    codes once each (and their f32 scales when quantized), and the f32
+    output once."""
+    B, KVh, g, dh = q.shape
+    n = torch.clamp(pos.to(torch.int64) + 1, max=seq_len)
+    rows = int(n.sum())
+    pages = int(((n + page_size - 1) // page_size).sum())
+    row_bytes = KVh * kpool.shape[-1] * kpool.element_size()
+    if kv_bits is not None:
+        row_bytes += KVh * 4
+    return (q.numel() * q.element_size() + B * 4 + pages * 4
+            + 2 * rows * row_bytes + B * KVh * g * dh * 4)
+
+
+def paged_flops(q: torch.Tensor, pos, seq_len: int) -> int:
+    """q.k and p.v over the valid rows: 4 * rows * KVh * g * dh."""
+    B, KVh, g, dh = q.shape
+    rows = int(torch.clamp(pos.to(torch.int64) + 1, max=seq_len).sum())
     return 4 * rows * KVh * g * dh

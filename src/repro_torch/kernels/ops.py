@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import gemm_core as _gc
-from repro_torch.kernels.decode_attn import decode_attn
+from repro_torch.kernels.decode_attn import decode_attn, paged_decode_attn
 
 
 def fq_matmul_op(x, w, d, q_m, t) -> torch.Tensor:
@@ -33,14 +33,29 @@ def decode_attn_op(q, k, v, pos) -> torch.Tensor:
     return decode_attn(q, k, v, pos)
 
 
+def paged_decode_attn_op(q, kpool, vpool, pos, page_table, *, page_size,
+                         seq_len, kv_bits=None, k_scale=None, v_scale=None
+                         ) -> torch.Tensor:
+    """Single-query flash-decode attention over the paged KV pool; see
+    `decode_attn.paged_decode_attn`."""
+    return paged_decode_attn(q, kpool, vpool, pos, page_table,
+                             page_size=page_size, seq_len=seq_len,
+                             kv_bits=kv_bits, k_scale=k_scale,
+                             v_scale=v_scale)
+
+
 def launch_counts() -> dict[str, int]:
-    """Kernel launches so far, by kernel variant."""
+    """Kernel launches so far, by kernel variant (GEMM epilogue, page
+    storage)."""
     out = {f"gemm_core.{k}": v for k, v in _gc.gemm.launches.items()}
     out["decode_attn"] = decode_attn.launches
+    out.update({f"paged_decode_attn.{k}": v
+                for k, v in paged_decode_attn.launches.items()})
     return out
 
 
 def reset_launch_counts() -> None:
-    for k in _gc.gemm.launches:
-        _gc.gemm.launches[k] = 0
+    for counts in (_gc.gemm.launches, paged_decode_attn.launches):
+        for k in counts:
+            counts[k] = 0
     decode_attn.launches = 0

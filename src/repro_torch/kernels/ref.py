@@ -11,7 +11,8 @@ import math
 
 import torch
 
-from repro_torch.core.quant import _EPS, clip_qmt, unpack_codes
+from repro_torch.core.quant import (_EPS, clip_qmt, kv_quant_decode,
+                                    unpack_codes)
 
 F32 = torch.float32
 
@@ -71,3 +72,43 @@ def decode_attn_ref(q, k, v, pos) -> torch.Tensor:
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(F32))
     return out.reshape(B, KVh, g, dh)
+
+
+def gather_pages(pool, scale, page_table, page_size: int, seq_len: int,
+                 kv_bits=None) -> torch.Tensor:
+    """Each slot's rows through its page table, sliced to `seq_len`:
+    (B, seq_len, KVh, dh), decoded to f32 when the pool holds codes."""
+    pt = page_table.to(torch.int64)
+    B, Lp = pt.shape
+    pages = pool[pt]                          # (B, Lp, P, KVh, dh*)
+    if kv_bits is not None:
+        pages = kv_quant_decode(pages, scale[pt], kv_bits)
+    return pages.reshape(B, Lp * page_size, *pages.shape[3:])[:, :seq_len]
+
+
+def paged_decode_attn_ref(q, kpool, vpool, pos, page_table, *, page_size,
+                          seq_len, kv_bits=None, k_scale=None, v_scale=None
+                          ) -> torch.Tensor:
+    """Single-query attention over a paged KV pool.
+
+    kpool/vpool: (n_pages, page_size, KVh, dh) pages, or int8 codes of
+    width dh (kv_bits 8) or dh // 2 (kv_bits 4) with per-row f32 scales
+    k_scale/v_scale (n_pages, page_size, KVh); page_table: (B, Lp) int
+    logical -> physical page map per slot. Gathers each slot's pages,
+    decodes them if quantized, and slices the flattened rows to exactly
+    `seq_len`, the contiguous arena's length, before `decode_attn_ref`.
+
+    The slice keeps the paged-vs-contiguous token identity: attention
+    over Lp * page_size rows need not sum in the same order as over
+    seq_len rows, even though the extra rows carry zero probability. With
+    it, an unquantized pool's gathered view is the contiguous arena
+    (unallocated logical pages alias the zero page, like the arena's zero
+    tail) and this reduces to the same composition."""
+    if page_table.shape[1] * page_size < seq_len:
+        raise ValueError(f"page table covers {page_table.shape[1] * page_size}"
+                         f" rows < seq_len {seq_len}")
+    return decode_attn_ref(
+        q, gather_pages(kpool, k_scale, page_table, page_size, seq_len,
+                        kv_bits),
+        gather_pages(vpool, v_scale, page_table, page_size, seq_len, kv_bits),
+        pos)

@@ -2,14 +2,15 @@
 against the device time of the kernels it launched, at full width.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \
-        [--mode dense|compressed|packed_b4]
+        [--mode dense|compressed|packed_b4] [--paged]
 
 Serves internlm2-1.8b at full width with every one of its 4 slots holding
 a 128-token prompt, then times 8 batched decode steps on the host clock
 (each ends in a device sync) and profiles 8 more with `torch.profiler`.
 Prints, per step: the wall time, the summed device time of its kernels
 (one stream, so their sum is the busy time), the device's idle share, and
-the kernels by device time. Needs a CUDA device.
+the kernels by device time. `--paged` serves from the paged KV arena
+(bf16 pages of 16 rows). Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -35,11 +36,13 @@ def _device_us(evt) -> float:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=list(WEIGHT_MODES), default="compressed")
+    ap.add_argument("--paged", action="store_true",
+                    help="serve from the paged KV arena")
     args = ap.parse_args(argv)
     gen = 2 * STEPS + 4
     eng, lm = build_engine(ARCH, False, max_slots=SLOTS,
                            max_seq=PROMPT_LEN + gen, device="cuda",
-                           **WEIGHT_MODES[args.mode])
+                           paged=args.paged, **WEIGHT_MODES[args.mode])
     for p in synthetic_prompts(lm.cfg, [PROMPT_LEN] * SLOTS):
         eng.submit(p, gen)
     eng.warmup()
@@ -64,10 +67,11 @@ def main(argv=None) -> dict:
                       if e.device_type == cuda and _device_us(e) > 0),
                      key=lambda r: -r[1])
     busy_ms = sum(ms for _, ms, _ in kernels)
-    out = {"mode": args.mode, "wall_ms_per_step": wall_ms,
+    out = {"mode": args.mode, "paged": args.paged, "wall_ms_per_step": wall_ms,
            "device_ms_per_step": busy_ms,
            "idle_share": 1.0 - busy_ms / wall_ms}
-    print(f"{ARCH} [{args.mode}] decode step on "
+    arena = "paged" if args.paged else "contiguous"
+    print(f"{ARCH} [{args.mode}, {arena} arena] decode step on "
           f"{torch.cuda.get_device_name(0)}, {SLOTS} slots at prompt "
           f"{PROMPT_LEN}: wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms, idle share {out['idle_share']:.3f}")

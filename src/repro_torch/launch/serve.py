@@ -9,11 +9,19 @@ Three weight modes:
                 through the unpack-dequant epilogue; `--bits 4` serves a
                 4-bit artifact
 
+and two KV arenas: the contiguous one (default) and the paged one
+(`--paged`, `--page-size`; `--kv-bits 8|4` stores int8/int4 pages and
+implies `--paged`), decoded by the page-indirect flash-decode kernel.
+
 Runs on CUDA; `--device cpu` runs the plain PyTorch versions of the
-kernels instead (as the tests do). Examples:
+kernels instead (as the tests do). In `--smoke` mode `--packed` asserts
+packed tokens equal int8 tokens, and `--paged` (without `--kv-bits`)
+asserts paged tokens equal contiguous tokens. Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --full --compressed
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --packed \
       --bits 4 --prompt-lens 12,5 --gen 8 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --paged \
+      --kv-bits 8 --device cpu
 """
 from __future__ import annotations
 
@@ -50,6 +58,39 @@ def packed_parity_check(arch: str, smoke: bool, prompt_lens: list[int],
     return got
 
 
+def paged_parity_check(arch: str, smoke: bool, prompt_lens: list[int],
+                       gen: int, *, quantized: bool = True,
+                       compressed: bool = False, packed: bool = False,
+                       bits_init: float = 8.0, page_size: int = 16,
+                       max_slots: int, seed: int = 0, verbose: bool = True,
+                       device=None) -> dict:
+    """Assert the paged engine's decode is token-identical to the
+    contiguous arena's on the same weights, prompts and seed, in any of
+    the weight modes. The paged arena changes only where KV rows live:
+    the page-indirect kernel runs the contiguous kernel's arithmetic in
+    its order over the same rows, and prefix sharing reuses only
+    bitwise-equal whole-prompt pages, so every greedy token must match.
+    Returns the paged engine's output."""
+    common = dict(quantized=quantized, compressed=compressed, packed=packed,
+                  bits_init=bits_init, max_slots=max_slots, seed=seed,
+                  device=device)
+    want = engine_serve(arch, smoke, prompt_lens, gen, verbose=False,
+                        **common)
+    got = engine_serve(arch, smoke, prompt_lens, gen, verbose=verbose,
+                       paged=True, page_size=page_size, **common)
+    assert sorted(got) == sorted(want), (sorted(got), sorted(want))
+    for rid in want:
+        np.testing.assert_array_equal(
+            got[rid], want[rid],
+            err_msg=f"paged decode diverged from the contiguous arena "
+                    f"(request {rid})")
+    mode = "packed" if packed else "compressed" if compressed else "dense"
+    print(f"{arch}: paged KV decode (page_size={page_size}) "
+          f"token-identical to the contiguous arena over {len(want)} "
+          f"requests ({mode})")
+    return got
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="internlm2-1.8b")
@@ -73,11 +114,31 @@ def main(argv=None):
     ap.add_argument("--bits", type=float, default=8.0,
                     help="quantizer init width (--packed --bits 4 serves a "
                          "4-bit artifact)")
+    ap.add_argument("--paged", action="store_true", default=False,
+                    help="serve from the paged KV arena (shared page pools "
+                         "behind per-slot page tables, prefix sharing); in "
+                         "--smoke mode also asserts tokens identical to "
+                         "the contiguous arena")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="paged mode: KV rows per page")
+    ap.add_argument("--kv-bits", type=int, choices=(8, 4), default=None,
+                    help="paged mode: store pages as int8 or int4 codes "
+                         "with per-row scales (implies --paged)")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
     args = ap.parse_args(argv)
     lens = [int(x) for x in args.prompt_lens.split(",")]
+    # --kv-bits quantizes the paged page store: asking for it asks for
+    # the paged arena
+    args.paged = args.paged or args.kv_bits is not None
+    if args.paged and args.smoke and args.kv_bits is None:
+        paged_parity_check(args.arch, args.smoke, lens, args.gen,
+                           quantized=args.quantized,
+                           compressed=args.compressed, packed=args.packed,
+                           bits_init=args.bits, page_size=args.page_size,
+                           max_slots=args.slots, device=args.device)
+        return
     if args.packed and args.smoke:
         packed_parity_check(args.arch, args.smoke, lens, args.gen,
                             bits_init=args.bits, max_slots=args.slots,
@@ -86,7 +147,8 @@ def main(argv=None):
     engine_serve(args.arch, args.smoke, lens, args.gen,
                  quantized=args.quantized, compressed=args.compressed,
                  packed=args.packed, bits_init=args.bits,
-                 max_slots=args.slots, device=args.device)
+                 max_slots=args.slots, device=args.device, paged=args.paged,
+                 page_size=args.page_size, kv_bits=args.kv_bits)
 
 
 if __name__ == "__main__":

@@ -21,7 +21,8 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.quant import PACKED_STORAGE_BITS, QuantParams, fake_quant
+from repro_torch.core.quant import (PACKED_STORAGE_BITS, QuantParams,
+                                    fake_quant, kv_quant_encode)
 from repro_torch.kernels import ops as Kops
 
 # Components whose 2-D weights execute through `dense_proj`.
@@ -51,6 +52,22 @@ class LayerShapes:
         return cls(d_model=cfg.d_model, n_heads=cfg.n_heads,
                    n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
                    d_ff=cfg.d_ff)
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedView:
+    """How one decode step addresses the paged KV pool.
+
+    `table` is the (B, Lp) int32 logical -> physical page map on the
+    device, the same for every layer. `page_size` rows per page;
+    `seq_len` is the logical arena length: attention masks and slices to
+    exactly this many rows, so an unquantized paged decode is bitwise the
+    contiguous arena's; `kv_bits` (None, 8 or 4) selects the quantized
+    page store."""
+    table: torch.Tensor
+    page_size: int
+    seq_len: int
+    kv_bits: Optional[int] = None
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -200,24 +217,26 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, prefix: str,
 def attn_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
                rope: tuple, prefix: str, cache: Optional[tuple] = None,
                q_offset: int = 0, shapes: Optional[LayerShapes] = None,
-               chunked: bool = False, pages=None):
+               chunked: bool = False, pages: Optional[PagedView] = None):
     """Attention sublayer; lp is one layer's view of the params.
 
-    Three branches: the full sequence (no cache), the one-shot prefill
+    Four branches: the full sequence (no cache), the one-shot prefill
     (cache and S > 1: the prompt's K/V go to rows [0, S) of a zeroed cache
-    and attention runs over the prompt itself), and the contiguous decode
-    (cache and S == 1: the token's K/V go to row `pos` of each slot and
-    the flash-decode kernel attends over the arena). cache is (k_cache,
-    v_cache, pos) with k/v (B, S_max, KVh, dh) views of the stacked arena;
-    both cache branches write it IN PLACE (advanced-index assignment into
-    the view) and return the same tensors. Returns (out, new_cache)."""
+    and attention runs over the prompt itself), the paged decode (`pages`
+    given: the token's K/V row goes to its slot's physical row in the
+    shared pools and the page-indirect kernel attends through the page
+    table) and the contiguous decode (cache and S == 1: the token's K/V go
+    to row `pos` of each slot and the flash-decode kernel attends over the
+    arena). cache is (k_cache, v_cache, pos) with k/v (B, S_max, KVh, dh)
+    views of the stacked arena, or, paged, (k_pool, v_pool, pos, k_scale,
+    v_scale) with (n_pages, P, KVh, dh*) pools and (n_pages, P, KVh)
+    scales (None unless `pages.kv_bits` is set). Every cache branch writes
+    the cache IN PLACE (advanced-index assignment into the view) and
+    returns the same tensors. Returns (out, new_cache)."""
     if chunked:
         raise not_in_this_slice(
             "chunked cache scoring (speculative verify, chunked prefill)",
             "ROADMAP Queue 1 items 10-11")
-    if pages is not None:
-        raise not_in_this_slice("the paged KV arena",
-                                "ROADMAP Queue 1 item 9")
     B, S, _ = x.shape
     shapes = shapes or LayerShapes.from_config(cfg)
     H, KVh, dh = shapes.n_heads, shapes.n_kv_heads, shapes.d_head
@@ -239,6 +258,32 @@ def attn_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
         cv[:, :S] = v.to(cv.dtype)
         out = attention(q, k, v, cfg)
         new_cache = (ck, cv, pos + S)
+    elif cache is not None and pages is not None:
+        ck, cv, pos, ksc, vsc = cache
+        P = pages.page_size
+        n_rows = ck.shape[0] * P
+        pos = torch.as_tensor(pos, dtype=torch.int64,
+                              device=x.device).reshape(-1).expand(B)
+        # an idle slot may decode past its table in a window; its table is
+        # all trash pages, so clamping the logical page keeps the write in
+        # the trash page (the JAX reference wraps it into the zero page)
+        page = torch.clamp(pos // P, max=pages.table.shape[1] - 1)
+        slots = torch.arange(B, device=x.device)
+        phys = pages.table[slots, page].to(torch.int64) * P + pos % P
+        rowk, rowv = k[:, 0], v[:, 0]                 # (B, KVh, dh)
+        if pages.kv_bits is not None:
+            rowk, rsk = kv_quant_encode(rowk, pages.kv_bits)
+            rowv, rsv = kv_quant_encode(rowv, pages.kv_bits)
+            ksc.view(n_rows, KVh)[phys] = rsk
+            vsc.view(n_rows, KVh)[phys] = rsv
+        ck.view(n_rows, *ck.shape[2:])[phys] = rowk.to(ck.dtype)
+        cv.view(n_rows, *cv.shape[2:])[phys] = rowv.to(cv.dtype)
+        out = Kops.paged_decode_attn_op(
+            q.reshape(B, KVh, H // KVh, dh), ck, cv, pos, pages.table,
+            page_size=P, seq_len=pages.seq_len, kv_bits=pages.kv_bits,
+            k_scale=ksc, v_scale=vsc)
+        out = out.reshape(B, 1, H, dh).to(x.dtype)
+        new_cache = (ck, cv, pos + 1, ksc, vsc)
     elif cache is not None:
         ck, cv, pos = cache
         pos = torch.as_tensor(pos, dtype=torch.int64,

@@ -8,7 +8,8 @@ two packages 1:1.
 
 PyTorch runs eagerly, so the layer stack is a Python loop over per-layer
 views of the stacked tensors, and `prefill` / `decode_step` write the KV
-cache IN PLACE and return the same dict.
+cache (the contiguous arena, or the paged pools) IN PLACE and return the
+same dict.
 
 Weight quantizers split as in JAX: sites on routed 2-D block projections
 fuse into the GEMM's fake-quant epilogue; the rest (the head) are
@@ -22,7 +23,8 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.quant import QuantParams, fake_quant, init_quant_params
+from repro_torch.core.quant import (KV_STORAGE_BITS, QuantParams, fake_quant,
+                                    init_quant_params)
 from repro_torch.models import layers as Lyr
 
 
@@ -135,9 +137,11 @@ class LM(torch.nn.Module):
         """Layer i's view of the stacked block params (no copies)."""
         return {k: v[i] for k, v in params.items() if k.startswith("blocks.")}
 
-    def _blocks(self, params, qp_body, x, rope, caches=None, pos=None):
+    def _blocks(self, params, qp_body, x, rope, caches=None, pos=None,
+                pages=None):
         """Run the layer stack; with `caches`, each attention sublayer
-        writes its K/V into the cache in place."""
+        writes its K/V into the cache in place (into the shared page pools
+        through `pages`, a `Lyr.PagedView`, when given)."""
         cfg = self.cfg
         for i in range(self.n_blocks):
             lp = self._layer(params, i)
@@ -147,9 +151,14 @@ class LM(torch.nn.Module):
                 cache = None
                 if caches is not None:
                     cache = (caches[f"{pre}.k"][i], caches[f"{pre}.v"][i], pos)
+                if pages is not None and pages.kv_bits is not None:
+                    cache += (caches[f"{pre}.k_scale"][i],
+                              caches[f"{pre}.v_scale"][i])
+                elif pages is not None:
+                    cache += (None, None)
                 mix, _ = Lyr.attn_apply(lp, qp_body, cfg, h, rope=rope,
                                         prefix=f"{pre}.attn", cache=cache,
-                                        shapes=shp)
+                                        shapes=shp, pages=pages)
                 x = x + mix
                 h2 = Lyr.rmsnorm(x, lp[f"{pre}.norm2"], cfg.norm_eps)
                 x = x + Lyr.mlp_apply(lp, qp_body, cfg, h2,
@@ -184,6 +193,44 @@ class LM(torch.nn.Module):
                                              device=device)
         return caches
 
+    def init_paged_cache(self, n_pages: int, page_size: int,
+                         dtype=torch.bfloat16, kv_bits: Optional[int] = None,
+                         device=None) -> dict:
+        """The paged decode arena: attention K and V become pools of
+        (n_blocks, n_pages, page_size, KVh, dh) pages shared by every slot
+        and addressed through per-slot page tables (`Lyr.PagedView`), so
+        the device memory follows the rows written, not slots x max_seq.
+        With `kv_bits` (8 or 4) the pools hold int8 codes (nibble pairs of
+        width dh // 2 at 4 bits) plus per-row f32 scale pools
+        `<pre>.k_scale` / `<pre>.v_scale` (n_blocks, n_pages, page_size,
+        KVh), decoded by the kernel when it reads them."""
+        if self.cfg.window > 0:
+            raise ValueError("paged KV arena needs full (non-ring) caches; "
+                             f"window={self.cfg.window}")
+        if kv_bits is not None and kv_bits not in KV_STORAGE_BITS:
+            raise ValueError(f"kv_bits must be in {KV_STORAGE_BITS}, "
+                             f"got {kv_bits}")
+        caches = {}
+        for sub, shp in zip(self.plan, self.shapes):
+            pre = f"blocks.{sub.j}"
+            KVh, dh = shp.n_kv_heads, shp.d_head
+            rows = (self.n_blocks, n_pages, page_size, KVh)
+            if kv_bits is None:
+                for n in ("k", "v"):
+                    caches[f"{pre}.{n}"] = torch.zeros(
+                        rows + (dh,), dtype=dtype, device=device)
+                continue
+            if kv_bits == 4 and dh % 2:
+                raise ValueError(f"kv_bits=4 packs code pairs; d_head={dh} "
+                                 f"must be even")
+            dhs = dh // 2 if kv_bits == 4 else dh
+            for n in ("k", "v"):
+                caches[f"{pre}.{n}"] = torch.zeros(
+                    rows + (dhs,), dtype=torch.int8, device=device)
+                caches[f"{pre}.{n}_scale"] = torch.zeros(
+                    rows, dtype=torch.float32, device=device)
+        return caches
+
     def prefill(self, params: dict, qparams: Optional[dict], caches: dict,
                 tokens: torch.Tensor, last_logit_only: bool = False):
         """One-shot prefill: a full-sequence pass that writes K/V rows
@@ -204,10 +251,13 @@ class LM(torch.nn.Module):
         return self._head(params, x), caches
 
     def decode_step(self, params: dict, qparams: Optional[dict],
-                    caches: dict, token: torch.Tensor, pos):
+                    caches: dict, token: torch.Tensor, pos,
+                    pages: Optional[Lyr.PagedView] = None):
         """One-token decode. token: (B, 1); pos: an int or a (B,) tensor
         of per-slot absolute positions. Writes each slot's K/V row at its
-        position in place. Returns (logits (B, 1, V), caches)."""
+        position in place: into the contiguous arena of `init_cache`, or,
+        with `pages`, into the page pools of `init_paged_cache` through
+        its page table. Returns (logits (B, 1, V), caches)."""
         cfg = self.cfg
         params, qp_body = self._prequantize(params, qparams)
         x = self._embed_tokens(params, token)
@@ -217,6 +267,6 @@ class LM(torch.nn.Module):
         ang = pos.to(torch.float32)[:, None] * Lyr.rope_freqs(
             cfg.d_head, cfg.rope_theta, x.device)[None, :]
         rope = (torch.cos(ang)[:, None], torch.sin(ang)[:, None])
-        x = self._blocks(params, qp_body, x, rope, caches, pos)
+        x = self._blocks(params, qp_body, x, rope, caches, pos, pages)
         x = Lyr.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         return self._head(params, x), caches

@@ -177,7 +177,8 @@ def test_cli_packed_smoke_on_cpu(capsys):
     assert "token-identical" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("kw", [dict(paged=True), dict(speculative=True),
+@pytest.mark.parametrize("kw", [dict(paged=True, speculative=True),
+                                dict(speculative=True),
                                 dict(tp=2), dict(prefill_chunk=4),
                                 dict(pruned=True)])
 def test_later_modes_raise_naming_their_slice(kw):

@@ -7,18 +7,23 @@ installed:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: the GEMM compares in f32 at rtol 1e-4, atol 1e-4 * max|y| (the
-kernel sums in another order than the plain matmul); decode attention at
-1e-4 (online softmax against the full softmax).
+kernel sums in another order than the plain matmul); decode attention,
+contiguous and paged (f32, bf16, int8 and int4 pages), at 1e-4 (online
+softmax against the full softmax). On f32 and bf16 pages the paged kernel
+must equal the contiguous kernel on the gathered rows bit for bit, and the
+paged engine's tokens the contiguous engine's.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.quant import init_quant_params, pack_codes, quantize_int
+from repro_torch.core.quant import (init_quant_params, kv_quant_encode,
+                                    pack_codes, quantize_int)
 from repro_torch.kernels import decode_attn as TDA
 from repro_torch.kernels import gemm_core as TG
 from repro_torch.kernels import ref
-from repro_torch.launch.engine import WEIGHT_MODES, serve_on_devices
+from repro_torch.launch.engine import (WEIGHT_MODES, engine_serve,
+                                       serve_on_devices)
 
 pytestmark = pytest.mark.gpu
 EPILOGUES = ["fake_quant_rhs", "dequant", "unpack_b2", "unpack_b3",
@@ -123,3 +128,63 @@ def test_engine_on_card_matches_cpu(cuda, mode):
                             **WEIGHT_MODES[mode])
     for rid in toks["cpu"]:
         np.testing.assert_array_equal(toks["cuda"][rid], toks["cpu"][rid])
+
+
+def _paged(kind, gen, B=4, seq_len=200, P=16, KVh=8, g=2, dh=128):
+    """q, pools, table, pos and scales for one paged call on the card: the
+    slots' pages in a shuffled order, slot 0's tail on the zero page."""
+    Lp = -(-seq_len // P)
+    n_pages = 2 + B * Lp
+    perm = torch.randperm(n_pages - 2, generator=gen, device="cuda") + 2
+    table = perm.reshape(B, Lp).to(torch.int32)
+    table[0, 1:] = 0
+    q = torch.randn((B, KVh, g, dh), generator=gen, device="cuda")
+    pools = [torch.randn((n_pages, P, KVh, dh), generator=gen, device="cuda")
+             for _ in range(2)]
+    kw = dict(page_size=P, seq_len=seq_len)
+    if kind in ("int8", "int4"):
+        bits = int(kind[-1])
+        (kp, ks), (vp, vs) = (kv_quant_encode(p, bits) for p in pools)
+        kw.update(kv_bits=bits, k_scale=ks, v_scale=vs)
+    else:
+        kp, vp = (p.to(getattr(torch, kind)) for p in pools)
+    pos = torch.tensor([P - 1, seq_len - 1, 63, 64], dtype=torch.int32,
+                       device="cuda")[:B]
+    return q, kp, vp, pos, table, kw
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8", "int4"])
+def test_paged_decode_attn_kernel_matches_plain(cuda, kind):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, kp, vp, pos, table, kw = _paged(kind, gen)
+    storage = {"float32": "f32", "bfloat16": "bf16"}.get(kind, kind)
+    before = dict(TDA.paged_decode_attn.launches)
+    got = TDA.paged_decode_attn(q, kp, vp, pos, table, **kw)
+    want = ref.paged_decode_attn_ref(q, kp, vp, pos, table, **kw)
+    torch.cuda.synchronize()
+    assert TDA.paged_decode_attn.launches == dict(
+        before, **{storage: before[storage] + 1})
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16"])
+def test_paged_kernel_is_contiguous_kernel_on_gathered_rows(cuda, kind):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, kp, vp, pos, table, kw = _paged(kind, gen)
+    rows = lambda pool: ref.gather_pages(pool, None, table, **kw)
+    got = TDA.paged_decode_attn(q, kp, vp, pos, table, **kw)
+    want = TDA.decode_attn(q, rows(kp), rows(vp), pos)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", list(WEIGHT_MODES))
+def test_paged_engine_on_card_matches_contiguous(cuda, mode):
+    """The smoke engine emits the same greedy tokens from the paged arena
+    (pages of 8 rows) as from the contiguous one, on the card."""
+    kw = dict(max_slots=2, verbose=False, device="cuda", **WEIGHT_MODES[mode])
+    lens = [6, 3, 9, 17]
+    want = engine_serve("internlm2-1.8b", True, lens, 6, **kw)
+    got = engine_serve("internlm2-1.8b", True, lens, 6, paged=True,
+                       page_size=8, **kw)
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], want[rid])

@@ -1,8 +1,9 @@
 #!/bin/sh
 # The port's whole check on one CUDA card, from the root of a checkout:
 # chip_smoke.py (kernels against their plain versions, correctness, the
-# engine at full width), the card-only tests, and the decode-step profile
-# in each weight mode. Full logs go to OUT_DIR; the tails are printed.
+# engine at full width, contiguous and paged), the card-only tests, and the
+# decode-step profile in each weight mode over each KV arena. Full logs go
+# to OUT_DIR; the tails are printed.
 #
 #     sh tools/chip_check.sh [OUT_DIR]      (default chiprun_out/check)
 #
@@ -16,8 +17,11 @@ PYTHONPATH=src python3 -m pytest -q -p no:cacheprovider -m gpu \
     tests/test_torch_gpu.py > "$out/gpu_tests.log" 2>&1 || rc=1
 tail -n 3 "$out/gpu_tests.log"
 for mode in dense compressed packed_b4; do
-    PYTHONPATH=src python3 -m repro_torch.launch.profile_decode \
-        --mode "$mode" > "$out/profile_$mode.log" 2>&1 || rc=1
-    head -n 8 "$out/profile_$mode.log"
+    for arena in "" --paged; do
+        log="$out/profile_$mode${arena:+_paged}.log"
+        PYTHONPATH=src python3 -m repro_torch.launch.profile_decode \
+            --mode "$mode" $arena > "$log" 2>&1 || rc=1
+        head -n 8 "$log"
+    done
 done
 exit $rc
