@@ -7,7 +7,8 @@ for sm_90a) and nvcc. It imports nothing of JAX or of the JAX package.
 Phases, each printing its own lines:
 
 1. Device: the card's name and power limit (nvidia-smi) and torch's name.
-2. Build: nvcc builds every kernel of the serving path from the sources.
+2. Build: nvcc builds every kernel of the serving and training paths from
+   the sources.
 3. Kernels against their plain PyTorch versions on the card, at the
    full-width shapes of internlm2-1.8b's decode (M = 4, 8 slots) and
    prefill (M = 512): the GEMM core's fake_quant_rhs (bf16 weights),
@@ -18,10 +19,21 @@ Phases, each printing its own lines:
    16 rows in a shuffled order, with bf16, int8 and int4 pages. Outputs
    compare in f32 at rtol 1e-4, atol 1e-4 * max|y|; on bf16 pages the
    paged kernel must also equal the contiguous kernel on the gathered
-   rows bit for bit. Each case prints the kernel's time, the plain
-   version's, one PyTorch library call's (timed only; the port never
-   calls it; for the paged kernel SDPA over the already gathered and
-   decoded rows, since no single PyTorch call reads pages) and the bound.
+   rows bit for bit. Then the training shapes (T = B*S = 2048 tokens):
+   the fake-quant forward and backward kernels on the head weight
+   (2048 x 92672 bf16) and a w_gate slice (2048 x 8192 bf16) at t = 1 and
+   t = 0.85 (forward and dx bitwise at both, the three sums within
+   1e-5 of the sum of their terms' magnitudes); the GEMM's no-epilogue
+   variant on x.T @ g (2048 x 2048 -> 8192 and 8192 x 2048 -> 2048, out
+   f32), fake_quant_rhs on g @ fq(w.T) and on the forward at M = 2048,
+   and the column mask alone and after fake-quant at M = 2048 and M = 4
+   (rtol 1e-4, atol 1e-4 * max|y|). Each case prints the kernel's time,
+   the plain version's, one PyTorch library call's (timed only; the port
+   never calls it; for the paged kernel SDPA over the already gathered
+   and decoded rows, since no single PyTorch call reads pages; for the
+   GEMMs torch.matmul on the decoded weight; none for the fake-quant,
+   whose (d, q_m, t) quantizer no single PyTorch call computes) and the
+   bound.
 4. Correctness: at full width, the compressed model's one-shot prefill of
    a 32-token prompt (plain attention) against 32 sequential decode steps
    (flash-decode kernel); and the smoke config's engine tokens on the
@@ -41,7 +53,29 @@ Phases, each printing its own lines:
    without sharing unchanged. Counts are zeroed right before and read
    right after; the page-indirect kernel must launch 24 times (once per
    layer) per decode step, and in every page storage of the path.
-7. Two JSON lines: the kernel table, then the device line (last).
+7. Training, the main path of GETA: `train_loop` on internlm2-1.8b at
+   full width in bf16 (random weights from seed 0), batch 4 x 512
+   tokens, target sparsity 0.3, with the schedule compressed so that
+   every stage runs in 5 steps (warm-up 1, projection 1 x 1, pruning
+   2 x 1, cool-down 1), under torch.use_deterministic_algorithms.
+   Checks: finite losses, stages 0, 1, 2, 2, 3, every site's bits in
+   [b_l, b_u_final], hard sparsity of exactly k_units / total_units,
+   pruned units exactly 0, and the launch counts of every kernel of the
+   path at their predicted values (counted from 0 over `train_loop`).
+   Then, counted from 0 on their own, one loss-and-gradient step with
+   `.colmask` params (seeded random masks keeping about 70% of the
+   output columns of wq, wk, wv, w_gate, w_up), with quantizers and
+   without: each loss must equal bit for bit the loss of the params with
+   those columns zeroed (with quantizers through fake_quant_rhs, without
+   through col_mask under an all-ones mask), the masks must move the
+   loss, and the plain loss must lie within 1e-3 relative of the
+   torch.matmul path's; the col_mask rows of the kernel line take their
+   launches from this step. Then two runs of a joint step from one
+   state, which must give the same params, quantizers and masks bit for
+   bit; and the smoke config's joint step on the card against its CPU
+   run at `train.STEP_TOLERANCES`. Prints step wall times, tokens/s and
+   peak device memory.
+8. Two JSON lines: the kernel table, then the device line (last).
 
 Times are CUDA-event medians with the 50 MB L2 flushed before each launch
 (each decode-step launch finds its weights cold). Bounds: the larger of
@@ -55,6 +89,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -77,6 +113,25 @@ SHARED = (1, 3, 5, 7)     # requests that carry request 5's prompt (200
 PAGED_KERNELS = ("paged_decode_attn.bf16", "paged_decode_attn.int8",
                  "paged_decode_attn.int4")
 REPORT_SHAPE = (4, 2048, 8192)      # the JSON line's GEMM row: w_gate at decode
+TOKENS = 2048                        # training batch 4 x 512
+TRAIN_BATCH, TRAIN_SEQ = 4, 512
+FQ_SHAPES = {"head": (2048, 92672), "w_gate": (2048, 8192)}
+# (label, M, K, N) of the training GEMMs: x.T @ g (dwq), g @ fq(w.T) (dx)
+# and the forward, for w_gate (2048 -> 8192) and w_down (8192 -> 2048)
+TRAIN_GEMMS = [("none", 2048, 2048, 8192), ("none", 8192, 2048, 2048),
+               ("fake_quant_rhs", 2048, 8192, 2048),
+               ("fake_quant_rhs", 2048, 2048, 8192),
+               ("col_mask", 2048, 2048, 8192), ("col_mask", 4, 2048, 8192),
+               ("fq_col_mask", 2048, 2048, 8192),
+               ("fq_col_mask", 4, 2048, 8192)]
+# the JSON line's rows of the training kernels
+TRAIN_REPORT = {"gemm_core.none": ("none", 2048, 2048, 8192),
+                "gemm_core.fake_quant_rhs.train": ("fake_quant_rhs", 2048,
+                                                   8192, 2048),
+                "gemm_core.col_mask": ("col_mask", 2048, 2048, 8192),
+                "gemm_core.fq_col_mask": ("fq_col_mask", 2048, 2048, 8192),
+                "fake_quant.fwd": ("head", 1.0),
+                "fake_quant.bwd": ("w_gate", 1.0)}
 
 
 def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
@@ -327,6 +382,143 @@ def _paged_check(torch, timer, gen, B, S, KVh, g, dh, storage) -> dict:
           f"err={err:.2e} tol={tol:.2e}{bitwise} {'ok' if ok else 'FAIL'}")
     return row
 
+def _fq_rows(torch, timer, gen) -> tuple[list, dict, list]:
+    """The fake-quant kernels at the training path's shapes."""
+    from repro_torch.core.quant import init_quant_params
+    from repro_torch.kernels import fake_quant as fq
+    from repro_torch.kernels import ref
+    rows, report, failures = [], {}, []
+    for label, shape in FQ_SHAPES.items():
+        x = torch.randn(shape, generator=gen, device="cuda",
+                        dtype=torch.bfloat16) * shape[0] ** -0.5
+        g = torch.randn(shape, generator=gen, device="cuda",
+                        dtype=torch.bfloat16) * 1e-3
+        for t in (1.0, 0.85):
+            qp = init_quant_params(q_m=x.float().abs().max() * 0.9, bits=8.0,
+                                   t=t)
+            sc = (qp.d, qp.q_m, qp.t)
+            y, want = fq.fake_quant_fwd(x, *sc), ref.fake_quant_fwd_ref(x, *sc)
+            torch.cuda.synchronize()
+            err = (y.float() - want.float()).abs().max().item()
+            # bitwise at every t: the kernel and torch.pow take one powf
+            ok = torch.equal(y, want)
+            row = {"kernel": "fake_quant.fwd", "w": label, "shape": shape,
+                   "t": t, "max_abs_err": err, "bitwise": torch.equal(y, want),
+                   "ok": ok, "library_ms": None,
+                   "ms": timer(lambda: fq.fake_quant_fwd(x, *sc)),
+                   "plain_ms": timer(lambda: ref.fake_quant_fwd_ref(x, *sc))}
+            row["bound_ms"], row["bound_by"] = bound_ms(fq.fwd_bytes(x), 0)
+            rows.append(row)
+            del y, want
+            got = fq.fake_quant_bwd(x, *sc, g)
+            want = ref.fake_quant_bwd_ref(x, *sc, g)
+            torch.cuda.synchronize()
+            again = fq.fake_quant_bwd(x, *sc, g)
+            scales = fq.sum_scales(x, g, *sc)
+            serr = [abs(float(a) - float(b)) / max(s, 1e-30)
+                    for a, b, s in zip(got[1:], want[1:], scales)]
+            dx_same = torch.equal(got[0], want[0])
+            repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+            brow = {"kernel": "fake_quant.bwd", "w": label, "shape": shape,
+                    "t": t, "max_abs_err": (got[0].float()
+                                            - want[0].float()).abs().max()
+                    .item(), "dx_bitwise": dx_same,
+                    "sum_err_over_scale": serr, "repeat_bitwise": repeat,
+                    "ok": dx_same and repeat and max(serr) <= 1e-5,
+                    "library_ms": None,
+                    "ms": timer(lambda: fq.fake_quant_bwd(x, *sc, g)),
+                    "plain_ms": timer(lambda: ref.fake_quant_bwd_ref(
+                        x, *sc, g))}
+            brow["bound_ms"], brow["bound_by"] = bound_ms(fq.bwd_bytes(x, g),
+                                                          0)
+            rows.append(brow)
+            del got, want, again
+            for r in (row, brow):
+                print(f"[3 kernels] {r['kernel']:<29} {label:<6} "
+                      f"{shape[0]}x{shape[1]} t={t} ms={r['ms']:.4f} "
+                      f"plain_ms={r['plain_ms']:.4f} library_ms=none "
+                      f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+                      f"err={r['max_abs_err']:.2e}"
+                      + (f" bitwise={r['bitwise']}" if "bitwise" in r else
+                         f" dx_bitwise={r['dx_bitwise']} sums/scale="
+                         f"{max(r['sum_err_over_scale']):.1e} repeat_bitwise="
+                         f"{r['repeat_bitwise']}")
+                      + f" {'ok' if r['ok'] else 'FAIL'}")
+                if not r["ok"]:
+                    failures.append(r)
+                if TRAIN_REPORT[r["kernel"]] == (label, t):
+                    report[r["kernel"]] = r
+        del x, g
+        torch.cuda.empty_cache()
+    return rows, report, failures
+
+
+def _train_gemm_rows(torch, timer, gen) -> tuple[list, dict, list]:
+    """The GEMM core's training variants at the training path's shapes."""
+    from repro_torch.core.quant import init_quant_params
+    from repro_torch.kernels import gemm_core as gc
+    rows, report, failures = [], {}, []
+    for label, M, K, N in TRAIN_GEMMS:
+        x = torch.randn((M, K), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        w = torch.randn((K, N), generator=gen, device="cuda",
+                        dtype=torch.bfloat16) * K ** -0.5
+        mask = (torch.rand((N,), generator=gen, device="cuda") > 0.3).float()
+        qp = init_quant_params(w, bits=8.0)
+        epi = {"none": gc.none(), "col_mask": gc.col_mask(mask),
+               "fake_quant_rhs": gc.fake_quant_rhs(qp.d, qp.q_m, qp.t),
+               "fq_col_mask": gc.fq_col_mask(qp.d, qp.q_m, qp.t, mask)}[label]
+        # checked in f32 like the serving rows; timed in the path's out
+        # dtype (f32 for dwq, x's bf16 otherwise)
+        out = torch.float32 if label == "none" else torch.bfloat16
+        y = gc.gemm(x, w, epi, out_dtype=torch.float32)
+        want = gc.plain(x, w, epi, torch.float32)
+        torch.cuda.synchronize()
+        err = (y - want).abs().max().item()
+        tol = 1e-4 * want.abs().max().item()
+        ok = bool(torch.allclose(y, want, rtol=1e-4, atol=tol)
+                  and torch.isfinite(y).all())
+        if label in ("col_mask", "fq_col_mask"):
+            ok = ok and not y[:, mask == 0].any()
+        del y, want
+        w_lib = (w.float() * mask if label == "col_mask" else
+                 gc.ref.fake_quant_weight(w.float(), qp.d, qp.q_m, qp.t)
+                 * (mask if label == "fq_col_mask" else 1.0)
+                 if label != "none" else w.float()).to(torch.bfloat16)
+        row = {"kernel": f"gemm_core.{label}", "M": M, "K": K, "N": N,
+               "out": str(out), "max_abs_err": err, "atol": tol, "ok": ok,
+               "ms": timer(lambda: gc.gemm(x, w, epi, out_dtype=out)),
+               "plain_ms": timer(lambda: gc.plain(x, w, epi, out)),
+               "library_ms": timer(lambda: torch.matmul(x, w_lib))}
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            gc.bytes_moved(M, N, K, 2, w, out.itemsize, epi),
+            gc.flops(M, N, K))
+        rows.append(row)
+        if not ok:
+            failures.append(row)
+        print(f"[3 kernels] {row['kernel']:<29} M={M:<4} K={K:<4} N={N:<5} "
+              f"out={str(out)[6:]} ms={row['ms']:.4f} "
+              f"plain_ms={row['plain_ms']:.4f} "
+              f"library_ms={row['library_ms']:.4f} "
+              f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+              f"err={err:.2e} tol={tol:.2e} {'ok' if ok else 'FAIL'}")
+        for name, key in TRAIN_REPORT.items():
+            if key == (label, M, K, N):
+                report[name] = row
+        del x, w, w_lib
+        torch.cuda.empty_cache()
+    return rows, report, failures
+
+
+def phase_train_kernels(torch, timer) -> tuple[list, dict, list]:
+    """Phase 3's training half: the fake-quant kernels and the GEMM's
+    training variants at the full-width training shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows, report, failures = _fq_rows(torch, timer, gen)
+    r2, rep2, f2 = _train_gemm_rows(torch, timer, gen)
+    report.update(rep2)
+    return rows + r2, report, failures + f2
+
 
 def phase_correctness(torch) -> list[str]:
     """Full-width prefill vs sequential decode, and smoke card vs CPU."""
@@ -416,7 +608,8 @@ def phase_engine(torch) -> tuple[dict, dict, list[str]]:
             failures.append(f"engine {mode}")
     counts = ops.launch_counts()
     print(f"[5 engine] main-path launch counts: {_nonzero(counts)}")
-    for name in [*expect.values(), "gemm_core.reduce_splits", "decode_attn"]:
+    for name in [*expect.values(), "gemm_core.reduce_splits", "decode_attn",
+                 "fake_quant.fwd"]:
         if counts[name] <= 0:
             failures.append(f"{name} never launched on the main path")
     ref_int8 = engine_serve(ARCH, False, PROMPT_LENS, GEN, max_slots=SLOTS,
@@ -527,6 +720,202 @@ def phase_paged(torch, contiguous: dict) -> tuple[dict, list[str]]:
     return counts, failures
 
 
+# every stage in 5 steps
+COMP5 = dict(target_sparsity=0.3, warmup_steps=1, projection_periods=1,
+             projection_steps=1, pruning_periods=2, pruning_steps=1,
+             cooldown_steps=1)
+COLMASK = ("attn.wq", "attn.wk", "attn.wv", "mlp.w_gate", "mlp.w_up")
+
+
+def predicted_train_launches(lm, qasso, stages) -> dict:
+    """Kernel launches of `train_loop` steps in `stages`: per step every
+    routed projection (P of them) runs the fake_quant_rhs GEMM forward,
+    again in the remat recompute, and for dx; its dwq runs with no
+    epilogue; the fake-quant backward runs per projection and once for
+    the head, whose forward quantizes once per step; a joint step also
+    fake-quantizes each weight site's stacked tensor once (Alg 2 line
+    18). No call splits K (M >= 2048)."""
+    P = lm.n_blocks * sum(n.startswith("blocks.")
+                          for n in lm.quant_weight_names())
+    passes = 2 + int(lm.cfg.remat)
+    n = len(stages)
+    return {"gemm_core.fake_quant_rhs": passes * P * n,
+            "gemm_core.none": P * n, "fake_quant.bwd": (P + 1) * n,
+            "fake_quant.fwd": n + len(qasso.weight_sites) * sum(
+                s == 2 for s in stages)}
+
+
+def predicted_colmask_launches(lm) -> dict:
+    """One loss-and-gradient pass with `.colmask` on COLMASK's projections
+    (C per layer of 7), with quantizers, then without."""
+    L, C = lm.n_blocks, len(COLMASK)
+    fwd = 1 + int(lm.cfg.remat)
+    return {"gemm_core.fq_col_mask": C * L * fwd,
+            "gemm_core.fake_quant_rhs": (7 - C) * L * fwd + 7 * L,
+            "gemm_core.none": 7 * L + C * L, "fake_quant.bwd": 7 * L + 1,
+            "fake_quant.fwd": 1, "gemm_core.col_mask": C * L * (fwd + 1)}
+
+
+def _colmask_params(torch, params, gen) -> tuple[dict, dict, dict]:
+    """Three param dicts for COLMASK's stacked projections (L, K, N):
+    `<name>.colmask` seeded random (L, N) masks that keep about 70% of the
+    output columns; the masked columns zeroed in the weight, with all-ones
+    `.colmask`s; and the masked columns zeroed, with no `.colmask`."""
+    masked, ones, zeroed = dict(params), dict(params), dict(params)
+    for k, w in params.items():
+        if k.endswith(COLMASK) and w.ndim == 3:
+            m = (torch.rand((w.shape[0], w.shape[2]), generator=gen,
+                            device=w.device) > 0.3).float()
+            masked[k + ".colmask"] = m
+            zeroed[k] = ones[k] = w * m[:, None, :].to(w.dtype)
+            ones[k + ".colmask"] = torch.ones_like(m)
+    return masked, ones, zeroed
+
+
+def _bitwise(torch, a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def phase_train(torch) -> tuple[dict, dict, list[str]]:
+    """Phase 7 (see the module docstring). Returns (launch counts of
+    `train_loop`, launch counts of the `.colmask` step, failures)."""
+    from repro_torch.configs import CompressionConfig, get_arch
+    from repro_torch.core.quant import bit_width
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as T
+    from repro_torch.models.transformer import LM
+    failures = []
+
+    def check(ok, what):
+        if not ok:
+            failures.append(what)
+        return "ok" if ok else "FAIL"
+
+    torch.use_deterministic_algorithms(True)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    hist = []
+    t0 = time.perf_counter()
+    state, qadg, qasso, losses = T.train_loop(
+        ARCH, False, 5, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+        comp=CompressionConfig(**COMP5), verbose=False, device="cuda",
+        history=hist)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    lm_cfg = get_arch(ARCH)
+    lm = LM(lm_cfg)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for i, h in enumerate(hist):
+        print(f"[7 train] step {i} stage {h['stage']} loss {h['loss']:.4f} "
+              f"bits [{h['bits_min']:.2f}, {h['bits_max']:.2f}] sparsity "
+              f"{h['sparsity_hard']:.4f} wall {h['wall_s']:.3f} s "
+              f"{tokens / h['wall_s']:.1f} tok/s")
+    stages = [h["stage"] for h in hist]
+    keep = state["qstate"].keep_mask
+    n_pruned = sum(int(torch.sum(v < 0.5)) for v in keep.values())
+    b_l, b_u = qasso.cfg.bit_lower, qasso.cfg.bit_upper_final
+    bits = [float(bit_width(q.d, q.q_m, q.t))
+            for q in state["qparams"].values()]
+    elem_keep = qasso._keep_elem_tree(state["params"], keep)
+    nonzero_pruned = sum(int(torch.count_nonzero(
+        p * (1.0 - elem_keep[k]).to(p.dtype)))
+        for k, p in state["params"].items())
+    print(f"[7 train] internlm2-1.8b full width bf16, batch "
+          f"{TRAIN_BATCH}x{TRAIN_SEQ}, 5 steps in {wall:.2f} s, stages "
+          f"{stages} {check(stages == [0, 1, 2, 2, 3], 'stage order')}, "
+          f"losses finite "
+          f"{check(all(math.isfinite(x) for x in losses), 'finite loss')}, "
+          f"pruned units {n_pruned} of {qasso.total_units} (k_units "
+          f"{qasso.k_units}) {check(n_pruned == qasso.k_units, 'sparsity')}"
+          f", nonzero pruned elements {nonzero_pruned} "
+          f"{check(nonzero_pruned == 0, 'pruned units zero')}, bits "
+          f"[{min(bits):.3f}, {max(bits):.3f}] in [{b_l}, {b_u}] "
+          f"{check(b_l - 1e-3 <= min(bits) and max(bits) <= b_u + 1e-3, 'bits')}"
+          f", peak memory {peak:.2f} GiB "
+          f"{check(peak < 60 * 1e9 / 2 ** 30, 'peak memory < 60 GB')}")
+    want = predicted_train_launches(lm, qasso, stages)
+    got = {k: counts[k] for k in want}
+    others = {k: v for k, v in counts.items() if v and k not in want}
+    print(f"[7 train] launches {got} predicted {want} "
+          f"{check(got == want and not others, 'train launch counts')}"
+          + (f" unexpected {others}" if others else ""))
+
+    # one loss-and-gradient pass with .colmask params, quantized and not,
+    # its launches counted from 0 on their own
+    params, qparams = state["params"], state["qparams"]
+    del state
+    torch.cuda.empty_cache()
+    batch = T.batch_for(lm_cfg, 0, 5, TRAIN_BATCH, TRAIN_SEQ, device="cuda")
+    masked, ones, zeroed = _colmask_params(
+        torch, params, torch.Generator(device="cuda").manual_seed(7))
+    ops.reset_launch_counts()
+    loss_q, gx, _ = T.loss_and_grads(lm, masked, qparams, batch)
+    del gx
+    loss_p, gx, _ = T.loss_and_grads(lm, masked, None, batch)
+    del gx
+    colmask_counts = _nonzero(ops.launch_counts())
+    want_c = predicted_colmask_launches(lm)
+    with torch.no_grad():
+        ref_q = lm.loss(zeroed, qparams, batch)     # fake_quant_rhs on w*m
+        ref_p = lm.loss(ones, None, batch)          # col_mask on w*m, m = 1
+        lib_p = lm.loss(zeroed, None, batch)        # torch.matmul on w*m
+        unmasked = lm.loss(params, qparams, batch)
+    rel = abs(float(loss_p) - float(lib_p)) / abs(float(lib_p))
+    moved = not torch.equal(unmasked, ref_q)
+    print(f"[7 train] .colmask step, random masks keeping ~70% of the "
+          f"columns: loss with quantizers {float(loss_q):.6f} vs zeroed "
+          f"columns {float(ref_q):.6f} "
+          f"{check(torch.equal(loss_q, ref_q), 'colmask loss bitwise')} "
+          f"(bitwise; unmasked {float(unmasked):.6f}, masks move the loss "
+          f"{check(moved, 'colmask masks move the loss')}); without "
+          f"quantizers {float(loss_p):.6f} vs zeroed columns under an "
+          f"all-ones mask {float(ref_p):.6f} "
+          f"{check(torch.equal(loss_p, ref_p), 'colmask plain loss bitwise')}"
+          f" (bitwise) and vs the torch.matmul path {float(lib_p):.6f} (rel "
+          f"{rel:.1e}, tol 1e-3) {check(rel < 1e-3, 'colmask plain loss')}; "
+          f"launches {colmask_counts} predicted {want_c} "
+          f"{check(colmask_counts == want_c, 'colmask launch counts')}")
+    del params, qparams, masked, ones, zeroed, batch
+    torch.cuda.empty_cache()
+
+    # two runs of a joint step 0 from one seeded state
+    runs = []
+    for _ in range(2):
+        lm2, p, q, _, qa, s = T.init_geta(ARCH, False, seed=0, device="cuda",
+                                          comp=T.JOINT_STEP0)
+        b = T.batch_for(lm2.cfg, 0, 0, TRAIN_BATCH, TRAIN_SEQ, device="cuda")
+        p, q, s, m = T.make_geta_train_step(lm2, qa)(p, q, s, b)
+        runs.append((p, q, s.redundant, s.keep_mask, m["loss"]))
+        del s, b
+        torch.cuda.empty_cache()
+    (p0, q0, r0, k0, l0), (p1, q1, r1, k1, l1) = runs
+    same = (all(_bitwise(torch, p0[k], p1[k]) for k in p0)
+            and all(_bitwise(torch, getattr(q0[k], f), getattr(q1[k], f))
+                    for k in q0 for f in ("d", "q_m", "t"))
+            and all(_bitwise(torch, r0[k], r1[k])
+                    and _bitwise(torch, k0[k], k1[k]) for k in r0)
+            and _bitwise(torch, l0, l1))
+    print(f"[7 train] two runs of a joint step 0 from one state: params, "
+          f"quantizers, masks and loss {'bitwise equal' if same else 'DIFFER'}"
+          f" {check(same, 'train step reproducible')}")
+    del runs, p0, p1, q0, q1
+    torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
+
+    # the smoke config's joint step, card against the CPU plain versions
+    runs = T.step_on_devices(ARCH, ["cpu", "cuda"])
+    diff = T.step_differences(runs["cpu"], runs["cuda"])
+    tol = T.STEP_TOLERANCES
+    ok = diff["masks"] and all(diff[k] <= v for k, v in tol.items())
+    print(f"[7 train] smoke config joint step, card vs CPU: masks "
+          f"{'identical' if diff['masks'] else 'DIFFER'}, "
+          + ", ".join(f"{k} {diff[k]:.1e} (tol {v:.0e})"
+                      for k, v in tol.items())
+          + f" {check(ok, 'smoke step card vs cpu')}")
+    return counts, colmask_counts, failures
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -537,6 +926,9 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    # cuBLAS is deterministic only with a fixed workspace; phase 7 runs
+    # under torch.use_deterministic_algorithms, which requires it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     # full f32 in every PyTorch matmul and convolution: plain versions and
     # library yardsticks must not round through TF32 (the kernels never do)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -547,6 +939,10 @@ def main(argv=None) -> int:
     phase_build()
     timer = Timer(torch)
     rows, report, failures = phase_kernels(torch, timer)
+    train_rows, train_report, train_failures = phase_train_kernels(torch,
+                                                                   timer)
+    rows += train_rows
+    failures += train_failures
     del timer
     torch.cuda.empty_cache()
     failures = [f"{r['kernel']} {r}" for r in failures]
@@ -555,13 +951,17 @@ def main(argv=None) -> int:
     failures += engine_failures
     paged_counts, paged_failures = phase_paged(torch, outs)
     failures += paged_failures
+    train_counts, colmask_counts, train_fail = phase_train(torch)
+    failures += train_fail
 
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(
             {"device": kind, "rows": rows, "launches": counts,
-             "paged_launches": paged_counts}, indent=1))
+             "paged_launches": paged_counts, "train_launches": train_counts,
+             "colmask_launches": colmask_counts},
+            indent=1, default=str))
     if failures:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
@@ -584,6 +984,29 @@ def main(argv=None) -> int:
                  if name.startswith("gemm") else
                  f"B={row['B']} S={row['S']} KVh={row['KVh']} g={row['g']} "
                  f"dh={row['dh']}" + (f" P={row['P']}" if "P" in row else ""))
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": shape})
+    fq_src = "src/repro_torch/kernels/csrc/fake_quant.cu"
+    train_src = {"fake_quant.fwd": (fq_src,
+                                    "src/repro/kernels/fake_quant.py:31"),
+                 "fake_quant.bwd": (fq_src,
+                                    "src/repro/kernels/fake_quant.py:45")}
+    for name in TRAIN_REPORT:
+        row = train_report[name]
+        src, replaces = train_src.get(name, gemm)
+        key = ("gemm_core.fake_quant_rhs" if name.endswith(".train")
+               else name)
+        shape = (f"{row['w']} {row['shape'][0]}x{row['shape'][1]} bf16 "
+                 f"t={row['t']}" if name.startswith("fake_quant") else
+                 f"M={row['M']} K={row['K']} N={row['N']} out {row['out']}")
+        # col_mask launches only in phase 7's .colmask step
+        launches = (colmask_counts if "col_mask" in name else
+                    train_counts)[key]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches,

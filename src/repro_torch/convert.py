@@ -43,3 +43,39 @@ def qparams_from_numpy(np_qparams: dict, device="cpu"
             torch.tensor(np.asarray(v, np.float32), device=device)
             for v in vals))
     return out
+
+
+def qasso_state_from_numpy(np_state, device="cpu"):
+    """A JAX `QASSOState` whose leaves are numpy arrays (step, the base
+    optimizer's state: AdamW's (count, m, v), momentum's moment dict or
+    SGD's (), redundant, keep_mask, gamma) to the port's `QASSOState`.
+    Counters become Python ints; moments, masks and gamma f32 tensors
+    (gamma on the CPU, where QASSO's scalar rules run)."""
+    from repro_torch.core.qasso import QASSOState
+    from repro_torch.optim.base import AdamState
+
+    def tree(d):
+        return {k: tensor_from_numpy(v, device) for k, v in d.items()}
+
+    base = np_state.base
+    if hasattr(base, "count"):
+        base = AdamState(int(np.asarray(base.count)), tree(base.m),
+                         tree(base.v))
+    elif isinstance(base, dict):
+        base = tree(base)
+    else:
+        base = ()
+    return QASSOState(step=int(np.asarray(np_state.step)), base=base,
+                      redundant=tree(np_state.redundant),
+                      keep_mask=tree(np_state.keep_mask),
+                      gamma=tensor_from_numpy(np_state.gamma))
+
+
+def geta_state_from_numpy(np_params: dict, np_qparams: dict, np_state,
+                          device="cpu"):
+    """(params, qparams, QASSOState) of the port from a JAX GETA train
+    state held as numpy: the one-step parity tests cross every step
+    through here."""
+    return (params_from_numpy(np_params, device),
+            qparams_from_numpy(np_qparams, device),
+            qasso_state_from_numpy(np_state, device))

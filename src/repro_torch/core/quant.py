@@ -1,20 +1,26 @@
-"""Learnable quantization with parameters (d, q_m, t) — paper §3, Eqs (1)-(3).
+"""Learnable quantization with parameters (d, q_m, t) — paper §3, Eqs (1)-(6).
 
-The forward and serving subset of `repro.core.quant`, on torch tensors:
+Port of `repro.core.quant` on torch tensors:
 
     x~  = sgn(x) * clip_{q_m}^t(|x|)                                (Eq 1)
     x_Q = d * round(x~ / d)                                         (Eq 2)
     b   = log2((q_m)^t / d + 1) + 1                                 (Eq 3)
 
-plus the deployment containers: clamped integer codes (`quantize_int`) and
+`fake_quant` is a `torch.autograd.Function` whose backward is the
+straight-through estimator: dx passes g inside the clip and 0 outside, and
+(d, q_m, t) get the sums of Eqs (4)-(6). Both directions go through
+`kernels.fake_quant`, which launches the CUDA kernels for a CUDA tensor
+and runs their plain versions (`kernels.ref`) for a CPU one. The PPSG
+helpers (`step_size_bounds`, `project_step_size`, `positivity_guard`) and
+the Eq 14 `residual` serve QASSO.
+
+Also the deployment containers: clamped integer codes (`quantize_int`),
 the K-packed sub-byte int32 word streams (`pack_codes` / `unpack_codes`),
 and the per-row int8/int4 codes of the paged KV arena
 (`kv_quant_encode` / `kv_quant_decode`).
 Every function runs in float32 with the same operation order as the JAX
 module, so codes, containers and packed words come out bit-equal to it.
 `torch.round` rounds half to even, like `jnp.round`.
-
-The straight-through backward (Eqs 4-6) belongs to the training slice.
 """
 from __future__ import annotations
 
@@ -78,15 +84,46 @@ def clip_qmt(x_abs: torch.Tensor, q_m: torch.Tensor, t: torch.Tensor
     return torch.pow(torch.clamp_min(a, _EPS), t) * (x_abs > 0)
 
 
-def fake_quant(x: torch.Tensor, d: torch.Tensor, q_m: torch.Tensor,
-               t: torch.Tensor) -> torch.Tensor:
-    """Quantize-dequantize (Eqs 1-2) in f32; returns x_Q in x's dtype."""
-    d32 = torch.clamp_min(d.to(torch.float32), _EPS)
-    sign = torch.sign(x).to(torch.float32)
-    xt = clip_qmt(x.abs().to(torch.float32), q_m.to(torch.float32),
-                  t.to(torch.float32))
-    xq = d32 * torch.round(xt / d32) * sign
-    return xq.to(x.dtype)
+def step_size_bounds(q_m: torch.Tensor, t: torch.Tensor, b_l: torch.Tensor,
+                     b_u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[d_min, d_max] such that b in [b_l, b_u] (Alg 3 line 3): b falls as
+    d grows, so b <= b_u <=> d >= d(b_u) and b >= b_l <=> d <= d(b_l)."""
+    return step_size_for_bits(q_m, t, b_u), step_size_for_bits(q_m, t, b_l)
+
+
+def residual(x_abs: torch.Tensor, d: torch.Tensor, q_m: torch.Tensor,
+             t: torch.Tensor) -> torch.Tensor:
+    """R(x) of Eq (14): round(x~/d) - x~/d for the clipped magnitude."""
+    r = clip_qmt(x_abs, q_m, t) / torch.clamp_min(d, _EPS)
+    return torch.round(r) - r
+
+
+class _FakeQuant(torch.autograd.Function):
+    """Eqs (1)-(2) forward, STE + Eqs (4)-(6) backward, each one call of
+    a `kernels.fake_quant` wrapper."""
+
+    @staticmethod
+    def forward(ctx, x, d, q_m, t):
+        from repro_torch.kernels import fake_quant as _fq
+        ctx.save_for_backward(x, d, q_m, t)
+        return _fq.fake_quant_fwd(x, d, q_m, t)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.kernels import fake_quant as _fq
+        x, d, q_m, t = ctx.saved_tensors
+        dx, dd, dqm, dt = _fq.fake_quant_bwd(x, d, q_m, t, g)
+        return (dx, dd.reshape(d.shape), dqm.reshape(q_m.shape),
+                dt.reshape(t.shape))
+
+
+def fake_quant(x: torch.Tensor, d, q_m, t) -> torch.Tensor:
+    """Differentiable quantize-dequantize with learnable (d, q_m, t):
+    x_Q in x's dtype, computed in f32. Scalars that are not tensors
+    become f32 tensors on x's device."""
+    d, q_m, t = (v if torch.is_tensor(v) else _f32(v, x.device)
+                 for v in (d, q_m, t))
+    return _FakeQuant.apply(x, d, q_m, t)
 
 
 def quantize_int(x: torch.Tensor, qp: QuantParams, bits=None
@@ -226,3 +263,19 @@ def kv_quant_decode(codes: torch.Tensor, scale: torch.Tensor, bits: int
         w = torch.stack([lo, hi], dim=-1).reshape(
             w.shape[:-1] + (w.shape[-1] * 2,))
     return w.to(torch.float32) * scale[..., None].to(torch.float32)
+
+
+def project_step_size(qp: QuantParams, b_l, b_u) -> QuantParams:
+    """PPSG projection (Alg 3 lines 3-4): clamp d into [d_min, d_max].
+    Only d moves; q_m and t stay (paper §5.1)."""
+    d_min, d_max = step_size_bounds(qp.q_m, qp.t, _f32(b_l, qp.d.device),
+                                    _f32(b_u, qp.d.device))
+    return QuantParams(d=torch.minimum(torch.maximum(qp.d, d_min), d_max),
+                       q_m=qp.q_m, t=qp.t)
+
+
+def positivity_guard(qp: QuantParams) -> QuantParams:
+    """Keep the parameterization in its open domain after an SGD step."""
+    return QuantParams(d=torch.clamp_min(qp.d, 1e-8),
+                       q_m=torch.clamp_min(qp.q_m, 1e-6),
+                       t=torch.clamp(qp.t, 0.05, 4.0))

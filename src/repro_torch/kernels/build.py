@@ -17,6 +17,7 @@ device pointers, with the stream from
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -41,6 +42,9 @@ SIGNATURES = {
                           _LL, _LL, _LL, _LL, _LL, _LL, _F, _P),
     "repro_paged_decode_attn": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
                                 _I, _I, _I, _I, _I, _F, _P),
+    "repro_fake_quant_fwd": (_P, _I, _P, _LL, _P, _P, _P, _I, _P),
+    "repro_fake_quant_bwd": (_P, _I, _P, _I, _P, _P, _P, _LL, _P, _P, _P,
+                             _P),
 }
 
 _lock = threading.Lock()
@@ -117,6 +121,19 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _state["lib"] = lib
         return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def device_scalar(v, device):
+    """A 0-d f32 tensor on `device`, read by a kernel through its
+    pointer."""
+    import torch
+    return torch.as_tensor(v, dtype=torch.float32, device=device).reshape(())
 
 
 def check(err: int, what: str) -> None:

@@ -8,6 +8,15 @@
 //   EPI_DEQUANT     w int8/16/32 (K, N)   T(w) = codes * scale[n]
 //   EPI_UNPACK      w int32 (ceil(K/cpw), N) K-packed words, cpw = 32/bits
 //                                         T(w) = sext(field) * scale[n]
+//   EPI_NONE        w f32/bf16 (K, N)     T(w) = w
+//   EPI_COL_MASK    w f32/bf16 (K, N)     T(w) = w * m[n]
+//   EPI_FQ_MASK     w f32/bf16 (K, N)     T(w) = fake_quant(w) * m[n]
+//
+// The last three serve training: the backward GEMMs x.T @ g (out f32) and
+// g @ w.T, and the column-masked forward of the GETA joint stage (`m` is
+// the f32 (N,) column mask, passed in the `scale` slot). Training runs at
+// M = B*S tokens (or M = K_in for x.T @ g), so it takes the general
+// variant.
 //
 // What bounds it: at decode M is the number of active slots (4-8), so each
 // weight element feeds at most 8 FMAs and the GEMM is bound by the bytes
@@ -53,7 +62,10 @@
 namespace {
 
 enum DType { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2, DT_I16 = 3, DT_I32 = 4 };
-enum Epi { EPI_FAKE_QUANT = 0, EPI_DEQUANT = 1, EPI_UNPACK = 2 };
+enum Epi {
+  EPI_FAKE_QUANT = 0, EPI_DEQUANT = 1, EPI_UNPACK = 2, EPI_NONE = 3,
+  EPI_COL_MASK = 4, EPI_FQ_MASK = 5
+};
 
 constexpr float kEps = 1e-12f;
 
@@ -121,7 +133,8 @@ __device__ __forceinline__ float unpack_field(int word, int f) {
 }
 
 struct EpiArgs {
-  const float* scale;   // dequant / unpack: scale[n * scale_stride]
+  const float* scale;   // dequant / unpack: scale[n * scale_stride];
+                        // col_mask / fq_mask: the mask m[n]
   int scale_stride;     // 1 for a per-column (N,) scale, 0 for one scale
   const float* fq_d;    // 0-d device scalars for fake-quant
   const float* fq_qm;
@@ -220,6 +233,45 @@ struct Weights<EPI_UNPACK, int32_t, BITS> {
   }
 };
 
+template <typename WT>
+struct Weights<EPI_NONE, WT, 0> {
+  const WT* p; int N;
+  __device__ Weights(const void* w, int N_, int n, const EpiArgs&)
+      : p(reinterpret_cast<const WT*>(w) + n), N(N_) {}
+  template <int R>
+  __device__ void rows(int kb, int nk, float (&v)[R][4]) const {
+    dense_rows<R>(p, N, kb, nk, v);
+  }
+};
+
+// w * m[n]: the dequant decode on a float weight (one multiply per element,
+// as the plain version's w * mask[None, :])
+template <typename WT>
+struct Weights<EPI_COL_MASK, WT, 0> : Weights<EPI_DEQUANT, WT, 0> {
+  __device__ Weights(const void* w, int N_, int n, const EpiArgs& e)
+      : Weights<EPI_DEQUANT, WT, 0>(w, N_, n, e) {}
+};
+
+template <typename WT>
+struct Weights<EPI_FQ_MASK, WT, 0> : Weights<EPI_FAKE_QUANT, WT, 0> {
+  float m[4];
+  __device__ Weights(const void* w, int N_, int n, const EpiArgs& e)
+      : Weights<EPI_FAKE_QUANT, WT, 0>(w, N_, n, e) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) m[c] = e.scale[(n + c) * e.scale_stride];
+  }
+  template <int R>
+  __device__ void rows(int kb, int nk, float (&v)[R][4]) const {
+    Weights<EPI_FAKE_QUANT, WT, 0>::template rows<R>(kb, nk, v);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      if (i >= nk) break;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) v[i][c] = v[i][c] * m[c];
+    }
+  }
+};
+
 // ---- small-M variant -------------------------------------------------------
 constexpr int SM_MMAX = 8;     // rows of x per launch
 constexpr int SM_TX = 32;      // threads along N, 4 columns each
@@ -267,7 +319,7 @@ gemm_small_m(const XT* __restrict__ x, const void* __restrict__ w,
     const int ke = min(kb + SM_KB, K);
     // int codes decode the group's SM_KB rows before their FMAs (SM_KB
     // loads in flight); fake-quant, whose decode is heavier, goes row by row
-    constexpr int R = EPI == EPI_FAKE_QUANT ? 1 : SM_KB;
+    constexpr int R = (EPI == EPI_FAKE_QUANT || EPI == EPI_FQ_MASK) ? 1 : SM_KB;
     for (int r0 = kb; live && r0 < ke; r0 += R) {
       const int nk = min(R, ke - r0);
       float v[R][4];
@@ -421,6 +473,15 @@ cudaError_t by_epilogue(int epi, int w_dtype, int bits, const void* x,
     if (w_dtype == DT_I8) return L(EPI_DEQUANT, int8_t, 0);
     if (w_dtype == DT_I16) return L(EPI_DEQUANT, int16_t, 0);
     if (w_dtype == DT_I32) return L(EPI_DEQUANT, int32_t, 0);
+  } else if (epi == EPI_NONE) {
+    if (w_dtype == DT_F32) return L(EPI_NONE, float, 0);
+    if (w_dtype == DT_BF16) return L(EPI_NONE, __nv_bfloat16, 0);
+  } else if (epi == EPI_COL_MASK) {
+    if (w_dtype == DT_F32) return L(EPI_COL_MASK, float, 0);
+    if (w_dtype == DT_BF16) return L(EPI_COL_MASK, __nv_bfloat16, 0);
+  } else if (epi == EPI_FQ_MASK) {
+    if (w_dtype == DT_F32) return L(EPI_FQ_MASK, float, 0);
+    if (w_dtype == DT_BF16) return L(EPI_FQ_MASK, __nv_bfloat16, 0);
   } else if (epi == EPI_UNPACK && w_dtype == DT_I32) {
     if (bits == 2) return L(EPI_UNPACK, int32_t, 2);
     if (bits == 3) return L(EPI_UNPACK, int32_t, 3);

@@ -1,12 +1,21 @@
 """The GEMM core with a fused weight-decoding epilogue: y = x @ T(w).
 
-Port of `repro.kernels.gemm_core` for the serving epilogues. The weight
-transform T is described by an `Epilogue`:
+Port of `repro.kernels.gemm_core`. The weight transform T is described by
+an `Epilogue`:
 
+  none()                      w f32/bf16 (K, N); T = w
+  col_mask(mask)              w f32/bf16 (K, N); T = w * mask[n]
   fake_quant_rhs(d, q_m, t)   w f32/bf16 (K, N); T = Eqs (1)-(2)
+  fq_col_mask(d, q_m, t, mask) T = fake_quant(w) * mask[n] (`fq_mask_ops`)
   dequant(scale)              w int codes (K, N); T = codes * scale[n]
   unpack_dequant(bits, scale) w int32 words (ceil(K/cpw), N), cpw codes
                               per word packed along K; T = codes * scale[n]
+
+The first four serve training: the forward (with or without the GETA
+column mask) and the backward GEMMs `g @ T(w.T)` and `x.T @ g`, at
+M = B*S tokens or M = K_in. The kernel takes a contiguous w, so the
+backward passes `w.T.contiguous()`, the copy XLA materialises before its
+`pallas_call` too.
 
 `gemm` decides by device. A CPU tensor goes to the plain PyTorch version
 in `kernels.ref`; a CUDA tensor goes to the hand-written kernel in
@@ -20,7 +29,6 @@ K) under `reduce_splits`. Only the CUDA path adds to it, once per launch.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Optional
 
 import torch
@@ -29,8 +37,14 @@ from repro_torch.core.quant import codes_per_word
 from repro_torch.kernels import build, ref
 
 FAKE_QUANT, DEQUANT, UNPACK = "fake_quant_rhs", "dequant", "unpack_dequant"
+NONE, COL_MASK, FQ_MASK = "none", "col_mask", "fq_col_mask"
 REDUCE = "reduce_splits"     # the split-K second pass, for any epilogue
-_EPI_CODE = {FAKE_QUANT: 0, DEQUANT: 1, UNPACK: 2}
+_EPI_CODE = {FAKE_QUANT: 0, DEQUANT: 1, UNPACK: 2, NONE: 3, COL_MASK: 4,
+             FQ_MASK: 5}
+_FLOAT_W = (torch.float32, torch.bfloat16)
+_W_DTYPES = {FAKE_QUANT: _FLOAT_W, NONE: _FLOAT_W, COL_MASK: _FLOAT_W,
+             FQ_MASK: _FLOAT_W, DEQUANT: (torch.int8, torch.int16, torch.int32),
+             UNPACK: (torch.int32,)}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                torch.int16: 3, torch.int32: 4}
 SMALL_M_MAX = 8      # rows the kernel's small-M (decode) variant takes
@@ -42,9 +56,10 @@ _SMALL_M_BK = 128    # ... and K rows per chunk (csrc/gemm_core.cu)
 class Epilogue:
     """How the kernel decodes each weight tile after its load.
 
-    operands: (d, q_m, t) 0-d f32 tensors for fake-quant, (scale,) with
-    scale of shape (N,), or one value for every column, for dequant and
-    unpack_dequant. bits: the packed
+    operands: (d, q_m, t) 0-d f32 tensors for fake-quant, (d, q_m, t,
+    mask) for fake-quant then column mask, (mask,) of shape (N,) for
+    col_mask, () for none, (scale,) with scale of shape (N,), or one value
+    for every column, for dequant and unpack_dequant. bits: the packed
     field width for unpack_dequant (2, 3, 4 or 8), else 0."""
     name: str
     operands: tuple
@@ -55,8 +70,21 @@ class Epilogue:
         return codes_per_word(self.bits) if self.name == UNPACK else 1
 
 
+def none() -> Epilogue:
+    return Epilogue(NONE, ())
+
+
+def col_mask(mask) -> Epilogue:
+    return Epilogue(COL_MASK, (mask,))
+
+
 def fake_quant_rhs(d, q_m, t) -> Epilogue:
     return Epilogue(FAKE_QUANT, (d, q_m, t))
+
+
+def fq_col_mask(d, q_m, t, mask) -> Epilogue:
+    """fake_quant(w) then the column mask, in one pass over W."""
+    return Epilogue(FQ_MASK, (d, q_m, t, mask))
 
 
 def dequant(scale) -> Epilogue:
@@ -72,8 +100,13 @@ def unpack_dequant(bits: int, scale) -> Epilogue:
 
 def plain(x, w, epi: Epilogue, out_dtype) -> torch.Tensor:
     """The plain PyTorch version of one kernel call."""
-    if epi.name == FAKE_QUANT:
+    if epi.name in (FAKE_QUANT, FQ_MASK):
         return ref.fq_matmul_ref(x, w, *epi.operands, out_dtype=out_dtype)
+    if epi.name == NONE:
+        return ref.matmul_ref(x, w, out_dtype=out_dtype)
+    if epi.name == COL_MASK:
+        return ref.masked_matmul_ref(x, w, epi.operands[0],
+                                     out_dtype=out_dtype)
     if epi.name == DEQUANT:
         return ref.quant_matmul_ref(x, w, epi.operands[0],
                                     out_dtype=out_dtype)
@@ -96,15 +129,6 @@ def k_splits(M: int, N: int, K: int, sm_count: int) -> tuple[int, int]:
     return -(-n_chunks // per_split), per_split
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def _scalar(v, device) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=torch.float32, device=device).reshape(())
-
-
 def gemm(x: torch.Tensor, w: torch.Tensor, epi: Epilogue, *,
          out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """y = x @ T(w) with f32 accumulation, written in `out_dtype` (default
@@ -124,9 +148,7 @@ def gemm(x: torch.Tensor, w: torch.Tensor, epi: Epilogue, *,
     for name, dt in (("x", x.dtype), ("out", out_dtype)):
         if dt not in (torch.float32, torch.bfloat16):
             raise ValueError(f"gemm: {name} dtype {dt} is not f32 or bf16")
-    w_ok = {FAKE_QUANT: (torch.float32, torch.bfloat16),
-            DEQUANT: (torch.int8, torch.int16, torch.int32),
-            UNPACK: (torch.int32,)}[epi.name]
+    w_ok = _W_DTYPES[epi.name]
     if w.dtype not in w_ok:
         raise ValueError(f"gemm {epi.name}: w dtype {w.dtype} not in {w_ok}")
     if N % 4 or not w.is_contiguous() or w.data_ptr() % 16:
@@ -136,17 +158,19 @@ def gemm(x: torch.Tensor, w: torch.Tensor, epi: Epilogue, *,
     dev = x.device
     x = x.contiguous()
     scale, scale_stride, fq = None, 0, [None, None, None]
-    if epi.name == FAKE_QUANT:
-        fq = [_scalar(v, dev) for v in epi.operands]
-    else:
-        scale = torch.as_tensor(epi.operands[0], dtype=torch.float32,
+    col = epi.operands       # (mask,), (scale,) or ()
+    if epi.name in (FAKE_QUANT, FQ_MASK):
+        fq = [build.device_scalar(v, dev) for v in epi.operands[:3]]
+        col = epi.operands[3:]
+    if col:
+        scale = torch.as_tensor(col[0], dtype=torch.float32,
                                 device=dev).reshape(-1).contiguous()
         if scale.numel() not in (1, N):
             raise ValueError(f"gemm {epi.name}: scale has {scale.numel()} "
                              f"values for N={N} columns")
         scale_stride = int(scale.numel() == N)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
-    splits, per_split = k_splits(M, N, K, _sm_count(dev))
+    splits, per_split = k_splits(M, N, K, build.sm_count(dev))
     ws = (torch.empty((splits * M * N,), dtype=torch.float32, device=dev)
           if splits > 1 else None)
     lib = build.load()
@@ -164,14 +188,15 @@ def gemm(x: torch.Tensor, w: torch.Tensor, epi: Epilogue, *,
     return out
 
 
-gemm.launches = {FAKE_QUANT: 0, DEQUANT: 0, UNPACK: 0, REDUCE: 0}
+gemm.launches = {name: 0 for name in (*_EPI_CODE, REDUCE)}
 
 
 def bytes_moved(M: int, N: int, K: int, x_itemsize: int, w: torch.Tensor,
                 out_itemsize: int, epi: Epilogue) -> int:
     """Bytes one call must move at least: x, w and the epilogue operands
     read once, y written once."""
-    operands = 3 * 4 if epi.name == FAKE_QUANT else N * 4
+    operands = ({FAKE_QUANT: 12, NONE: 0, FQ_MASK: 12 + N * 4}
+                .get(epi.name, N * 4))
     return (M * K * x_itemsize + w.numel() * w.element_size() + operands
             + M * N * out_itemsize)
 

@@ -1,20 +1,134 @@
-"""Public kernel entry points of the serving path (forward only: decode
-holds no gradients; the autograd Functions come with the training slice).
+"""Public kernel entry points.
 
-Each op is one call of a kernel wrapper, which decides by device between
-the CUDA kernel and its plain PyTorch version.
+Each op is one call (or, with a gradient, a few calls) of a kernel wrapper,
+which decides by device between the CUDA kernel and its plain PyTorch
+version.
+
+The matmul ops on the training path (`matmul_op`, `masked_matmul_op`,
+`fq_matmul_op`, `fq_masked_matmul_op`) are `torch.autograd.Function`s
+whose backward GEMMs run on the same GEMM core, as `repro.kernels.ops`'s
+custom VJPs do: the quantizer stays fused into the dx GEMM's weight load
+(`g @ fake_quant(w.T)`), `dwq = x.T @ g` runs with no epilogue in f32, and
+the weight cotangent goes through the fake-quant backward kernel (the STE
+of Eqs 4-6) after the cast `dwq.to(w.dtype)`, which at bf16 changes the
+scalar sums exactly as the JAX package's cast does. Column masks are GETA
+decay schedules, not learned parameters: their cotangent is zero.
+`fake_quant_op` is `core.quant.fake_quant`, the same custom-VJP contract.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.quant import fake_quant
+from repro_torch.kernels import fake_quant as _fq
 from repro_torch.kernels import gemm_core as _gc
 from repro_torch.kernels.decode_attn import decode_attn, paged_decode_attn
 
+F32 = torch.float32
+
+
+def fake_quant_op(x, d, q_m, t) -> torch.Tensor:
+    """Differentiable fake-quant through the fused elementwise kernels."""
+    return fake_quant(x, d, q_m, t)
+
+
+def _mask_cols(g: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """g * mask[None, :] in f32, back in g's dtype."""
+    return (g.to(F32) * mask.to(F32).reshape(1, -1)).to(g.dtype)
+
+
+def _fq_weight_grads(w, d, q_m, t, dwq):
+    """Route the weight cotangent through the quantizer's STE: (dw, dd,
+    dq_m, dt)."""
+    dw, dd, dqm, dt = _fq.fake_quant_bwd(w, d, q_m, t, dwq.to(w.dtype))
+    return dw, dd.reshape(d.shape), dqm.reshape(q_m.shape), dt.reshape(t.shape)
+
+
+class _Matmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _gc.gemm(x, w, _gc.none())
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = _gc.gemm(g, w.T.contiguous(), _gc.none(), out_dtype=x.dtype)
+        dw = _gc.gemm(x.T, g, _gc.none(), out_dtype=w.dtype)
+        return dx, dw
+
+
+class _MaskedMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, mask):
+        ctx.save_for_backward(x, w, mask)
+        return _gc.gemm(x, w, _gc.col_mask(mask))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, mask = ctx.saved_tensors
+        # d/dx [x @ (w*m)] = (g*m) @ w.T ; d/dw = (x.T @ g) * m
+        dx = _gc.gemm(_mask_cols(g, mask), w.T.contiguous(), _gc.none(),
+                      out_dtype=x.dtype)
+        dw = _gc.gemm(x.T, g, _gc.col_mask(mask), out_dtype=w.dtype)
+        return dx, dw, torch.zeros_like(mask)
+
+
+class _FqMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, d, q_m, t):
+        ctx.save_for_backward(x, w, d, q_m, t)
+        return _gc.gemm(x, w, _gc.fake_quant_rhs(d, q_m, t))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, d, q_m, t = ctx.saved_tensors
+        # dx = g @ fake_quant(w).T: fake_quant is elementwise, so the
+        # transpose commutes and the quantizer stays in the weight load
+        dx = _gc.gemm(g, w.T.contiguous(), _gc.fake_quant_rhs(d, q_m, t),
+                      out_dtype=x.dtype)
+        dwq = _gc.gemm(x.T, g, _gc.none(), out_dtype=F32)
+        return (dx, *_fq_weight_grads(w, d, q_m, t, dwq))
+
+
+class _FqMaskedMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, mask, d, q_m, t):
+        ctx.save_for_backward(x, w, mask, d, q_m, t)
+        return _gc.gemm(x, w, _gc.fq_col_mask(d, q_m, t, mask))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, mask, d, q_m, t = ctx.saved_tensors
+        # dx = (g*m) @ fake_quant(w.T); dwq = x.T @ (g*m)
+        gm = _mask_cols(g, mask)
+        dx = _gc.gemm(gm, w.T.contiguous(), _gc.fake_quant_rhs(d, q_m, t),
+                      out_dtype=x.dtype)
+        dwq = _gc.gemm(x.T, gm, _gc.none(), out_dtype=F32)
+        dw, dd, dqm, dt = _fq_weight_grads(w, d, q_m, t, dwq)
+        return dx, dw, torch.zeros_like(mask), dd, dqm, dt
+
+
+def matmul_op(x, w) -> torch.Tensor:
+    """y = x @ w on the GEMM core (differentiable)."""
+    return _Matmul.apply(x, w)
+
+
+def masked_matmul_op(x, w, mask) -> torch.Tensor:
+    """y = x @ (w * mask[None, :]) (differentiable; mask cotangent 0)."""
+    return _MaskedMatmul.apply(x, w, mask)
+
 
 def fq_matmul_op(x, w, d, q_m, t) -> torch.Tensor:
-    """y = x @ fake_quant(w; d, q_m, t) in one pass over W."""
-    return _gc.gemm(x, w, _gc.fake_quant_rhs(d, q_m, t))
+    """y = x @ fake_quant(w; d, q_m, t) in one pass over W; backward by
+    the STE (Eqs 4-6 for the scalars)."""
+    return _FqMatmul.apply(x, w, d, q_m, t)
+
+
+def fq_masked_matmul_op(x, w, mask, d, q_m, t) -> torch.Tensor:
+    """y = x @ (fake_quant(w; d, q_m, t) * mask[None, :]) — the GETA
+    joint-stage forward in one pass over W (mask cotangent 0)."""
+    return _FqMaskedMatmul.apply(x, w, mask, d, q_m, t)
 
 
 def quant_matmul_op(x, codes, scale) -> torch.Tensor:
@@ -45,9 +159,10 @@ def paged_decode_attn_op(q, kpool, vpool, pos, page_table, *, page_size,
 
 
 def launch_counts() -> dict[str, int]:
-    """Kernel launches so far, by kernel variant (GEMM epilogue, page
-    storage)."""
+    """Kernel launches so far, by kernel variant (GEMM epilogue, fake-quant
+    direction, page storage)."""
     out = {f"gemm_core.{k}": v for k, v in _gc.gemm.launches.items()}
+    out.update({f"fake_quant.{k}": v for k, v in _fq.launches.items()})
     out["decode_attn"] = decode_attn.launches
     out.update({f"paged_decode_attn.{k}": v
                 for k, v in paged_decode_attn.launches.items()})
@@ -55,7 +170,8 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for counts in (_gc.gemm.launches, paged_decode_attn.launches):
+    for counts in (_gc.gemm.launches, _fq.launches,
+                   paged_decode_attn.launches):
         for k in counts:
             counts[k] = 0
     decode_attn.launches = 0

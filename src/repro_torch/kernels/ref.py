@@ -17,6 +17,39 @@ from repro_torch.core.quant import (_EPS, clip_qmt, kv_quant_decode,
 F32 = torch.float32
 
 
+def fake_quant_fwd_ref(x: torch.Tensor, d: torch.Tensor, q_m: torch.Tensor,
+                       t: torch.Tensor) -> torch.Tensor:
+    """Eqs (1)-(2) elementwise in f32, returned in x's dtype: the plain
+    version of the fake-quant forward kernel."""
+    d32 = torch.clamp_min(d.to(F32), _EPS)
+    sign = torch.sign(x).to(F32)
+    xt = clip_qmt(x.abs().to(F32), q_m.to(F32), t.to(F32))
+    return (d32 * torch.round(xt / d32) * sign).to(x.dtype)
+
+
+def fake_quant_bwd_ref(x, d, q_m, t, g):
+    """STE dx (g inside the clip, 0 outside, in x's dtype) and the three
+    scalar sums of Eqs (4)-(6), (dd, dq_m, dt) as f32 0-d tensors, in the
+    operation order of `repro.core.quant`'s custom VJP: the plain version
+    of the fake-quant backward kernel."""
+    x32 = x.to(F32)
+    g32 = g.to(F32)
+    d32 = torch.clamp_min(d.to(F32), _EPS)
+    qm32 = torch.clamp_min(q_m.to(F32), _EPS)
+    t32 = t.to(F32)
+    ax = x32.abs()
+    sign = torch.sign(x32)
+    inside = ax <= qm32
+    dx = torch.where(inside, g32, 0.0).to(x.dtype)
+    v = clip_qmt(ax, qm32, t32) / d32
+    dd = torch.sum(g32 * (sign * (torch.round(v) - v)))
+    base = torch.where(inside, torch.clamp_min(ax, _EPS), qm32)
+    dt = torch.sum(g32 * (sign * torch.pow(base, t32) * torch.log(base)))
+    dqm = torch.sum(g32 * torch.where(
+        inside, 0.0, sign * t32 * torch.pow(qm32, t32 - 1.0)))
+    return dx, dd, dqm, dt
+
+
 def fake_quant_weight(w: torch.Tensor, d: torch.Tensor, q_m: torch.Tensor,
                       t: torch.Tensor) -> torch.Tensor:
     """The `fake_quant_rhs` epilogue on an f32 weight: Eqs (1)-(2) with the
@@ -26,14 +59,25 @@ def fake_quant_weight(w: torch.Tensor, d: torch.Tensor, q_m: torch.Tensor,
     return d * torch.round(xt / d) * torch.sign(w)
 
 
-def matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def matmul_ref(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None
+               ) -> torch.Tensor:
     """Plain dense y = x @ w at f32 accumulation."""
-    return (x.to(F32) @ w.to(F32)).to(x.dtype)
+    return (x.to(F32) @ w.to(F32)).to(out_dtype or x.dtype)
 
 
-def fq_matmul_ref(x, w, d, q_m, t, *, out_dtype=None) -> torch.Tensor:
-    """y = x @ fake_quant(w) — the dense serving projection."""
+def masked_matmul_ref(x, w, mask, *, out_dtype=None) -> torch.Tensor:
+    """y = x @ (w * mask[None, :]) — structured column (group) masking."""
+    w32 = w.to(F32) * mask.to(F32).reshape(1, -1)
+    return (x.to(F32) @ w32).to(out_dtype or x.dtype)
+
+
+def fq_matmul_ref(x, w, d, q_m, t, mask=None, *, out_dtype=None
+                  ) -> torch.Tensor:
+    """y = x @ (fake_quant(w) * mask) in f32 — the dense serving
+    projection, and with `mask` the GETA joint-stage forward."""
     wq = fake_quant_weight(w.to(F32), d, q_m, t)
+    if mask is not None:
+        wq = wq * mask.to(F32).reshape(1, -1)
     return (x.to(F32) @ wq).to(out_dtype or x.dtype)
 
 

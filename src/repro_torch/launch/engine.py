@@ -50,7 +50,7 @@ def resolve_device(device=None) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "repro_torch serves on CUDA and found no CUDA device; pass "
+            "repro_torch runs on CUDA and found no CUDA device; pass "
             "device='cpu' (--device cpu) to run the plain PyTorch versions "
             "of the kernels on the CPU")
     return dev

@@ -7,10 +7,12 @@ quantizer sites (`<name>.wq`, `<site>.aq`) to `QuantParams`, activations
 run in the config's dtype and softmax/norm in f32.
 
 Projections go through `dense_proj`, which routes a weight to the GEMM
-kernel whose epilogue decodes it: fake-quant for dense weights with a
-quantizer, dequant for `<name>.codes`, unpack-dequant for
-`<name>.packed{bits}`. Prefill attention, norms, rope and SiLU are plain
-PyTorch, as they were plain XLA in the JAX package.
+kernel whose epilogue decodes it: fake-quant (and the GETA column mask)
+for dense weights with a quantizer, dequant for `<name>.codes`,
+unpack-dequant for `<name>.packed{bits}`. The training forward is
+differentiable: the routed GEMMs and the fake-quant sites are autograd
+Functions over the kernels. Full-sequence attention, norms, rope and SiLU
+are plain PyTorch, as they were plain XLA in the JAX package.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ PACKED_PARAM_BITS = tuple(sorted(PACKED_STORAGE_BITS, reverse=True))
 
 
 def not_in_this_slice(what: str, where: str) -> NotImplementedError:
-    """The error every path outside the serving slice raises."""
+    """The error every path the port does not cover yet raises."""
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet; it comes with {where}")
 
@@ -91,20 +93,23 @@ def qa(x: torch.Tensor, qparams: Optional[dict], site: str) -> torch.Tensor:
     return x
 
 
-def dense_proj(x: torch.Tensor, lp: dict, qp: Optional[dict],
-               name: str) -> torch.Tensor:
-    """x @ T(w) for one 2-D weight, routed by what the param dict holds:
+def dense_proj(x: torch.Tensor, lp: dict, qp: Optional[dict], name: str, *,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x @ (T(w) * mask) for one 2-D weight, routed by what the param dict
+    holds:
 
     - `<name>.packed{bits}` + `<name>.scale` -> packed_quant_matmul_op
     - `<name>.codes` + `<name>.scale`       -> quant_matmul_op
-    - dense weight with a `<name>.wq` site   -> fq_matmul_op
-    - dense weight, no site                  -> x @ w (torch.matmul)
+    - dense weight with a `<name>.wq` site and a column mask (`mask=`, or
+      `<name>.colmask` riding the param dict) -> fq_masked_matmul_op
+    - dense weight with a site               -> fq_matmul_op
+    - dense weight with a mask only          -> masked_matmul_op
+    - dense weight, neither                  -> x @ w (torch.matmul)
     """
-    if name + ".colmask" in lp:
-        raise not_in_this_slice("column-masked projection (`.colmask`)",
-                                "the training slice (ROADMAP Queue 1 item 5)")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
+    if mask is None:
+        mask = lp.get(name + ".colmask")
     for pbits in PACKED_PARAM_BITS:
         packed = lp.get(f"{name}.packed{pbits}")
         if packed is not None:
@@ -117,11 +122,18 @@ def dense_proj(x: torch.Tensor, lp: dict, qp: Optional[dict],
         return y.reshape(*lead, codes.shape[-1])
     w = lp[name]
     qpw: Optional[QuantParams] = qp.get(name + ".wq") if qp else None
-    if qpw is None or w.ndim != 2:
+    if w.ndim != 2 or (qpw is None and mask is None):
         if qpw is not None:
             w = fake_quant(w, qpw.d, qpw.q_m, qpw.t)
+        if mask is not None:
+            w = w * mask.to(w.dtype)[None, :]
         return x @ w
-    y = Kops.fq_matmul_op(x2, w, qpw.d, qpw.q_m, qpw.t)
+    if qpw is not None and mask is not None:
+        y = Kops.fq_masked_matmul_op(x2, w, mask, qpw.d, qpw.q_m, qpw.t)
+    elif qpw is not None:
+        y = Kops.fq_matmul_op(x2, w, qpw.d, qpw.q_m, qpw.t)
+    else:
+        y = Kops.masked_matmul_op(x2, w, mask)
     return y.reshape(*lead, w.shape[-1])
 
 

@@ -7,13 +7,18 @@ after compression), passed to every call, so weights cross between the
 two packages 1:1.
 
 PyTorch runs eagerly, so the layer stack is a Python loop over per-layer
-views of the stacked tensors, and `prefill` / `decode_step` write the KV
-cache (the contiguous arena, or the paged pools) IN PLACE and return the
-same dict.
+views of the stacked tensors (one `torch.unbind` per stacked tensor, so
+the backward stacks each tensor's layer gradients in one node), and
+`prefill` / `decode_step` write the KV cache (the contiguous arena, or the
+paged pools) IN PLACE and return the same dict.
 
 Weight quantizers split as in JAX: sites on routed 2-D block projections
 fuse into the GEMM's fake-quant epilogue; the rest (the head) are
-fake-quanted once per call in `_prequantize`.
+fake-quanted once per call in `_prequantize`. `loss` is the training
+objective; with `cfg.remat` each layer of the training forward runs under
+`torch.utils.checkpoint` (non-reentrant), so the backward recomputes the
+layer instead of keeping its activations, with the same numbers.
+`build_graph` describes the model to QADG (`core.qadg`).
 """
 from __future__ import annotations
 
@@ -21,8 +26,11 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.graph import FamilySpec, GraphBuilder
 from repro_torch.core.quant import (KV_STORAGE_BITS, QuantParams, fake_quant,
                                     init_quant_params)
 from repro_torch.models import layers as Lyr
@@ -40,6 +48,8 @@ _QUANT_WEIGHTS = {
     "attn": ["wq", "wk", "wv", "wo"],
     "mlp": ["w_gate", "w_up", "w_down"],
 }
+# Activation-quant sites (per sublayer component).
+_ACT_SITES = {"attn": ["attn_out"], "mlp": ["mlp_act"]}
 
 
 class LM(torch.nn.Module):
@@ -92,10 +102,26 @@ class LM(torch.nn.Module):
         names.append("embed" if self.cfg.tie_embeddings else "head")
         return names
 
-    def init_qparams(self, params: dict, bits_init: float = 8.0
-                     ) -> dict[str, QuantParams]:
-        return {name + ".wq": init_quant_params(params[name], bits=bits_init)
-                for name in self.quant_weight_names() if name in params}
+    def act_site_names(self) -> list[str]:
+        names = []
+        for sub in self.plan:
+            pre = f"blocks.{sub.j}"
+            names += [f"{pre}.{sub.mixer}.{s}.aq"
+                      for s in _ACT_SITES[sub.mixer]]
+            names += [f"{pre}.{sub.ffn}.{s}.aq" for s in _ACT_SITES[sub.ffn]]
+        return names
+
+    def init_qparams(self, params: dict, bits_init: float = 8.0,
+                     act_quant: bool = False) -> dict[str, QuantParams]:
+        """Weight sites at `bits_init` from each weight's max|w| and, with
+        `act_quant`, activation sites at q_m = 4, on the params' device."""
+        qp = {name + ".wq": init_quant_params(params[name], bits=bits_init)
+              for name in self.quant_weight_names() if name in params}
+        if act_quant:
+            q_m = torch.tensor(4.0, device=params["embed"].device)
+            for site in self.act_site_names():
+                qp[site] = init_quant_params(q_m=q_m, bits=bits_init)
+        return qp
 
     @staticmethod
     def _fused_qat_site(name: str, w: torch.Tensor) -> bool:
@@ -125,44 +151,63 @@ class LM(torch.nn.Module):
     # -------------------------------------------------------------- forward
     def _embed_tokens(self, params: dict, tokens: torch.Tensor
                       ) -> torch.Tensor:
-        return params["embed"][tokens]
+        # F.embedding's backward sums rows without atomics on the card;
+        # indexing (`embed[tokens]`) would backprop through index_put_
+        # with accumulation
+        return F.embedding(tokens, params["embed"])
 
     def _head(self, params: dict, h: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_embeddings:
             return h @ params["embed"].T
         return Lyr.dense_proj(h, params, None, "head")
 
-    @staticmethod
-    def _layer(params: dict, i: int) -> dict:
-        """Layer i's view of the stacked block params (no copies)."""
-        return {k: v[i] for k, v in params.items() if k.startswith("blocks.")}
+    def _layer_views(self, params: dict) -> list[dict]:
+        """Each layer's view of the stacked block params (no copies)."""
+        views = [{} for _ in range(self.n_blocks)]
+        for k, v in params.items():
+            if k.startswith("blocks."):
+                for i, vi in enumerate(torch.unbind(v, 0)):
+                    views[i][k] = vi
+        return views
+
+    def _block(self, lp, qp_body, x, rope, caches=None, pos=None,
+               pages=None, i=0):
+        """One layer of the stack on the residual stream x."""
+        cfg = self.cfg
+        for sub, shp in zip(self.plan, self.shapes):
+            pre = f"blocks.{sub.j}"
+            h = Lyr.rmsnorm(x, lp[f"{pre}.norm1"], cfg.norm_eps)
+            cache = None
+            if caches is not None:
+                cache = (caches[f"{pre}.k"][i], caches[f"{pre}.v"][i], pos)
+            if pages is not None and pages.kv_bits is not None:
+                cache += (caches[f"{pre}.k_scale"][i],
+                          caches[f"{pre}.v_scale"][i])
+            elif pages is not None:
+                cache += (None, None)
+            mix, _ = Lyr.attn_apply(lp, qp_body, cfg, h, rope=rope,
+                                    prefix=f"{pre}.attn", cache=cache,
+                                    shapes=shp, pages=pages)
+            x = x + mix
+            h2 = Lyr.rmsnorm(x, lp[f"{pre}.norm2"], cfg.norm_eps)
+            x = x + Lyr.mlp_apply(lp, qp_body, cfg, h2, prefix=f"{pre}.mlp")
+        return x
 
     def _blocks(self, params, qp_body, x, rope, caches=None, pos=None,
                 pages=None):
         """Run the layer stack; with `caches`, each attention sublayer
         writes its K/V into the cache in place (into the shared page pools
-        through `pages`, a `Lyr.PagedView`, when given)."""
-        cfg = self.cfg
-        for i in range(self.n_blocks):
-            lp = self._layer(params, i)
-            for sub, shp in zip(self.plan, self.shapes):
-                pre = f"blocks.{sub.j}"
-                h = Lyr.rmsnorm(x, lp[f"{pre}.norm1"], cfg.norm_eps)
-                cache = None
-                if caches is not None:
-                    cache = (caches[f"{pre}.k"][i], caches[f"{pre}.v"][i], pos)
-                if pages is not None and pages.kv_bits is not None:
-                    cache += (caches[f"{pre}.k_scale"][i],
-                              caches[f"{pre}.v_scale"][i])
-                elif pages is not None:
-                    cache += (None, None)
-                mix, _ = Lyr.attn_apply(lp, qp_body, cfg, h, rope=rope,
-                                        prefix=f"{pre}.attn", cache=cache,
-                                        shapes=shp, pages=pages)
-                x = x + mix
-                h2 = Lyr.rmsnorm(x, lp[f"{pre}.norm2"], cfg.norm_eps)
-                x = x + Lyr.mlp_apply(lp, qp_body, cfg, h2,
-                                      prefix=f"{pre}.mlp")
+        through `pages`, a `Lyr.PagedView`, when given). A training
+        forward (grad enabled, no cache) under `cfg.remat` checkpoints
+        each layer."""
+        remat = (self.cfg.remat and caches is None
+                 and torch.is_grad_enabled())
+        for i, lp in enumerate(self._layer_views(params)):
+            if remat:
+                x = checkpoint(self._block, lp, qp_body, x, rope,
+                               use_reentrant=False)
+            else:
+                x = self._block(lp, qp_body, x, rope, caches, pos, pages, i)
         return x
 
     def forward(self, params: dict, qparams: Optional[dict],
@@ -176,6 +221,97 @@ class LM(torch.nn.Module):
         x = self._blocks(params, qp_body, x, rope)
         x = Lyr.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         return self._head(params, x)
+
+    # ----------------------------------------------------------------- loss
+    def loss(self, params: dict, qparams: Optional[dict], batch: dict
+             ) -> torch.Tensor:
+        """Next-token cross-entropy: f32 logsumexp, and the gold logit by
+        a masked reduction over the vocab (no gather), as the JAX
+        package computes it."""
+        tokens = batch["tokens"]
+        logits = self.forward(params, qparams, tokens)
+        pred = logits[:, :-1].to(torch.float32)
+        tgt = tokens[:, 1:]
+        logz = torch.logsumexp(pred, dim=-1)
+        vocab_iota = torch.arange(pred.shape[-1], dtype=tgt.dtype,
+                                  device=tgt.device)
+        gold = torch.sum(torch.where(vocab_iota == tgt[..., None], pred, 0.0),
+                         dim=-1)
+        return torch.mean(logz - gold)
+
+    # -------------------------------------------------------------- graph
+    def build_graph(self, act_quant: bool = False) -> GraphBuilder:
+        """Trace graph + quant branches for QADG analysis: one vertex per
+        (position-in-period, component); families over KV-head groups and
+        MLP channels apply uniformly across the n_blocks stack."""
+        cfg = self.cfg
+        gb = GraphBuilder()
+        gb.input("in")
+        gb.embedding("embed", "embed", out_dim=cfg.d_model,
+                     non_prunable=True, after="in", out_axis=1)
+        resid = "embed"
+        for sub in self.plan:
+            pre = f"blocks.{sub.j}"
+            gb.norm(f"{pre}.norm1", scale=f"{pre}.norm1", after=resid,
+                    param_axis=1)
+            mixer_v = self._graph_attn(gb, pre)
+            resid = gb.add(f"{pre}.add1", [resid, mixer_v])
+            gb.norm(f"{pre}.norm2", scale=f"{pre}.norm2", after=resid,
+                    param_axis=1)
+            ffn_v = self._graph_mlp(gb, pre, act_quant)
+            resid = gb.add(f"{pre}.add2", [resid, ffn_v])
+        gb.norm("final_norm", scale="final_norm", after=resid)
+        tied = cfg.tie_embeddings
+        head_param = "embed" if tied else "head"
+        gb.linear("head", head_param, out_dim=cfg.vocab_padded,
+                  non_prunable=True, in_axis=(1 if tied else 0),
+                  out_axis=(0 if tied else 1), after="final_norm")
+        gb.attach_weight_quant("head", f"{head_param}.wq",
+                               target_param=head_param)
+        gb.output("out", after="head")
+        return gb
+
+    def _graph_attn(self, gb: GraphBuilder, pre: str) -> str:
+        cfg = self.cfg
+        gsz, dh = cfg.gqa_group, cfg.d_head
+        members = [(f"{pre}.attn.wq", 2, gsz * dh), (f"{pre}.attn.wk", 2, dh),
+                   (f"{pre}.attn.wv", 2, dh), (f"{pre}.attn.wo", 1, gsz * dh)]
+        if cfg.qkv_bias:
+            members += [(f"{pre}.attn.bq", 1, gsz * dh),
+                        (f"{pre}.attn.bk", 1, dh), (f"{pre}.attn.bv", 1, dh)]
+        spec = FamilySpec(name=f"{pre}.attn.kv_groups", units=cfg.n_kv_heads,
+                          members=members, kind="head_group")
+        vid = gb.composite(
+            f"{pre}.attn", "attention", spec,
+            params={f"p{i}": m[0] for i, m in enumerate(members)},
+            in_members=[(f"{pre}.attn.wq", 1), (f"{pre}.attn.wk", 1),
+                        (f"{pre}.attn.wv", 1)],
+            resid_members=[(f"{pre}.attn.wo", 2)], after=f"{pre}.norm1")
+        for w in _QUANT_WEIGHTS["attn"]:
+            gb.attach_weight_quant(vid, f"{pre}.attn.{w}.wq",
+                                   target_param=f"{pre}.attn.{w}")
+        return vid
+
+    def _graph_mlp(self, gb: GraphBuilder, pre: str, act_quant: bool) -> str:
+        # gate/up produce the hidden space (tied through the product), down
+        # consumes it, as generic vertices so the dependency analysis (and
+        # inserted act-quant branches) apply
+        cfg = self.cfg
+        g = gb.linear(f"{pre}.mlp.gate", f"{pre}.mlp.w_gate",
+                      out_dim=cfg.d_ff, in_axis=1, out_axis=2,
+                      after=f"{pre}.norm2")
+        u = gb.linear(f"{pre}.mlp.up", f"{pre}.mlp.w_up", out_dim=cfg.d_ff,
+                      in_axis=1, out_axis=2, after=f"{pre}.norm2")
+        m = gb.add(f"{pre}.mlp.prod", [g, u])
+        a = gb.act(f"{pre}.mlp.silu", after=m)
+        dn = gb.linear(f"{pre}.mlp.down", f"{pre}.mlp.w_down", in_axis=1,
+                       out_axis=2, out_dim=cfg.d_model, non_prunable=True,
+                       after=a)
+        for w in ("gate", "up", "down"):
+            gb.attach_weight_quant(f"{pre}.mlp.{w}", f"{pre}.mlp.w_{w}.wq")
+        if act_quant:
+            gb.insert_act_quant(a, dn, f"{pre}.mlp.mlp_act.aq")
+        return dn
 
     # ------------------------------------------------------------- serving
     def init_cache(self, batch: int, max_seq: int, dtype=torch.bfloat16,

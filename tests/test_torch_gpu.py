@@ -11,7 +11,13 @@ kernel sums in another order than the plain matmul); decode attention,
 contiguous and paged (f32, bf16, int8 and int4 pages), at 1e-4 (online
 softmax against the full softmax). On f32 and bf16 pages the paged kernel
 must equal the contiguous kernel on the gathered rows bit for bit, and the
-paged engine's tokens the contiguous engine's.
+paged engine's tokens the contiguous engine's. The fake-quant forward and
+dx are bitwise the plain versions' at t = 1 and t != 1 (both take the same
+powf), and the backward's three sums agree to 1e-5 of the sum of their
+terms' magnitudes (another summation order) and repeat bit for bit run to
+run. One smoke train step on the card agrees with its CPU run at
+`repro_torch.launch.train.STEP_TOLERANCES` (loss 1e-5, params 1e-4 of
+max|x|, q_m and t 1e-4, d 1e-2; identical masks) and repeats bit for bit.
 """
 import numpy as np
 import pytest
@@ -20,6 +26,7 @@ import torch
 from repro_torch.core.quant import (init_quant_params, kv_quant_encode,
                                     pack_codes, quantize_int)
 from repro_torch.kernels import decode_attn as TDA
+from repro_torch.kernels import fake_quant as TFQ
 from repro_torch.kernels import gemm_core as TG
 from repro_torch.kernels import ref
 from repro_torch.launch.engine import (WEIGHT_MODES, engine_serve,
@@ -64,7 +71,7 @@ def test_gemm_kernel_matches_plain(cuda, epilogue, M, K, N):
     y = TG.gemm(x, w, epi, out_dtype=torch.float32)
     want = TG.plain(x, w, epi, torch.float32)
     torch.cuda.synchronize()
-    splits, _ = TG.k_splits(M, N, K, TG._sm_count(x.device))
+    splits, _ = TG.k_splits(M, N, K, TG.build.sm_count(x.device))
     assert TG.gemm.launches[epi.name] == before[epi.name] + 1
     assert (TG.gemm.launches[TG.REDUCE]
             == before[TG.REDUCE] + (splits > 1))
@@ -188,3 +195,80 @@ def test_paged_engine_on_card_matches_contiguous(cuda, mode):
                        page_size=8, **kw)
     for rid in want:
         np.testing.assert_array_equal(got[rid], want[rid])
+
+
+# ---------------------------------------------------------- training slice
+def _fq_case(shape, dtype, t, gen):
+    x = (torch.randn(shape, generator=gen, device="cuda") * 0.05).to(dtype)
+    g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    qm = x.float().abs().max() * 0.8                  # some elements clip
+    qp = init_quant_params(q_m=qm, bits=6.0, t=t)
+    return x, g, (qp.d, qp.q_m, qp.t)
+
+
+@pytest.mark.parametrize("t", [1.0, 0.85])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2048, 8192), (37, 53)])
+def test_fake_quant_kernels_match_plain(cuda, shape, dtype, t):
+    gen = torch.Generator(device=cuda).manual_seed(shape[0])
+    x, g, sc = _fq_case(shape, dtype, t, gen)
+    before = dict(TFQ.launches)
+    y = TFQ.fake_quant_fwd(x, *sc)
+    got = TFQ.fake_quant_bwd(x, *sc, g)
+    want_y = ref.fake_quant_fwd_ref(x, *sc)
+    want = ref.fake_quant_bwd_ref(x, *sc, g)
+    torch.cuda.synchronize()
+    assert TFQ.launches == {TFQ.FWD: before[TFQ.FWD] + 1,
+                            TFQ.BWD: before[TFQ.BWD] + 1}
+    assert y.dtype == x.dtype and got[0].dtype == x.dtype
+    assert torch.equal(y, want_y)
+    assert torch.equal(got[0], want[0])
+    for a, b, scale in zip(got[1:], want[1:], TFQ.sum_scales(x, g, *sc)):
+        assert abs(float(a) - float(b)) <= 1e-5 * scale + 1e-30
+
+
+def test_fake_quant_backward_repeats_bitwise(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x, g, sc = _fq_case((2048, 8192), torch.bfloat16, 0.85, gen)
+    a = TFQ.fake_quant_bwd(x, *sc, g)
+    b = TFQ.fake_quant_bwd(x, *sc, g)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.parametrize("K,N", [(160, 96), (2048, 1024)])
+@pytest.mark.parametrize("M", [4, 37, 2048])
+@pytest.mark.parametrize("epi", ["none", "col_mask", "fq_col_mask"])
+def test_training_epilogues_match_plain(cuda, epi, M, K, N):
+    gen = torch.Generator(device=cuda).manual_seed(K + M)
+    w = (torch.randn((K, N), generator=gen, device=cuda) * K ** -0.5).to(
+        torch.bfloat16)
+    mask = (torch.arange(N, device=cuda) % 3 > 0).float()
+    qp = init_quant_params(w, bits=8.0, t=0.85)
+    e = {"none": TG.none(), "col_mask": TG.col_mask(mask),
+         "fq_col_mask": TG.fq_col_mask(qp.d, qp.q_m, qp.t, mask)}[epi]
+    x = torch.randn((M, K), generator=gen, device=cuda).to(torch.bfloat16)
+    before = dict(TG.gemm.launches)
+    y = TG.gemm(x, w, e, out_dtype=torch.float32)
+    want = TG.plain(x, w, e, torch.float32)
+    torch.cuda.synchronize()
+    assert TG.gemm.launches[epi] == before[epi] + 1
+    torch.testing.assert_close(y, want, rtol=1e-4,
+                               atol=1e-4 * want.abs().max().item())
+    if epi != "none":
+        assert not y[:, mask == 0].any()
+
+
+def test_smoke_train_step_on_card_matches_cpu(cuda):
+    """One joint-stage step (the partition is computed) from the same
+    state: card kernels against the CPU plain versions, at
+    `train.STEP_TOLERANCES`; a second card run repeats bit for bit."""
+    from repro_torch.launch import train as T
+    runs = T.step_on_devices("internlm2-1.8b", ["cpu", "cuda"])
+    diff = T.step_differences(runs["cpu"], runs["cuda"])
+    assert diff.pop("masks")
+    for k, tol in T.STEP_TOLERANCES.items():
+        assert diff[k] <= tol, (k, diff[k], tol)
+    pg, _, _, mg = runs["cuda"]
+    pa, _, _, ma = T.step_on_devices("internlm2-1.8b", ["cuda"])["cuda"]
+    assert torch.equal(ma["loss"], mg["loss"])
+    assert all(torch.equal(pa[k], pg[k]) for k in pg)

@@ -115,3 +115,51 @@ def test_pack_unpack_round_trip_bit_equal(bits, K):
     back = TQ.unpack_codes(tw, bits, K, axis=-2)
     _same(JQ.unpack_codes(jw, bits, K, axis=-2), back)
     np.testing.assert_array_equal(back.numpy(), codes.astype(np.int32))
+
+
+# ------------------------------------------- the training slice's helpers
+@pytest.mark.parametrize("t", [1.0, 0.7])
+def test_residual_and_step_bounds_match_jax(t):
+    """Eq 14's residual and Alg 3's [d_min, d_max] on the same inputs:
+    bit-equal at t = 1; otherwise torch's and XLA's pow differ in the last
+    ulp, which reaches the residual as one ulp of x~/d (up to 2^5 = 32 at
+    6 bits, an ulp of 3.8e-6), and the bounds within 1e-6 relative."""
+    x = np.abs(_weights(11))
+    jq, tq = _qparams(x, 6, t)
+    want = JQ.residual(jnp.asarray(x), jq.d, jq.q_m, jq.t)
+    got = TQ.residual(torch.from_numpy(x), tq.d, tq.q_m, tq.t)
+    jb = JQ.step_size_bounds(jq.q_m, jq.t, jnp.float32(4.0), jnp.float32(12))
+    tb = TQ.step_size_bounds(tq.q_m, tq.t, torch.tensor(4.0),
+                             torch.tensor(12.0))
+    if t == 1.0:
+        _same(want, got)
+    else:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=3.9e-6)
+    for a, b in zip(tb, jb):
+        np.testing.assert_allclose(float(a), float(b), rtol=1e-6)
+
+
+def test_positivity_guard_and_projection_match_jax():
+    cases = [(1e-9, 1e-7, 0.01), (0.3, 2.0, 5.0), (2.0, 0.5, 1.0)]
+    for d, qm, t in cases:
+        jg = JQ.positivity_guard(JQ.QuantParams(*map(jnp.float32, (d, qm, t))))
+        tg = TQ.positivity_guard(TQ.QuantParams(*map(
+            lambda v: torch.tensor(v, dtype=torch.float32), (d, qm, t))))
+        for f in ("d", "q_m", "t"):
+            _same(getattr(jg, f), getattr(tg, f))
+        jp = JQ.project_step_size(jg, 4.0, 8.0)
+        tp = TQ.project_step_size(tg, 4.0, 8.0)
+        np.testing.assert_allclose(float(tp.d), float(jp.d), rtol=1e-6)
+        assert 4.0 - 1e-3 <= float(TQ.bit_width(tp.d, tp.q_m, tp.t)) \
+            <= 8.0 + 1e-3
+
+
+def test_bit_width_roundtrip():
+    """Eq 3 and its inverse agree across the operating range."""
+    for bits in (2.0, 4.0, 8.0, 16.0, 32.0):
+        for q_m in (0.1, 1.0, 3.7):
+            for t in (0.5, 1.0, 1.5):
+                f = lambda v: torch.tensor(v, dtype=torch.float32)
+                d = TQ.step_size_for_bits(f(q_m), f(t), f(bits))
+                assert abs(float(TQ.bit_width(d, f(q_m), f(t))) - bits) < 1e-4

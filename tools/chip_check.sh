@@ -1,9 +1,10 @@
 #!/bin/sh
 # The port's whole check on one CUDA card, from the root of a checkout:
 # chip_smoke.py (kernels against their plain versions, correctness, the
-# engine at full width, contiguous and paged), the card-only tests, and the
-# decode-step profile in each weight mode over each KV arena. Full logs go
-# to OUT_DIR; the tails are printed.
+# engine at full width, contiguous and paged, GETA training at full
+# width), the card-only tests, the decode-step profile in each weight mode
+# over each KV arena, and the train-step profile (one step per QASSO
+# stage). Full logs go to OUT_DIR; the tails are printed.
 #
 #     sh tools/chip_check.sh [OUT_DIR]      (default chiprun_out/check)
 #
@@ -24,4 +25,7 @@ for mode in dense compressed packed_b4; do
         head -n 8 "$log"
     done
 done
+PYTHONPATH=src python3 -m repro_torch.launch.profile_train \
+    --out "$out/profile_train.json" > "$out/profile_train.log" 2>&1 || rc=1
+grep -v '^  ' "$out/profile_train.log"
 exit $rc
