@@ -25,9 +25,17 @@ Phases, each printing its own lines:
    t = 0.85 (forward and dx bitwise at both, the three sums within
    1e-5 of the sum of their terms' magnitudes); the GEMM's no-epilogue
    variant on x.T @ g (2048 x 2048 -> 8192 and 8192 x 2048 -> 2048, out
-   f32), fake_quant_rhs on g @ fq(w.T) and on the forward at M = 2048,
-   and the column mask alone and after fake-quant at M = 2048 and M = 4
-   (rtol 1e-4, atol 1e-4 * max|y|). Each case prints the kernel's time,
+   f32, x.T a view), fake_quant_rhs on g @ fq(w.T) (w.T a view) and on
+   the forward at M = 2048, each at t = 1 and t = 0.85 (dx also with
+   24-bit quantizers, whose codes need the third bf16 piece), and the
+   column mask alone and after fake-quant at M = 2048 and M = 4; and the
+   SIMT variant (f32 x and weights) on fake_quant_rhs and no epilogue at
+   M = 512 and 2048 over 2048->8192 and 8192->2048 (rtol 1e-4, atol
+   1e-4 * max|y|). Every GEMM row names its variant: M <= 8 the small-M
+   one, M > 8 the tensor-core one for bf16 x, the SIMT one for f32 x; a
+   tensor-core row is also timed at both block heights (128 and 256 rows)
+   beside the one `gemm_core.tc_block_m` picks. Each case prints the
+   kernel's time,
    the plain version's, one PyTorch library call's (timed only; the port
    never calls it; for the paged kernel SDPA over the already gathered
    and decoded rows, since no single PyTorch call reads pages; for the
@@ -37,13 +45,16 @@ Phases, each printing its own lines:
 4. Correctness: at full width, the compressed model's one-shot prefill of
    a 32-token prompt (plain attention) against 32 sequential decode steps
    (flash-decode kernel); and the smoke config's engine tokens on the
-   card against the CPU run of the plain versions.
+   card against the CPU run of the plain versions (f32: its prefill
+   GEMMs must launch the SIMT variant).
 5. The main path: the continuous-batching engine serving internlm2-1.8b
    at full width in bf16 (24 layers, random weights from a seed) on 4
    slots, 8 requests, in the dense fake-quant, compressed int8 and packed
    4-bit modes. Launch counts are zeroed right before and read right
-   after; every kernel of the path must have launched. Packed tokens must
-   equal those of an int8 run with the same 4-bit quantizer init.
+   after; every kernel of the path must have launched, the GEMM's
+   small-M variant (decode) and tensor-core variant (prefill) among them.
+   Packed tokens must equal those of an int8 run with the same 4-bit
+   quantizer init.
 6. The paged main path: the same engine and requests from the paged KV
    arena (pages of 16 rows). With bf16 pages its tokens must equal phase
    5's in each weight mode; packed 4-bit weights with int8 and with int4
@@ -61,7 +72,9 @@ Phases, each printing its own lines:
    Checks: finite losses, stages 0, 1, 2, 2, 3, every site's bits in
    [b_l, b_u_final], hard sparsity of exactly k_units / total_units,
    pruned units exactly 0, and the launch counts of every kernel of the
-   path at their predicted values (counted from 0 over `train_loop`).
+   path at their predicted values (counted from 0 over `train_loop`),
+   every GEMM on the tensor-core variant (`gemm_core.tc` counts them all,
+   `gemm_core.simt` stays 0).
    Then, counted from 0 on their own, one loss-and-gradient step with
    `.colmask` params (seeded random masks keeping about 70% of the
    output columns of wq, wk, wv, w_gate, w_up), with quantizers and
@@ -73,7 +86,7 @@ Phases, each printing its own lines:
    launches from this step. Then two runs of a joint step from one
    state, which must give the same params, quantizers and masks bit for
    bit; and the smoke config's joint step on the card against its CPU
-   run at `train.STEP_TOLERANCES`. Prints step wall times, tokens/s and
+   run at `train.STEP_TOLERANCES` (its GEMMs on the SIMT variant). Prints step wall times, tokens/s and
    peak device memory.
 8. Two JSON lines: the kernel table, then the device line (last).
 
@@ -100,6 +113,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12      # f32 FMAs outside the tensor cores
 ARCH = "internlm2-1.8b"
 GEMM_SHAPES = [(2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048),
                (2048, 92672)]
@@ -116,26 +130,46 @@ REPORT_SHAPE = (4, 2048, 8192)      # the JSON line's GEMM row: w_gate at decode
 TOKENS = 2048                        # training batch 4 x 512
 TRAIN_BATCH, TRAIN_SEQ = 4, 512
 FQ_SHAPES = {"head": (2048, 92672), "w_gate": (2048, 8192)}
-# (label, M, K, N) of the training GEMMs: x.T @ g (dwq), g @ fq(w.T) (dx)
-# and the forward, for w_gate (2048 -> 8192) and w_down (8192 -> 2048)
-TRAIN_GEMMS = [("none", 2048, 2048, 8192), ("none", 8192, 2048, 2048),
-               ("fake_quant_rhs", 2048, 8192, 2048),
-               ("fake_quant_rhs", 2048, 2048, 8192),
-               ("col_mask", 2048, 2048, 8192), ("col_mask", 4, 2048, 8192),
-               ("fq_col_mask", 2048, 2048, 8192),
-               ("fq_col_mask", 4, 2048, 8192)]
-# the JSON line's rows of the training kernels
-TRAIN_REPORT = {"gemm_core.none": ("none", 2048, 2048, 8192),
-                "gemm_core.fake_quant_rhs.train": ("fake_quant_rhs", 2048,
-                                                   8192, 2048),
-                "gemm_core.col_mask": ("col_mask", 2048, 2048, 8192),
-                "gemm_core.fq_col_mask": ("fq_col_mask", 2048, 2048, 8192),
+# (label, M, K, N, layout, t, bits) of the training GEMMs, each in the
+# layout the train step hands it: x.T @ g (dwq, x.T a view), g @ fq(w.T)
+# (dx, w.T a view) and the forward, for w_gate (2048 -> 8192) and w_down
+# (8192 -> 2048); fake-quant at t = 1 (every quantizer's init) and at
+# t = 0.85 (once QASSO moves t: a powf per decoded weight), at 8 bits and
+# at 24 (codes of more than 16 significant bits, as warm-up's quantizers
+# reach: the third bf16 piece)
+TRAIN_GEMMS = [("none", 2048, 2048, 8192, "x.T,w", 1.0, 8),
+               ("none", 8192, 2048, 2048, "x.T,w", 1.0, 8),
+               ("fake_quant_rhs", 2048, 8192, 2048, "x,w.T", 1.0, 8),
+               ("fake_quant_rhs", 2048, 8192, 2048, "x,w.T", 0.85, 8),
+               ("fake_quant_rhs", 2048, 8192, 2048, "x,w.T", 1.0, 24),
+               ("fake_quant_rhs", 2048, 8192, 2048, "x,w.T", 0.85, 24),
+               ("fake_quant_rhs", 2048, 2048, 8192, "x,w", 1.0, 8),
+               ("fake_quant_rhs", 2048, 2048, 8192, "x,w", 0.85, 8),
+               ("col_mask", 2048, 2048, 8192, "x,w", 1.0, 8),
+               ("col_mask", 4, 2048, 8192, "x,w", 1.0, 8),
+               ("fq_col_mask", 2048, 2048, 8192, "x,w", 1.0, 8),
+               ("fq_col_mask", 4, 2048, 8192, "x,w", 1.0, 8)]
+# the JSON line's rows of the training kernels (all on the tensor-core
+# variant but the fake-quant kernels); the fake_quant_rhs row also carries
+# its t = 0.85 time (`at_t0.85`), one kernel and one launch count
+TRAIN_REPORT = {"gemm_core.tc.none": TRAIN_GEMMS[0],
+                "gemm_core.tc.fake_quant_rhs": TRAIN_GEMMS[2],
+                "gemm_core.tc.col_mask": TRAIN_GEMMS[8],
+                "gemm_core.tc.fq_col_mask": TRAIN_GEMMS[10],
                 "fake_quant.fwd": ("head", 1.0),
                 "fake_quant.bwd": ("w_gate", 1.0)}
+AT_T085 = TRAIN_GEMMS[3]
+# (label, M, K, N) of the SIMT variant's rows: f32 x and f32 weights, the
+# f32 configuration's operands, at the model's prefill and training rows
+SIMT_GEMMS = [(label, M, K, N) for label in ("fake_quant_rhs", "none")
+              for M in (512, 2048) for K, N in ((2048, 8192), (8192, 2048))]
+SIMT_REPORT = ("fake_quant_rhs", 2048, 2048, 8192)
+TC_HEIGHTS = (128, 256)      # the tensor-core variant's block heights
 
 
-def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+def bound_ms(nbytes: int, flops: int,
+             flop_per_s: float = BF16_FLOP_PER_S) -> tuple[float, str]:
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
     return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
@@ -165,6 +199,28 @@ class Timer:
             end.record()
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in ev)
+
+
+def _height_ms(timer, gc, fn, M, N) -> dict:
+    """The tensor-core call `fn` timed at each block height, `rule` the
+    height `gc.tc_block_m` picks for it."""
+    from repro_torch.kernels import build
+    rule = gc.tc_block_m
+    out = {"rule": rule(M, N, build.sm_count(0))}
+    try:
+        for bm in TC_HEIGHTS:
+            gc.tc_block_m = lambda M, N, sm, bm=bm: bm
+            out[bm] = timer(fn)
+    finally:
+        gc.tc_block_m = rule
+    return out
+
+
+def _heights(row) -> str:
+    h = row.get("heights")
+    return "" if h is None else (
+        f" bm={h['rule']} (" + ", ".join(f"{bm}: {h[bm]:.4f}"
+                                          for bm in TC_HEIGHTS) + " ms)")
 
 
 def phase_device(torch) -> str:
@@ -234,7 +290,8 @@ def phase_kernels(torch, timer) -> tuple[list, dict, list]:
                 ok = bool(torch.allclose(y, want, rtol=1e-4, atol=tol)
                           and torch.isfinite(y).all())
                 row = {"kernel": f"gemm_core.{label}", "M": M, "K": K,
-                       "N": N, "max_abs_err": err, "atol": tol, "ok": ok}
+                       "N": N, "variant": gc.variant(M, x.dtype),
+                       "max_abs_err": err, "atol": tol, "ok": ok}
                 row["ms"] = timer(lambda: gc.gemm(x, w, epi,
                                                   out_dtype=torch.float32))
                 row["plain_ms"] = timer(lambda: gc.plain(x, w, epi,
@@ -242,15 +299,20 @@ def phase_kernels(torch, timer) -> tuple[list, dict, list]:
                 row["library_ms"] = timer(lambda: torch.matmul(x, w_lib))
                 row["bound_ms"], row["bound_by"] = bound_ms(
                     gc.bytes_moved(M, N, K, 2, w, 4, epi), gc.flops(M, N, K))
+                if row["variant"] == "tc":
+                    row["heights"] = _height_ms(
+                        timer, gc, lambda: gc.gemm(x, w, epi,
+                                                   out_dtype=torch.float32),
+                        M, N)
                 rows.append(row)
                 if not ok:
                     failures.append(row)
                 print(f"[3 kernels] {row['kernel']:<29} M={M:<3} K={K:<4} "
-                      f"N={N:<5} ms={row['ms']:.4f} "
+                      f"N={N:<5} {row['variant']} ms={row['ms']:.4f} "
                       f"plain_ms={row['plain_ms']:.4f} "
                       f"library_ms={row['library_ms']:.4f} "
                       f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
-                      f"err={err:.2e} tol={tol:.2e} "
+                      f"err={err:.2e} tol={tol:.2e}{_heights(row)} "
                       f"{'ok' if ok else 'FAIL'}")
                 if (M, K, N) == REPORT_SHAPE and label in (
                         "fake_quant_rhs", "dequant", "unpack_dequant_b4"):
@@ -453,18 +515,28 @@ def _fq_rows(torch, timer, gen) -> tuple[list, dict, list]:
     return rows, report, failures
 
 
+def _operand(torch, gen, shape, transposed, scale=1.0):
+    """A random bf16 (rows, cols) operand, row-major or the transposed view
+    of a row-major (cols, rows) array."""
+    rows, cols = shape
+    t = torch.randn((cols, rows) if transposed else (rows, cols),
+                    generator=gen, device="cuda",
+                    dtype=torch.bfloat16) * scale
+    return t.T if transposed else t
+
+
 def _train_gemm_rows(torch, timer, gen) -> tuple[list, dict, list]:
-    """The GEMM core's training variants at the training path's shapes."""
+    """The GEMM core's training epilogues at the training path's shapes and
+    layouts (M = 2048: the tensor-core variant)."""
     from repro_torch.core.quant import init_quant_params
     from repro_torch.kernels import gemm_core as gc
     rows, report, failures = [], {}, []
-    for label, M, K, N in TRAIN_GEMMS:
-        x = torch.randn((M, K), generator=gen, device="cuda",
-                        dtype=torch.bfloat16)
-        w = torch.randn((K, N), generator=gen, device="cuda",
-                        dtype=torch.bfloat16) * K ** -0.5
+    for case in TRAIN_GEMMS:
+        label, M, K, N, layout, t, bits = case
+        x = _operand(torch, gen, (M, K), layout.startswith("x.T"))
+        w = _operand(torch, gen, (K, N), layout.endswith("w.T"), K ** -0.5)
         mask = (torch.rand((N,), generator=gen, device="cuda") > 0.3).float()
-        qp = init_quant_params(w, bits=8.0)
+        qp = init_quant_params(w, bits=float(bits), t=t)
         epi = {"none": gc.none(), "col_mask": gc.col_mask(mask),
                "fake_quant_rhs": gc.fake_quant_rhs(qp.d, qp.q_m, qp.t),
                "fq_col_mask": gc.fq_col_mask(qp.d, qp.q_m, qp.t, mask)}[label]
@@ -485,7 +557,9 @@ def _train_gemm_rows(torch, timer, gen) -> tuple[list, dict, list]:
                  gc.ref.fake_quant_weight(w.float(), qp.d, qp.q_m, qp.t)
                  * (mask if label == "fq_col_mask" else 1.0)
                  if label != "none" else w.float()).to(torch.bfloat16)
+        variant = gc.variant(M, torch.bfloat16)
         row = {"kernel": f"gemm_core.{label}", "M": M, "K": K, "N": N,
+               "layout": layout, "t": t, "bits": bits, "variant": variant,
                "out": str(out), "max_abs_err": err, "atol": tol, "ok": ok,
                "ms": timer(lambda: gc.gemm(x, w, epi, out_dtype=out)),
                "plain_ms": timer(lambda: gc.plain(x, w, epi, out)),
@@ -493,18 +567,76 @@ def _train_gemm_rows(torch, timer, gen) -> tuple[list, dict, list]:
         row["bound_ms"], row["bound_by"] = bound_ms(
             gc.bytes_moved(M, N, K, 2, w, out.itemsize, epi),
             gc.flops(M, N, K))
+        if variant == "tc":
+            row["heights"] = _height_ms(
+                timer, gc, lambda: gc.gemm(x, w, epi, out_dtype=out), M, N)
         rows.append(row)
         if not ok:
             failures.append(row)
         print(f"[3 kernels] {row['kernel']:<29} M={M:<4} K={K:<4} N={N:<5} "
+              f"{layout} t={t} bits={bits} {variant} "
               f"out={str(out)[6:]} ms={row['ms']:.4f} "
               f"plain_ms={row['plain_ms']:.4f} "
               f"library_ms={row['library_ms']:.4f} "
               f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
-              f"err={err:.2e} tol={tol:.2e} {'ok' if ok else 'FAIL'}")
+              f"err={err:.2e} tol={tol:.2e}{_heights(row)} "
+              f"{'ok' if ok else 'FAIL'}")
         for name, key in TRAIN_REPORT.items():
-            if key == (label, M, K, N):
+            if key == case:
                 report[name] = row
+        if case == AT_T085:
+            report["at_t0.85"] = row
+        del x, w, w_lib
+        torch.cuda.empty_cache()
+    return rows, report, failures
+
+
+def _simt_gemm_rows(torch, timer, gen) -> tuple[list, dict, list]:
+    """The SIMT variant (f32 x, f32 weights: the f32 configuration's
+    operands, which keep f32 products) at the model's prefill and training
+    rows, against its plain version at the same bounds."""
+    from repro_torch.core.quant import init_quant_params
+    from repro_torch.kernels import gemm_core as gc
+    rows, report, failures = [], {}, []
+    f32 = torch.float32
+    for case in SIMT_GEMMS:
+        label, M, K, N = case
+        x = torch.randn((M, K), generator=gen, device="cuda")
+        w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
+        qp = init_quant_params(w, bits=8.0)
+        epi = (gc.none() if label == "none" else
+               gc.fake_quant_rhs(qp.d, qp.q_m, qp.t))
+        y = gc.gemm(x, w, epi, out_dtype=f32)
+        want = gc.plain(x, w, epi, f32)
+        torch.cuda.synchronize()
+        err = (y - want).abs().max().item()
+        tol = 1e-4 * want.abs().max().item()
+        ok = bool(torch.allclose(y, want, rtol=1e-4, atol=tol)
+                  and torch.isfinite(y).all())
+        del y, want
+        w_lib = (w if label == "none" else
+                 gc.ref.fake_quant_weight(w, qp.d, qp.q_m, qp.t))
+        row = {"kernel": f"gemm_core.{label}", "M": M, "K": K, "N": N,
+               "t": 1.0, "variant": gc.variant(M, f32), "out": str(f32),
+               "max_abs_err": err, "atol": tol,
+               "ok": ok and gc.variant(M, f32) == "simt",
+               "ms": timer(lambda: gc.gemm(x, w, epi, out_dtype=f32)),
+               "plain_ms": timer(lambda: gc.plain(x, w, epi, f32)),
+               "library_ms": timer(lambda: torch.matmul(x, w_lib))}
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            gc.bytes_moved(M, N, K, 4, w, 4, epi), gc.flops(M, N, K),
+            F32_FLOP_PER_S)
+        rows.append(row)
+        if not row["ok"]:
+            failures.append(row)
+        print(f"[3 kernels] {row['kernel']:<29} M={M:<4} K={K:<4} N={N:<5} "
+              f"f32 x, f32 w {row['variant']} ms={row['ms']:.4f} "
+              f"plain_ms={row['plain_ms']:.4f} "
+              f"library_ms={row['library_ms']:.4f} (f32) "
+              f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+              f"err={err:.2e} tol={tol:.2e} {'ok' if row['ok'] else 'FAIL'}")
+        if case == SIMT_REPORT:
+            report["gemm_core.simt.fake_quant_rhs"] = row
         del x, w, w_lib
         torch.cuda.empty_cache()
     return rows, report, failures
@@ -515,15 +647,20 @@ def phase_train_kernels(torch, timer) -> tuple[list, dict, list]:
     training variants at the full-width training shapes."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows, report, failures = _fq_rows(torch, timer, gen)
-    r2, rep2, f2 = _train_gemm_rows(torch, timer, gen)
-    report.update(rep2)
-    return rows + r2, report, failures + f2
+    for part in (_train_gemm_rows, _simt_gemm_rows):
+        r2, rep2, f2 = part(torch, timer, gen)
+        rows, failures = rows + r2, failures + f2
+        report.update(rep2)
+    return rows, report, failures
 
 
-def phase_correctness(torch) -> list[str]:
-    """Full-width prefill vs sequential decode, and smoke card vs CPU."""
+def phase_correctness(torch) -> tuple[dict, list[str]]:
+    """Full-width prefill vs sequential decode, and smoke card vs CPU.
+    Returns the launch counts of the smoke config's card runs (f32: its
+    prefill GEMMs take the SIMT variant) and the failures."""
     from repro_torch.configs import get_arch
     from repro_torch.core.subnet import prepare_serving
+    from repro_torch.kernels import ops
     from repro_torch.launch.engine import (WEIGHT_MODES, serve_on_devices,
                                            synthetic_prompts)
     from repro_torch.models.transformer import LM
@@ -559,6 +696,7 @@ def phase_correctness(torch) -> list[str]:
     torch.cuda.empty_cache()
 
     # the smoke config on both devices from the same weights
+    ops.reset_launch_counts()
     for mode, kw in WEIGHT_MODES.items():
         toks = serve_on_devices(ARCH, True, [6, 3, 9], 6, ["cpu", "cuda"],
                                 max_slots=2, **kw)
@@ -569,7 +707,14 @@ def phase_correctness(torch) -> list[str]:
               f"({sum(len(t) for t in cpu.values())} tokens)")
         if not ok:
             failures.append(f"smoke {mode} card vs cpu")
-    return failures
+    counts = _nonzero(ops.launch_counts())
+    simt = counts.get("gemm_core.simt", 0)
+    print(f"[4 correctness] smoke config card launches {counts}: the f32 "
+          f"prefill GEMMs on the SIMT variant {simt} times "
+          f"{'ok' if simt > 0 else 'FAIL'}")
+    if simt <= 0:
+        failures.append("the SIMT variant never launched on the f32 path")
+    return counts, failures
 
 
 def phase_engine(torch) -> tuple[dict, dict, list[str]]:
@@ -609,7 +754,7 @@ def phase_engine(torch) -> tuple[dict, dict, list[str]]:
     counts = ops.launch_counts()
     print(f"[5 engine] main-path launch counts: {_nonzero(counts)}")
     for name in [*expect.values(), "gemm_core.reduce_splits", "decode_attn",
-                 "fake_quant.fwd"]:
+                 "fake_quant.fwd", "gemm_core.small_m", "gemm_core.tc"]:
         if counts[name] <= 0:
             failures.append(f"{name} never launched on the main path")
     ref_int8 = engine_serve(ARCH, False, PROMPT_LENS, GEN, max_slots=SLOTS,
@@ -734,26 +879,31 @@ def predicted_train_launches(lm, qasso, stages) -> dict:
     epilogue; the fake-quant backward runs per projection and once for
     the head, whose forward quantizes once per step; a joint step also
     fake-quantizes each weight site's stacked tensor once (Alg 2 line
-    18). No call splits K (M >= 2048)."""
+    18). No call splits K (M >= 2048), and every GEMM takes the
+    tensor-core variant (bf16 x): `tc` counts them all, `simt` none."""
     P = lm.n_blocks * sum(n.startswith("blocks.")
                           for n in lm.quant_weight_names())
     passes = 2 + int(lm.cfg.remat)
     n = len(stages)
     return {"gemm_core.fake_quant_rhs": passes * P * n,
-            "gemm_core.none": P * n, "fake_quant.bwd": (P + 1) * n,
+            "gemm_core.none": P * n, "gemm_core.tc": (passes + 1) * P * n,
+            "fake_quant.bwd": (P + 1) * n,
             "fake_quant.fwd": n + len(qasso.weight_sites) * sum(
                 s == 2 for s in stages)}
 
 
 def predicted_colmask_launches(lm) -> dict:
     """One loss-and-gradient pass with `.colmask` on COLMASK's projections
-    (C per layer of 7), with quantizers, then without."""
+    (C per layer of 7), with quantizers, then without; every GEMM on the
+    tensor-core variant."""
     L, C = lm.n_blocks, len(COLMASK)
     fwd = 1 + int(lm.cfg.remat)
-    return {"gemm_core.fq_col_mask": C * L * fwd,
-            "gemm_core.fake_quant_rhs": (7 - C) * L * fwd + 7 * L,
-            "gemm_core.none": 7 * L + C * L, "fake_quant.bwd": 7 * L + 1,
-            "fake_quant.fwd": 1, "gemm_core.col_mask": C * L * (fwd + 1)}
+    gemms = {"gemm_core.fq_col_mask": C * L * fwd,
+             "gemm_core.fake_quant_rhs": (7 - C) * L * fwd + 7 * L,
+             "gemm_core.none": 7 * L + C * L,
+             "gemm_core.col_mask": C * L * (fwd + 1)}
+    return {**gemms, "gemm_core.tc": sum(gemms.values()),
+            "fake_quant.bwd": 7 * L + 1, "fake_quant.fwd": 1}
 
 
 def _colmask_params(torch, params, gen) -> tuple[dict, dict, dict]:
@@ -839,7 +989,11 @@ def phase_train(torch) -> tuple[dict, dict, list[str]]:
     others = {k: v for k, v in counts.items() if v and k not in want}
     print(f"[7 train] launches {got} predicted {want} "
           f"{check(got == want and not others, 'train launch counts')}"
-          + (f" unexpected {others}" if others else ""))
+          + (f" unexpected {others}" if others else "")
+          + f"; every GEMM on the tensor-core variant: tc "
+          f"{counts['gemm_core.tc']}, simt {counts['gemm_core.simt']}, "
+          f"small_m {counts['gemm_core.small_m']} "
+          f"{check(counts['gemm_core.simt'] == 0, 'train GEMMs on tc')}")
 
     # one loss-and-gradient pass with .colmask params, quantized and not,
     # its launches counted from 0 on their own
@@ -903,8 +1057,11 @@ def phase_train(torch) -> tuple[dict, dict, list[str]]:
     torch.cuda.empty_cache()
     torch.use_deterministic_algorithms(False)
 
-    # the smoke config's joint step, card against the CPU plain versions
+    # the smoke config's joint step (f32: its GEMMs take the SIMT
+    # variant), card against the CPU plain versions
+    ops.reset_launch_counts()
     runs = T.step_on_devices(ARCH, ["cpu", "cuda"])
+    simt = ops.launch_counts()["gemm_core.simt"]
     diff = T.step_differences(runs["cpu"], runs["cuda"])
     tol = T.STEP_TOLERANCES
     ok = diff["masks"] and all(diff[k] <= v for k, v in tol.items())
@@ -912,7 +1069,9 @@ def phase_train(torch) -> tuple[dict, dict, list[str]]:
           f"{'identical' if diff['masks'] else 'DIFFER'}, "
           + ", ".join(f"{k} {diff[k]:.1e} (tol {v:.0e})"
                       for k, v in tol.items())
-          + f" {check(ok, 'smoke step card vs cpu')}")
+          + f" {check(ok, 'smoke step card vs cpu')}; its GEMMs on the "
+          f"SIMT variant {simt} times "
+          f"{check(simt > 0, 'smoke step on the SIMT variant')}")
     return counts, colmask_counts, failures
 
 
@@ -946,7 +1105,8 @@ def main(argv=None) -> int:
     del timer
     torch.cuda.empty_cache()
     failures = [f"{r['kernel']} {r}" for r in failures]
-    failures += phase_correctness(torch)
+    smoke_counts, smoke_failures = phase_correctness(torch)
+    failures += smoke_failures
     counts, outs, engine_failures = phase_engine(torch)
     failures += engine_failures
     paged_counts, paged_failures = phase_paged(torch, outs)
@@ -960,7 +1120,8 @@ def main(argv=None) -> int:
         out.write_text(json.dumps(
             {"device": kind, "rows": rows, "launches": counts,
              "paged_launches": paged_counts, "train_launches": train_counts,
-             "colmask_launches": colmask_counts},
+             "colmask_launches": colmask_counts,
+             "smoke_launches": smoke_counts},
             indent=1, default=str))
     if failures:
         for f in failures:
@@ -990,30 +1151,42 @@ def main(argv=None) -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": shape})
+            "shape": shape, **({"variant": row["variant"]}
+                               if "variant" in row else {})})
     fq_src = "src/repro_torch/kernels/csrc/fake_quant.cu"
     train_src = {"fake_quant.fwd": (fq_src,
                                     "src/repro/kernels/fake_quant.py:31"),
                  "fake_quant.bwd": (fq_src,
                                     "src/repro/kernels/fake_quant.py:45")}
-    for name in TRAIN_REPORT:
+    for name in (*TRAIN_REPORT, "gemm_core.simt.fake_quant_rhs"):
         row = train_report[name]
         src, replaces = train_src.get(name, gemm)
-        key = ("gemm_core.fake_quant_rhs" if name.endswith(".train")
-               else name)
+        key = row["kernel"]
         shape = (f"{row['w']} {row['shape'][0]}x{row['shape'][1]} bf16 "
                  f"t={row['t']}" if name.startswith("fake_quant") else
-                 f"M={row['M']} K={row['K']} N={row['N']} out {row['out']}")
-        # col_mask launches only in phase 7's .colmask step
-        launches = (colmask_counts if "col_mask" in name else
-                    train_counts)[key]
+                 f"M={row['M']} K={row['K']} N={row['N']} "
+                 f"{row.get('layout', 'x,w')} t={row['t']} out {row['out']}")
+        # col_mask launches only in phase 7's .colmask step; phase 7 checks
+        # that every training GEMM took the tensor-core variant; the SIMT
+        # variant launches only for f32 x, in phase 4's smoke config runs
+        launches = (smoke_counts["gemm_core.simt"] if "simt" in name else
+                    (colmask_counts if "col_mask" in key else
+                     train_counts)[key])
+        extra = {}
+        if name == "gemm_core.tc.fake_quant_rhs":
+            t85 = train_report["at_t0.85"]
+            extra["at_t0.85"] = {k: t85[k] for k in (
+                "ms", "plain_ms", "library_ms", "max_abs_err")}
+        if "heights" in row:
+            extra["block_height_ms"] = row["heights"]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": shape})
+            "shape": shape, **({"variant": row["variant"]}
+                               if "variant" in row else {}), **extra})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

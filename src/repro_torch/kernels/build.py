@@ -38,6 +38,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "repro_gemm": (_P, _I, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _I,
                    _P, _I, _I, _I, _I, _I, _P),
+    "repro_gemm_tc": (_P, _LL, _I, _P, _I, _LL, _I, _I, _I, _P, _I, _P, _P,
+                      _P, _P, _I, _I, _I, _I, _I, _P),
     "repro_decode_attn": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                           _LL, _LL, _LL, _LL, _LL, _LL, _F, _P),
     "repro_paged_decode_attn": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,

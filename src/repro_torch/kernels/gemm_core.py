@@ -13,18 +13,27 @@ an `Epilogue`:
 
 The first four serve training: the forward (with or without the GETA
 column mask) and the backward GEMMs `g @ T(w.T)` and `x.T @ g`, at
-M = B*S tokens or M = K_in. The kernel takes a contiguous w, so the
-backward passes `w.T.contiguous()`, the copy XLA materialises before its
-`pallas_call` too.
+M = B*S tokens or M = K_in. They pass the transposed views as they are.
 
 `gemm` decides by device. A CPU tensor goes to the plain PyTorch version
-in `kernels.ref`; a CUDA tensor goes to the hand-written kernel in
+in `kernels.ref`; a CUDA tensor goes to a hand-written kernel in
 `csrc/gemm_core.cu`, or raises if the library did not build or the
-launch failed. There is no fallback from one to the other.
+launch failed. There is no fallback from one to the other. On the card,
+`variant` picks the kernel by M and x's dtype:
 
-`gemm.launches` counts kernel launches: the GEMM kernel per epilogue name,
-and the split-K reduce pass (a second launch when a small-M call splits
-K) under `reduce_splits`. Only the CUDA path adds to it, once per launch.
+  small_m  M <= 8: split-K SIMT variant (decode)
+  tc       M > 8, bf16 x: wgmma tiles fed by TMA, which reads x and w in
+           place, row-major or as a transposed view (`x.T`, `w.T`); int
+           codes and packed words row-major only. A row stride TMA cannot
+           take (not a multiple of 16 bytes) raises.
+  simt     M > 8, f32 x: the 64x64 SIMT variant in f32 FMAs, on contiguous
+           copies of x and w (the f32 configuration's 1e-4 card-vs-CPU
+           parity rests on it)
+
+`gemm.launches` counts kernel launches: the GEMM kernel per epilogue name
+and per variant, and the split-K reduce pass (a second launch when a
+small-M call splits K) under `reduce_splits`. Only the CUDA path adds to
+it, once per launch.
 """
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ from repro_torch.kernels import build, ref
 FAKE_QUANT, DEQUANT, UNPACK = "fake_quant_rhs", "dequant", "unpack_dequant"
 NONE, COL_MASK, FQ_MASK = "none", "col_mask", "fq_col_mask"
 REDUCE = "reduce_splits"     # the split-K second pass, for any epilogue
+SMALL_M, TC, SIMT = "small_m", "tc", "simt"     # kernel variants
 _EPI_CODE = {FAKE_QUANT: 0, DEQUANT: 1, UNPACK: 2, NONE: 3, COL_MASK: 4,
              FQ_MASK: 5}
 _FLOAT_W = (torch.float32, torch.bfloat16)
@@ -50,6 +60,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
 SMALL_M_MAX = 8      # rows the kernel's small-M (decode) variant takes
 _SMALL_M_BN = 128    # its columns per block ...
 _SMALL_M_BK = 128    # ... and K rows per chunk (csrc/gemm_core.cu)
+_TC_BN = 128         # columns per block of the tensor-core variant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,11 +140,70 @@ def k_splits(M: int, N: int, K: int, sm_count: int) -> tuple[int, int]:
     return -(-n_chunks // per_split), per_split
 
 
+def variant(M: int, x_dtype: torch.dtype) -> str:
+    """The kernel variant a CUDA call of `gemm` launches (module doc)."""
+    if M <= SMALL_M_MAX:
+        return SMALL_M
+    return TC if x_dtype == torch.bfloat16 else SIMT
+
+
+def tc_block_m(M: int, N: int, sm_count: int) -> int:
+    """Rows per block of the tensor-core variant: 256 when that takes fewer
+    waves of blocks over the SMs than 128, else 128. A block decodes each
+    weight tile it reads once, so 256 rows halve the decodes; at equal waves
+    128 rows spread them over more SMs. The sums do not depend on it."""
+    waves = lambda bm: -(-(-(-M // bm) * -(-N // _TC_BN)) // sm_count)
+    return 256 if waves(256) < waves(128) else 128
+
+
+def tma_layout(t: torch.Tensor, name: str) -> tuple[torch.Tensor, int, bool]:
+    """(t, ld, transposed) for the tensor-core variant: a 2-D operand that
+    is row-major (strides (ld, 1)) or the transposed view of a row-major
+    array (strides (1, ld)) is read in place; any other layout is copied
+    row-major first. Raises if TMA cannot take the rows: ld bytes or the
+    base address not a multiple of 16."""
+    rows, cols = t.shape
+    s0, s1 = t.stride()
+    if s1 == 1 and s0 >= cols:
+        ld, transposed = s0, False
+    elif s0 == 1 and s1 >= rows:
+        ld, transposed = s1, True
+    else:
+        t = t.contiguous()
+        ld, transposed = cols, False
+    if (ld * t.element_size()) % 16 or t.data_ptr() % 16:
+        raise ValueError(
+            f"gemm: TMA needs {name}'s rows 16-byte aligned: shape "
+            f"{tuple(t.shape)}, stride {t.stride()}, {t.dtype}, address "
+            f"{t.data_ptr():#x}")
+    return t, ld, transposed
+
+
+def operands(x: torch.Tensor, w: torch.Tensor, epi: Epilogue):
+    """(variant, (x, lda, x_transposed), (w, ldb, w_transposed)): the
+    kernel a CUDA call launches and its operands as it reads them. The
+    tensor-core variant takes x and w in place (`tma_layout`); the others
+    take contiguous copies. Raises on what the variant does not take."""
+    kind = variant(x.shape[0], x.dtype)
+    if kind == TC:
+        x, w = tma_layout(x, "x"), tma_layout(w, "w")
+        if w[2] and epi.name in (DEQUANT, UNPACK):
+            raise ValueError(f"gemm {epi.name}: the codes must be row-major "
+                             f"(K, N), not a transposed view")
+    else:
+        x, w = ((t.contiguous(), t.shape[1], False) for t in (x, w))
+    if w[0].shape[1] % 4 or w[0].data_ptr() % 16:
+        raise ValueError(f"gemm: the kernel writes and loads columns in "
+                         f"groups and needs N % 4 == 0 and a 16-byte "
+                         f"aligned w (N={w[0].shape[1]})")
+    return kind, x, w
+
+
 def gemm(x: torch.Tensor, w: torch.Tensor, epi: Epilogue, *,
          out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """y = x @ T(w) with f32 accumulation, written in `out_dtype` (default
     x's dtype). x: (M, K); w: (K, N), or (ceil(K/cpw), N) int32 words for
-    unpack_dequant."""
+    unpack_dequant. Either may be a transposed view."""
     M, K = x.shape
     Kw, N = w.shape
     if Kw != -(-K // epi.k_pack):
@@ -151,12 +221,8 @@ def gemm(x: torch.Tensor, w: torch.Tensor, epi: Epilogue, *,
     w_ok = _W_DTYPES[epi.name]
     if w.dtype not in w_ok:
         raise ValueError(f"gemm {epi.name}: w dtype {w.dtype} not in {w_ok}")
-    if N % 4 or not w.is_contiguous() or w.data_ptr() % 16:
-        raise ValueError(f"gemm: the kernel loads 4 columns at a time and "
-                         f"needs N % 4 == 0 and a contiguous, 16-byte "
-                         f"aligned w (N={N})")
+    kind, (x, lda, x_t), (w, ldb, w_t) = operands(x, w, epi)
     dev = x.device
-    x = x.contiguous()
     scale, scale_stride, fq = None, 0, [None, None, None]
     col = epi.operands       # (mask,), (scale,) or ()
     if epi.name in (FAKE_QUANT, FQ_MASK):
@@ -170,34 +236,46 @@ def gemm(x: torch.Tensor, w: torch.Tensor, epi: Epilogue, *,
                              f"values for N={N} columns")
         scale_stride = int(scale.numel() == N)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
-    splits, per_split = k_splits(M, N, K, build.sm_count(dev))
-    ws = (torch.empty((splits * M * N,), dtype=torch.float32, device=dev)
-          if splits > 1 else None)
     lib = build.load()
     ptr = lambda t: None if t is None else t.data_ptr()
-    err = lib.repro_gemm(
-        x.data_ptr(), _DTYPE_CODE[x.dtype], w.data_ptr(),
-        _DTYPE_CODE[w.dtype], _EPI_CODE[epi.name], epi.bits, ptr(scale),
-        scale_stride, *map(ptr, fq), out.data_ptr(), _DTYPE_CODE[out_dtype],
-        ptr(ws), M, N, K, splits, per_split,
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, f"gemm {epi.name} (M={M}, N={N}, K={K})")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    splits = 1
+    if kind == TC:
+        err = lib.repro_gemm_tc(
+            x.data_ptr(), lda, int(x_t), w.data_ptr(), _DTYPE_CODE[w.dtype],
+            ldb, int(w_t), _EPI_CODE[epi.name], epi.bits, ptr(scale),
+            scale_stride, *map(ptr, fq), out.data_ptr(),
+            _DTYPE_CODE[out_dtype], M, N, K,
+            tc_block_m(M, N, build.sm_count(dev)), stream)
+    else:
+        splits, per_split = k_splits(M, N, K, build.sm_count(dev))
+        ws = (torch.empty((splits * M * N,), dtype=torch.float32, device=dev)
+              if splits > 1 else None)
+        err = lib.repro_gemm(
+            x.data_ptr(), _DTYPE_CODE[x.dtype], w.data_ptr(),
+            _DTYPE_CODE[w.dtype], _EPI_CODE[epi.name], epi.bits, ptr(scale),
+            scale_stride, *map(ptr, fq), out.data_ptr(),
+            _DTYPE_CODE[out_dtype], ptr(ws), M, N, K, splits, per_split,
+            stream)
+    build.check(err, f"gemm {epi.name} {kind} (M={M}, N={N}, K={K})")
     gemm.launches[epi.name] += 1
+    gemm.launches[kind] += 1
     if splits > 1:
         gemm.launches[REDUCE] += 1
     return out
 
 
-gemm.launches = {name: 0 for name in (*_EPI_CODE, REDUCE)}
+gemm.launches = {name: 0 for name in (*_EPI_CODE, REDUCE, SMALL_M, TC,
+                                      SIMT)}
 
 
 def bytes_moved(M: int, N: int, K: int, x_itemsize: int, w: torch.Tensor,
                 out_itemsize: int, epi: Epilogue) -> int:
     """Bytes one call must move at least: x, w and the epilogue operands
     read once, y written once."""
-    operands = ({FAKE_QUANT: 12, NONE: 0, FQ_MASK: 12 + N * 4}
-                .get(epi.name, N * 4))
-    return (M * K * x_itemsize + w.numel() * w.element_size() + operands
+    extra = ({FAKE_QUANT: 12, NONE: 0, FQ_MASK: 12 + N * 4}
+             .get(epi.name, N * 4))
+    return (M * K * x_itemsize + w.numel() * w.element_size() + extra
             + M * N * out_itemsize)
 
 

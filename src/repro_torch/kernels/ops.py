@@ -53,7 +53,7 @@ class _Matmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        dx = _gc.gemm(g, w.T.contiguous(), _gc.none(), out_dtype=x.dtype)
+        dx = _gc.gemm(g, w.T, _gc.none(), out_dtype=x.dtype)
         dw = _gc.gemm(x.T, g, _gc.none(), out_dtype=w.dtype)
         return dx, dw
 
@@ -68,7 +68,7 @@ class _MaskedMatmul(torch.autograd.Function):
     def backward(ctx, g):
         x, w, mask = ctx.saved_tensors
         # d/dx [x @ (w*m)] = (g*m) @ w.T ; d/dw = (x.T @ g) * m
-        dx = _gc.gemm(_mask_cols(g, mask), w.T.contiguous(), _gc.none(),
+        dx = _gc.gemm(_mask_cols(g, mask), w.T, _gc.none(),
                       out_dtype=x.dtype)
         dw = _gc.gemm(x.T, g, _gc.col_mask(mask), out_dtype=w.dtype)
         return dx, dw, torch.zeros_like(mask)
@@ -85,7 +85,7 @@ class _FqMatmul(torch.autograd.Function):
         x, w, d, q_m, t = ctx.saved_tensors
         # dx = g @ fake_quant(w).T: fake_quant is elementwise, so the
         # transpose commutes and the quantizer stays in the weight load
-        dx = _gc.gemm(g, w.T.contiguous(), _gc.fake_quant_rhs(d, q_m, t),
+        dx = _gc.gemm(g, w.T, _gc.fake_quant_rhs(d, q_m, t),
                       out_dtype=x.dtype)
         dwq = _gc.gemm(x.T, g, _gc.none(), out_dtype=F32)
         return (dx, *_fq_weight_grads(w, d, q_m, t, dwq))
@@ -102,7 +102,7 @@ class _FqMaskedMatmul(torch.autograd.Function):
         x, w, mask, d, q_m, t = ctx.saved_tensors
         # dx = (g*m) @ fake_quant(w.T); dwq = x.T @ (g*m)
         gm = _mask_cols(g, mask)
-        dx = _gc.gemm(gm, w.T.contiguous(), _gc.fake_quant_rhs(d, q_m, t),
+        dx = _gc.gemm(gm, w.T, _gc.fake_quant_rhs(d, q_m, t),
                       out_dtype=x.dtype)
         dwq = _gc.gemm(x.T, gm, _gc.none(), out_dtype=F32)
         dw, dd, dqm, dt = _fq_weight_grads(w, d, q_m, t, dwq)

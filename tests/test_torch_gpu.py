@@ -7,7 +7,10 @@ installed:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: the GEMM compares in f32 at rtol 1e-4, atol 1e-4 * max|y| (the
-kernel sums in another order than the plain matmul); decode attention,
+kernel sums in another order than the plain matmul); its tensor-core
+variant (`test_tc_*`) at the same bound, every case run twice and held
+bitwise, its bf16 output bitwise its f32 output rounded, and its SIMT
+variant (`test_simt_*`, f32 x) at the same bound; decode attention,
 contiguous and paged (f32, bf16, int8 and int4 pages), at 1e-4 (online
 softmax against the full softmax). On f32 and bf16 pages the paged kernel
 must equal the contiguous kernel on the gathered rows bit for bit, and the
@@ -272,3 +275,167 @@ def test_smoke_train_step_on_card_matches_cpu(cuda):
     pa, _, _, ma = T.step_on_devices("internlm2-1.8b", ["cuda"])["cuda"]
     assert torch.equal(ma["loss"], mg["loss"])
     assert all(torch.equal(pa[k], pg[k]) for k in pg)
+
+
+# ------------------------------------------- the GEMM's tensor-core variant
+# The model's prefill and training shapes (M, K, N), and a ragged one: no
+# dimension a multiple of its tile (128 x 128 x 64), K not a multiple of
+# 10 codes per word, every row stride still a multiple of 16 bytes
+TC_SHAPES = [(M, K, N) for M in (512, 2048)
+             for K, N in ((2048, 2048), (2048, 1024), (2048, 8192),
+                          (8192, 2048))] + [(296, 200, 144)]
+# (epilogue, t, bits) of the float-weight cases: 8-bit codes take one
+# bf16 pass, 14-bit codes (|q| up to 8191) a second one, codes of 2^17 and
+# more (quantizers above about 18 bits, as in warm-up) a third one; 17 and
+# 18 bits sit on either side of the kernel's choice of K loop
+TC_FLOAT = [("none", 1.0, 8.0), ("col_mask", 1.0, 8.0),
+            ("fake_quant_rhs", 1.0, 8.0), ("fake_quant_rhs", 0.85, 8.0),
+            ("fake_quant_rhs", 1.0, 14.0), ("fake_quant_rhs", 0.85, 14.0),
+            ("fake_quant_rhs", 1.0, 17.0), ("fake_quant_rhs", 0.85, 18.0),
+            ("fake_quant_rhs", 1.0, 20.0), ("fake_quant_rhs", 0.85, 20.0),
+            ("fake_quant_rhs", 1.0, 24.0), ("fake_quant_rhs", 0.85, 24.0),
+            ("fq_col_mask", 1.0, 8.0), ("fq_col_mask", 0.85, 14.0),
+            ("fq_col_mask", 0.85, 24.0)]
+TC_LAYOUTS = ["x,w", "x.T,w", "x,w.T", "x.T,w.T"]
+
+
+def _operand(shape, transposed, gen, scale=1.0, dtype=torch.bfloat16):
+    """A random (rows, cols) operand on the card, row-major or the
+    transposed view of a row-major (cols, rows) array."""
+    rows, cols = shape
+    store = (cols, rows) if transposed else (rows, cols)
+    t = (torch.randn(store, generator=gen, device="cuda") * scale).to(dtype)
+    return t.T if transposed else t
+
+
+def _tc_check(x, w, e, mask=None):
+    """The tensor-core variant against its plain version: twice (bitwise
+    equal: no race, no atomics), counted as `tc` and never `simt`, and its
+    bf16 output the f32 one rounded."""
+    before = dict(TG.gemm.launches)
+    y = TG.gemm(x, w, e, out_dtype=torch.float32)
+    again = TG.gemm(x, w, e, out_dtype=torch.float32)
+    y16 = TG.gemm(x, w, e, out_dtype=torch.bfloat16)
+    want = TG.plain(x, w, e, torch.float32)
+    torch.cuda.synchronize()
+    assert TG.variant(x.shape[0], x.dtype) == "tc"
+    assert TG.gemm.launches == dict(before, tc=before["tc"] + 3, **{
+        e.name: before[e.name] + 3})
+    torch.testing.assert_close(y, want, rtol=1e-4,
+                               atol=1e-4 * want.abs().max().item())
+    assert torch.equal(y, again)
+    assert torch.equal(y16, y.to(torch.bfloat16))
+    if mask is not None:
+        assert not y[:, mask == 0].any()
+
+
+@pytest.mark.parametrize("layout", TC_LAYOUTS)
+@pytest.mark.parametrize("shape", TC_SHAPES, ids=str)
+@pytest.mark.parametrize("epi,t,bits", TC_FLOAT)
+def test_tc_float_weight_epilogues_match_plain(cuda, epi, t, bits, shape,
+                                               layout):
+    M, K, N = shape
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x = _operand((M, K), layout.startswith("x.T"), gen)
+    w = _operand((K, N), layout.endswith("w.T"), gen, K ** -0.5)
+    mask = (torch.arange(N, device=cuda) % 3 > 0).float()
+    qp = init_quant_params(w.float(), bits=bits, t=t)
+    e = {"none": TG.none(), "col_mask": TG.col_mask(mask),
+         "fake_quant_rhs": TG.fake_quant_rhs(qp.d, qp.q_m, qp.t),
+         "fq_col_mask": TG.fq_col_mask(qp.d, qp.q_m, qp.t, mask)}[epi]
+    _tc_check(x, w, e, mask if "mask" in epi else None)
+
+
+@pytest.mark.parametrize("layout", TC_LAYOUTS)
+@pytest.mark.parametrize("shape", [(512, 2048, 1024), (296, 200, 144)],
+                         ids=str)
+@pytest.mark.parametrize("epi", ["none", "col_mask", "fake_quant_rhs"])
+def test_tc_f32_weights_match_plain(cuda, epi, shape, layout):
+    """f32 weights with bf16 x: fake-quant codes and raw f32 weights (24
+    significand bits, the third bf16 piece) split exactly."""
+    M, K, N = shape
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N + 1)
+    x = _operand((M, K), layout.startswith("x.T"), gen)
+    w = _operand((K, N), layout.endswith("w.T"), gen, K ** -0.5,
+                 torch.float32)
+    mask = (torch.arange(N, device=cuda) % 3 > 0).float()
+    qp = init_quant_params(w, bits=12.0, t=0.85)
+    e = {"none": TG.none(), "col_mask": TG.col_mask(mask),
+         "fake_quant_rhs": TG.fake_quant_rhs(qp.d, qp.q_m, qp.t)}[epi]
+    _tc_check(x, w, e, mask if epi == "col_mask" else None)
+
+
+@pytest.mark.parametrize("x_t", [False, True], ids=["x", "x.T"])
+@pytest.mark.parametrize("shape", TC_SHAPES, ids=str)
+@pytest.mark.parametrize("codes", ["int8_b8", "int16_b12", "int32_b20",
+                                   "unpack_b2", "unpack_b3", "unpack_b4",
+                                   "unpack_b8"])
+def test_tc_code_epilogues_match_plain(cuda, codes, shape, x_t):
+    M, K, N = shape
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N + 2)
+    x = _operand((M, K), x_t, gen)
+    w = torch.randn((K, N), generator=gen, device=cuda) * K ** -0.5
+    bits = int(codes.split("_b")[1])
+    q, d = quantize_int(w, init_quant_params(w, bits=float(bits)),
+                        bits=float(bits))
+    scale = d * (1.0 + (torch.arange(N, device=cuda) % 7 == 0) * 0.5)
+    if codes.startswith("int"):
+        store = q.to({8: torch.int8, 12: torch.int16}.get(bits, torch.int32))
+        _tc_check(x, store, TG.dequant(scale))
+    else:
+        _tc_check(x, pack_codes(q, bits, axis=0),
+                  TG.unpack_dequant(bits, scale))
+
+
+@pytest.mark.parametrize("x_t", [False, True], ids=["x", "x.T"])
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+def test_tc_dequant_and_unpack_are_bitwise_equal(cuda, bits, x_t):
+    gen = torch.Generator(device=cuda).manual_seed(bits)
+    w = torch.randn((2048, 2048), generator=gen, device=cuda) * 0.02
+    q, d = quantize_int(w, init_quant_params(w, bits=float(bits)),
+                        bits=float(bits))
+    x = _operand((512, 2048), x_t, gen)
+    a = TG.gemm(x, q.to(torch.int8), TG.dequant(d))
+    b = TG.gemm(x, pack_codes(q, bits, axis=0), TG.unpack_dequant(bits, d))
+    assert torch.equal(a, b)
+
+
+def test_tc_raises_on_rows_tma_cannot_take(cuda):
+    x = torch.zeros((64, 100), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        TG.gemm(x, torch.zeros((100, 128), dtype=torch.bfloat16,
+                               device=cuda), TG.none())
+
+
+# ------------------------------------------------ the GEMM's SIMT variant
+@pytest.mark.parametrize("K,N", [(160, 96), (2048, 1024), (2048, 8192),
+                                 (8192, 2048)])
+@pytest.mark.parametrize("M", [37, 2048])
+@pytest.mark.parametrize("epi", ["none", "col_mask", "fake_quant_rhs",
+                                 "fq_col_mask", "dequant"])
+def test_simt_f32_x_matches_plain(cuda, epi, M, K, N):
+    """f32 x (the f32 configuration) at M > 8 takes the SIMT variant, in
+    f32 products, against the plain version at the GEMM's bound."""
+    gen = torch.Generator(device=cuda).manual_seed(K + M + 3)
+    w = torch.randn((K, N), generator=gen, device=cuda) * K ** -0.5
+    mask = (torch.arange(N, device=cuda) % 3 > 0).float()
+    qp = init_quant_params(w, bits=8.0, t=0.85)
+    if epi == "dequant":
+        codes, d = quantize_int(w, init_quant_params(w, bits=8.0), bits=8.0)
+        w, e = codes.to(torch.int8), TG.dequant(d)
+    else:
+        e = {"none": TG.none(), "col_mask": TG.col_mask(mask),
+             "fake_quant_rhs": TG.fake_quant_rhs(qp.d, qp.q_m, qp.t),
+             "fq_col_mask": TG.fq_col_mask(qp.d, qp.q_m, qp.t, mask)}[epi]
+    x = torch.randn((M, K), generator=gen, device=cuda)
+    before = dict(TG.gemm.launches)
+    y = TG.gemm(x, w, e, out_dtype=torch.float32)
+    want = TG.plain(x, w, e, torch.float32)
+    torch.cuda.synchronize()
+    assert TG.variant(M, x.dtype) == "simt"
+    assert TG.gemm.launches == dict(before, simt=before["simt"] + 1, **{
+        e.name: before[e.name] + 1})
+    torch.testing.assert_close(y, want, rtol=1e-4,
+                               atol=1e-4 * want.abs().max().item())
+    if "mask" in epi:
+        assert not y[:, mask == 0].any()
