@@ -14,12 +14,16 @@ Phases, each printing its own lines:
    prefill (M = 512): the GEMM core's fake_quant_rhs (bf16 weights),
    dequant (int8) and unpack_dequant (bits 2, 3, 4, 8) epilogues over
    K->N = 2048->2048, 2048->1024, 2048->8192, 8192->2048 and 2048->92672,
-   flash-decode attention at B = 4, 8 (KVh 8, g 2, dh 128, S 576, bf16
-   K/V), and page-indirect flash decode at the same shapes over pages of
-   16 rows in a shuffled order, with bf16, int8 and int4 pages. Outputs
-   compare in f32 at rtol 1e-4, atol 1e-4 * max|y|; on bf16 pages the
-   paged kernel must also equal the contiguous kernel on the gathered
-   rows bit for bit. Then the training shapes (T = B*S = 2048 tokens):
+   split-rows flash-decode attention at B = 4, 8 (KVh 8, g 2, dh 128, S
+   576, bf16 K/V) and at long context (B = 4, S = 4096, slots spread over
+   the arena), and page-indirect flash decode at the same shapes over
+   pages of 16 rows in a shuffled order, with bf16, int8 and int4 pages.
+   Outputs compare in f32 at rtol 1e-4, atol 1e-4 * max|y| against the
+   plain version and at rtol 1e-5, atol 1e-5 * max|y| against the split
+   mirror (`ref.decode_attn_split_ref`, the kernel's own algorithm and
+   order); on bf16 pages the paged kernel must also equal the contiguous
+   kernel on the gathered rows bit for bit. Then the training shapes (T =
+   B*S = 2048 tokens):
    the fake-quant forward and backward kernels on the head weight
    (2048 x 92672 bf16) and a w_gate slice (2048 x 8192 bf16) at t = 1 and
    t = 0.85 (forward and dx bitwise at both, the three sums within
@@ -91,7 +95,9 @@ Phases, each printing its own lines:
 8. Two JSON lines: the kernel table, then the device line (last).
 
 Times are CUDA-event medians with the 50 MB L2 flushed before each launch
-(each decode-step launch finds its weights cold). Bounds: the larger of
+(each decode-step launch finds its weights cold); after the flush the
+device sleeps ~0.1 ms, so the host has enqueued the call before the start
+event fires and the interval holds device time only. Bounds: the larger of
 the bytes the call must move over 3.35 TB/s and its operations over
 989 TFLOP/s (H100 SXM datasheet: HBM3 and dense bf16 tensor-core peaks).
 TF32 is off for every PyTorch matmul here, so plain versions and library
@@ -165,6 +171,13 @@ SIMT_GEMMS = [(label, M, K, N) for label in ("fake_quant_rhs", "none")
               for M in (512, 2048) for K, N in ((2048, 8192), (8192, 2048))]
 SIMT_REPORT = ("fake_quant_rhs", 2048, 2048, 8192)
 TC_HEIGHTS = (128, 256)      # the tensor-core variant's block heights
+DECODE_S = 576                # phase 3's decode arena: prompt 512 + 64
+LONG_S = 4096                 # and its long-context arena
+DECODE_POS = [DECODE_S - 1, 0, 300, 63, 64, 575, 17, 200]
+LONG_POS = [LONG_S - 1, 1000, 2500, 63]
+SLEEP_CYCLES = 200_000        # ~0.1 ms of device sleep before each timing
+DECODE_KERNELS = "flash_decode"   # in the decode-attention kernels' names
+ROWS_PER_SPLIT = (32, 64, 128)   # the decode kernels' R, timed at B = 4
 
 
 def bound_ms(nbytes: int, flops: int,
@@ -174,10 +187,13 @@ def bound_ms(nbytes: int, flops: int,
 
 
 class Timer:
-    """Median CUDA-event time of one call, L2 flushed before each call."""
+    """Median CUDA-event time of one call, L2 flushed before each call.
+    After the flush the device sleeps `sleep_cycles` (0: not at all), so
+    that the host has enqueued the call before its start event runs."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, sleep_cycles: int = SLEEP_CYCLES):
         self.torch = torch
+        self.sleep_cycles = sleep_cycles
         self.flush = torch.empty(64 * 2 ** 20, dtype=torch.float32,
                                  device="cuda")     # 256 MB > 50 MB L2
 
@@ -194,6 +210,8 @@ class Timer:
                torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
         for start, end in ev:
             self.flush.zero_()
+            if self.sleep_cycles:
+                torch.cuda._sleep(self.sleep_cycles)
             start.record()
             fn()
             end.record()
@@ -324,60 +342,129 @@ def phase_kernels(torch, timer) -> tuple[list, dict, list]:
         del xs
         torch.cuda.empty_cache()
 
-    S, KVh, g, dh = 576, 8, 2, 128
-    for B in (4, 8):
-        q = torch.randn((B, KVh, g, dh), generator=gen, device="cuda")
-        cache = torch.randn((2, 2, B, S, KVh, dh), generator=gen,
-                            device="cuda").to(torch.bfloat16)
-        k, v = cache[0, 1], cache[1, 1]         # per-layer views, strided
-        pos = torch.tensor([S - 1, 0, 300, 63, 64, 575, 17, 200][:B],
-                           dtype=torch.int32, device="cuda")
-        y = da.decode_attn(q, k, v, pos)
-        want = ref.decode_attn_ref(q, k, v, pos)
-        torch.cuda.synchronize()
-        err = (y - want).abs().max().item()
-        tol = 1e-4 * want.abs().max().item()
-        ok = bool(torch.allclose(y, want, rtol=1e-4, atol=tol)
-                  and torch.isfinite(y).all())
-        # library yardstick: SDPA over the same rows, heads expanded for GQA
-        ql = q.reshape(B, KVh * g, 1, dh).to(torch.bfloat16)
-        kl = k.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
-        vl = v.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
-        mask = (torch.arange(S, device="cuda")[None, :]
-                < torch.clamp(pos.long() + 1, max=S)[:, None])[:, None, None]
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        row = {"kernel": "decode_attn", "B": B, "S": S, "KVh": KVh, "g": g,
-               "dh": dh, "max_abs_err": err, "atol": tol, "ok": ok,
-               "ms": timer(lambda: da.decode_attn(q, k, v, pos)),
-               "plain_ms": timer(lambda: ref.decode_attn_ref(q, k, v, pos)),
-               "library_ms": timer(lambda: sdpa(ql, kl, vl, attn_mask=mask))}
-        row["bound_ms"], row["bound_by"] = bound_ms(
-            da.bytes_moved(q, k, pos), da.flops(q, k, pos))
-        rows.append(row)
-        if not ok:
-            failures.append(row)
-        print(f"[3 kernels] decode_attn B={B} S={S} KVh={KVh} g={g} "
-              f"dh={dh} ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-              f"library_ms={row['library_ms']:.4f} "
-              f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
-              f"err={err:.2e} tol={tol:.2e} {'ok' if ok else 'FAIL'}")
-        if B == SLOTS:
-            report["decode_attn"] = row
-        for storage in ("bf16", "int8", "int4"):
-            row = _paged_check(torch, timer, gen, B, S, KVh, g, dh, storage)
+    KVh, g, dh = 8, 2, 128
+    for B, S, pos in ((4, DECODE_S, DECODE_POS), (8, DECODE_S, DECODE_POS),
+                      (4, LONG_S, LONG_POS)):
+        # int64 pos and (in the helpers) bf16 q, as the layers hand them
+        pos = torch.tensor(pos[:B], dtype=torch.int64, device="cuda")
+        decode_rows = [_decode_check(torch, timer, gen, B, S, KVh, g, dh,
+                                     pos)]
+        decode_rows += [_paged_check(torch, timer, gen, B, S, KVh, g, dh,
+                                     storage, pos)
+                        for storage in ("bf16", "int8", "int4")]
+        for row in decode_rows:
             rows.append(row)
             if not row["ok"]:
                 failures.append(row)
-            if B == SLOTS:
-                report[f"paged_decode_attn.{storage}"] = row
+            if B == SLOTS and S == DECODE_S:
+                report[row["kernel"]] = row
+            elif S == LONG_S:
+                report[row["kernel"]]["at_S4096"] = {k: row[k] for k in (
+                    "ms", "plain_ms", "library_ms", "bound_ms",
+                    "max_abs_err")}
     return rows, report, failures
 
 
-def _paged_check(torch, timer, gen, B, S, KVh, g, dh, storage) -> dict:
+def _check_decode(torch, row, y, plain, mirror, tag="") -> None:
+    """Hold a decode kernel's output to its plain version (rtol 1e-4) and
+    to the split mirror (rtol 1e-5), both with atol relative to max|y|;
+    the errors go under keys prefixed with `tag`, and a failure clears
+    row["ok"]."""
+    torch.cuda.synchronize()
+    scale = plain.abs().max().item()
+    row[tag + "max_abs_err"] = (y - plain).abs().max().item()
+    row[tag + "atol"] = 1e-4 * scale
+    row[tag + "split_max_abs_err"] = (y - mirror).abs().max().item()
+    row["ok"] = row.get("ok", True) and bool(
+        torch.allclose(y, plain, rtol=1e-4, atol=1e-4 * scale)
+        and torch.allclose(y, mirror, rtol=1e-5, atol=1e-5 * scale)
+        and torch.isfinite(y).all())
+
+
+def _kernels_per_call(torch, fn) -> int:
+    """The decode-attention kernels (names holding DECODE_KERNELS) that one
+    call of `fn` runs on the device, read from a torch.profiler trace."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(1 for e in prof.events()
+               if e.device_type == cuda and DECODE_KERNELS in e.key)
+
+
+def _one_pos(pos):
+    """Every slot at pos[0] through a stride-0 view, as the layers expand
+    one position over the batch."""
+    return pos[:1].expand(pos.numel())
+
+
+def _sdpa(torch, q, k_rows, v_rows, pos):
+    """The library yardstick: SDPA over the same (gathered, decoded) rows
+    in bf16, heads expanded for GQA, masked to each slot's valid rows."""
+    B, KVh, g, dh = q.shape
+    S = k_rows.shape[1]
+    ql = q.reshape(B, KVh * g, 1, dh).to(torch.bfloat16)
+    kl, vl = (r.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+              .to(torch.bfloat16) for r in (k_rows, v_rows))
+    mask = (torch.arange(S, device="cuda")[None, :]
+            < torch.clamp(pos.long() + 1, max=S)[:, None])[:, None, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(ql, kl, vl, attn_mask=mask)
+
+
+def _decode_check(torch, timer, gen, B, S, KVh, g, dh, pos) -> dict:
+    """The contiguous split-rows kernel on per-layer (strided) views of a
+    stacked bf16 cache, against its plain version and the split mirror."""
+    from repro_torch.kernels import decode_attn as da
+    from repro_torch.kernels import ref
+    q = torch.randn((B, KVh, g, dh), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    cache = torch.randn((2, 2, B, S, KVh, dh), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+    k, v = cache[0, 1], cache[1, 1]         # per-layer views, strided
+    row = {"kernel": "decode_attn", "B": B, "S": S, "KVh": KVh, "g": g,
+           "dh": dh, "R": da.ROWS_PER_SPLIT}
+    for tag, p in (("", pos), ("one_pos_", _one_pos(pos))):
+        _check_decode(torch, row, da.decode_attn(q, k, v, p),
+                      ref.decode_attn_ref(q, k, v, p),
+                      ref.decode_attn_split_ref(q, k, v, p,
+                                                da.ROWS_PER_SPLIT), tag)
+    row["ms"] = timer(lambda: da.decode_attn(q, k, v, pos))
+    if B == SLOTS:
+        row["rows_ms"] = {R: timer(lambda R=R: da.decode_attn(
+            q, k, v, pos, rows_per_split=R)) for R in ROWS_PER_SPLIT}
+    row["plain_ms"] = timer(lambda: ref.decode_attn_ref(q, k, v, pos))
+    row["library_ms"] = timer(_sdpa(torch, q, k, v, pos))
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        da.bytes_moved(q, k, pos), da.flops(q, k, pos))
+    if B == SLOTS:      # after the timings: no profiler session before them
+        row["kernels_per_call"] = _kernels_per_call(
+            torch, lambda: da.decode_attn(q, k, v, pos))
+    print(f"[3 kernels] decode_attn B={B} S={S} KVh={KVh} g={g} "
+          f"dh={dh} ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+          f"library_ms={row['library_ms']:.4f} "
+          f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+          f"err={row['max_abs_err']:.2e} tol={row['atol']:.2e} "
+          f"vs split mirror {row['split_max_abs_err']:.2e} one pos "
+          f"{row['one_pos_max_abs_err']:.2e}{_rows(row)} "
+          f"{'ok' if row['ok'] else 'FAIL'}")
+    return row
+
+
+def _rows(row) -> str:
+    r = row.get("rows_ms")
+    return "" if r is None else (" R (" + ", ".join(
+        f"{R}: {ms:.4f}" for R, ms in r.items()) + f" ms) kernels/call "
+        f"{row['kernels_per_call']}")
+
+
+def _paged_check(torch, timer, gen, B, S, KVh, g, dh, storage, pos) -> dict:
     """The page-indirect kernel on B slots of S rows in pages of PAGE rows,
-    each slot's pages in a shuffled order, against its plain version (and,
-    on bf16 pages, bitwise against the contiguous kernel on the gathered
-    rows)."""
+    each slot's pages in a shuffled order, against its plain version and
+    the split mirror (and, on bf16 pages, bitwise against the contiguous
+    kernel on the gathered rows)."""
     from repro_torch.core.quant import kv_quant_encode
     from repro_torch.kernels import decode_attn as da
     from repro_torch.kernels import ref
@@ -385,7 +472,8 @@ def _paged_check(torch, timer, gen, B, S, KVh, g, dh, storage) -> dict:
     n_pages = 2 + B * Lp
     table = (torch.randperm(n_pages - 2, generator=gen, device="cuda")
              + 2).reshape(B, Lp).to(torch.int32)
-    q = torch.randn((B, KVh, g, dh), generator=gen, device="cuda")
+    q = torch.randn((B, KVh, g, dh), generator=gen, device="cuda").to(
+        torch.bfloat16)
     pools = [torch.randn((n_pages, PAGE, KVh, dh), generator=gen,
                          device="cuda") for _ in range(2)]
     kw = dict(page_size=PAGE, seq_len=S)
@@ -396,43 +484,41 @@ def _paged_check(torch, timer, gen, B, S, KVh, g, dh, storage) -> dict:
         (kp, ks), (vp, vs) = (kv_quant_encode(p, bits) for p in pools)
         kw.update(kv_bits=bits, k_scale=ks, v_scale=vs)
     del pools
-    pos = torch.tensor([S - 1, 0, 300, 63, 64, 575, 17, 200][:B],
-                       dtype=torch.int32, device="cuda")
     y = da.paged_decode_attn(q, kp, vp, pos, table, **kw)
-    want = ref.paged_decode_attn_ref(q, kp, vp, pos, table, **kw)
-    torch.cuda.synchronize()
-    err = (y - want).abs().max().item()
-    tol = 1e-4 * want.abs().max().item()
-    ok = bool(torch.allclose(y, want, rtol=1e-4, atol=tol)
-              and torch.isfinite(y).all())
+    row = {"kernel": f"paged_decode_attn.{storage}", "B": B, "S": S,
+           "P": PAGE, "KVh": KVh, "g": g, "dh": dh, "R": da.ROWS_PER_SPLIT}
+    for tag, p in (("", pos), ("one_pos_", _one_pos(pos))):
+        _check_decode(torch, row,
+                      da.paged_decode_attn(q, kp, vp, p, table, **kw),
+                      ref.paged_decode_attn_ref(q, kp, vp, p, table, **kw),
+                      ref.paged_decode_attn_split_ref(
+                          q, kp, vp, p, table,
+                          rows_per_split=da.ROWS_PER_SPLIT, **kw), tag)
     # the gathered (and decoded) rows: the contiguous kernel's input on
     # bf16 pages, and the library yardstick's in every storage
     rows_k, rows_v = (ref.gather_pages(pool, kw.get(sc), table, PAGE, S,
                                        kw.get("kv_bits"))
                       for pool, sc in ((kp, "k_scale"), (vp, "v_scale")))
-    row = {"kernel": f"paged_decode_attn.{storage}", "B": B, "S": S,
-           "P": PAGE, "KVh": KVh, "g": g, "dh": dh, "max_abs_err": err,
-           "atol": tol}
     if storage == "bf16":
         contiguous = da.decode_attn(q, rows_k, rows_v, pos)
         torch.cuda.synchronize()
         row["contiguous_max_abs_err"] = (y - contiguous).abs().max().item()
-        ok = ok and torch.equal(y, contiguous)
-    row["ok"] = ok
-    ql = q.reshape(B, KVh * g, 1, dh).to(torch.bfloat16)
-    kl, vl = (r.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
-              .to(torch.bfloat16) for r in (rows_k, rows_v))
-    mask = (torch.arange(S, device="cuda")[None, :]
-            < torch.clamp(pos.long() + 1, max=S)[:, None])[:, None, None]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+        row["ok"] = row["ok"] and torch.equal(y, contiguous)
     row["ms"] = timer(lambda: da.paged_decode_attn(q, kp, vp, pos, table,
                                                    **kw))
+    if B == SLOTS:
+        row["rows_ms"] = {R: timer(lambda R=R: da.paged_decode_attn(
+            q, kp, vp, pos, table, rows_per_split=R, **kw))
+            for R in ROWS_PER_SPLIT}
     row["plain_ms"] = timer(lambda: ref.paged_decode_attn_ref(
         q, kp, vp, pos, table, **kw))
-    row["library_ms"] = timer(lambda: sdpa(ql, kl, vl, attn_mask=mask))
+    row["library_ms"] = timer(_sdpa(torch, q, rows_k, rows_v, pos))
     row["bound_ms"], row["bound_by"] = bound_ms(
         da.paged_bytes_moved(q, kp, pos, PAGE, S, kw.get("kv_bits")),
         da.paged_flops(q, pos, S))
+    if B == SLOTS:      # after the timings: no profiler session before them
+        row["kernels_per_call"] = _kernels_per_call(
+            torch, lambda: da.paged_decode_attn(q, kp, vp, pos, table, **kw))
     bitwise = (f" vs contiguous kernel max|diff|="
                f"{row['contiguous_max_abs_err']:.1e}"
                if storage == "bf16" else "")
@@ -441,7 +527,10 @@ def _paged_check(torch, timer, gen, B, S, KVh, g, dh, storage) -> dict:
           f"plain_ms={row['plain_ms']:.4f} "
           f"library_ms={row['library_ms']:.4f} (SDPA on gathered rows) "
           f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
-          f"err={err:.2e} tol={tol:.2e}{bitwise} {'ok' if ok else 'FAIL'}")
+          f"err={row['max_abs_err']:.2e} tol={row['atol']:.2e} "
+          f"vs split mirror {row['split_max_abs_err']:.2e} one pos "
+          f"{row['one_pos_max_abs_err']:.2e}{_rows(row)}{bitwise} "
+          f"{'ok' if row['ok'] else 'FAIL'}")
     return row
 
 def _fq_rows(torch, timer, gen) -> tuple[list, dict, list]:
@@ -1144,7 +1233,8 @@ def main(argv=None) -> int:
                  + (" bits=4" if "unpack" in name else "")
                  if name.startswith("gemm") else
                  f"B={row['B']} S={row['S']} KVh={row['KVh']} g={row['g']} "
-                 f"dh={row['dh']}" + (f" P={row['P']}" if "P" in row else ""))
+                 f"dh={row['dh']}" + (f" P={row['P']}" if "P" in row else "")
+                 + f" R={row['R']} q bf16, pos int64")
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches,
@@ -1152,7 +1242,11 @@ def main(argv=None) -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": shape, **({"variant": row["variant"]}
-                               if "variant" in row else {})})
+                               if "variant" in row else {}),
+            # device kernels per decode call, read from a profiler trace
+            **({"kernels_per_launch": row["kernels_per_call"],
+                "rows_per_split_ms": row["rows_ms"],
+                "at_S4096": row["at_S4096"]} if "at_S4096" in row else {})})
     fq_src = "src/repro_torch/kernels/csrc/fake_quant.cu"
     train_src = {"fake_quant.fwd": (fq_src,
                                     "src/repro/kernels/fake_quant.py:31"),

@@ -40,10 +40,12 @@ SIGNATURES = {
                    _P, _I, _I, _I, _I, _I, _P),
     "repro_gemm_tc": (_P, _LL, _I, _P, _I, _LL, _I, _I, _I, _P, _I, _P, _P,
                       _P, _P, _I, _I, _I, _I, _I, _P),
-    "repro_decode_attn": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
-                          _LL, _LL, _LL, _LL, _LL, _LL, _F, _P),
-    "repro_paged_decode_attn": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
-                                _I, _I, _I, _I, _I, _F, _P),
+    "repro_decode_attn": (_P, _I, _P, _P, _I, _P, _I, _LL, _P, _P, _I, _I,
+                          _I, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL, _I, _I,
+                          _F, _P),
+    "repro_paged_decode_attn": (_P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _LL,
+                                _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _F, _P),
     "repro_fake_quant_fwd": (_P, _I, _P, _LL, _P, _P, _P, _I, _P),
     "repro_fake_quant_bwd": (_P, _I, _P, _I, _P, _P, _P, _LL, _P, _P, _P,
                              _P),

@@ -5,12 +5,14 @@ Port of `repro.kernels.decode_attn`. `decode_attn` and
 `paged_decode_attn` decide by device: a CPU tensor goes to the plain
 PyTorch version (`ref.decode_attn_ref`, `ref.paged_decode_attn_ref`); a
 CUDA tensor goes to the hand-written kernel in `csrc/decode_attn.cu`
-(one kernel body, two row-addressing policies), or raises if the library
-did not build or the launch failed.
+(one split-rows kernel body with two row-addressing policies, then a
+combine pass), or raises if the library did not build or the launch
+failed. Both wrappers take their split plan from `plan_splits`, sized
+from the arena length the host knows, never from `pos`.
 
-`decode_attn.launches` counts kernel launches, and
-`paged_decode_attn.launches` counts them by page storage (f32, bf16, int8,
-int4); only the CUDA path adds to them, once per launch.
+`decode_attn.launches` counts calls that launched the kernel pair (one
+per layer per decode step), and `paged_decode_attn.launches` counts them
+by page storage (f32, bf16, int8, int4); only the CUDA path adds to them.
 """
 from __future__ import annotations
 
@@ -22,23 +24,68 @@ import torch
 from repro_torch.kernels import build, ref
 
 G_MAX = 8       # query heads per KV head the kernel takes
-DH_MAX = 128    # head width the kernel takes
+DH_MAX = 128    # head width the kernel takes (a multiple of 4)
+ROWS_PER_SPLIT = 64    # arena rows one block of the kernel attends over
+R_MAX = 128
+
+
+def plan_splits(S: int, rows_per_split: int = ROWS_PER_SPLIT
+                ) -> tuple[int, int]:
+    """The kernel's split plan over an arena of S rows: (n_splits, R).
+
+    Split c covers rows [c * R, min((c + 1) * R, n_valid)) and does no
+    work when c * R >= n_valid, so the splits that hold rows are
+    0 .. ceil(n_valid / R) - 1 and cover [0, n_valid) once. The plan
+    depends only on S and R, which is what keeps the paged kernel bitwise
+    the contiguous one when seq_len == S."""
+    R = int(rows_per_split)
+    if not 1 <= R <= R_MAX or S < 1:
+        raise ValueError(f"plan_splits: S={S}, rows_per_split={R} (the "
+                         f"kernel takes 1..{R_MAX})")
+    return -(-int(S) // R), R
+
+
+def _kernel_inputs(name, q, pos, B, g, dh):
+    """q and pos as the kernel reads them: q bf16 or f32 contiguous, pos
+    int32 or int64 on q's device with any stride; no copy when the caller
+    hands them so. Raises on what the kernel does not take."""
+    if g > G_MAX or dh > DH_MAX or dh % 4:
+        raise ValueError(f"{name}: the kernel takes g <= {G_MAX} and dh <= "
+                         f"{DH_MAX} a multiple of 4 (g={g}, dh={dh})")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        q = q.to(torch.float32)
+    pos = pos.reshape(B)
+    if pos.device != q.device or pos.dtype not in (torch.int32, torch.int64):
+        pos = pos.to(device=q.device, dtype=torch.int64)
+    return q.contiguous(), pos
+
+
+def _workspace(B, KVh, g, dh, n_splits, device):
+    """One allocation: the (B, KVh, g, dh) f32 output, then the per-split
+    partials (B, KVh, n_splits, g, dh + 2) the combine pass reads."""
+    n_out = B * KVh * g * dh
+    ws = torch.empty(n_out + B * KVh * n_splits * g * (dh + 2),
+                     dtype=torch.float32, device=device)
+    return ws[:n_out].view(B, KVh, g, dh), ws[n_out:]
 
 
 def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                pos: torch.Tensor) -> torch.Tensor:
+                pos: torch.Tensor, *, rows_per_split: int = ROWS_PER_SPLIT
+                ) -> torch.Tensor:
     """Attention of one query token per slot over its arena rows.
 
     q: (B, KVh, g, dh), the token's query heads grouped per KV head.
     k, v: (B, S, KVh, dh) arena rows with the current token written; any
     strides with a unit last stride (a per-layer view of the stacked
     cache is read in place). pos: (B,) int positions; row b attends over
-    its min(pos[b] + 1, S) written rows. Returns (B, KVh, g, dh) f32."""
+    its min(pos[b] + 1, S) written rows. rows_per_split: the kernel's R
+    (`plan_splits`). Returns (B, KVh, g, dh) f32."""
     B, KVh, g, dh = q.shape
     S = k.shape[1]
     if tuple(k.shape) != (B, S, KVh, dh) or k.shape != v.shape:
         raise ValueError(f"decode_attn: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    n_splits, R = plan_splits(S, rows_per_split)
     if q.device.type == "cpu":
         return ref.decode_attn_ref(q, k, v, pos)
     if q.device.type != "cuda" or not (k.device == v.device == q.device):
@@ -46,22 +93,20 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "device")
     if k.dtype != v.dtype or k.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"decode_attn: k/v dtypes {k.dtype}/{v.dtype}")
-    if g > G_MAX or dh > DH_MAX or k.stride(-1) != 1 or v.stride(-1) != 1:
-        raise ValueError(f"decode_attn: the kernel takes g <= {G_MAX}, "
-                         f"dh <= {DH_MAX} and unit-stride rows (g={g}, "
-                         f"dh={dh})")
-    q32 = q.to(torch.float32).contiguous()
-    pos32 = pos.to(device=q.device, dtype=torch.int32).reshape(B).contiguous()
-    out = torch.empty((B, KVh, g, dh), dtype=torch.float32, device=q.device)
+    if k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError("decode_attn: the kernel takes unit-stride rows")
+    q, pos = _kernel_inputs("decode_attn", q, pos, B, g, dh)
+    out, part = _workspace(B, KVh, g, dh, n_splits, q.device)
     lib = build.load()
     err = lib.repro_decode_attn(
-        q32.data_ptr(), k.data_ptr(), v.data_ptr(),
-        0 if k.dtype == torch.float32 else 1, pos32.data_ptr(),
-        out.data_ptr(), B, S, KVh, g, dh,
+        q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
+        v.data_ptr(), 0 if k.dtype == torch.float32 else 1, pos.data_ptr(),
+        int(pos.dtype == torch.int64), pos.stride(0), out.data_ptr(),
+        part.data_ptr(), B, S, KVh, g, dh,
         k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2), 1.0 / math.sqrt(dh),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, f"decode_attn (B={B}, S={S}, KVh={KVh}, g={g})")
+        v.stride(0), v.stride(1), v.stride(2), R, n_splits,
+        1.0 / math.sqrt(dh), torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, f"decode_attn (B={B}, S={S}, KVh={KVh}, g={g}, R={R})")
     decode_attn.launches += 1
     return out
 
@@ -96,8 +141,8 @@ def paged_decode_attn(q: torch.Tensor, kpool: torch.Tensor,
                       page_table: torch.Tensor, *, page_size: int,
                       seq_len: int, kv_bits: Optional[int] = None,
                       k_scale: Optional[torch.Tensor] = None,
-                      v_scale: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
+                      v_scale: Optional[torch.Tensor] = None,
+                      rows_per_split: int = ROWS_PER_SPLIT) -> torch.Tensor:
     """Attention of one query token per slot over its pages.
 
     q: (B, KVh, g, dh). kpool/vpool: (n_pages, page_size, KVh, dh) f32 or
@@ -106,7 +151,9 @@ def paged_decode_attn(q: torch.Tensor, kpool: torch.Tensor,
     (n_pages, page_size, KVh). page_table: (B, Lp) int logical -> physical
     page per slot, Lp * page_size >= seq_len; the kernel trusts every entry
     to be < n_pages. pos: (B,) int; row b attends over its
-    min(pos[b] + 1, seq_len) rows. Returns (B, KVh, g, dh) f32."""
+    min(pos[b] + 1, seq_len) rows. rows_per_split: the kernel's R, planned
+    over seq_len as the contiguous kernel plans over S. Returns
+    (B, KVh, g, dh) f32."""
     B, KVh, g, dh = q.shape
     P = int(page_size)
     if kv_bits not in (None, 4, 8):
@@ -124,6 +171,7 @@ def paged_decode_attn(q: torch.Tensor, kpool: torch.Tensor,
     if any(s is None or tuple(s.shape) != shape[:3] for s in scales):
         raise ValueError(f"paged_decode_attn: kv_bits={kv_bits} needs "
                          f"scales of shape {shape[:3]}")
+    n_splits, R = plan_splits(seq_len, rows_per_split)
     if q.device.type == "cpu":
         return ref.paged_decode_attn_ref(
             q, kpool, vpool, pos, page_table, page_size=P, seq_len=seq_len,
@@ -142,26 +190,24 @@ def paged_decode_attn(q: torch.Tensor, kpool: torch.Tensor,
     if not ok:
         raise ValueError(f"paged_decode_attn: pools {kpool.dtype}/"
                          f"{vpool.dtype} with kv_bits={kv_bits}")
-    if (g > G_MAX or dh > DH_MAX
-            or not all(t.is_contiguous() for t in (kpool, vpool, *scales))):
-        raise ValueError(f"paged_decode_attn: the kernel takes g <= {G_MAX}, "
-                         f"dh <= {DH_MAX} and contiguous pools (g={g}, "
-                         f"dh={dh})")
-    q32 = q.to(torch.float32).contiguous()
-    pos32 = pos.to(device=q.device, dtype=torch.int32).reshape(B).contiguous()
+    if not all(t.is_contiguous() for t in (kpool, vpool, *scales)):
+        raise ValueError("paged_decode_attn: the kernel takes contiguous "
+                         "pools")
+    q, pos = _kernel_inputs("paged_decode_attn", q, pos, B, g, dh)
     table = page_table.to(torch.int32).contiguous()
-    out = torch.empty((B, KVh, g, dh), dtype=torch.float32, device=q.device)
+    out, part = _workspace(B, KVh, g, dh, n_splits, q.device)
     ks, vs = (k_scale.data_ptr(), v_scale.data_ptr()) if scales else (None,
                                                                        None)
     lib = build.load()
     err = lib.repro_paged_decode_attn(
-        q32.data_ptr(), kpool.data_ptr(), vpool.data_ptr(), ks, vs,
-        PAGE_KINDS[kind],
-        table.data_ptr(), pos32.data_ptr(), out.data_ptr(), B, KVh, g, dh,
-        P, table.shape[1], int(seq_len), 1.0 / math.sqrt(dh),
+        q.data_ptr(), int(q.dtype == torch.bfloat16), kpool.data_ptr(),
+        vpool.data_ptr(), ks, vs, PAGE_KINDS[kind], table.data_ptr(),
+        pos.data_ptr(), int(pos.dtype == torch.int64), pos.stride(0),
+        out.data_ptr(), part.data_ptr(), B, KVh, g, dh, P, table.shape[1],
+        int(seq_len), R, n_splits, 1.0 / math.sqrt(dh),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, f"paged_decode_attn (B={B}, KVh={KVh}, g={g}, P={P}, "
-                     f"kv_bits={kv_bits})")
+                     f"kv_bits={kv_bits}, R={R})")
     paged_decode_attn.launches[kind] += 1
     return out
 

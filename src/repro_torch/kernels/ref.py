@@ -118,6 +118,46 @@ def decode_attn_ref(q, k, v, pos) -> torch.Tensor:
     return out.reshape(B, KVh, g, dh)
 
 
+def decode_attn_split_ref(q, k, v, pos, rows_per_split: int
+                          ) -> torch.Tensor:
+    """The split-rows flash-decode kernel's algorithm, in its order: each
+    split of R rows (`decode_attn.plan_splits`) takes its local max m,
+    sum l and unnormalized o = sum exp(s - m) v over its valid rows; the
+    splits that hold rows are then combined one after another:
+    M = max m_i, w_i = exp(m_i - M),
+    out = sum w_i o_i / max(sum w_i l_i, 1e-30).
+
+    Shapes as `decode_attn_ref`. Tests and `chip_smoke.py` hold the kernel
+    to it; the wrappers' CPU path stays on `decode_attn_ref`, the JAX
+    reference's composition."""
+    from repro_torch.kernels.decode_attn import plan_splits
+    B, KVh, g, dh = q.shape
+    S = k.shape[1]
+    n, R = plan_splits(S, rows_per_split)
+    pad = (0, 0, 0, 0, 0, n * R - S)
+    k32 = torch.nn.functional.pad(k.to(F32), pad)
+    v32 = torch.nn.functional.pad(v.to(F32), pad)
+    n_valid = torch.clamp(pos.to(torch.int64).reshape(-1) + 1, max=S)
+    rows = torch.arange(n * R, device=k.device).reshape(n, R)
+    valid = (rows[None] < n_valid[:, None, None])[:, None, None]
+    s = (torch.einsum("bkgd,bskd->bkgs", q.to(F32), k32)
+         * (1.0 / math.sqrt(dh))).reshape(B, KVh, g, n, R)
+    m = torch.where(valid, s, -1e30).amax(-1)             # (B, KVh, g, n)
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(-1)
+    o = torch.einsum("bkgnr,bnrkd->bkgnd", p,
+                     v32.reshape(B, n, R, KVh, dh))
+    held = (rows[:, 0][None] < n_valid[:, None])[:, None, None]
+    M = torch.where(held, m, -1e30).amax(-1)              # (B, KVh, g)
+    L = torch.zeros_like(M)
+    O = torch.zeros((B, KVh, g, dh), dtype=F32, device=k.device)
+    for i in range(n):
+        w = torch.where(held[..., i], torch.exp(m[..., i] - M), 0.0)
+        L = L + w * l[..., i]
+        O = O + w[..., None] * o[..., i, :]
+    return O / torch.clamp_min(L, 1e-30)[..., None]
+
+
 def gather_pages(pool, scale, page_table, page_size: int, seq_len: int,
                  kv_bits=None) -> torch.Tensor:
     """Each slot's rows through its page table, sliced to `seq_len`:
@@ -156,3 +196,16 @@ def paged_decode_attn_ref(q, kpool, vpool, pos, page_table, *, page_size,
                         kv_bits),
         gather_pages(vpool, v_scale, page_table, page_size, seq_len, kv_bits),
         pos)
+
+
+def paged_decode_attn_split_ref(q, kpool, vpool, pos, page_table, *,
+                                page_size, seq_len, rows_per_split,
+                                kv_bits=None, k_scale=None, v_scale=None
+                                ) -> torch.Tensor:
+    """`decode_attn_split_ref` over the gathered (and decoded) rows sliced
+    to `seq_len`: the paged kernel's algorithm, planned over seq_len."""
+    return decode_attn_split_ref(
+        q, gather_pages(kpool, k_scale, page_table, page_size, seq_len,
+                        kv_bits),
+        gather_pages(vpool, v_scale, page_table, page_size, seq_len, kv_bits),
+        pos, rows_per_split)

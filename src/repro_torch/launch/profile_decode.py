@@ -7,10 +7,13 @@ against the device time of the kernels it launched, at full width.
 Serves internlm2-1.8b at full width with every one of its 4 slots holding
 a 128-token prompt, then times 8 batched decode steps on the host clock
 (each ends in a device sync) and profiles 8 more with `torch.profiler`.
-Prints, per step: the wall time, the summed device time of its kernels
-(one stream, so their sum is the busy time), the device's idle share, and
-the kernels by device time. `--paged` serves from the paged KV arena
-(bf16 pages of 16 rows). Needs a CUDA device.
+Prints, per step: the wall time, the device busy time (the union of its
+kernels' intervals: the decode-attention combine pass starts while its
+split kernel runs), the device's idle share, the top kernels by device
+time, and every decode-attention kernel by name (split and combine, at
+any rank) with its device ms and calls per step and the union of the
+pair. `--paged` serves from the paged KV arena (bf16 pages of 16 rows).
+Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -26,11 +29,23 @@ ARCH = "internlm2-1.8b"
 SLOTS = 4
 PROMPT_LEN = 128
 STEPS = 8
+DECODE_ATTN = "flash_decode"     # the decode-attention kernels' names
 
 
 def _device_us(evt) -> float:
     return getattr(evt, "self_device_time_total",
                    getattr(evt, "self_cuda_time_total", 0.0))
+
+
+def _union_ms(events) -> float:
+    """Length of the union of the events' [start, end) device intervals."""
+    total, covered = 0.0, float("-inf")
+    for start, stop in sorted((ev.time_range.start, ev.time_range.end)
+                              for ev in events):
+        if stop > covered:
+            total += stop - max(start, covered)
+            covered = stop
+    return total / 1e3
 
 
 def main(argv=None) -> dict:
@@ -66,7 +81,11 @@ def main(argv=None) -> dict:
                       for e in prof.key_averages()
                       if e.device_type == cuda and _device_us(e) > 0),
                      key=lambda r: -r[1])
-    busy_ms = sum(ms for _, ms, _ in kernels)
+    device_events = [e for e in prof.events() if e.device_type == cuda]
+    busy_ms = _union_ms(device_events) / STEPS
+    attn = [k for k in kernels if DECODE_ATTN in k[0]]
+    attn_ms = _union_ms([e for e in device_events
+                         if DECODE_ATTN in e.key]) / STEPS
     out = {"mode": args.mode, "paged": args.paged, "wall_ms_per_step": wall_ms,
            "device_ms_per_step": busy_ms,
            "idle_share": 1.0 - busy_ms / wall_ms}
@@ -76,6 +95,10 @@ def main(argv=None) -> dict:
           f"{PROMPT_LEN}: wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms, idle share {out['idle_share']:.3f}")
     for name, ms, n in kernels[:12]:
+        print(f"  {ms:9.4f} ms/step  {n:5d} calls/step  {name[:90]}")
+    print(f"  decode attention, {attn_ms:.4f} ms/step of device time (the "
+          f"union of its kernels):")
+    for name, ms, n in attn:
         print(f"  {ms:9.4f} ms/step  {n:5d} calls/step  {name[:90]}")
     return out
 

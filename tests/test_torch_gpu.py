@@ -11,10 +11,18 @@ kernel sums in another order than the plain matmul); its tensor-core
 variant (`test_tc_*`) at the same bound, every case run twice and held
 bitwise, its bf16 output bitwise its f32 output rounded, and its SIMT
 variant (`test_simt_*`, f32 x) at the same bound; decode attention,
-contiguous and paged (f32, bf16, int8 and int4 pages), at 1e-4 (online
-softmax against the full softmax). On f32 and bf16 pages the paged kernel
-must equal the contiguous kernel on the gathered rows bit for bit, and the
-paged engine's tokens the contiguous engine's. The fake-quant forward and
+contiguous and paged (f32, bf16, int8 and int4 pages), at 1e-4 against
+the full softmax and at 1e-5 against the split-rows mirror
+(`ref.decode_attn_split_ref`, the kernel's own order; another summation
+order inside a split), with slots at the split edges and at S = 4096
+(at 1e-4 past 256 splits, the combine's chunk: over thousands of splits
+its sum cancels and the roundoff the two do not share grows); its
+result across rows per split (1, 4 and 16 splits) at 1e-6, as the JAX
+kernel's across chunks (`tests/test_decode_attn.py`); bf16 q and int64 pos
+(any stride) read directly, bitwise the converted inputs' result; a call
+makes no host sync (it would read `pos`). On f32 and bf16 pages the paged
+kernel must equal the contiguous kernel on the gathered rows bit for bit,
+and the paged engine's tokens the contiguous engine's. The fake-quant forward and
 dx are bitwise the plain versions' at t = 1 and t != 1 (both take the same
 powf), and the backward's three sums agree to 1e-5 of the sum of their
 terms' magnitudes (another summation order) and repeat bit for bit run to
@@ -118,6 +126,183 @@ def test_decode_attn_rejects_what_the_kernel_does_not_take(cuda):
                                              device=cuda))
 
 
+@pytest.mark.parametrize("dh,R", [(30, 64), (32, 0), (32, 129)])
+def test_decode_attn_rejects_widths_and_splits_it_does_not_take(cuda, dh, R):
+    q = torch.zeros((1, 1, 2, dh), device=cuda)
+    k = torch.zeros((1, 4, 1, dh), device=cuda)
+    with pytest.raises(ValueError):
+        TDA.decode_attn(q, k, k, torch.zeros(1, dtype=torch.int32,
+                                             device=cuda), rows_per_split=R)
+
+
+R = TDA.ROWS_PER_SPLIT
+
+
+def _edge_pos(S, device):
+    """Slots whose valid rows end at the split edges (R-1, R and R+1 rows),
+    fill the arena, hold one row, and sit past the arena's end."""
+    return torch.tensor([R - 2, R - 1, R, S - 1, 0, S + 7],
+                        dtype=torch.int32, device=device)
+
+
+def _contiguous(gen, B, S, kv_dtype, KVh=8, g=2, dh=128):
+    q = torch.randn((B, KVh, g, dh), generator=gen, device="cuda")
+    cache = torch.randn((2, 2, B, S, KVh, dh), generator=gen,
+                        device="cuda").to(kv_dtype)
+    return q, cache[0, 1], cache[1, 1]     # per-layer views, strided
+
+
+@pytest.mark.parametrize("S", [200, 4096])
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_kernel_matches_plain_and_split_mirror(cuda, kv_dtype,
+                                                           S):
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    pos = _edge_pos(S, cuda)
+    q, k, v = _contiguous(gen, pos.numel(), S, kv_dtype)
+    got = TDA.decode_attn(q, k, v, pos)
+    plain = ref.decode_attn_ref(q, k, v, pos)
+    mirror = ref.decode_attn_split_ref(q, k, v, pos, R)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got, mirror, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("seq_len", [200, 4096])
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8", "int4"])
+def test_paged_kernel_matches_plain_and_split_mirror(cuda, kind, seq_len):
+    gen = torch.Generator(device=cuda).manual_seed(seq_len + 1)
+    pos = _edge_pos(seq_len, cuda)
+    q, kp, vp, pos, table, kw = _paged(kind, gen, B=pos.numel(),
+                                       seq_len=seq_len, pos=pos)
+    got = TDA.paged_decode_attn(q, kp, vp, pos, table, **kw)
+    plain = ref.paged_decode_attn_ref(q, kp, vp, pos, table, **kw)
+    mirror = ref.paged_decode_attn_split_ref(q, kp, vp, pos, table,
+                                             rows_per_split=R, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got, mirror, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_kernel_is_invariant_across_rows_per_split(cuda, paged):
+    """1 split (R = 128) vs 4 (R = 32) vs 16 (R = 8) over 128 rows: the
+    combine reproduces the one-split softmax to f32 roundoff."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    S = 128
+    pos = torch.tensor([S - 1, 100, 31, 64], dtype=torch.int32, device=cuda)
+    if paged:
+        q, kp, vp, pos, table, kw = _paged("float32", gen, seq_len=S,
+                                           pos=pos)
+        run = lambda R: TDA.paged_decode_attn(q, kp, vp, pos, table, **kw,
+                                              rows_per_split=R)
+    else:
+        q, k, v = _contiguous(gen, 4, S, torch.float32)
+        run = lambda R: TDA.decode_attn(q, k, v, pos, rows_per_split=R)
+    one = run(128)
+    for R_ in (32, 8):
+        torch.testing.assert_close(run(R_), one, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("g,S,R_", [(2, 4096, 1), (8, 40960, 8)])
+def test_kernel_combines_more_splits_than_one_chunk(cuda, paged, g, S, R_):
+    """More splits per head than the combine stages at once (256): 4096
+    splits of one row at g = 2, and 5120 of 8 rows at g = 8 (64 query
+    heads over 8 KV heads) over a 40960-row arena. Held to the split
+    mirror at the plain version's 1e-4, not 1e-5: over thousands of
+    splits, sum w_i o_i cancels (its terms have both signs), and the
+    per-split roundoff that the kernel and the mirror do not share grows
+    with the number of splits (6.4e-5 relative at 5120 splits on the
+    H100)."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    pos = torch.tensor([S - 1, S // 2 + 3, 300, 0], dtype=torch.int32,
+                       device=cuda)
+    if paged:
+        q, kp, vp, pos, table, kw = _paged("bfloat16", gen, seq_len=S,
+                                           KVh=2, g=g, pos=pos)
+        got = TDA.paged_decode_attn(q, kp, vp, pos, table, **kw,
+                                    rows_per_split=R_)
+        plain = ref.paged_decode_attn_ref(q, kp, vp, pos, table, **kw)
+        mirror = ref.paged_decode_attn_split_ref(q, kp, vp, pos, table,
+                                                 rows_per_split=R_, **kw)
+    else:
+        q, k, v = _contiguous(gen, 4, S, torch.bfloat16, KVh=2, g=g)
+        got = TDA.decode_attn(q, k, v, pos, rows_per_split=R_)
+        plain = ref.decode_attn_ref(q, k, v, pos)
+        mirror = ref.decode_attn_split_ref(q, k, v, pos, R_)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got, mirror, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_kernel_reads_rows_at_any_alignment(cuda, kv_dtype):
+    """Rows that start 4 (f32) or 2 (bf16) bytes past a 16-byte boundary
+    are staged by narrower copies than cp.async's 16 bytes."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    B, S, KVh, g, dh = 4, 150, 2, 2, 128
+    q = torch.randn((B, KVh, g, dh), generator=gen, device=cuda)
+    k, v = (torch.randn((B, S, KVh, dh + 1), generator=gen, device=cuda)
+            .to(kv_dtype)[..., 1:] for _ in range(2))
+    pos = torch.tensor([S - 1, 0, 63, 64], dtype=torch.int32, device=cuda)
+    torch.testing.assert_close(TDA.decode_attn(q, k, v, pos),
+                               ref.decode_attn_ref(q, k, v, pos),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind,dh", [("bfloat16", 4), ("int8", 8),
+                                     ("int4", 8)])
+def test_paged_kernel_takes_rows_narrower_than_16_bytes(cuda, kind, dh):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, kp, vp, pos, table, kw = _paged(kind, gen, KVh=2, dh=dh)
+    torch.testing.assert_close(
+        TDA.paged_decode_attn(q, kp, vp, pos, table, **kw),
+        ref.paged_decode_attn_ref(q, kp, vp, pos, table, **kw),
+        rtol=1e-4, atol=1e-4)
+
+
+def test_kernel_reads_bf16_q_and_int64_pos_as_converted(cuda):
+    """What the layers hand the kernel (bf16 q, int64 pos, here also a
+    stride-0 pos) gives bitwise the result of f32 q and int32 pos: both
+    conversions are exact."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = _contiguous(gen, 4, 300, torch.bfloat16)
+    qb = q.to(torch.bfloat16)
+    pos = torch.tensor([299, 0, 64, 130], dtype=torch.int64, device=cuda)
+    want = TDA.decode_attn(qb.float(), k, v, pos.int())
+    assert torch.equal(TDA.decode_attn(qb, k, v, pos), want)
+    same = torch.full((1,), 130, dtype=torch.int64, device=cuda).expand(4)
+    assert torch.equal(TDA.decode_attn(qb, k, v, same),
+                       TDA.decode_attn(qb.float(), k, v, same.int()
+                                       .contiguous()))
+    q, kp, vp, pos, table, kw = _paged("int8", gen)
+    qb = q.to(torch.bfloat16)
+    want = TDA.paged_decode_attn(qb.float(), kp, vp, pos, table, **kw)
+    assert torch.equal(TDA.paged_decode_attn(qb, kp, vp, pos.long(), table,
+                                             **kw), want)
+
+
+def test_kernel_call_makes_no_host_sync(cuda):
+    """The split plan comes from S on the host, never from `pos` on the
+    device: a call syncs nothing."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = _contiguous(gen, 4, 576, torch.bfloat16)
+    pos = torch.tensor([575, 0, 300, 63], dtype=torch.int64, device=cuda)
+    pq, kp, vp, ppos, table, kw = _paged("int4", gen, seq_len=576)
+    args = [(TDA.decode_attn, (q.to(torch.bfloat16), k, v, pos), {}),
+            (TDA.paged_decode_attn, (pq, kp, vp, ppos.long(), table), kw)]
+    for fn, a, kwargs in args:
+        fn(*a, **kwargs)                   # builds the library first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fn, a, kwargs in args:
+            fn(*a, **kwargs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
 def test_pow_of_one_is_identity_on_card(cuda):
     """The fake-quant epilogue skips powf at t == 1 and keeps c; the plain
     version's torch.pow(c, 1) must give c for every positive float."""
@@ -140,7 +325,7 @@ def test_engine_on_card_matches_cpu(cuda, mode):
         np.testing.assert_array_equal(toks["cuda"][rid], toks["cpu"][rid])
 
 
-def _paged(kind, gen, B=4, seq_len=200, P=16, KVh=8, g=2, dh=128):
+def _paged(kind, gen, B=4, seq_len=200, P=16, KVh=8, g=2, dh=128, pos=None):
     """q, pools, table, pos and scales for one paged call on the card: the
     slots' pages in a shuffled order, slot 0's tail on the zero page."""
     Lp = -(-seq_len // P)
@@ -158,8 +343,9 @@ def _paged(kind, gen, B=4, seq_len=200, P=16, KVh=8, g=2, dh=128):
         kw.update(kv_bits=bits, k_scale=ks, v_scale=vs)
     else:
         kp, vp = (p.to(getattr(torch, kind)) for p in pools)
-    pos = torch.tensor([P - 1, seq_len - 1, 63, 64], dtype=torch.int32,
-                       device="cuda")[:B]
+    if pos is None:
+        pos = torch.tensor([P - 1, seq_len - 1, 63, 64], dtype=torch.int32,
+                           device="cuda")[:B]
     return q, kp, vp, pos, table, kw
 
 

@@ -8,7 +8,7 @@
 #
 #     sh tools/chip_check.sh [OUT_DIR]      (default chiprun_out/check)
 #
-# Exits non-zero if any of the three fails.
+# Exits non-zero if any of them fails.
 out=${1:-chiprun_out/check}
 mkdir -p "$out"
 rc=0
@@ -22,7 +22,7 @@ for mode in dense compressed packed_b4; do
         log="$out/profile_$mode${arena:+_paged}.log"
         PYTHONPATH=src python3 -m repro_torch.launch.profile_decode \
             --mode "$mode" $arena > "$log" 2>&1 || rc=1
-        head -n 8 "$log"
+        sed -n '/decode step on/,$p' "$log" | head -n 17
     done
 done
 PYTHONPATH=src python3 -m repro_torch.launch.profile_train \
