@@ -19,7 +19,9 @@ Phases, each printing its own lines:
    the arena), and page-indirect flash decode at the same shapes over
    pages of 16 rows in a shuffled order, with bf16, int8 and int4 pages.
    Outputs compare in f32 at rtol 1e-4, atol 1e-4 * max|y| against the
-   plain version and at rtol 1e-5, atol 1e-5 * max|y| against the split
+   plain version (a GEMM's second call bitwise its first; a small-M GEMM
+   one device kernel per call, counted from a profiler trace) and at rtol
+   1e-5, atol 1e-5 * max|y| against the split
    mirror (`ref.decode_attn_split_ref`, the kernel's own algorithm and
    order); on bf16 pages the paged kernel must also equal the contiguous
    kernel on the gathered rows bit for bit. Then the training shapes (T =
@@ -34,8 +36,9 @@ Phases, each printing its own lines:
    24-bit quantizers, whose codes need the third bf16 piece), and the
    column mask alone and after fake-quant at M = 2048 and M = 4; and the
    SIMT variant (f32 x and weights) on fake_quant_rhs and no epilogue at
-   M = 512 and 2048 over 2048->8192 and 8192->2048 (rtol 1e-4, atol
-   1e-4 * max|y|). Every GEMM row names its variant: M <= 8 the small-M
+   M = 512 and 2048 over 2048->8192 and 8192->2048, and fake_quant_rhs at
+   t = 0.85 at M = 2048 over 2048->8192 (rtol 1e-4, atol 1e-4 * max|y|).
+   Every GEMM row names its variant: M <= 8 the small-M
    one, M > 8 the tensor-core one for bf16 x, the SIMT one for f32 x; a
    tensor-core row is also timed at both block heights (128 and 256 rows)
    beside the one `gemm_core.tc_block_m` picks. Each case prints the
@@ -58,7 +61,9 @@ Phases, each printing its own lines:
    after; every kernel of the path must have launched, the GEMM's
    small-M variant (decode) and tensor-core variant (prefill) among them.
    Packed tokens must equal those of an int8 run with the same 4-bit
-   quantizer init.
+   quantizer init; over that int8 run a profiler trace must count exactly
+   one `gemm_small_m` kernel per small-M call (each decode GEMM is one
+   launch).
 6. The paged main path: the same engine and requests from the paged KV
    arena (pages of 16 rows). With bf16 pages its tokens must equal phase
    5's in each weight mode; packed 4-bit weights with int8 and with int4
@@ -165,11 +170,13 @@ TRAIN_REPORT = {"gemm_core.tc.none": TRAIN_GEMMS[0],
                 "fake_quant.fwd": ("head", 1.0),
                 "fake_quant.bwd": ("w_gate", 1.0)}
 AT_T085 = TRAIN_GEMMS[3]
-# (label, M, K, N) of the SIMT variant's rows: f32 x and f32 weights, the
-# f32 configuration's operands, at the model's prefill and training rows
-SIMT_GEMMS = [(label, M, K, N) for label in ("fake_quant_rhs", "none")
-              for M in (512, 2048) for K, N in ((2048, 8192), (8192, 2048))]
-SIMT_REPORT = ("fake_quant_rhs", 2048, 2048, 8192)
+# (label, M, K, N, t) of the SIMT variant's rows: f32 x and f32 weights,
+# the f32 configuration's operands, at the model's prefill and training
+# rows, and fake-quant once at t = 0.85 (a powf per decoded weight)
+SIMT_GEMMS = [(label, M, K, N, 1.0) for label in ("fake_quant_rhs", "none")
+              for M in (512, 2048) for K, N in ((2048, 8192), (8192, 2048))
+              ] + [("fake_quant_rhs", 2048, 2048, 8192, 0.85)]
+SIMT_REPORT = ("fake_quant_rhs", 2048, 2048, 8192, 1.0)
 TC_HEIGHTS = (128, 256)      # the tensor-core variant's block heights
 DECODE_S = 576                # phase 3's decode arena: prompt 512 + 64
 LONG_S = 4096                 # and its long-context arena
@@ -241,6 +248,19 @@ def _heights(row) -> str:
                                           for bm in TC_HEIGHTS) + " ms)")
 
 
+def _one_kernel(torch, row, call) -> None:
+    """A small-M row's device kernels per call, from a profiler trace after
+    its timings; anything but one clears row["ok"]."""
+    if row["variant"] == "small_m":
+        row["kernels_per_call"] = _kernels_per_call(torch, call, "")
+        row["ok"] = row["ok"] and row["kernels_per_call"] == 1
+
+
+def _per_call(row) -> str:
+    n = row.get("kernels_per_call")
+    return "" if n is None else f" kernels/call {n}"
+
+
 def phase_device(torch) -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -300,38 +320,38 @@ def phase_kernels(torch, timer) -> tuple[list, dict, list]:
             w_lib = dequantized()
             for M in GEMM_MS:
                 x = xs[M]
-                y = gc.gemm(x, w, epi, out_dtype=torch.float32)
+                call = lambda: gc.gemm(x, w, epi, out_dtype=torch.float32)
+                y, again = call(), call()
                 want = gc.plain(x, w, epi, torch.float32)
                 torch.cuda.synchronize()
                 err = (y - want).abs().max().item()
                 tol = 1e-4 * want.abs().max().item()
                 ok = bool(torch.allclose(y, want, rtol=1e-4, atol=tol)
-                          and torch.isfinite(y).all())
+                          and torch.isfinite(y).all()
+                          and torch.equal(y, again))
                 row = {"kernel": f"gemm_core.{label}", "M": M, "K": K,
                        "N": N, "variant": gc.variant(M, x.dtype),
                        "max_abs_err": err, "atol": tol, "ok": ok}
-                row["ms"] = timer(lambda: gc.gemm(x, w, epi,
-                                                  out_dtype=torch.float32))
+                del y, again, want
+                row["ms"] = timer(call)
                 row["plain_ms"] = timer(lambda: gc.plain(x, w, epi,
                                                          torch.float32))
                 row["library_ms"] = timer(lambda: torch.matmul(x, w_lib))
                 row["bound_ms"], row["bound_by"] = bound_ms(
                     gc.bytes_moved(M, N, K, 2, w, 4, epi), gc.flops(M, N, K))
                 if row["variant"] == "tc":
-                    row["heights"] = _height_ms(
-                        timer, gc, lambda: gc.gemm(x, w, epi,
-                                                   out_dtype=torch.float32),
-                        M, N)
+                    row["heights"] = _height_ms(timer, gc, call, M, N)
+                _one_kernel(torch, row, call)
                 rows.append(row)
-                if not ok:
+                if not row["ok"]:
                     failures.append(row)
                 print(f"[3 kernels] {row['kernel']:<29} M={M:<3} K={K:<4} "
                       f"N={N:<5} {row['variant']} ms={row['ms']:.4f} "
                       f"plain_ms={row['plain_ms']:.4f} "
                       f"library_ms={row['library_ms']:.4f} "
                       f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
-                      f"err={err:.2e} tol={tol:.2e}{_heights(row)} "
-                      f"{'ok' if ok else 'FAIL'}")
+                      f"err={err:.2e} tol={tol:.2e}{_heights(row)}"
+                      f"{_per_call(row)} {'ok' if row['ok'] else 'FAIL'}")
                 if (M, K, N) == REPORT_SHAPE and label in (
                         "fake_quant_rhs", "dequant", "unpack_dequant_b4"):
                     name = ("gemm_core.unpack_dequant"
@@ -381,17 +401,23 @@ def _check_decode(torch, row, y, plain, mirror, tag="") -> None:
         and torch.isfinite(y).all())
 
 
-def _kernels_per_call(torch, fn) -> int:
-    """The decode-attention kernels (names holding DECODE_KERNELS) that one
-    call of `fn` runs on the device, read from a torch.profiler trace."""
+def _kernels_per_call(torch, fn, match: str = DECODE_KERNELS) -> int:
+    """The device kernels whose names hold `match` (default: the
+    decode-attention kernels; "" for every kernel) that one call of `fn`
+    runs, read from a torch.profiler trace. A trace that recorded no device
+    event at all (a short session now and then comes back empty on the
+    H100) is taken again, up to three times: it measures nothing."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    return sum(1 for e in prof.events()
-               if e.device_type == cuda and DECODE_KERNELS in e.key)
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.events() if e.device_type == cuda]
+        if names:
+            break
+    return sum(1 for name in names if match in name)
 
 
 def _one_pos(pos):
@@ -659,8 +685,9 @@ def _train_gemm_rows(torch, timer, gen) -> tuple[list, dict, list]:
         if variant == "tc":
             row["heights"] = _height_ms(
                 timer, gc, lambda: gc.gemm(x, w, epi, out_dtype=out), M, N)
+        _one_kernel(torch, row, lambda: gc.gemm(x, w, epi, out_dtype=out))
         rows.append(row)
-        if not ok:
+        if not row["ok"]:
             failures.append(row)
         print(f"[3 kernels] {row['kernel']:<29} M={M:<4} K={K:<4} N={N:<5} "
               f"{layout} t={t} bits={bits} {variant} "
@@ -668,8 +695,8 @@ def _train_gemm_rows(torch, timer, gen) -> tuple[list, dict, list]:
               f"plain_ms={row['plain_ms']:.4f} "
               f"library_ms={row['library_ms']:.4f} "
               f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
-              f"err={err:.2e} tol={tol:.2e}{_heights(row)} "
-              f"{'ok' if ok else 'FAIL'}")
+              f"err={err:.2e} tol={tol:.2e}{_heights(row)}{_per_call(row)} "
+              f"{'ok' if row['ok'] else 'FAIL'}")
         for name, key in TRAIN_REPORT.items():
             if key == case:
                 report[name] = row
@@ -689,24 +716,25 @@ def _simt_gemm_rows(torch, timer, gen) -> tuple[list, dict, list]:
     rows, report, failures = [], {}, []
     f32 = torch.float32
     for case in SIMT_GEMMS:
-        label, M, K, N = case
+        label, M, K, N, t = case
         x = torch.randn((M, K), generator=gen, device="cuda")
         w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
-        qp = init_quant_params(w, bits=8.0)
+        qp = init_quant_params(w, bits=8.0, t=t)
         epi = (gc.none() if label == "none" else
                gc.fake_quant_rhs(qp.d, qp.q_m, qp.t))
         y = gc.gemm(x, w, epi, out_dtype=f32)
+        again = gc.gemm(x, w, epi, out_dtype=f32)
         want = gc.plain(x, w, epi, f32)
         torch.cuda.synchronize()
         err = (y - want).abs().max().item()
         tol = 1e-4 * want.abs().max().item()
         ok = bool(torch.allclose(y, want, rtol=1e-4, atol=tol)
-                  and torch.isfinite(y).all())
-        del y, want
+                  and torch.isfinite(y).all() and torch.equal(y, again))
+        del y, again, want
         w_lib = (w if label == "none" else
                  gc.ref.fake_quant_weight(w, qp.d, qp.q_m, qp.t))
         row = {"kernel": f"gemm_core.{label}", "M": M, "K": K, "N": N,
-               "t": 1.0, "variant": gc.variant(M, f32), "out": str(f32),
+               "t": t, "variant": gc.variant(M, f32), "out": str(f32),
                "max_abs_err": err, "atol": tol,
                "ok": ok and gc.variant(M, f32) == "simt",
                "ms": timer(lambda: gc.gemm(x, w, epi, out_dtype=f32)),
@@ -719,13 +747,15 @@ def _simt_gemm_rows(torch, timer, gen) -> tuple[list, dict, list]:
         if not row["ok"]:
             failures.append(row)
         print(f"[3 kernels] {row['kernel']:<29} M={M:<4} K={K:<4} N={N:<5} "
-              f"f32 x, f32 w {row['variant']} ms={row['ms']:.4f} "
+              f"t={t} f32 x, f32 w {row['variant']} ms={row['ms']:.4f} "
               f"plain_ms={row['plain_ms']:.4f} "
               f"library_ms={row['library_ms']:.4f} (f32) "
               f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
               f"err={err:.2e} tol={tol:.2e} {'ok' if row['ok'] else 'FAIL'}")
         if case == SIMT_REPORT:
             report["gemm_core.simt.fake_quant_rhs"] = row
+        elif case[0] == "fake_quant_rhs" and t != 1.0:
+            report["simt_at_t0.85"] = row
         del x, w, w_lib
         torch.cuda.empty_cache()
     return rows, report, failures
@@ -828,7 +858,7 @@ def phase_engine(torch) -> tuple[dict, dict, list[str]]:
               and all(len(t) == GEN and t.min() >= 0 and t.max() < 92672
                       for t in toks.values())
               and delta[expect[mode]] > 0 and delta["decode_attn"] > 0
-              and delta["gemm_core.reduce_splits"] > 0)
+              and delta["gemm_core.small_m"] > 0)
         print(f"[5 engine] {mode}: decode {stats['decode_tok_per_s']:.1f} "
               f"tok/s ({stats['decode_tokens']} tokens in "
               f"{stats['decode_s']:.3f} s, {stats['decode_steps']} steps), "
@@ -842,13 +872,29 @@ def phase_engine(torch) -> tuple[dict, dict, list[str]]:
             failures.append(f"engine {mode}")
     counts = ops.launch_counts()
     print(f"[5 engine] main-path launch counts: {_nonzero(counts)}")
-    for name in [*expect.values(), "gemm_core.reduce_splits", "decode_attn",
-                 "fake_quant.fwd", "gemm_core.small_m", "gemm_core.tc"]:
+    for name in [*expect.values(), "decode_attn", "fake_quant.fwd",
+                 "gemm_core.small_m", "gemm_core.tc"]:
         if counts[name] <= 0:
             failures.append(f"{name} never launched on the main path")
-    ref_int8 = engine_serve(ARCH, False, PROMPT_LENS, GEN, max_slots=SLOTS,
-                            verbose=False, device="cuda", compressed=True,
-                            bits_init=4.0)
+    # each decode GEMM is one launch: over this run, the device kernels of
+    # the small-M variant, counted from a profiler trace, equal its calls
+    before = ops.launch_counts()["gemm_core.small_m"]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ref_int8 = engine_serve(ARCH, False, PROMPT_LENS, GEN,
+                                max_slots=SLOTS, verbose=False,
+                                device="cuda", compressed=True,
+                                bits_init=4.0)
+        torch.cuda.synchronize()
+    calls = ops.launch_counts()["gemm_core.small_m"] - before
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == cuda and "gemm_small_m" in e.key)
+    print(f"[5 engine] int8 run at 4-bit init: {calls} small-M GEMM calls, "
+          f"{kernels} gemm_small_m kernels in the profiler trace "
+          f"{'ok' if calls > 0 and kernels == calls else 'FAIL'}")
+    if not (calls > 0 and kernels == calls):
+        failures.append("a decode GEMM was not one launch")
     same = all((ref_int8[r] == outs["packed_b4"][r]).all() for r in ref_int8)
     print(f"[5 engine] packed 4-bit tokens "
           f"{'equal' if same else 'DIFFER FROM'} the int8 run at the same "
@@ -945,8 +991,7 @@ def phase_paged(torch, contiguous: dict) -> tuple[dict, list[str]]:
     counts = ops.launch_counts()
     print(f"[6 paged] main-path launch counts: {_nonzero(counts)}")
     for name in ("gemm_core.fake_quant_rhs", "gemm_core.dequant",
-                 "gemm_core.unpack_dequant", "gemm_core.reduce_splits",
-                 *PAGED_KERNELS):
+                 "gemm_core.unpack_dequant", *PAGED_KERNELS):
         if counts[name] <= 0:
             failures.append(f"{name} never launched on the paged path")
     if counts["decode_attn"]:
@@ -1243,9 +1288,9 @@ def main(argv=None) -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": shape, **({"variant": row["variant"]}
                                if "variant" in row else {}),
-            # device kernels per decode call, read from a profiler trace
-            **({"kernels_per_launch": row["kernels_per_call"],
-                "rows_per_split_ms": row["rows_ms"],
+            # device kernels per call, read from a profiler trace
+            "kernels_per_launch": row["kernels_per_call"],
+            **({"rows_per_split_ms": row["rows_ms"],
                 "at_S4096": row["at_S4096"]} if "at_S4096" in row else {})})
     fq_src = "src/repro_torch/kernels/csrc/fake_quant.cu"
     train_src = {"fake_quant.fwd": (fq_src,
@@ -1267,9 +1312,10 @@ def main(argv=None) -> int:
                     (colmask_counts if "col_mask" in key else
                      train_counts)[key])
         extra = {}
-        if name == "gemm_core.tc.fake_quant_rhs":
-            t85 = train_report["at_t0.85"]
-            extra["at_t0.85"] = {k: t85[k] for k in (
+        t85 = {"gemm_core.tc.fake_quant_rhs": "at_t0.85",
+               "gemm_core.simt.fake_quant_rhs": "simt_at_t0.85"}.get(name)
+        if t85 is not None:
+            extra["at_t0.85"] = {k: train_report[t85][k] for k in (
                 "ms", "plain_ms", "library_ms", "max_abs_err")}
         if "heights" in row:
             extra["block_height_ms"] = row["heights"]

@@ -20,16 +20,22 @@
 // x's dtype, never by the epilogue:
 //
 // - Small-M (M <= 8, decode; `gemm_small_m`). Bound by the bytes of W read
-//   from HBM (bf16 2 B, int8 1 B, 4-bit 0.5 B per element): each weight
-//   feeds at most 8 FMAs. A block owns 128 columns and 8 K-groups of 16
-//   rows per 128-row chunk; threads map along N, 4 adjacent columns per
-//   vector load, so a warp reads whole 128-byte lines. For int codes a
-//   thread starts all 16 of its rows' loads (or the at most 5 packed word
-//   rows they span) before it decodes any; fake-quant, whose decode (an
-//   IEEE divide and a rint per element) is heavier, goes row by row. The
-//   grid splits K across blocks so narrow N still fills the SMs; K-groups
-//   reduce through shared memory and K-splits through an f32 workspace
-//   and a second launch (`reduce_splits`), both in a fixed order.
+//   from HBM (bf16 2 B, int8 1 B, 4-bit 0.5 B per element): each weight is
+//   read once and feeds at most 8 FMAs, at most 16 operations per byte
+//   against the card's ~295, so what counts is bytes in flight and
+//   launches. One launch: the blocks that split a 128-column strip's K range
+//   form one thread-block cluster (at most 8) and reduce over DSMEM in rank
+//   order, so there is no workspace and no second pass. Each thread copies
+//   16-byte chunks (8 bf16, 16 int8 or 4 words) by cp.async into its own
+//   slots of a shared-memory ring (three stages in flight while one
+//   decodes) and decodes each weight once, in registers; int codes and
+//   packed fields convert by integer tricks, not the slow int-to-float
+//   unit, and fake-quant codes divide by a rounded reciprocal of d with an
+//   exact fallback (`fq_chunk`). x's rows for the block's K range are
+//   staged once in shared memory as f32. The epilogue's factor (d,
+//   scale[n], m[n]) multiplies each output once. Measured on the H100 the
+//   variant is bound by instructions (4 FMAs a weight at M = 4 plus its
+//   decode), not by bytes: packed words take as long as int8 codes.
 // - Tensor-core (M > 8 with bf16 x: prefill and training; `gemm_tc`).
 //   At M = 2048 a GEMM does 2*M FLOPs per weight byte or more, far above
 //   the card's ~295 FLOP per HBM byte: bound by operations, and only wgmma
@@ -44,8 +50,8 @@
 //   each, then issue m64n64k16 wgmma over their rows. bf16 weights under
 //   `none` / `col_mask` skip the decode: TMA writes them swizzled.
 //   What bounds it: with a decode, the decode. Each block decodes every
-//   weight tile it reads, 8 times per weight at M = 2048 with BM = 256 (32
-//   in the SIMT variant's 64-row tile), and a fake-quant decode costs an
+//   weight tile it reads, 8 times per weight at M = 2048 with BM = 256 (16
+//   in the SIMT variant's 128-row tile), and a fake-quant decode costs an
 //   IEEE divide and a rint per weight, and a `powf` at t != 1, on the CUDA
 //   cores. Hence BM = 256 and 16 decoding warps. The wgmma batch of a step
 //   is retired before the next decode (a batch left in flight across it
@@ -80,18 +86,25 @@
 //   order. After the decode's generic-proxy stores, each thread runs
 //   `fence.proxy.async.shared::cta` before the column group's barrier, so
 //   the wgmma (async proxy) sees them.
-// - SIMT (M > 8 with f32 x; `gemm_general`): a 64 x 64 tile in f32 FMAs
-//   on the CUDA cores, 16-row K steps through shared memory, 4 x 4 outputs
-//   per thread. Kept for f32 x: the f32 configuration's 1e-4 card-vs-CPU
-//   parity rests on f32 products, which bf16 tensor cores do not give.
+// - SIMT (M > 8 with f32 x; `gemm_general`): a register-tiled SGEMM in f32
+//   FMAs on the CUDA cores, bound by their 67 TFLOP/s: 128 x 128 tiles, 8 x
+//   8 outputs per thread, two blocks per SM (registers capped at 128), x's
+//   tile through a cp.async ring, the weight tile loaded one K step ahead
+//   in 16-byte chunks and decoded once per block (16 times per weight at
+//   M = 2048). Kept for f32 x: the f32
+//   configuration's 1e-4 card-vs-CPU parity rests on f32 products, which
+//   bf16 tensor cores do not give; it decodes T(w) element by element as
+//   the plain version does.
 //
 // Determinism: no atomics, and no split-K at M > 8. The K order and the
-// tiles depend only on (M, N, K), never on the epilogue: EPI_DEQUANT and
-// EPI_UNPACK decode identical codes, so their outputs are bitwise equal
-// and packed serving emits the same tokens as int8 serving. Rounding uses
-// rintf (ties to even, like torch.round and jnp.round). Packed fields
-// decode only for k < K; the zero tail of the last word is never relied on.
+// tiles depend only on (M, N, K) and the SM count, never on the epilogue:
+// EPI_DEQUANT and EPI_UNPACK decode identical codes, so their outputs are
+// bitwise equal and packed serving emits the same tokens as int8 serving.
+// Rounding uses rintf (ties to even, like torch.round and jnp.round).
+// Packed fields decode only for k < K; the zero tail of the last word is
+// never relied on.
 
+#include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -101,6 +114,8 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 enum DType { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2, DT_I16 = 3, DT_I32 = 4 };
 enum Epi {
   EPI_FAKE_QUANT = 0, EPI_DEQUANT = 1, EPI_UNPACK = 2, EPI_NONE = 3,
@@ -109,38 +124,6 @@ enum Epi {
 
 constexpr float kEps = 1e-12f;
 
-// ---- raw loads of 4 adjacent elements, and their conversion to f32 -------
-template <typename WT> struct Raw4;
-template <> struct Raw4<float> { using T = float4; };
-template <> struct Raw4<__nv_bfloat16> { using T = uint2; };
-template <> struct Raw4<int8_t> { using T = char4; };
-template <> struct Raw4<int16_t> { using T = short4; };
-template <> struct Raw4<int32_t> { using T = int4; };
-
-template <typename WT>
-__device__ __forceinline__ typename Raw4<WT>::T ld4(const WT* p) {
-  return *reinterpret_cast<const typename Raw4<WT>::T*>(p);
-}
-
-__device__ __forceinline__ void cvt4(float4 t, float v[4]) {
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-}
-__device__ __forceinline__ void cvt4(uint2 t, float v[4]) {
-  __nv_bfloat162 a = *reinterpret_cast<__nv_bfloat162*>(&t.x);
-  __nv_bfloat162 b = *reinterpret_cast<__nv_bfloat162*>(&t.y);
-  v[0] = __low2float(a); v[1] = __high2float(a);
-  v[2] = __low2float(b); v[3] = __high2float(b);
-}
-__device__ __forceinline__ void cvt4(char4 t, float v[4]) {
-  v[0] = (float)t.x; v[1] = (float)t.y; v[2] = (float)t.z; v[3] = (float)t.w;
-}
-__device__ __forceinline__ void cvt4(short4 t, float v[4]) {
-  v[0] = (float)t.x; v[1] = (float)t.y; v[2] = (float)t.z; v[3] = (float)t.w;
-}
-__device__ __forceinline__ void cvt4(int4 t, float v[4]) {
-  v[0] = (float)t.x; v[1] = (float)t.y; v[2] = (float)t.z; v[3] = (float)t.w;
-}
-
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
@@ -148,10 +131,6 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
 __device__ __forceinline__ float to_f32(int8_t v) { return v; }
 __device__ __forceinline__ float to_f32(int16_t v) { return v; }
 __device__ __forceinline__ float to_f32(int32_t v) { return (float)v; }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // Eqs (1)-(2) with `clip_qmt` in its power form; d and qm arrive clamped.
 // t == 1 (every quantizer's init) skips powf and keeps c, which is what the
@@ -167,9 +146,34 @@ __device__ __forceinline__ float fq_code(float w, float d, float qm,
   float s = w > 0.f ? 1.f : (w < 0.f ? -1.f : 0.f);
   return rintf(xt / d) * s;
 }
-__device__ __forceinline__ float fake_quant(float w, float d, float qm,
-                                            float t) {
-  return d * fq_code(w, d, qm, t);
+
+// fq_code in fewer operations, bit for bit, with POW == (t != 1) decided
+// once per call. Sign: where a > 0 the (a > 0) factor is 1 and the sign
+// product is copysign; where it fails (w = +-0 or NaN) fq_code's s is 0 and
+// both give +0. Quotient: fq_code_near takes y = xt * r, r = 1 / d rounded
+// (__frcp_rn). y is within Q 2^-23 (1 + 2^-25) of Q = xt / d and the IEEE
+// quotient fl(Q) within Q 2^-24, so the two lie within y 2^-22 of each
+// other and round to the same integer unless a half-integer lies that
+// close to y. `near` is set where one may lie within y 2^-20 (|y - rint(y)|
+// is exact, Sterbenz); fq_code_exact then divides (rare at the codes of a
+// quantizer of up to ~12 bits, every time past y = 2^19).
+template <bool POW>
+__device__ __forceinline__ float fq_code_near(float w, float r, float qm,
+                                              float t, bool& near) {
+  const float a = fabsf(w);
+  const float c = fmaxf(fminf(a, qm), kEps);
+  const float y = (POW ? powf(c, t) : c) * r;
+  const float q = rintf(y);
+  near |= fabsf(y - q) >= fmaf(y, -0x1p-20f, 0.5f);
+  return a > 0.f ? copysignf(q, w) : 0.f;
+}
+template <bool POW>
+__device__ __forceinline__ float fq_code_exact(float w, float d, float qm,
+                                               float t) {
+  const float a = fabsf(w);
+  const float c = fmaxf(fminf(a, qm), kEps);
+  const float q = rintf((POW ? powf(c, t) : c) / d);
+  return a > 0.f ? copysignf(q, w) : 0.f;
 }
 
 // Sign-extend the `f`-th BITS-wide field of a packed word.
@@ -190,298 +194,660 @@ struct EpiArgs {
   const float* fq_t;
 };
 
-// Rows [kb, kb + nk) of an (rows, N) array at 4 adjacent columns, every raw
-// load started before any conversion so R loads are in flight.
-template <int R, typename WT>
-__device__ __forceinline__ void dense_rows(const WT* p, int N, int kb, int nk,
-                                           float (&v)[R][4]) {
-  typename Raw4<WT>::T raw[R];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-    if (i < nk) raw[i] = ld4(p + (long long)(kb + i) * N);
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-    if (i < nk) cvt4(raw[i], v[i]);
+// ---- 16-byte weight chunks (the small-M and SIMT variants) ----------------
+// A chunk is 16 bytes of one raw weight row: 16 / sizeof(WT) adjacent
+// columns of a dense weight, or 4 adjacent columns of K-packed words.
+template <int EPI, typename WT, int BITS>
+struct ChunkTraits {
+  static constexpr bool kPacked = EPI == EPI_UNPACK;
+  static constexpr bool kFq = EPI == EPI_FAKE_QUANT || EPI == EPI_FQ_MASK;
+  static constexpr int kCpw = kPacked ? 32 / BITS : 1;   // K rows per raw row
+  static constexpr int kCols = kPacked ? 4 : 16 / (int)sizeof(WT);
+};
+
+// Read-only, streamed once: no L1 allocation. Volatile, so the load
+// issues where it is written (a step ahead of its use), not where its
+// value is first needed.
+__device__ __forceinline__ uint4 ld_stream(const void* p) {
+  uint4 r;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w) : "l"(p));
+  return r;
 }
 
-// The weight operand of one epilogue, at the 4 columns starting at n:
-// `rows<R>(kb, nk, v)` yields decoded f32 rows kb .. kb + nk - 1 (nk <= R).
-template <int EPI, typename WT, int BITS>
-struct Weights;
-
+// The chunk of `row` at columns col .. col + C - 1, C = 16 / sizeof(WT),
+// col a multiple of C; zero past N. With `vec` (16-byte aligned rows, so
+// N % C == 0) one 16-byte load; otherwise one load per 4 columns, which
+// N % 4 == 0 keeps aligned.
 template <typename WT>
-struct Weights<EPI_FAKE_QUANT, WT, 0> {
-  const WT* p; int N; float d, qm, t;
-  __device__ Weights(const void* w, int N_, int n, const EpiArgs& e)
-      : p(reinterpret_cast<const WT*>(w) + n), N(N_),
-        d(fmaxf(*e.fq_d, kEps)), qm(fmaxf(*e.fq_qm, kEps)), t(*e.fq_t) {}
-  template <int R>
-  __device__ void rows(int kb, int nk, float (&v)[R][4]) const {
+__device__ __forceinline__ uint4 load_chunk(const WT* row, int col, int N,
+                                            bool vec) {
+  constexpr int C = 16 / (int)sizeof(WT);
+  uint4 r = make_uint4(0u, 0u, 0u, 0u);
+  if (C == 4 || vec) {
+    if (col < N) r = ld_stream(row + col);
+  } else if constexpr (C == 8) {
+    const uint2* p = reinterpret_cast<const uint2*>(row + col);
+    if (col < N) {
+      const uint2 t = __ldg(p);
+      r.x = t.x; r.y = t.y;
+    }
+    if (col + 4 < N) {
+      const uint2 t = __ldg(p + 1);
+      r.z = t.x; r.w = t.y;
+    }
+  } else {
+    const unsigned* p = reinterpret_cast<const unsigned*>(row + col);
+    if (col < N) r.x = __ldg(p);
+    if (col + 4 < N) r.y = __ldg(p + 1);
+    if (col + 8 < N) r.z = __ldg(p + 2);
+    if (col + 12 < N) r.w = __ldg(p + 3);
+  }
+  return r;
+}
+
+// The 16 / sizeof(WT) values of a dense chunk as f32, integer codes exactly.
+// int8: byte b of u ^ 0x80808080 is code + 128, and under the exponent of
+// 1.5 * 2^23 it reads as 12582912 + code + 128 (two integer instructions a
+// code instead of a conversion, which runs at a sixteenth of the FMA rate).
+template <typename WT>
+__device__ __forceinline__ void chunk_values(const uint4& r,
+                                             float (&v)[16 / sizeof(WT)]) {
+  const uint32_t u[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      if (i >= nk) break;
-      cvt4(ld4(p + (long long)(kb + i) * N), v[i]);
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (std::is_same<WT, float>::value) {
+      v[i] = __uint_as_float(u[i]);
+    } else if constexpr (std::is_same<WT, __nv_bfloat16>::value) {
+      v[2 * i] = __uint_as_float(u[i] << 16);
+      v[2 * i + 1] = __uint_as_float(u[i] & 0xFFFF0000u);
+    } else if constexpr (std::is_same<WT, int8_t>::value) {
+      const uint32_t b = u[i] ^ 0x80808080u;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) v[i][c] = fake_quant(v[i][c], d, qm, t);
+      for (int j = 0; j < 4; ++j)
+        v[4 * i + j] =
+            __uint_as_float(__byte_perm(b, 0x4B400000u, 0x7650u | j)) -
+            12583040.f;
+    } else if constexpr (std::is_same<WT, int16_t>::value) {
+      v[2 * i] = (float)(int16_t)(u[i] & 0xFFFFu);
+      v[2 * i + 1] = (float)((int32_t)u[i] >> 16);
+    } else {
+      v[i] = (float)(int32_t)u[i];
     }
   }
-};
+}
 
-template <typename WT>
-struct Weights<EPI_DEQUANT, WT, 0> {
-  const WT* p; int N; float s[4];
-  __device__ Weights(const void* w, int N_, int n, const EpiArgs& e)
-      : p(reinterpret_cast<const WT*>(w) + n), N(N_) {
+// The fake-quant codes of a dense chunk (fq_code bit for bit): the whole
+// chunk again by exact division where one of its values may round apart.
+template <typename WT, bool POW>
+__device__ __forceinline__ void fq_chunk(const uint4& raw,
+                                         float (&v)[16 / sizeof(WT)],
+                                         float d, float r, float qm,
+                                         float t) {
+  constexpr int C = 16 / sizeof(WT);
+  float w[C];
+  chunk_values<WT>(raw, w);
+  bool near = false;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) s[c] = e.scale[(n + c) * e.scale_stride];
+  for (int q = 0; q < C; ++q) v[q] = fq_code_near<POW>(w[q], r, qm, t, near);
+  if (near) {
+#pragma unroll
+    for (int q = 0; q < C; ++q) v[q] = fq_code_exact<POW>(w[q], d, qm, t);
   }
-  template <int R>
-  __device__ void rows(int kb, int nk, float (&v)[R][4]) const {
-    dense_rows<R>(p, N, kb, nk, v);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      if (i >= nk) break;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) v[i][c] = v[i][c] * s[c];
-    }
-  }
-};
+}
 
+// The top bit of every BITS-wide field of a packed word.
 template <int BITS>
-struct Weights<EPI_UNPACK, int32_t, BITS> {
-  static constexpr int kCpw = 32 / BITS;
-  const int32_t* p; int N; float s[4];
-  __device__ Weights(const void* w, int N_, int n, const EpiArgs& e)
-      : p(reinterpret_cast<const int32_t*>(w) + n), N(N_) {
+__host__ __device__ constexpr uint32_t field_signs() {
+  uint32_t m = 0;
+  for (int f = 0; f < 32 / BITS; ++f) m |= 1u << (BITS * f + BITS - 1);
+  return m;
+}
+
+// Field f of a packed word whose field sign bits were flipped (word ^
+// field_signs): code + 2^(BITS-1), read under 1.5 * 2^23 as for int8.
+template <int BITS>
+__device__ __forceinline__ float field_value(uint32_t flipped, int f) {
+  constexpr uint32_t kMask = (1u << BITS) - 1;
+  constexpr float kBias = 12582912.f + (float)(1 << (BITS - 1));
+  return __uint_as_float(((flipped >> (BITS * f)) & kMask) | 0x4B400000u) -
+         kBias;
+}
+
+__device__ __forceinline__ void store_out(void* out, int out_bf16,
+                                          long long i, float v) {
+  if (out_bf16)
+    static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(v);
+  else
+    static_cast<float*>(out)[i] = v;
+}
+
+// cp.async of 16, 8 or 4 bytes into shared memory; `bytes` 0 zero-fills
+// the destination (and reads nothing)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// The chunk at p (C = 16 / sizeof(WT) columns from col, a multiple of C)
+// into dst by cp.async; the columns past N are not copied: they feed only
+// outputs past N, which are never stored. With `vec` (16-byte aligned rows:
+// N % C == 0) one 16-byte copy; otherwise one copy per 4 columns, which
+// N % 4 == 0 keeps aligned.
+template <typename WT>
+__device__ __forceinline__ void copy_chunk(uint4* dst, const WT* p, int col,
+                                           int N, bool vec) {
+  constexpr int C = 16 / (int)sizeof(WT);
+  if (C == 4 || vec) {
+    if (col < N) cp_async16(dst, p, 16);
+  } else {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) s[c] = e.scale[(n + c) * e.scale_stride];
-  }
-  // rows kb .. kb + R - 1 span at most NW word rows; load those first
-  template <int R>
-  __device__ void rows(int kb, int nk, float (&v)[R][4]) const {
-    constexpr int NW = (R - 1) / kCpw + 2;
-    const int kw0 = kb / kCpw, kwl = (kb + nk - 1) / kCpw;
-    int4 words[NW];
-#pragma unroll
-    for (int j = 0; j < NW; ++j)
-      words[j] = kw0 + j <= kwl ? ld4(p + (long long)(kw0 + j) * N)
-                                : make_int4(0, 0, 0, 0);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      if (i >= nk) break;
-      const int k = kb + i, kw = k / kCpw, f = k - kw * kCpw;
-      int4 wd = words[0];
-#pragma unroll
-      for (int j = 1; j < NW; ++j)
-        if (kw - kw0 == j) wd = words[j];
-      v[i][0] = unpack_field<BITS>(wd.x, f) * s[0];
-      v[i][1] = unpack_field<BITS>(wd.y, f) * s[1];
-      v[i][2] = unpack_field<BITS>(wd.z, f) * s[2];
-      v[i][3] = unpack_field<BITS>(wd.w, f) * s[3];
+    for (int g = 0; g < C / 4; ++g) {
+      if (col + 4 * g >= N) break;
+      if constexpr (C == 8)
+        cp_async8(reinterpret_cast<uint2*>(dst) + g, p + 4 * g, 8);
+      else
+        cp_async4(reinterpret_cast<uint32_t*>(dst) + g, p + 4 * g, 4);
     }
   }
-};
+}
 
-template <typename WT>
-struct Weights<EPI_NONE, WT, 0> {
-  const WT* p; int N;
-  __device__ Weights(const void* w, int N_, int n, const EpiArgs&)
-      : p(reinterpret_cast<const WT*>(w) + n), N(N_) {}
-  template <int R>
-  __device__ void rows(int kb, int nk, float (&v)[R][4]) const {
-    dense_rows<R>(p, N, kb, nk, v);
+// ---- small-M variant (M <= 8) ---------------------------------------------
+// grid (cluster, ceil(N / 128)), cluster (cluster, 1, 1), 256 threads. The
+// blocks of a cluster share one strip of 128 columns; block (cluster rank)
+// r sums K rows [r k_slice, (r + 1) k_slice). A thread owns 16 columns of
+// the strip (chunk c at columns CC (8c + tn) .. +CC, so 8 adjacent threads
+// read 128 adjacent bytes of a row) and one of 32 K-groups: within each
+// window of up to SM_WINDOW rows of the block's slice, K-group g sums rows
+// [g rg, (g + 1) rg), rg = window / 32, in ascending order. The weights
+// stream through a ring of SM_STAGES shared-memory stages of SM_LOADS
+// chunks per thread, each thread copying (cp.async) and later reading only
+// its own slots: SM_STAGES - 1 stages in flight while one decodes, with no
+// registers held and no barrier. The K-groups of a warp are its four lane
+// octets (kl = lane / 8). Reduction, in a fixed order: octets by shuffles
+// ((0 + 1) + (2 + 3)), then warps 0..7 through shared memory into the
+// block's partial, then, after a cluster barrier, the ranks' partials in
+// rank order over DSMEM, each rank writing its share of the strip's
+// outputs, times the epilogue's per-output factor (d, scale or mask).
+constexpr int SM_MMAX = 8;
+constexpr int SM_THREADS = 256;
+constexpr int SM_WARPS = SM_THREADS / 32;
+constexpr int SM_BN = 128;                       // columns per strip
+constexpr int SM_COLS = 16;                      // columns per thread
+constexpr int SM_TN = SM_BN / SM_COLS;           // threads along N
+constexpr int SM_GROUPS = SM_THREADS / SM_TN;    // K-groups per block
+constexpr int SM_WINDOW = 2048;                  // K rows of x staged at once
+constexpr int SM_CLUSTER_MAX = 8;                // the portable cluster size
+constexpr int SM_LOADS = 4;                      // chunks per thread a stage
+constexpr int SM_STAGES = 4;
+constexpr int SM_RING_BYTES = SM_STAGES * SM_LOADS * SM_THREADS * 16;
+
+// Shared memory of one block in bytes: the ring, x's window (k rows x MT,
+// f32; reused for the warps' partials), the block's partial (MT x 128).
+template <int MT>
+__host__ __device__ constexpr int sm_part_offset(int win) {
+  return win * MT > SM_WARPS * MT * SM_BN ? win * MT : SM_WARPS * MT * SM_BN;
+}
+template <int MT>
+__host__ __device__ constexpr int sm_smem_bytes(int win) {
+  return SM_RING_BYTES + (sm_part_offset<MT>(win) + MT * SM_BN) * 4;
+}
+
+// MT = 4 keeps its registers within 128 so two blocks share an SM
+template <int EPI, typename WT, int BITS, int MT>
+__global__ void __launch_bounds__(SM_THREADS, MT <= 4 ? 2 : 1)
+gemm_small_m(const void* __restrict__ x, int x_bf16,
+             const void* __restrict__ w, EpiArgs e, void* __restrict__ out,
+             int out_bf16, int M, int N, int K, int k_slice) {
+  using Tr = ChunkTraits<EPI, WT, BITS>;
+  constexpr int CPW = Tr::kCpw, CC = Tr::kCols, NCH = SM_COLS / CC;
+  constexpr int STEP = SM_LOADS / NCH;           // raw rows a stage
+  extern __shared__ float4 smem4[];
+  uint4* ring = reinterpret_cast<uint4*>(smem4);
+  float* xs = reinterpret_cast<float*>(smem4) + SM_RING_BYTES / 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tn = lane % SM_TN, kl = lane / SM_TN;
+  const int group = warp * (32 / SM_TN) + kl;
+  const int n0 = blockIdx.y * SM_BN;
+  const int kb = blockIdx.x * k_slice, ke = min(K, kb + k_slice);
+  const int win = min(k_slice, SM_WINDOW), rg = win / SM_GROUPS;
+  const WT* wp = static_cast<const WT*>(w);
+  const bool vec = (N * (int)sizeof(WT)) % 16 == 0;
+  const bool x_vec =
+      K % 4 == 0 &&
+      reinterpret_cast<uintptr_t>(x) % (x_bf16 ? 8 : 16) == 0;
+  int col[NCH];
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) col[c] = n0 + CC * (c * SM_TN + tn);
+  float d = 1.f, rd = 1.f, qm = 0.f, tt = 1.f;
+  if constexpr (Tr::kFq) {
+    d = fmaxf(*e.fq_d, kEps);
+    rd = __frcp_rn(d);
+    qm = fmaxf(*e.fq_qm, kEps);
+    tt = *e.fq_t;
   }
-};
+  float acc[MT * SM_COLS];
+#pragma unroll
+  for (int i = 0; i < MT * SM_COLS; ++i) acc[i] = 0.f;
 
-// w * m[n]: the dequant decode on a float weight (one multiply per element,
-// as the plain version's w * mask[None, :])
-template <typename WT>
-struct Weights<EPI_COL_MASK, WT, 0> : Weights<EPI_DEQUANT, WT, 0> {
-  __device__ Weights(const void* w, int N_, int n, const EpiArgs& e)
-      : Weights<EPI_DEQUANT, WT, 0>(w, N_, n, e) {}
-};
-
-template <typename WT>
-struct Weights<EPI_FQ_MASK, WT, 0> : Weights<EPI_FAKE_QUANT, WT, 0> {
-  float m[4];
-  __device__ Weights(const void* w, int N_, int n, const EpiArgs& e)
-      : Weights<EPI_FAKE_QUANT, WT, 0>(w, N_, n, e) {
+  // acc[m][j] += x[m][k] * v[j], x's row k at xs + kx * MT
+  auto fma_row = [&](int kx, const float (&v)[SM_COLS]) {
+    float xv[MT];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) m[c] = e.scale[(n + c) * e.scale_stride];
-  }
-  template <int R>
-  __device__ void rows(int kb, int nk, float (&v)[R][4]) const {
-    Weights<EPI_FAKE_QUANT, WT, 0>::template rows<R>(kb, nk, v);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      if (i >= nk) break;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) v[i][c] = v[i][c] * m[c];
+    for (int q = 0; q < MT / 4; ++q) {
+      const float4 t = reinterpret_cast<const float4*>(xs + kx * MT)[q];
+      xv[4 * q] = t.x; xv[4 * q + 1] = t.y;
+      xv[4 * q + 2] = t.z; xv[4 * q + 3] = t.w;
     }
-  }
-};
-
-// ---- small-M variant -------------------------------------------------------
-constexpr int SM_MMAX = 8;     // rows of x per launch
-constexpr int SM_TX = 32;      // threads along N, 4 columns each
-constexpr int SM_BN = SM_TX * 4;
-constexpr int SM_TY = 8;       // K-groups per block
-constexpr int SM_KB = 16;      // rows per K-group per chunk
-constexpr int SM_BK = SM_TY * SM_KB;
-
-// grid (ceil(N/128), splits), block (32, 8). Split s covers chunks
-// [s*cps, (s+1)*cps) of SM_BK rows. With one split the block writes `out`;
-// otherwise it writes ws[s][m][n] for the reduce kernel.
-template <typename XT, typename OT, int EPI, typename WT, int BITS>
-__global__ void __launch_bounds__(SM_TX * SM_TY)
-gemm_small_m(const XT* __restrict__ x, const void* __restrict__ w,
-             EpiArgs e, OT* __restrict__ out, float* __restrict__ ws,
-             int M, int N, int K, int chunks_per_split) {
-  __shared__ float xs[SM_MMAX][SM_BK];
-  __shared__ float red[SM_TY][SM_MMAX][SM_BN];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * SM_TX + tx;
-  const int n0 = blockIdx.x * SM_BN;
-  const int n = n0 + tx * 4;
-  const int split = blockIdx.y;
-  const int nchunks = (K + SM_BK - 1) / SM_BK;
-  const int c_begin = split * chunks_per_split;
-  const int c_end = min(nchunks, c_begin + chunks_per_split);
-
-  float acc[SM_MMAX][4];
 #pragma unroll
-  for (int m = 0; m < SM_MMAX; ++m)
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[m][c] = 0.f;
-
-  const bool live = n < N;
-  const Weights<EPI, WT, BITS> wt(w, N, live ? n : 0, e);
-
-  for (int ch = c_begin; ch < c_end; ++ch) {
-    const int k0 = ch * SM_BK;
-    for (int i = tid; i < SM_MMAX * SM_BK; i += SM_TX * SM_TY) {
-      int m = i / SM_BK, kk = i - m * SM_BK, k = k0 + kk;
-      xs[m][kk] = (m < M && k < K) ? to_f32(x[(long long)m * K + k]) : 0.f;
-    }
-    __syncthreads();
-    const int kb = k0 + ty * SM_KB;
-    const int ke = min(kb + SM_KB, K);
-    // int codes decode the group's SM_KB rows before their FMAs (SM_KB
-    // loads in flight); fake-quant, whose decode is heavier, goes row by row
-    constexpr int R = (EPI == EPI_FAKE_QUANT || EPI == EPI_FQ_MASK) ? 1 : SM_KB;
-    for (int r0 = kb; live && r0 < ke; r0 += R) {
-      const int nk = min(R, ke - r0);
-      float v[R][4];
-      wt.template rows<R>(r0, nk, v);
+      for (int j = 0; j < SM_COLS; ++j)
+        acc[m * SM_COLS + j] = fmaf(xv[m], v[j], acc[m * SM_COLS + j]);
+  };
+  // The K loop, instantiated with a powf per fake-quant code (t != 1) and
+  // without: a call takes one, the same in every thread
+  auto k_loop = [&](auto pow_tag) {
+    constexpr bool POW = decltype(pow_tag)::value;
+    for (int wb = kb; wb < ke; wb += win) {
+      const int we = min(ke, wb + win);
+      const int lo = min(we, wb + group * rg), hi = min(we, lo + rg);
+      // the thread's raw rows (K rows, or the word rows its K rows span)
+      const int llo = lo / CPW, lhi = lo < hi ? (hi - 1) / CPW + 1 : llo;
+      const int nsteps = (lhi - llo + STEP - 1) / STEP;
+      // stages are issued in order: the next raw row to copy, its slot
+      const WT* src = wp + (long long)llo * N;
+      int next = llo, slot = 0;
+      auto issue = [&]() {
+        uint4* dst = ring + slot * SM_LOADS * SM_THREADS + tid;
 #pragma unroll
-      for (int i = 0; i < R; ++i) {
-        if (i >= nk) break;
-        const int kk = r0 - k0 + i;
+        for (int i = 0; i < STEP; ++i) {
+          if (next < lhi)
 #pragma unroll
-        for (int m = 0; m < SM_MMAX; ++m) {
+            for (int c = 0; c < NCH; ++c)
+              copy_chunk<WT>(dst + (i * NCH + c) * SM_THREADS, src + col[c],
+                             col[c], N, vec);
+          src += N;
+          ++next;
+        }
+        slot = slot == SM_STAGES - 1 ? 0 : slot + 1;
+        cp_async_commit();
+      };
+#pragma unroll
+      for (int s = 0; s < SM_STAGES - 1; ++s) issue();
+      // x rows [wb, we) as xs[(k - wb) * MT + m] in f32, zero for m >= M,
+      // staged while the first stages are in flight
+      const int nk = we - wb;
+      if (x_vec) {
+        const int nq = nk / 4;
+        for (int i = tid; i < MT * nq; i += SM_THREADS) {
+          const int m = i / nq, q = i - m * nq;
+          float t[4] = {0.f, 0.f, 0.f, 0.f};
           if (m < M) {
-            float xv = xs[m][kk];
+            const long long o = (long long)m * K + wb + 4 * q;
+            if (x_bf16) {
+              const uint2 u = *reinterpret_cast<const uint2*>(
+                  static_cast<const __nv_bfloat16*>(x) + o);
+              t[0] = __uint_as_float(u.x << 16);
+              t[1] = __uint_as_float(u.x & 0xFFFF0000u);
+              t[2] = __uint_as_float(u.y << 16);
+              t[3] = __uint_as_float(u.y & 0xFFFF0000u);
+            } else {
+              const float4 f = *reinterpret_cast<const float4*>(
+                  static_cast<const float*>(x) + o);
+              t[0] = f.x; t[1] = f.y; t[2] = f.z; t[3] = f.w;
+            }
+          }
 #pragma unroll
-            for (int c = 0; c < 4; ++c)
-              acc[m][c] = fmaf(xv, v[i][c], acc[m][c]);
+          for (int j = 0; j < 4; ++j) xs[(4 * q + j) * MT + m] = t[j];
+        }
+      } else {
+        for (int i = tid; i < MT * nk; i += SM_THREADS) {
+          const int m = i / nk, kk = i - m * nk;
+          float t = 0.f;
+          if (m < M) {
+            const long long o = (long long)m * K + wb + kk;
+            t = x_bf16 ? to_f32(static_cast<const __nv_bfloat16*>(x)[o])
+                       : static_cast<const float*>(x)[o];
+          }
+          xs[kk * MT + m] = t;
+        }
+      }
+      __syncthreads();
+      for (int s = 0; s < nsteps; ++s) {
+        cp_async_wait<SM_STAGES - 2>();       // this thread's stage s
+        uint4 r[STEP][NCH];
+        const uint4* cur =
+            ring + (s % SM_STAGES) * SM_LOADS * SM_THREADS + tid;
+#pragma unroll
+        for (int i = 0; i < STEP; ++i)
+#pragma unroll
+          for (int c = 0; c < NCH; ++c)
+            r[i][c] = cur[(i * NCH + c) * SM_THREADS];
+        issue();                      // into the slot read one step ago
+#pragma unroll
+        for (int i = 0; i < STEP; ++i) {
+          const int lr = llo + s * STEP + i;
+          if (lr >= lhi) break;
+          if constexpr (!Tr::kPacked) {
+            float v[SM_COLS];
+#pragma unroll
+            for (int c = 0; c < NCH; ++c) {
+              float u[CC];
+              if constexpr (Tr::kFq)
+                fq_chunk<WT, POW>(r[i][c], u, d, rd, qm, tt);
+              else
+                chunk_values<WT>(r[i][c], u);
+#pragma unroll
+              for (int q = 0; q < CC; ++q) v[c * CC + q] = u[q];
+            }
+            fma_row(lr - wb, v);
+          } else {
+            constexpr uint32_t kSigns = field_signs<BITS>();
+#pragma unroll
+            for (int f = 0; f < CPW; ++f) {
+              const int k = lr * CPW + f;
+              if (k < lo || k >= hi) continue;
+              float v[SM_COLS];
+#pragma unroll
+              for (int c = 0; c < NCH; ++c) {
+                v[c * 4] = field_value<BITS>(r[i][c].x ^ kSigns, f);
+                v[c * 4 + 1] = field_value<BITS>(r[i][c].y ^ kSigns, f);
+                v[c * 4 + 2] = field_value<BITS>(r[i][c].z ^ kSigns, f);
+                v[c * 4 + 3] = field_value<BITS>(r[i][c].w ^ kSigns, f);
+              }
+              fma_row(k - wb, v);
+            }
+          }
+        }
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+  };
+  if (Tr::kFq && tt != 1.f)
+    k_loop(std::true_type{});
+  else
+    k_loop(std::false_type{});
+
+  // the four K-groups of a warp: lane octet kl keeps a quarter of the
+  // MT x 16 sums, (octets 0 + 1) + (octets 2 + 3) (each pair sum is
+  // commutative, so the lane computing it does not change its bits)
+  constexpr int NV = MT * SM_COLS, H = NV / 2, Q = NV / 4;
+  const bool b0 = kl & 1, b1 = kl & 2;
+  float h[H];
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float mine = b0 ? acc[i + H] : acc[i];
+    const float other = b0 ? acc[i] : acc[i + H];
+    h[i] = mine + __shfl_xor_sync(0xFFFFFFFFu, other, SM_TN);
+  }
+  float* red = xs;                 // [warp][MT][SM_BN]
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+    const float mine = b1 ? h[i + Q] : h[i];
+    const float other = b1 ? h[i] : h[i + Q];
+    const float s = mine + __shfl_xor_sync(0xFFFFFFFFu, other, 2 * SM_TN);
+    const int vi = (b0 ? H : 0) + (b1 ? Q : 0) + i;
+    const int m = vi / SM_COLS, j = vi % SM_COLS;
+    red[(warp * MT + m) * SM_BN + CC * ((j / CC) * SM_TN + tn) + j % CC] = s;
+  }
+  __syncthreads();
+  float* part = xs + sm_part_offset<MT>(win);
+  for (int o = tid; o < M * SM_BN; o += SM_THREADS) {
+    const int m = o / SM_BN, c = o % SM_BN;
+    float s = red[m * SM_BN + c];
+#pragma unroll
+    for (int wi = 1; wi < SM_WARPS; ++wi) s += red[(wi * MT + m) * SM_BN + c];
+    part[o] = s;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  for (int o = rank * SM_THREADS + tid; o < M * SM_BN; o += cs * SM_THREADS) {
+    const int m = o / SM_BN, n = n0 + o % SM_BN;
+    if (n >= N) continue;
+    float s = cluster.map_shared_rank(part, 0)[o];
+    for (int r = 1; r < cs; ++r) s += cluster.map_shared_rank(part, r)[o];
+    if (Tr::kFq) s *= d;
+    if (e.scale != nullptr) s *= e.scale[(long long)n * e.scale_stride];
+    store_out(out, out_bf16, (long long)m * N + n, s);
+  }
+  cluster.sync();      // no block leaves while a peer reads its partial
+}
+
+// ---- SIMT variant (M > 8, f32 x) -------------------------------------------
+// grid (ceil(N / 128), ceil(M / 128)), 256 threads as 16 x 16, 8 x 8
+// outputs each (rows 4 ty + i and 64 + 4 ty + i, columns 4 tx + j and
+// 64 + 4 tx + j: the float4 reads of a warp fall on distinct banks). K in
+// steps of 16: x's tile through a ring of GM_STAGES shared-memory stages
+// filled by cp.async, two steps ahead; the weight tile's 16-byte chunks
+// loaded into registers one step ahead, decoded to T(w) in f32 and stored
+// row-major (16 x 128) in one of two buffers. Every output sums its K range
+// in one thread, in order, in f32 FMAs: no split-K, no tensor cores.
+constexpr int GM_BM = 128, GM_BN = 128, GM_BK = 16, GM_STAGES = 3;
+constexpr int GM_THREADS = 256;
+constexpr int GM_APITCH = GM_BK + 4;     // floats per staged x row
+
+template <int EPI, typename WT, int BITS>
+struct GmTraits : ChunkTraits<EPI, WT, BITS> {
+  using Base = ChunkTraits<EPI, WT, BITS>;
+  static constexpr int kPerRow = GM_BN / Base::kCols;    // chunks per raw row
+  // raw rows a 16-row K step reads: 16, or the word rows 16 rows can span
+  static constexpr int kRows =
+      !Base::kPacked              ? GM_BK
+      : GM_BK % Base::kCpw == 0 ? GM_BK / Base::kCpw
+                                : GM_BK / Base::kCpw + 2;
+  static constexpr int kChunks = kRows * kPerRow;
+  static constexpr int kPerThread = (kChunks + GM_THREADS - 1) / GM_THREADS;
+};
+
+template <int EPI, typename WT, int BITS>
+__global__ void __launch_bounds__(GM_THREADS, 2)
+gemm_general(const float* __restrict__ x, const void* __restrict__ w,
+             EpiArgs e, void* __restrict__ out, int out_bf16, int M, int N,
+             int K) {
+  using Tr = GmTraits<EPI, WT, BITS>;
+  constexpr int CC = Tr::kCols, PT = Tr::kPerThread, CPW = Tr::kCpw;
+  __shared__ __align__(16) float As[GM_STAGES][GM_BM][GM_APITCH];
+  __shared__ __align__(16) float Bs[2][GM_BK][GM_BN];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int m0 = blockIdx.y * GM_BM, n0 = blockIdx.x * GM_BN;
+  const int nsteps = (K + GM_BK - 1) / GM_BK;
+  const WT* wp = static_cast<const WT*>(w);
+  const bool vec = (N * (int)sizeof(WT)) % 16 == 0;
+  const bool x_vec = K % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const int raw_rows = (K + CPW - 1) / CPW;
+  // the thread's chunks are q = tid + i * 256 of a step's kRows x kPerRow;
+  // 256 is a multiple of kPerRow, so their columns are the same every step
+  const int cl = (tid % Tr::kPerRow) * CC, ccol = n0 + cl;
+  float d = 1.f, rd = 1.f, qm = 0.f, tt = 1.f;
+  if constexpr (Tr::kFq) {
+    d = fmaxf(*e.fq_d, kEps);
+    rd = __frcp_rn(d);
+    qm = fmaxf(*e.fq_qm, kEps);
+    tt = *e.fq_t;
+  }
+  float cs[CC];     // the columns' scale or mask
+#pragma unroll
+  for (int q = 0; q < CC; ++q)
+    cs[q] = e.scale != nullptr && ccol + q < N
+                ? e.scale[(long long)(ccol + q) * e.scale_stride] : 1.f;
+
+  uint4 raw[PT];
+  auto load_w = [&](int step) {
+    const int r0 = step * GM_BK / CPW;
+#pragma unroll
+    for (int i = 0; i < PT; ++i) {
+      const int q = tid + i * GM_THREADS;
+      const int rr = r0 + q / Tr::kPerRow;
+      raw[i] = q < Tr::kChunks && rr < raw_rows
+                   ? load_chunk<WT>(wp + (long long)rr * N, ccol, N, vec)
+                   : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  // T(w) of the step's chunks into Bs[buf]; rows past K are zero. POW ==
+  // (t != 1), decided once per call
+  auto decode_w = [&](int step, int buf, auto pow_tag) {
+    constexpr bool POW = decltype(pow_tag)::value;
+    const int k0 = step * GM_BK, r0 = k0 / CPW;
+#pragma unroll
+    for (int i = 0; i < PT; ++i) {
+      const int q = tid + i * GM_THREADS;
+      if (q >= Tr::kChunks) break;
+      const int rr = r0 + q / Tr::kPerRow;
+      if constexpr (!Tr::kPacked) {
+        float v[CC];
+        if constexpr (Tr::kFq)
+          fq_chunk<WT, POW>(raw[i], v, d, rd, qm, tt);
+        else
+          chunk_values<WT>(raw[i], v);
+#pragma unroll
+        for (int j = 0; j < CC; ++j) {
+          if (Tr::kFq) v[j] = d * v[j];
+          if (e.scale != nullptr) v[j] = v[j] * cs[j];
+        }
+#pragma unroll
+        for (int j = 0; j < CC; j += 4)
+          *reinterpret_cast<float4*>(&Bs[buf][rr - k0][cl + j]) =
+              make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+      } else {
+        constexpr uint32_t kSigns = field_signs<BITS>();
+        const uint32_t f4[4] = {raw[i].x ^ kSigns, raw[i].y ^ kSigns,
+                                raw[i].z ^ kSigns, raw[i].w ^ kSigns};
+#pragma unroll
+        for (int f = 0; f < CPW; ++f) {
+          const int k = rr * CPW + f;
+          if (k < k0 || k >= k0 + GM_BK) continue;
+          float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (k < K)
+            t = make_float4(field_value<BITS>(f4[0], f) * cs[0],
+                            field_value<BITS>(f4[1], f) * cs[1],
+                            field_value<BITS>(f4[2], f) * cs[2],
+                            field_value<BITS>(f4[3], f) * cs[3]);
+          *reinterpret_cast<float4*>(&Bs[buf][k - k0][cl]) = t;
+        }
+      }
+    }
+  };
+  // x's 128 x 16 tile of the step: 512 chunks of 4 floats, zero-filled past
+  // M and K
+  auto load_x = [&](int step, int stage) {
+    const int k0 = step * GM_BK;
+#pragma unroll
+    for (int i = 0; i < GM_BM * GM_BK / 4 / GM_THREADS; ++i) {
+      const int q = tid + i * GM_THREADS;
+      const int r = q >> 2, c = (q & 3) * 4, m = m0 + r, k = k0 + c;
+      float* dst = &As[stage][r][c];
+      if (x_vec) {
+        const bool ok = m < M && k < K;
+        cp_async16(dst, ok ? x + (long long)m * K + k : x, ok ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool ok = m < M && k + j < K;
+          cp_async4(dst + j, ok ? x + (long long)m * K + k + j : x,
+                    ok ? 4 : 0);
+        }
+      }
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  load_w(0);
+#pragma unroll
+  for (int s = 0; s < GM_STAGES - 1; ++s) {
+    if (s < nsteps) load_x(s, s);
+    cp_async_commit();
+  }
+  auto k_loop = [&](auto pow_tag) {
+    for (int st = 0; st < nsteps; ++st) {
+      cp_async_wait<GM_STAGES - 2>();      // this thread's copies of step st
+      decode_w(st, st & 1, pow_tag);
+      // every thread's copies and decode of step st are in, and every thread
+      // is past step st - 1's products (its stages may be refilled)
+      __syncthreads();
+      if (st + GM_STAGES - 1 < nsteps)
+        load_x(st + GM_STAGES - 1, (st + GM_STAGES - 1) % GM_STAGES);
+      cp_async_commit();
+      if (st + 1 < nsteps) load_w(st + 1);
+      const float(*A)[GM_APITCH] = As[st % GM_STAGES];
+      const float(*B)[GM_BN] = Bs[st & 1];
+#pragma unroll
+      for (int kq = 0; kq < GM_BK / 4; ++kq) {
+        float4 a[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          a[i] = *reinterpret_cast<const float4*>(&A[ty * 4 + i][kq * 4]);
+          a[4 + i] =
+              *reinterpret_cast<const float4*>(&A[64 + ty * 4 + i][kq * 4]);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float4 p =
+              *reinterpret_cast<const float4*>(&B[kq * 4 + kk][tx * 4]);
+          const float4 q =
+              *reinterpret_cast<const float4*>(&B[kq * 4 + kk][64 + tx * 4]);
+          const float b[8] = {p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w};
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float av = kk == 0 ? a[i].x : kk == 1 ? a[i].y
+                             : kk == 2 ? a[i].z : a[i].w;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, b[j], acc[i][j]);
           }
         }
       }
     }
-    __syncthreads();
-  }
-
+  };
+  if (Tr::kFq && tt != 1.f)
+    k_loop(std::true_type{});
+  else
+    k_loop(std::false_type{});
 #pragma unroll
-  for (int m = 0; m < SM_MMAX; ++m)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) red[ty][m][tx * 4 + c] = acc[m][c];
-  __syncthreads();
-  for (int i = tid; i < M * SM_BN; i += SM_TX * SM_TY) {
-    int m = i / SM_BN, col = i - m * SM_BN, nn = n0 + col;
-    if (nn >= N) continue;
-    float s = red[0][m][col];
-#pragma unroll
-    for (int g = 1; g < SM_TY; ++g) s += red[g][m][col];
-    if (gridDim.y == 1)
-      store(out + (long long)m * N + nn, s);
-    else
-      ws[((long long)split * M + m) * N + nn] = s;
-  }
-}
-
-// out[m, n] = sum over splits, in split order.
-template <typename OT>
-__global__ void reduce_splits(const float* __restrict__ ws,
-                              OT* __restrict__ out, int MN, int splits) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= MN) return;
-  float s = 0.f;
-  for (int j = 0; j < splits; ++j) s += ws[(long long)j * MN + i];
-  store(out + i, s);
-}
-
-// ---- general variant -------------------------------------------------------
-constexpr int GM_BM = 64, GM_BN = 64, GM_BK = 16;
-
-// grid (ceil(N/64), ceil(M/64)), block 256: 16x16 threads, 4x4 outputs.
-template <typename XT, typename OT, int EPI, typename WT, int BITS>
-__global__ void __launch_bounds__(256)
-gemm_general(const XT* __restrict__ x, const void* __restrict__ w,
-             EpiArgs e, OT* __restrict__ out, int M, int N, int K) {
-  __shared__ float As[GM_BK][GM_BM + 4];
-  __shared__ float Bs[GM_BK][GM_BN];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * GM_BM, n0 = blockIdx.x * GM_BN;
-
-  // this thread's weight loads: row `wr` of each K step, 4 columns at `wn`
-  const int wr = tid / 16, wn = n0 + (tid % 16) * 4;
-  const bool wlive = wn < N;
-  const Weights<EPI, WT, BITS> wt(w, N, wlive ? wn : 0, e);
-  // this thread's x loads: row `xr`, 4 k's at `xk`
-  const int xr = tid / 4, xk = (tid % 4) * 4;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += GM_BK) {
-    const int m = m0 + xr;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int k = k0 + xk + j;
-      As[xk + j][xr] = (m < M && k < K) ? to_f32(x[(long long)m * K + k]) : 0.f;
-    }
-    const int k = k0 + wr;
-    float v[1][4] = {{0.f, 0.f, 0.f, 0.f}};
-    if (wlive && k < K) wt.template rows<1>(k, 1, v);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) Bs[wr][(tid % 16) * 4 + c] = v[0][c];
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GM_BK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int m = m0 + ty * 4 + i;
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
     if (m >= M) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int nn = n0 + tx * 4 + j;
-      if (nn < N) store(out + (long long)m * N + nn, acc[i][j]);
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + h * 64 + tx * 4;      // N % 4 == 0: all four or none
+      if (n >= N) continue;
+      const long long o = (long long)m * N + n;
+      const float* v = &acc[i][4 * h];
+      if (out_bf16) {
+        __nv_bfloat16* p = static_cast<__nv_bfloat16*>(out) + o;
+        __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
+        q[0] = __floats2bfloat162_rn(v[0], v[1]);
+        q[1] = __floats2bfloat162_rn(v[2], v[3]);
+      } else {
+        *reinterpret_cast<float4*>(static_cast<float*>(out) + o) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
     }
   }
 }
@@ -1125,35 +1491,52 @@ cudaError_t tc_by_epilogue(int epi, int w_dtype, int bits, const TcCall& c) {
   return cudaErrorInvalidValue;
 }
 
-template <typename XT, typename OT, int EPI, typename WT, int BITS>
-cudaError_t launch(const void* x, const void* w, const EpiArgs& e, void* out,
-                   float* ws, int M, int N, int K, int splits, int cps,
-                   cudaStream_t st) {
-  const XT* xp = static_cast<const XT*>(x);
-  OT* op = static_cast<OT*>(out);
-  if (M <= SM_MMAX) {
-    dim3 grid((N + SM_BN - 1) / SM_BN, splits), block(SM_TX, SM_TY);
-    gemm_small_m<XT, OT, EPI, WT, BITS><<<grid, block, 0, st>>>(
-        xp, w, e, op, ws, M, N, K, cps);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess || splits == 1) return err;
-    int MN = M * N;
-    reduce_splits<OT><<<(MN + 255) / 256, 256, 0, st>>>(ws, op, MN, splits);
-    return cudaGetLastError();
-  }
-  dim3 grid((N + GM_BN - 1) / GM_BN, (M + GM_BM - 1) / GM_BM);
-  gemm_general<XT, OT, EPI, WT, BITS><<<grid, 256, 0, st>>>(xp, w, e, op, M,
-                                                            N, K);
+struct GemmCall {
+  const void* x; int x_bf16; const void* w; EpiArgs e; void* out;
+  int out_bf16; int M, N, K, cluster, k_slice;
+  cudaStream_t st;
+};
+
+template <int EPI, typename WT, int BITS, int MT>
+cudaError_t launch_small_m(const GemmCall& c) {
+  auto kern = gemm_small_m<EPI, WT, BITS, MT>;
+  const int win = c.k_slice < SM_WINDOW ? c.k_slice : SM_WINDOW;
+  const int smem = sm_smem_bytes<MT>(win);     // above 48 KB: opt in
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(c.cluster, (c.N + SM_BN - 1) / SM_BN);
+  cfg.blockDim = dim3(SM_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = c.st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = c.cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kern, c.x, c.x_bf16, c.w, c.e, c.out,
+                            c.out_bf16, c.M, c.N, c.K, c.k_slice);
+}
+
+// M <= 8: the small-M variant, with 4 or 8 rows of accumulators; M > 8
+// (f32 x only): the SIMT variant
+template <int EPI, typename WT, int BITS>
+cudaError_t launch(const GemmCall& c) {
+  if (c.M <= 4) return launch_small_m<EPI, WT, BITS, 4>(c);
+  if (c.M <= SM_MMAX) return launch_small_m<EPI, WT, BITS, 8>(c);
+  if (c.x_bf16) return cudaErrorInvalidValue;
+  dim3 grid((c.N + GM_BN - 1) / GM_BN, (c.M + GM_BM - 1) / GM_BM);
+  gemm_general<EPI, WT, BITS><<<grid, GM_THREADS, 0, c.st>>>(
+      static_cast<const float*>(c.x), c.w, c.e, c.out, c.out_bf16, c.M, c.N,
+      c.K);
   return cudaGetLastError();
 }
 
-template <typename XT, typename OT>
-cudaError_t by_epilogue(int epi, int w_dtype, int bits, const void* x,
-                        const void* w, const EpiArgs& e, void* out, float* ws,
-                        int M, int N, int K, int splits, int cps,
-                        cudaStream_t st) {
-#define L(E, W, B) \
-  launch<XT, OT, E, W, B>(x, w, e, out, ws, M, N, K, splits, cps, st)
+cudaError_t by_epilogue(int epi, int w_dtype, int bits, const GemmCall& c) {
+#define L(E, W, B) launch<E, W, B>(c)
   if (epi == EPI_FAKE_QUANT) {
     if (w_dtype == DT_F32) return L(EPI_FAKE_QUANT, float, 0);
     if (w_dtype == DT_BF16) return L(EPI_FAKE_QUANT, __nv_bfloat16, 0);
@@ -1183,34 +1566,35 @@ cudaError_t by_epilogue(int epi, int w_dtype, int bits, const void* x,
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success). Pointers are device
-// pointers; x is (M, K) row-major, w (K, N) or (ceil(K/cpw), N) row-major,
-// out (M, N) row-major; scale has N floats (scale_stride 1) or one
-// (scale_stride 0). When M <= 8 the grid has `splits` K-splits of `cps`
-// 128-row chunks each, none empty (gemm_core.k_splits picks them), and ws
-// holds splits*M*N floats when splits > 1.
-// N must be a multiple of 4 and w 16-byte aligned.
+// pointers; x is (M, K) row-major (f32 or bf16; f32 only when M > 8), w
+// (K, N) or (ceil(K/cpw), N) row-major, out (M, N) row-major (f32 or bf16);
+// scale has N floats (scale_stride 1) or one (scale_stride 0). N must be a
+// multiple of 4 and w 16-byte aligned. When M <= 8, `cluster` blocks of
+// `k_slice` K rows each share a column strip (gemm_core.small_m_plan):
+// 1 <= cluster <= 8, k_slice a multiple of 256 and, above 2048, of 2048,
+// and every block holds a row of K.
 extern "C" int repro_gemm(const void* x, int x_dtype, const void* w,
                           int w_dtype, int epi, int bits, const float* scale,
                           int scale_stride, const float* fq_d,
-                          const float* fq_qm,
-                          const float* fq_t, void* out, int out_dtype,
-                          float* ws, int M, int N, int K, int splits,
-                          int cps, void* stream) {
-  EpiArgs e{scale, scale_stride, fq_d, fq_qm, fq_t};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_dtype == DT_F32 && out_dtype == DT_F32)
-    return by_epilogue<float, float>(epi, w_dtype, bits, x, w, e, out, ws, M,
-                                     N, K, splits, cps, st);
-  if (x_dtype == DT_F32 && out_dtype == DT_BF16)
-    return by_epilogue<float, __nv_bfloat16>(epi, w_dtype, bits, x, w, e, out,
-                                             ws, M, N, K, splits, cps, st);
-  if (x_dtype == DT_BF16 && out_dtype == DT_F32)
-    return by_epilogue<__nv_bfloat16, float>(epi, w_dtype, bits, x, w, e, out,
-                                             ws, M, N, K, splits, cps, st);
-  if (x_dtype == DT_BF16 && out_dtype == DT_BF16)
-    return by_epilogue<__nv_bfloat16, __nv_bfloat16>(
-        epi, w_dtype, bits, x, w, e, out, ws, M, N, K, splits, cps, st);
-  return cudaErrorInvalidValue;
+                          const float* fq_qm, const float* fq_t, void* out,
+                          int out_dtype, int M, int N, int K, int cluster,
+                          int k_slice, void* stream) {
+  const bool dt_ok = (x_dtype == DT_F32 || x_dtype == DT_BF16) &&
+                     (out_dtype == DT_F32 || out_dtype == DT_BF16);
+  const bool plan_ok =
+      M > SM_MMAX ||
+      (cluster >= 1 && cluster <= SM_CLUSTER_MAX && k_slice > 0 &&
+       k_slice % (SM_GROUPS * 8) == 0 &&
+       (k_slice <= SM_WINDOW || k_slice % SM_WINDOW == 0) &&
+       (long long)(cluster - 1) * k_slice < K &&
+       (long long)cluster * k_slice >= K);
+  if (!dt_ok || !plan_ok || M < 1 || N < 1 || K < 1 || N % 4)
+    return cudaErrorInvalidValue;
+  const GemmCall c{x, x_dtype == DT_BF16, w,
+                   EpiArgs{scale, scale_stride, fq_d, fq_qm, fq_t}, out,
+                   out_dtype == DT_BF16, M, N, K, cluster, k_slice,
+                   static_cast<cudaStream_t>(stream)};
+  return by_epilogue(epi, w_dtype, bits, c);
 }
 
 // The tensor-core variant, for M > 8 and bf16 x. x is (M, K) with rows lda

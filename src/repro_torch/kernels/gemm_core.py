@@ -21,19 +21,19 @@ in `kernels.ref`; a CUDA tensor goes to a hand-written kernel in
 launch failed. There is no fallback from one to the other. On the card,
 `variant` picks the kernel by M and x's dtype:
 
-  small_m  M <= 8: split-K SIMT variant (decode)
+  small_m  M <= 8 (decode): one launch; the blocks that split a
+           column strip's K range form a thread-block cluster and sum
+           their partials over DSMEM in a fixed order (`small_m_plan`)
   tc       M > 8, bf16 x: wgmma tiles fed by TMA, which reads x and w in
            place, row-major or as a transposed view (`x.T`, `w.T`); int
            codes and packed words row-major only. A row stride TMA cannot
            take (not a multiple of 16 bytes) raises.
-  simt     M > 8, f32 x: the 64x64 SIMT variant in f32 FMAs, on contiguous
-           copies of x and w (the f32 configuration's 1e-4 card-vs-CPU
-           parity rests on it)
+  simt     M > 8, f32 x: a register-tiled SGEMM (128x128 tiles) in f32
+           FMAs, on contiguous copies of x and w (the f32 configuration's
+           1e-4 card-vs-CPU parity rests on it)
 
 `gemm.launches` counts kernel launches: the GEMM kernel per epilogue name
-and per variant, and the split-K reduce pass (a second launch when a
-small-M call splits K) under `reduce_splits`. Only the CUDA path adds to
-it, once per launch.
+and per variant. Every call is one launch. Only the CUDA path adds to it.
 """
 from __future__ import annotations
 
@@ -47,7 +47,6 @@ from repro_torch.kernels import build, ref
 
 FAKE_QUANT, DEQUANT, UNPACK = "fake_quant_rhs", "dequant", "unpack_dequant"
 NONE, COL_MASK, FQ_MASK = "none", "col_mask", "fq_col_mask"
-REDUCE = "reduce_splits"     # the split-K second pass, for any epilogue
 SMALL_M, TC, SIMT = "small_m", "tc", "simt"     # kernel variants
 _EPI_CODE = {FAKE_QUANT: 0, DEQUANT: 1, UNPACK: 2, NONE: 3, COL_MASK: 4,
              FQ_MASK: 5}
@@ -58,8 +57,11 @@ _W_DTYPES = {FAKE_QUANT: _FLOAT_W, NONE: _FLOAT_W, COL_MASK: _FLOAT_W,
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                torch.int16: 3, torch.int32: 4}
 SMALL_M_MAX = 8      # rows the kernel's small-M (decode) variant takes
-_SMALL_M_BN = 128    # its columns per block ...
-_SMALL_M_BK = 128    # ... and K rows per chunk (csrc/gemm_core.cu)
+# The small-M variant's constants (csrc/gemm_core.cu, SM_*): columns per
+# strip, K-groups per block, K rows of x a block stages at once, and the
+# portable thread-block-cluster size
+_SMALL_M_BN, _SMALL_M_GROUPS, _SMALL_M_WINDOW = 128, 32, 2048
+SMALL_M_CLUSTER_MAX = 8
 _TC_BN = 128         # columns per block of the tensor-core variant
 
 
@@ -125,19 +127,55 @@ def plain(x, w, epi: Epilogue, out_dtype) -> torch.Tensor:
                                        out_dtype=out_dtype)
 
 
-def k_splits(M: int, N: int, K: int, sm_count: int) -> tuple[int, int]:
-    """(splits, chunks_per_split) at small M: how many blocks share one
-    column strip's K range (enough for about two blocks per SM) and how
-    many 128-row chunks each covers, with no split left empty. The kernel
-    launches exactly this grid. Depends on the shape only, never on the
-    epilogue, so dequant and unpack_dequant sum in the same order."""
-    n_chunks = -(-K // _SMALL_M_BK)
-    if M > SMALL_M_MAX:
-        return 1, n_chunks
-    n_blocks = -(-N // _SMALL_M_BN)
-    want = max(1, min(n_chunks, -(-2 * sm_count // n_blocks)))
-    per_split = -(-n_chunks // want)
-    return -(-n_chunks // per_split), per_split
+@dataclasses.dataclass(frozen=True)
+class SmallMPlan:
+    """How the small-M kernel shares out one call: `strip` columns per
+    block, `cluster` blocks (one thread-block cluster) per strip, block r
+    of the cluster summing K rows [r * k_slice, (r + 1) * k_slice)."""
+    strip: int
+    cluster: int
+    k_slice: int
+
+    def group_rows(self, K: int):
+        """(rank, group, lo, hi) for every K-group of every block that sums
+        rows, as the kernel shares them out: within each window of up to
+        2048 rows of its slice, K-group g of 32 sums rows [lo, hi), rg =
+        window / 32 of them from g * rg on, in ascending order."""
+        win = min(self.k_slice, _SMALL_M_WINDOW)
+        rg = win // _SMALL_M_GROUPS
+        for rank in range(self.cluster):
+            kb = rank * self.k_slice
+            ke = min(K, kb + self.k_slice)
+            for wb in range(kb, ke, win):
+                we = min(ke, wb + win)
+                for g in range(_SMALL_M_GROUPS):
+                    lo = min(we, wb + g * rg)
+                    hi = min(we, lo + rg)
+                    if lo < hi:
+                        yield rank, g, lo, hi
+
+
+def small_m_plan(M: int, N: int, K: int, sm_count: int) -> SmallMPlan:
+    """The small-M kernel's plan: 128-column strips; the fewest rows per
+    K-group (a multiple of 8, up to 64) that keep the blocks (strips x
+    cluster) within one per SM and the cluster within 8. Past 16384 rows at
+    8 blocks, k_slice is a multiple of the 2048-row window. Every block
+    holds a row of K. The kernel launches exactly this grid. Depends on
+    the shape and the SM count only, never on the epilogue, so dequant and
+    unpack_dequant sum identical codes in the same order."""
+    if not (1 <= M <= SMALL_M_MAX and K >= 1 and N >= 1):
+        raise ValueError(f"small_m_plan: M={M}, N={N}, K={K}")
+    strips = -(-N // _SMALL_M_BN)
+    fill = max(sm_count, strips)
+    for rows in range(8, _SMALL_M_WINDOW // _SMALL_M_GROUPS + 1, 8):
+        k_slice = _SMALL_M_GROUPS * rows
+        cluster = -(-K // k_slice)
+        if cluster <= SMALL_M_CLUSTER_MAX and strips * cluster <= fill:
+            return SmallMPlan(_SMALL_M_BN, cluster, k_slice)
+    want = max(1, min(SMALL_M_CLUSTER_MAX, sm_count // strips,
+                      -(-K // _SMALL_M_WINDOW)))
+    k_slice = -(-K // (want * _SMALL_M_WINDOW)) * _SMALL_M_WINDOW
+    return SmallMPlan(_SMALL_M_BN, -(-K // k_slice), k_slice)
 
 
 def variant(M: int, x_dtype: torch.dtype) -> str:
@@ -239,7 +277,6 @@ def gemm(x: torch.Tensor, w: torch.Tensor, epi: Epilogue, *,
     lib = build.load()
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    splits = 1
     if kind == TC:
         err = lib.repro_gemm_tc(
             x.data_ptr(), lda, int(x_t), w.data_ptr(), _DTYPE_CODE[w.dtype],
@@ -248,25 +285,22 @@ def gemm(x: torch.Tensor, w: torch.Tensor, epi: Epilogue, *,
             _DTYPE_CODE[out_dtype], M, N, K,
             tc_block_m(M, N, build.sm_count(dev)), stream)
     else:
-        splits, per_split = k_splits(M, N, K, build.sm_count(dev))
-        ws = (torch.empty((splits * M * N,), dtype=torch.float32, device=dev)
-              if splits > 1 else None)
+        cluster = k_slice = 0            # the SIMT variant splits nothing
+        if kind == SMALL_M:
+            plan = small_m_plan(M, N, K, build.sm_count(dev))
+            cluster, k_slice = plan.cluster, plan.k_slice
         err = lib.repro_gemm(
             x.data_ptr(), _DTYPE_CODE[x.dtype], w.data_ptr(),
             _DTYPE_CODE[w.dtype], _EPI_CODE[epi.name], epi.bits, ptr(scale),
             scale_stride, *map(ptr, fq), out.data_ptr(),
-            _DTYPE_CODE[out_dtype], ptr(ws), M, N, K, splits, per_split,
-            stream)
+            _DTYPE_CODE[out_dtype], M, N, K, cluster, k_slice, stream)
     build.check(err, f"gemm {epi.name} {kind} (M={M}, N={N}, K={K})")
     gemm.launches[epi.name] += 1
     gemm.launches[kind] += 1
-    if splits > 1:
-        gemm.launches[REDUCE] += 1
     return out
 
 
-gemm.launches = {name: 0 for name in (*_EPI_CODE, REDUCE, SMALL_M, TC,
-                                      SIMT)}
+gemm.launches = {name: 0 for name in (*_EPI_CODE, SMALL_M, TC, SIMT)}
 
 
 def bytes_moved(M: int, N: int, K: int, x_itemsize: int, w: torch.Tensor,

@@ -9,11 +9,12 @@ a 128-token prompt, then times 8 batched decode steps on the host clock
 (each ends in a device sync) and profiles 8 more with `torch.profiler`.
 Prints, per step: the wall time, the device busy time (the union of its
 kernels' intervals: the decode-attention combine pass starts while its
-split kernel runs), the device's idle share, the top kernels by device
-time, and every decode-attention kernel by name (split and combine, at
-any rank) with its device ms and calls per step and the union of the
-pair. `--paged` serves from the paged KV arena (bf16 pages of 16 rows).
-Needs a CUDA device.
+split kernel runs), the device's idle share, the device ms and calls of
+the small-M GEMM kernels (`gemm_small_m`, every decode projection and the
+head) and of decode attention (the union of its split and combine
+kernels), the top kernels by device time, and every kernel of those two
+families by name with its device ms and calls per step. `--paged` serves
+from the paged KV arena (bf16 pages of 16 rows). Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ SLOTS = 4
 PROMPT_LEN = 128
 STEPS = 8
 DECODE_ATTN = "flash_decode"     # the decode-attention kernels' names
+SMALL_M = "gemm_small_m"         # the small-M GEMM kernels' names
 
 
 def _device_us(evt) -> float:
@@ -86,20 +88,29 @@ def main(argv=None) -> dict:
     attn = [k for k in kernels if DECODE_ATTN in k[0]]
     attn_ms = _union_ms([e for e in device_events
                          if DECODE_ATTN in e.key]) / STEPS
+    gemm = [k for k in kernels if SMALL_M in k[0]]
     out = {"mode": args.mode, "paged": args.paged, "wall_ms_per_step": wall_ms,
            "device_ms_per_step": busy_ms,
-           "idle_share": 1.0 - busy_ms / wall_ms}
+           "idle_share": 1.0 - busy_ms / wall_ms,
+           "small_m_ms_per_step": sum(ms for _, ms, _ in gemm),
+           "small_m_calls_per_step": sum(n for *_, n in gemm),
+           "decode_attn_ms_per_step": attn_ms}
     arena = "paged" if args.paged else "contiguous"
     print(f"{ARCH} [{args.mode}, {arena} arena] decode step on "
           f"{torch.cuda.get_device_name(0)}, {SLOTS} slots at prompt "
           f"{PROMPT_LEN}: wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms, idle share {out['idle_share']:.3f}")
+    print(f"  small-M GEMMs ({SMALL_M}): {out['small_m_ms_per_step']:.4f} "
+          f"ms/step of device time, {out['small_m_calls_per_step']} "
+          f"calls/step")
+    print(f"  decode attention: {attn_ms:.4f} ms/step of device time (the "
+          f"union of its kernels), {sum(n for *_, n in attn)} calls/step")
     for name, ms, n in kernels[:12]:
         print(f"  {ms:9.4f} ms/step  {n:5d} calls/step  {name[:90]}")
-    print(f"  decode attention, {attn_ms:.4f} ms/step of device time (the "
-          f"union of its kernels):")
-    for name, ms, n in attn:
-        print(f"  {ms:9.4f} ms/step  {n:5d} calls/step  {name[:90]}")
+    for label, family in (("small-M GEMM", gemm), ("decode attention", attn)):
+        print(f"  {label} kernels:")
+        for name, ms, n in family:
+            print(f"  {ms:9.4f} ms/step  {n:5d} calls/step  {name[:90]}")
     return out
 
 

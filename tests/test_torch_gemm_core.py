@@ -78,14 +78,50 @@ def test_gemm_rejects_mismatched_word_stream():
         TG.gemm(torch.from_numpy(x), torch.from_numpy(words[:-1]), unpack())
 
 
-def test_k_splits_depend_on_shape_only():
-    assert TG.k_splits(37, 1024, 2048, 132) == (1, 16)
-    assert TG.k_splits(4, 1024, 2048, 132) == (16, 1)
-    assert TG.k_splits(4, 92672, 2048, 132) == (1, 16)
-    # 17 splits wanted over 64 chunks: 4 chunks each fill only 16 splits
-    assert TG.k_splits(4, 2048, 8192, 132) == (16, 4)
-    for M, N, K in [(4, 1024, 2048), (8, 2048, 8192), (4, 96, 160),
-                    (4, 8192, 2048), (5, 2048, 2000)]:
-        splits, per_split = TG.k_splits(M, N, K, 132)
-        n_chunks = -(-K // 128)
-        assert (splits - 1) * per_split < n_chunks <= splits * per_split
+# the decode GEMMs' (K, N) at full width, a ragged pair and a K past what
+# eight blocks stage in one 2048-row window each
+PLAN_SHAPES = [(2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048),
+               (2048, 92672), (2000, 1028), (160, 96), (20000, 2048)]
+
+
+@pytest.mark.parametrize("bits", [None, 2, 3, 4, 8], ids=lambda b:
+                         f"b{b}" if b else "codes")
+@pytest.mark.parametrize("M", [1, 4, 8])
+@pytest.mark.parametrize("K,N", PLAN_SHAPES, ids=str)
+def test_k_splits_depend_on_shape_only(K, N, M, bits):
+    """The small-M kernel's plan: every K row in exactly one K-group of one
+    block, no block without rows, a cluster of at most 8, and one plan for
+    a shape whatever its storage: int codes (`bits` None) and packed words
+    decode the same rows in the same groups; a group whose rows start
+    inside a word (3-bit words straddle 128-row boundaries) reads the
+    words its rows span and no word past the stream."""
+    plan = TG.small_m_plan(M, N, K, 132)
+    assert plan.strip == 128 and 1 <= plan.cluster <= TG.SMALL_M_CLUSTER_MAX
+    assert -(-N // 128) * plan.cluster <= max(132, -(-N // 128))
+    groups = list(plan.group_rows(K))
+    seen = np.zeros(K, np.int64)
+    for rank, g, lo, hi in groups:
+        assert rank * plan.k_slice <= lo < hi <= (rank + 1) * plan.k_slice
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+    assert {rank for rank, *_ in groups} == set(range(plan.cluster))
+    cpw = TQ.codes_per_word(bits) if bits else 1
+    words = -(-K // cpw)
+    for _, _, lo, hi in groups:
+        assert 0 <= lo // cpw <= (hi - 1) // cpw < words
+    if bits == 3 and K > 128:
+        assert any(lo % cpw for _, _, lo, _ in groups)
+
+
+def test_small_m_plan_at_the_decode_shapes():
+    """One block per SM at most (132 on the H100), clusters of up to 8."""
+    plan = lambda K, N, M=4: TG.small_m_plan(M, N, K, 132)
+    assert plan(2048, 2048) == TG.SmallMPlan(128, 8, 256)
+    assert plan(2048, 1024) == TG.SmallMPlan(128, 8, 256)
+    assert plan(2048, 8192) == TG.SmallMPlan(128, 2, 1024)
+    assert plan(8192, 2048) == TG.SmallMPlan(128, 8, 1024)
+    assert plan(2048, 92672) == TG.SmallMPlan(128, 1, 2048)
+    assert plan(20000, 2048) == TG.SmallMPlan(128, 5, 4096)
+    assert plan(2048, 8192, 8) == plan(2048, 8192, 1)
+    with pytest.raises(ValueError):
+        TG.small_m_plan(9, 2048, 2048, 132)

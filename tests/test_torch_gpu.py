@@ -7,14 +7,18 @@ installed:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: the GEMM compares in f32 at rtol 1e-4, atol 1e-4 * max|y| (the
-kernel sums in another order than the plain matmul); its tensor-core
+kernel sums in another order than the plain matmul), its small-M variant
+one kernel per call (a profiler trace), three calls bitwise equal and
+dequant bitwise unpack_dequant at ragged N and K; its tensor-core
 variant (`test_tc_*`) at the same bound, every case run twice and held
 bitwise, its bf16 output bitwise its f32 output rounded, and its SIMT
-variant (`test_simt_*`, f32 x) at the same bound; decode attention,
+variant (`test_simt_*`, f32 x) at the same bound, a second call bitwise
+the first; decode attention,
 contiguous and paged (f32, bf16, int8 and int4 pages), at 1e-4 against
 the full softmax and at 1e-5 against the split-rows mirror
 (`ref.decode_attn_split_ref`, the kernel's own order; another summation
-order inside a split), with slots at the split edges and at S = 4096
+order inside a split), with slots at the split edges, at GQA ratios g 1,
+3, 5, 6 and head widths 64 and 80, and at S = 4096
 (at 1e-4 past 256 splits, the combine's chunk: over thousands of splits
 its sum cancels and the roundoff the two do not share grows); its
 result across rows per split (1, 4 and 16 splits) at 1e-6, as the JAX
@@ -82,12 +86,112 @@ def test_gemm_kernel_matches_plain(cuda, epilogue, M, K, N):
     y = TG.gemm(x, w, epi, out_dtype=torch.float32)
     want = TG.plain(x, w, epi, torch.float32)
     torch.cuda.synchronize()
-    splits, _ = TG.k_splits(M, N, K, TG.build.sm_count(x.device))
-    assert TG.gemm.launches[epi.name] == before[epi.name] + 1
-    assert (TG.gemm.launches[TG.REDUCE]
-            == before[TG.REDUCE] + (splits > 1))
+    kind = TG.variant(M, x.dtype)
+    assert TG.gemm.launches == dict(before, **{
+        epi.name: before[epi.name] + 1, kind: before[kind] + 1})
     torch.testing.assert_close(y, want, rtol=1e-4,
                                atol=1e-4 * want.abs().max().item())
+
+
+def _device_kernels(fn) -> list[str]:
+    """The names of the device kernels one call of `fn` runs, from a
+    torch.profiler trace of a call after a first one outside it. A trace
+    that recorded no device event at all (a short session now and then
+    comes back empty on the H100) is taken again, up to three times."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.events() if e.device_type == cuda]
+        if names:
+            break
+    return names
+
+
+# the small-M variant at decode shapes (clusters of 8, 2 and 1 blocks), a
+# ragged one (N % 16 == 4: rows not 16-byte aligned for int8 or bf16; K
+# not a multiple of 128 or of 10 codes per word) and a K past one 2048-row
+# window per block
+SMALL_M_SHAPES = [(2048, 2048), (2048, 8192), (2048, 92672), (2000, 1028),
+                  (20000, 256)]
+
+
+@pytest.mark.parametrize("K,N", SMALL_M_SHAPES, ids=str)
+@pytest.mark.parametrize("epilogue", EPILOGUES)
+def test_small_m_is_one_launch_and_repeats_bitwise(cuda, epilogue, K, N):
+    """One kernel per call (a profiler trace: no second pass), three calls
+    bitwise equal (the cluster sums in a fixed order, no atomics), within
+    the GEMM's bound of the plain version, bf16 output the f32 rounded."""
+    gen = torch.Generator(device=cuda).manual_seed(K + N)
+    w, epi = _weights(epilogue, K, N, gen)
+    x = torch.randn((4, K), generator=gen, device=cuda).to(torch.bfloat16)
+    run = lambda: TG.gemm(x, w, epi, out_dtype=torch.float32)
+    names = _device_kernels(run)
+    assert len(names) == 1 and "gemm_small_m" in names[0], names
+    ys = [run() for _ in range(3)]
+    want = TG.plain(x, w, epi, torch.float32)
+    torch.cuda.synchronize()
+    assert all(torch.equal(y, ys[0]) for y in ys[1:])
+    torch.testing.assert_close(ys[0], want, rtol=1e-4,
+                               atol=1e-4 * want.abs().max().item())
+    assert torch.equal(TG.gemm(x, w, epi, out_dtype=torch.bfloat16),
+                       ys[0].to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("K,N", [(2000, 1028), (2048, 8192)], ids=str)
+@pytest.mark.parametrize("bits", [3, 4])
+@pytest.mark.parametrize("M", [1, 4, 8])
+def test_small_m_dequant_and_unpack_are_bitwise_equal(cuda, M, bits, K, N):
+    """Packed serving's token contract at decode M, ragged N and K: the
+    plan does not depend on the epilogue, so int8 codes and packed words
+    sum the same codes in the same order."""
+    gen = torch.Generator(device=cuda).manual_seed(M + bits)
+    w = torch.randn((K, N), generator=gen, device=cuda) * 0.02
+    codes, d = quantize_int(w, init_quant_params(w, bits=float(bits)),
+                            bits=float(bits))
+    scale = d * (1.0 + (torch.arange(N, device=cuda) % 7 == 0) * 0.5)
+    x = torch.randn((M, K), generator=gen, device=cuda).to(torch.bfloat16)
+    a = TG.gemm(x, codes.to(torch.int8), TG.dequant(scale))
+    b = TG.gemm(x, pack_codes(codes, bits, axis=0),
+                TG.unpack_dequant(bits, scale))
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("K,N", [(160, 96), (2000, 1028)], ids=str)
+@pytest.mark.parametrize("M", [1, 2, 5, 8])
+@pytest.mark.parametrize("epi", ["none", "col_mask", "fake_quant_rhs",
+                                 "fq_col_mask", "dequant", "unpack_b3"])
+def test_small_m_f32_x_matches_plain(cuda, epi, M, K, N):
+    """f32 x and f32 weights at M <= 8, as the f32 smoke configuration
+    hands them to its decode steps, at t = 0.85 (a powf per weight)."""
+    gen = torch.Generator(device=cuda).manual_seed(K + M + 5)
+    w = torch.randn((K, N), generator=gen, device=cuda) * K ** -0.5
+    mask = (torch.arange(N, device=cuda) % 3 > 0).float()
+    qp = init_quant_params(w, bits=8.0, t=0.85)
+    if epi in ("dequant", "unpack_b3"):
+        bits = 8 if epi == "dequant" else 3
+        codes, d = quantize_int(w, init_quant_params(w, bits=float(bits)),
+                                bits=float(bits))
+        w, e = ((codes.to(torch.int8), TG.dequant(d)) if epi == "dequant"
+                else (pack_codes(codes, 3, axis=0), TG.unpack_dequant(3, d)))
+    else:
+        e = {"none": TG.none(), "col_mask": TG.col_mask(mask),
+             "fake_quant_rhs": TG.fake_quant_rhs(qp.d, qp.q_m, qp.t),
+             "fq_col_mask": TG.fq_col_mask(qp.d, qp.q_m, qp.t, mask)}[epi]
+    x = torch.randn((M, K), generator=gen, device=cuda)
+    y = TG.gemm(x, w, e, out_dtype=torch.float32)
+    want = TG.plain(x, w, e, torch.float32)
+    torch.cuda.synchronize()
+    assert TG.variant(M, x.dtype) == "small_m"
+    torch.testing.assert_close(y, want, rtol=1e-4,
+                               atol=1e-4 * want.abs().max().item())
+    if "mask" in epi:
+        assert not y[:, mask == 0].any()
 
 
 @pytest.mark.parametrize("M", [4, 37])
@@ -178,6 +282,37 @@ def test_paged_kernel_matches_plain_and_split_mirror(cuda, kind, seq_len):
     plain = ref.paged_decode_attn_ref(q, kp, vp, pos, table, **kw)
     mirror = ref.paged_decode_attn_split_ref(q, kp, vp, pos, table,
                                              rows_per_split=R, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got, mirror, rtol=1e-5, atol=1e-5)
+
+
+# GQA ratios and head widths of the dense configs beside internlm2-1.8b
+# (stablelm-3b g 1 dh 80, minitron-4b g 3, qwen2.5-14b g 5, grok-1 g 6):
+# the kernel rounds g up to a template G of 1, 2, 4 or 8, so g = 3, 5 and 6
+# run with idle query rows, and dh 64 and 80 fill fewer lanes than 128
+@pytest.mark.parametrize("g,dh", [(g, dh) for g in (1, 3, 5, 6)
+                                  for dh in (64, 80)], ids=str)
+@pytest.mark.parametrize("kind", ["contiguous", "bfloat16", "int8"])
+def test_decode_kernels_at_other_gqa_ratios_and_head_widths(cuda, kind, g,
+                                                            dh):
+    gen = torch.Generator(device=cuda).manual_seed(100 * g + dh)
+    S = 300
+    pos = _edge_pos(S, cuda)
+    if kind == "contiguous":
+        q, k, v = _contiguous(gen, pos.numel(), S, torch.bfloat16, KVh=4,
+                              g=g, dh=dh)
+        got = TDA.decode_attn(q, k, v, pos)
+        plain = ref.decode_attn_ref(q, k, v, pos)
+        mirror = ref.decode_attn_split_ref(q, k, v, pos, R)
+    else:
+        q, kp, vp, pos, table, kw = _paged(kind, gen, B=pos.numel(),
+                                           seq_len=S, KVh=4, g=g, dh=dh,
+                                           pos=pos)
+        got = TDA.paged_decode_attn(q, kp, vp, pos, table, **kw)
+        plain = ref.paged_decode_attn_ref(q, kp, vp, pos, table, **kw)
+        mirror = ref.paged_decode_attn_split_ref(q, kp, vp, pos, table,
+                                                 rows_per_split=R, **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(got, mirror, rtol=1e-5, atol=1e-5)
@@ -595,20 +730,27 @@ def test_tc_raises_on_rows_tma_cannot_take(cuda):
 
 # ------------------------------------------------ the GEMM's SIMT variant
 @pytest.mark.parametrize("K,N", [(160, 96), (2048, 1024), (2048, 8192),
-                                 (8192, 2048)])
-@pytest.mark.parametrize("M", [37, 2048])
+                                 (8192, 2048), (2000, 1028), (2001, 1028)],
+                         ids=str)
+@pytest.mark.parametrize("M", [37, 300, 2048])
 @pytest.mark.parametrize("epi", ["none", "col_mask", "fake_quant_rhs",
-                                 "fq_col_mask", "dequant"])
+                                 "fq_col_mask", "dequant", "unpack_b3"])
 def test_simt_f32_x_matches_plain(cuda, epi, M, K, N):
     """f32 x (the f32 configuration) at M > 8 takes the SIMT variant, in
-    f32 products, against the plain version at the GEMM's bound."""
+    f32 products, against the plain version at the GEMM's bound, fake-quant
+    at t = 0.85; M, N and K off the 128 x 128 x 16 tile (K 2001: x's rows
+    not 16-byte aligned); a second call is bitwise the first (each output
+    sums its K range in one thread, in order)."""
     gen = torch.Generator(device=cuda).manual_seed(K + M + 3)
     w = torch.randn((K, N), generator=gen, device=cuda) * K ** -0.5
     mask = (torch.arange(N, device=cuda) % 3 > 0).float()
     qp = init_quant_params(w, bits=8.0, t=0.85)
-    if epi == "dequant":
-        codes, d = quantize_int(w, init_quant_params(w, bits=8.0), bits=8.0)
-        w, e = codes.to(torch.int8), TG.dequant(d)
+    if epi in ("dequant", "unpack_b3"):
+        bits = 8 if epi == "dequant" else 3
+        codes, d = quantize_int(w, init_quant_params(w, bits=float(bits)),
+                                bits=float(bits))
+        w, e = ((codes.to(torch.int8), TG.dequant(d)) if epi == "dequant"
+                else (pack_codes(codes, 3, axis=0), TG.unpack_dequant(3, d)))
     else:
         e = {"none": TG.none(), "col_mask": TG.col_mask(mask),
              "fake_quant_rhs": TG.fake_quant_rhs(qp.d, qp.q_m, qp.t),
@@ -623,5 +765,6 @@ def test_simt_f32_x_matches_plain(cuda, epi, M, K, N):
         e.name: before[e.name] + 1})
     torch.testing.assert_close(y, want, rtol=1e-4,
                                atol=1e-4 * want.abs().max().item())
+    assert torch.equal(TG.gemm(x, w, e, out_dtype=torch.float32), y)
     if "mask" in epi:
         assert not y[:, mask == 0].any()

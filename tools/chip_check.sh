@@ -22,7 +22,7 @@ for mode in dense compressed packed_b4; do
         log="$out/profile_$mode${arena:+_paged}.log"
         PYTHONPATH=src python3 -m repro_torch.launch.profile_decode \
             --mode "$mode" $arena > "$log" 2>&1 || rc=1
-        sed -n '/decode step on/,$p' "$log" | head -n 17
+        sed -n '/decode step on/,$p' "$log" | head -n 15
     done
 done
 PYTHONPATH=src python3 -m repro_torch.launch.profile_train \
