@@ -29,9 +29,11 @@ Phases, each printing its own lines:
    the fake-quant forward and backward kernels on the head weight
    (2048 x 92672 bf16) and a w_gate slice (2048 x 8192 bf16) at t = 1 and
    t = 0.85 (forward and dx bitwise at both, the three sums within
-   1e-5 of the sum of their terms' magnitudes); the GEMM's no-epilogue
-   variant on x.T @ g (2048 x 2048 -> 8192 and 8192 x 2048 -> 2048, out
-   f32, x.T a view), fake_quant_rhs on g @ fq(w.T) (w.T a view) and on
+   1e-5 of the sum of their terms' magnitudes and bitwise on a second
+   call, one device kernel per call from a profiler trace); the GEMM's
+   no-epilogue variant on x.T @ g (2048 x 2048 -> 8192 and 8192 x 2048 ->
+   2048, x.T a view; its bf16 output, dwq's, bitwise its f32 output
+   rounded), fake_quant_rhs on g @ fq(w.T) (w.T a view) and on
    the forward at M = 2048, each at t = 1 and t = 0.85 (dx also with
    24-bit quantizers, whose codes need the third bf16 piece), and the
    column mask alone and after fake-quant at M = 2048 and M = 4; and the
@@ -63,7 +65,8 @@ Phases, each printing its own lines:
    Packed tokens must equal those of an int8 run with the same 4-bit
    quantizer init; over that int8 run a profiler trace must count exactly
    one `gemm_small_m` kernel per small-M call (each decode GEMM is one
-   launch).
+   launch; a trace with fewer kernels than calls lost events and is
+   taken again, up to three times).
 6. The paged main path: the same engine and requests from the paged KV
    arena (pages of 16 rows). With bf16 pages its tokens must equal phase
    5's in each weight mode; packed 4-bit weights with int8 and with int4
@@ -95,8 +98,11 @@ Phases, each printing its own lines:
    launches from this step. Then two runs of a joint step from one
    state, which must give the same params, quantizers and masks bit for
    bit; and the smoke config's joint step on the card against its CPU
-   run at `train.STEP_TOLERANCES` (its GEMMs on the SIMT variant). Prints step wall times, tokens/s and
-   peak device memory.
+   run at `train.STEP_TOLERANCES` (its GEMMs on the SIMT variant), and
+   the same step with activation quantizers (masks identical and the loss
+   within tolerance held; params and quantizers reported, since a rounding
+   tie of an activation flipped by the summation order moves them past
+   it). Prints step wall times, tokens/s and peak device memory.
 8. Two JSON lines: the kernel table, then the device line (last).
 
 Times are CUDA-event medians with the 50 MB L2 flushed before each launch
@@ -112,6 +118,7 @@ writes every kernel row and the launch counts to PATH as JSON.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -249,9 +256,9 @@ def _heights(row) -> str:
 
 
 def _one_kernel(torch, row, call) -> None:
-    """A small-M row's device kernels per call, from a profiler trace after
-    its timings; anything but one clears row["ok"]."""
-    if row["variant"] == "small_m":
+    """A small-M GEMM or fake-quant row's device kernels per call, from a
+    profiler trace after its timings; anything but one clears row["ok"]."""
+    if row.get("variant") == "small_m" or row["kernel"].startswith("fake_"):
         row["kernels_per_call"] = _kernels_per_call(torch, call, "")
         row["ok"] = row["ok"] and row["kernels_per_call"] == 1
 
@@ -405,12 +412,13 @@ def _kernels_per_call(torch, fn, match: str = DECODE_KERNELS) -> int:
     """The device kernels whose names hold `match` (default: the
     decode-attention kernels; "" for every kernel) that one call of `fn`
     runs, read from a torch.profiler trace. A trace that recorded no device
-    event at all (a short session now and then comes back empty on the
-    H100) is taken again, up to three times: it measures nothing."""
+    event at all (on the H100 a short trace now and then comes back
+    empty, even three times in a row) is taken again, up to eight times:
+    it measures nothing."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     cuda = torch.autograd.DeviceType.CUDA
-    for _ in range(3):
+    for _ in range(8):
         with torch.profiler.profile(activities=acts) as prof:
             fn()
             torch.cuda.synchronize()
@@ -585,6 +593,7 @@ def _fq_rows(torch, timer, gen) -> tuple[list, dict, list]:
                    "ms": timer(lambda: fq.fake_quant_fwd(x, *sc)),
                    "plain_ms": timer(lambda: ref.fake_quant_fwd_ref(x, *sc))}
             row["bound_ms"], row["bound_by"] = bound_ms(fq.fwd_bytes(x), 0)
+            _one_kernel(torch, row, lambda: fq.fake_quant_fwd(x, *sc))
             rows.append(row)
             del y, want
             got = fq.fake_quant_bwd(x, *sc, g)
@@ -608,6 +617,7 @@ def _fq_rows(torch, timer, gen) -> tuple[list, dict, list]:
                         x, *sc, g))}
             brow["bound_ms"], brow["bound_by"] = bound_ms(fq.bwd_bytes(x, g),
                                                           0)
+            _one_kernel(torch, brow, lambda: fq.fake_quant_bwd(x, *sc, g))
             rows.append(brow)
             del got, want, again
             for r in (row, brow):
@@ -620,11 +630,13 @@ def _fq_rows(torch, timer, gen) -> tuple[list, dict, list]:
                          f" dx_bitwise={r['dx_bitwise']} sums/scale="
                          f"{max(r['sum_err_over_scale']):.1e} repeat_bitwise="
                          f"{r['repeat_bitwise']}")
-                      + f" {'ok' if r['ok'] else 'FAIL'}")
+                      + f"{_per_call(r)} {'ok' if r['ok'] else 'FAIL'}")
                 if not r["ok"]:
                     failures.append(r)
                 if TRAIN_REPORT[r["kernel"]] == (label, t):
                     report[r["kernel"]] = r
+                elif TRAIN_REPORT[r["kernel"]] == (label, 1.0):
+                    report[r["kernel"] + ".at_t0.85"] = r
         del x, g
         torch.cuda.empty_cache()
     return rows, report, failures
@@ -656,15 +668,18 @@ def _train_gemm_rows(torch, timer, gen) -> tuple[list, dict, list]:
                "fake_quant_rhs": gc.fake_quant_rhs(qp.d, qp.q_m, qp.t),
                "fq_col_mask": gc.fq_col_mask(qp.d, qp.q_m, qp.t, mask)}[label]
         # checked in f32 like the serving rows; timed in the path's out
-        # dtype (f32 for dwq, x's bf16 otherwise)
-        out = torch.float32 if label == "none" else torch.bfloat16
+        # dtype, bf16 (dwq is written in the weight's dtype, and its bf16
+        # output must be the f32 output rounded, bit for bit)
+        out = torch.bfloat16
         y = gc.gemm(x, w, epi, out_dtype=torch.float32)
         want = gc.plain(x, w, epi, torch.float32)
+        rounded = torch.equal(gc.gemm(x, w, epi, out_dtype=out),
+                              y.to(out))
         torch.cuda.synchronize()
         err = (y - want).abs().max().item()
         tol = 1e-4 * want.abs().max().item()
         ok = bool(torch.allclose(y, want, rtol=1e-4, atol=tol)
-                  and torch.isfinite(y).all())
+                  and torch.isfinite(y).all()) and rounded
         if label in ("col_mask", "fq_col_mask"):
             ok = ok and not y[:, mask == 0].any()
         del y, want
@@ -675,7 +690,8 @@ def _train_gemm_rows(torch, timer, gen) -> tuple[list, dict, list]:
         variant = gc.variant(M, torch.bfloat16)
         row = {"kernel": f"gemm_core.{label}", "M": M, "K": K, "N": N,
                "layout": layout, "t": t, "bits": bits, "variant": variant,
-               "out": str(out), "max_abs_err": err, "atol": tol, "ok": ok,
+               "out": str(out), "max_abs_err": err, "atol": tol,
+               "bf16_is_f32_rounded": rounded, "ok": ok,
                "ms": timer(lambda: gc.gemm(x, w, epi, out_dtype=out)),
                "plain_ms": timer(lambda: gc.plain(x, w, epi, out)),
                "library_ms": timer(lambda: torch.matmul(x, w_lib))}
@@ -695,7 +711,8 @@ def _train_gemm_rows(torch, timer, gen) -> tuple[list, dict, list]:
               f"plain_ms={row['plain_ms']:.4f} "
               f"library_ms={row['library_ms']:.4f} "
               f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
-              f"err={err:.2e} tol={tol:.2e}{_heights(row)}{_per_call(row)} "
+              f"err={err:.2e} tol={tol:.2e} bf16_is_f32_rounded={rounded}"
+              f"{_heights(row)}{_per_call(row)} "
               f"{'ok' if row['ok'] else 'FAIL'}")
         for name, key in TRAIN_REPORT.items():
             if key == case:
@@ -877,19 +894,26 @@ def phase_engine(torch) -> tuple[dict, dict, list[str]]:
         if counts[name] <= 0:
             failures.append(f"{name} never launched on the main path")
     # each decode GEMM is one launch: over this run, the device kernels of
-    # the small-M variant, counted from a profiler trace, equal its calls
-    before = ops.launch_counts()["gemm_core.small_m"]
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        ref_int8 = engine_serve(ARCH, False, PROMPT_LENS, GEN,
-                                max_slots=SLOTS, verbose=False,
-                                device="cuda", compressed=True,
-                                bits_init=4.0)
-        torch.cuda.synchronize()
-    calls = ops.launch_counts()["gemm_core.small_m"] - before
+    # the small-M variant, counted from a profiler trace, equal its calls.
+    # A call is counted only after its launch succeeded, so fewer kernels
+    # than calls means the trace lost events (on the H100 one now and then
+    # drops a few dozen of this run's ~60k): it is taken again, up to
+    # three times.
     cuda = torch.autograd.DeviceType.CUDA
-    kernels = sum(e.count for e in prof.key_averages()
-                  if e.device_type == cuda and "gemm_small_m" in e.key)
+    for _ in range(3):
+        before = ops.launch_counts()["gemm_core.small_m"]
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            ref_int8 = engine_serve(ARCH, False, PROMPT_LENS, GEN,
+                                    max_slots=SLOTS, verbose=False,
+                                    device="cuda", compressed=True,
+                                    bits_init=4.0)
+            torch.cuda.synchronize()
+        calls = ops.launch_counts()["gemm_core.small_m"] - before
+        kernels = sum(e.count for e in prof.key_averages()
+                      if e.device_type == cuda and "gemm_small_m" in e.key)
+        if kernels >= calls:
+            break
     print(f"[5 engine] int8 run at 4-bit init: {calls} small-M GEMM calls, "
           f"{kernels} gemm_small_m kernels in the profiler trace "
           f"{'ok' if calls > 0 and kernels == calls else 'FAIL'}")
@@ -1206,6 +1230,25 @@ def phase_train(torch) -> tuple[dict, dict, list[str]]:
           + f" {check(ok, 'smoke step card vs cpu')}; its GEMMs on the "
           f"SIMT variant {simt} times "
           f"{check(simt > 0, 'smoke step on the SIMT variant')}")
+
+    # the same step with activation quantizers (each activation site
+    # through the fake-quant kernels): masks and loss held, the rest
+    # reported, since a rounding tie of an activation that the GEMMs'
+    # summation order flips moves the step's params and quantizers
+    comp = dataclasses.replace(T.JOINT_STEP0, act_quant=True)
+    before = ops.launch_counts()["fake_quant.fwd"]
+    runs = T.step_on_devices(ARCH, ["cpu", "cuda"], comp=comp)
+    fwd = ops.launch_counts()["fake_quant.fwd"] - before
+    n_act = sum(k.endswith(".aq") for k in runs["cuda"][1])
+    diff = T.step_differences(runs["cpu"], runs["cuda"])
+    ok = diff["masks"] and diff["loss"] <= tol["loss"] and fwd >= n_act > 0
+    print(f"[7 train] smoke config joint step with act_quant ({n_act} "
+          f"activation sites, {fwd} fake_quant.fwd launches), card vs CPU: "
+          f"masks {'identical' if diff['masks'] else 'DIFFER'}, loss "
+          f"{diff['loss']:.1e} (tol {tol['loss']:.0e}) "
+          f"{check(ok, 'act_quant smoke step card vs cpu')}; reported: "
+          + ", ".join(f"{k} {diff[k]:.1e}" for k in (
+              "params", "d", "q_m", "t", "act_d", "act_q_m", "act_t")))
     return counts, colmask_counts, failures
 
 
@@ -1317,6 +1360,12 @@ def main(argv=None) -> int:
         if t85 is not None:
             extra["at_t0.85"] = {k: train_report[t85][k] for k in (
                 "ms", "plain_ms", "library_ms", "max_abs_err")}
+        if name.startswith("fake_quant"):
+            t85 = train_report[name + ".at_t0.85"]
+            extra["at_t0.85"] = {k: t85[k] for k in (
+                "ms", "plain_ms", "max_abs_err", "kernels_per_call")}
+            # device kernels per call, read from a profiler trace
+            extra["kernels_per_launch"] = row["kernels_per_call"]
         if "heights" in row:
             extra["block_height_ms"] = row["heights"]
         kernels.append({

@@ -46,13 +46,13 @@ SIGNATURES = {
     "repro_paged_decode_attn": (_P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _LL,
                                 _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                 _F, _P),
-    "repro_fake_quant_fwd": (_P, _I, _P, _LL, _P, _P, _P, _I, _P),
-    "repro_fake_quant_bwd": (_P, _I, _P, _I, _P, _P, _P, _LL, _P, _P, _P,
-                             _P),
+    "repro_fake_quant_fwd": (_P, _I, _P, _LL, _P, _P, _P, _P),
+    "repro_fake_quant_bwd": (_P, _I, _P, _I, _P, _P, _P, _P, _LL, _P, _P,
+                             _P, _P),
 }
 
 _lock = threading.Lock()
-_state: dict = {"lib": None}
+_state: dict = {"lib": None, "error": None}
 
 
 def find_nvcc() -> str:
@@ -109,15 +109,23 @@ def _compile(nvcc: str, out_dir: Path) -> Path:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built on first use in this process."""
+    """The kernel library, built on first use in this process. A build
+    that failed raises again on every later call, without building
+    again."""
     with _lock:
         if _state["lib"] is not None:
             return _state["lib"]
+        if _state["error"] is not None:
+            raise RuntimeError(_state["error"])
         out_dir = BUILD_ROOT / source_hash()
         lib_path = out_dir / "libkernels.so"
         if not lib_path.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
-            lib_path = _compile(find_nvcc(), out_dir)
+            try:
+                lib_path = _compile(find_nvcc(), out_dir)
+            except RuntimeError as err:
+                _state["error"] = str(err)
+                raise
         lib = ctypes.CDLL(str(lib_path))
         for name, args in SIGNATURES.items():
             fn = getattr(lib, name)

@@ -1415,6 +1415,14 @@ struct TcCall {
 template <int KIND, typename WT, int BITS, int BM, bool A_MN, bool B_MN>
 cudaError_t launch_tc(const TcCall& c) {
   using Tr = TcTraits<KIND, WT, BITS, BM>;
+  // A runtime call first: it makes the device's primary context current in
+  // this thread, which cuTensorMapEncodeTiled needs (in a thread whose
+  // first CUDA call this is, such as autograd's worker, it fails without
+  // one).
+  auto kern = gemm_tc<KIND, WT, BITS, BM, A_MN, B_MN>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Tr::kSmem);
+  if (err != cudaSuccess) return err;
   CUtensorMap ta, tb;
   bool ok = A_MN ? tensor_map(&ta, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, c.x, c.M,
                               c.K, c.lda * 2, 64, TC_BK, true)
@@ -1433,10 +1441,6 @@ cudaError_t launch_tc(const TcCall& c) {
                      : tensor_map(&tb, tma_dtype<WT>(), c.w, c.K, c.N,
                                   c.ldb * es, TC_BK, TC_BN, false));
   if (!ok) return cudaErrorInvalidValue;
-  auto kern = gemm_tc<KIND, WT, BITS, BM, A_MN, B_MN>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Tr::kSmem);
-  if (err != cudaSuccess) return err;
   dim3 grid((c.N + TC_BN - 1) / TC_BN, (c.M + BM - 1) / BM);
   kern<<<grid, TC_THREADS, Tr::kSmem, c.st>>>(ta, tb, c.e, c.out, c.out_bf16,
                                               c.M, c.N, c.K);

@@ -6,14 +6,15 @@ decide by device: a CPU tensor goes to the plain PyTorch versions
 to the hand-written kernels in `csrc/fake_quant.cu`, or raises if the
 library did not build or the launch failed. There is no fallback.
 
-The backward reduces its three scalar sums without atomics: a first pass
-writes dx and one (dd, dq_m, dt) row per 4096-element block to a
-(blocks, 3) f32 buffer, and a second one-block pass folds the rows in a
-fixed order, so the sums are the same bits run to run.
+Each call is one kernel launch. The backward reduces its three scalar
+sums without atomics: every block of `BWD_CHUNK` elements writes one
+(dd, dq_m, dt) row, and the block that finishes last (picked by a ticket
+counter kept here per device and stream) folds the rows in a fixed order,
+so the sums are the same bits run to run. The fold order depends on the
+element count only (`bwd_rows`), never on the card.
 
-`launches` counts wrapper calls that launched a kernel, by direction:
-`fwd` (one launch) and `bwd` (the pass and its fold). Only the CUDA path
-adds to it.
+`launches` counts wrapper calls that launched a kernel, by direction.
+Only the CUDA path adds to it.
 """
 from __future__ import annotations
 
@@ -22,10 +23,11 @@ import torch
 from repro_torch.kernels import build, ref
 
 FWD, BWD = "fwd", "bwd"
-BWD_CHUNK = 4096          # elements per first-pass block (csrc kChunk)
+BWD_CHUNK = 8192          # elements per backward block (csrc kChunk)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = {FWD: 0, BWD: 0}
+_tickets: dict = {}       # (device index, stream) -> int32 counter at 0
 
 
 def _check_cuda(what: str, *tensors) -> None:
@@ -38,6 +40,32 @@ def _check_cuda(what: str, *tensors) -> None:
             raise ValueError(f"{what}: dtype {t.dtype} is not f32 or bf16")
 
 
+def bwd_rows(n: int) -> int:
+    """Blocks of the backward kernel, each one partial-sum row: a function
+    of the element count alone."""
+    if n <= 0:
+        raise ValueError(f"fake_quant_bwd: {n} elements")
+    return -(-n // BWD_CHUNK)
+
+
+def empty_coaligned(x: torch.Tensor) -> torch.Tensor:
+    """An uninitialized contiguous tensor like x whose address lies as far
+    past a 16-byte boundary as x's, so that one vector loop reads x and
+    writes it (x may be a view that starts at any element)."""
+    off = x.data_ptr() % 16 // x.element_size()
+    if off == 0:
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
+    buf = torch.empty(x.numel() + off, dtype=x.dtype, device=x.device)
+    return buf[off:].view(x.shape)
+
+
+def _ticket(dev: torch.device, stream: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    if key not in _tickets:
+        _tickets[key] = torch.zeros((1,), dtype=torch.int32, device=dev)
+    return _tickets[key]
+
+
 def fake_quant_fwd(x: torch.Tensor, d, q_m, t) -> torch.Tensor:
     """y = d * round(clip^t(|x|) / d) * sgn(x) in x's dtype; any shape."""
     if x.device.type == "cpu":
@@ -45,11 +73,11 @@ def fake_quant_fwd(x: torch.Tensor, d, q_m, t) -> torch.Tensor:
     _check_cuda("fake_quant_fwd", x)
     dev = x.device
     x = x.contiguous()
-    y = torch.empty_like(x)
+    y = empty_coaligned(x)
     d, q_m, t = (build.device_scalar(v, dev) for v in (d, q_m, t))
     err = build.load().repro_fake_quant_fwd(
         x.data_ptr(), _DTYPE_CODE[x.dtype], y.data_ptr(), x.numel(),
-        d.data_ptr(), q_m.data_ptr(), t.data_ptr(), build.sm_count(dev),
+        d.data_ptr(), q_m.data_ptr(), t.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, f"fake_quant_fwd (n={x.numel()})")
     launches[FWD] += 1
@@ -67,19 +95,17 @@ def fake_quant_bwd(x: torch.Tensor, d, q_m, t, g: torch.Tensor):
     _check_cuda("fake_quant_bwd", x, g)
     dev = x.device
     n = x.numel()
-    if n == 0:
-        raise ValueError("fake_quant_bwd: empty tensor")
+    rows = torch.empty((bwd_rows(n), 3), dtype=torch.float32, device=dev)
     x, g = x.contiguous(), g.contiguous()
     dx = torch.empty_like(x)
-    partials = torch.empty((-(-n // BWD_CHUNK), 3), dtype=torch.float32,
-                           device=dev)
     sums = torch.empty((3,), dtype=torch.float32, device=dev)
     d, q_m, t = (build.device_scalar(v, dev) for v in (d, q_m, t))
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = build.load().repro_fake_quant_bwd(
         x.data_ptr(), _DTYPE_CODE[x.dtype], g.data_ptr(),
-        _DTYPE_CODE[g.dtype], dx.data_ptr(), partials.data_ptr(),
-        sums.data_ptr(), n, d.data_ptr(), q_m.data_ptr(), t.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        _DTYPE_CODE[g.dtype], dx.data_ptr(), rows.data_ptr(),
+        _ticket(dev, stream).data_ptr(), sums.data_ptr(), n, d.data_ptr(),
+        q_m.data_ptr(), t.data_ptr(), stream)
     build.check(err, f"fake_quant_bwd (n={n})")
     launches[BWD] += 1
     return dx, sums[0], sums[1], sums[2]

@@ -8,11 +8,13 @@ The matmul ops on the training path (`matmul_op`, `masked_matmul_op`,
 `fq_matmul_op`, `fq_masked_matmul_op`) are `torch.autograd.Function`s
 whose backward GEMMs run on the same GEMM core, as `repro.kernels.ops`'s
 custom VJPs do: the quantizer stays fused into the dx GEMM's weight load
-(`g @ fake_quant(w.T)`), `dwq = x.T @ g` runs with no epilogue in f32, and
-the weight cotangent goes through the fake-quant backward kernel (the STE
-of Eqs 4-6) after the cast `dwq.to(w.dtype)`, which at bf16 changes the
-scalar sums exactly as the JAX package's cast does. Column masks are GETA
-decay schedules, not learned parameters: their cotangent is zero.
+(`g @ fake_quant(w.T)`), `dwq = x.T @ g` runs with no epilogue and is
+written in w's dtype, and the weight cotangent goes through the
+fake-quant backward kernel (the STE of Eqs 4-6). The GEMM rounds its f32
+sums once to w's dtype, the same bits as an f32 output cast with
+`.to(w.dtype)`, the JAX package's cast, so at bf16 the scalar sums change
+exactly as there, with no cast pass over the weight. Column masks are
+GETA decay schedules, not learned parameters: their cotangent is zero.
 `fake_quant_op` is `core.quant.fake_quant`, the same custom-VJP contract.
 """
 from __future__ import annotations
@@ -38,9 +40,9 @@ def _mask_cols(g: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def _fq_weight_grads(w, d, q_m, t, dwq):
-    """Route the weight cotangent through the quantizer's STE: (dw, dd,
-    dq_m, dt)."""
-    dw, dd, dqm, dt = _fq.fake_quant_bwd(w, d, q_m, t, dwq.to(w.dtype))
+    """Route the weight cotangent dwq (in w's dtype) through the
+    quantizer's STE: (dw, dd, dq_m, dt)."""
+    dw, dd, dqm, dt = _fq.fake_quant_bwd(w, d, q_m, t, dwq)
     return dw, dd.reshape(d.shape), dqm.reshape(q_m.shape), dt.reshape(t.shape)
 
 
@@ -87,7 +89,7 @@ class _FqMatmul(torch.autograd.Function):
         # transpose commutes and the quantizer stays in the weight load
         dx = _gc.gemm(g, w.T, _gc.fake_quant_rhs(d, q_m, t),
                       out_dtype=x.dtype)
-        dwq = _gc.gemm(x.T, g, _gc.none(), out_dtype=F32)
+        dwq = _gc.gemm(x.T, g, _gc.none(), out_dtype=w.dtype)
         return (dx, *_fq_weight_grads(w, d, q_m, t, dwq))
 
 
@@ -104,7 +106,7 @@ class _FqMaskedMatmul(torch.autograd.Function):
         gm = _mask_cols(g, mask)
         dx = _gc.gemm(gm, w.T, _gc.fake_quant_rhs(d, q_m, t),
                       out_dtype=x.dtype)
-        dwq = _gc.gemm(x.T, gm, _gc.none(), out_dtype=F32)
+        dwq = _gc.gemm(x.T, gm, _gc.none(), out_dtype=w.dtype)
         dw, dd, dqm, dt = _fq_weight_grads(w, d, q_m, t, dwq)
         return dx, dw, torch.zeros_like(mask), dd, dqm, dt
 

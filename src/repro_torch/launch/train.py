@@ -169,15 +169,17 @@ STEP_TOLERANCES = {"loss": 1e-5, "params": 1e-4, "d": 1e-2, "q_m": 1e-4,
                    "t": 1e-4}
 
 
-def step_on_devices(arch: str, devices: list[str], *, seed: int = 0
+def step_on_devices(arch: str, devices: list[str], *, seed: int = 0,
+                    comp: CompressionConfig = JOINT_STEP0
                     ) -> dict[str, tuple]:
-    """The smoke config's JOINT_STEP0 step 0 on each of `devices`, keyed by
-    device: (params, qparams, qstate, metrics). The state and the 2 x 16
-    batch are drawn once on the CPU from `seed` and copied to each device,
-    so the runs differ only in where the kernels, or their plain versions,
-    run."""
-    lm, p0, q0, _, qasso, _ = init_geta(arch, True, seed=seed,
-                                        comp=JOINT_STEP0, device="cpu")
+    """The smoke config's step 0 under `comp` (default JOINT_STEP0; with
+    `act_quant` it also quantizes the activation sites) on each of
+    `devices`, keyed by device: (params, qparams, qstate, metrics). The
+    state and the 2 x 16 batch are drawn once on the CPU from `seed` and
+    copied to each device, so the runs differ only in where the kernels,
+    or their plain versions, run."""
+    lm, p0, q0, _, qasso, _ = init_geta(arch, True, seed=seed, comp=comp,
+                                        device="cpu")
     tokens = torch.randint(0, lm.cfg.vocab, (2, 16),
                            generator=torch.Generator().manual_seed(seed))
     step = make_geta_train_step(lm, qasso)
@@ -193,8 +195,10 @@ def step_on_devices(arch: str, devices: list[str], *, seed: int = 0
 
 def step_differences(want: tuple, got: tuple) -> dict:
     """How far one step's result `got` lies from `want`, both as
-    `step_on_devices` returns them, in STEP_TOLERANCES' terms, plus
-    `masks`: whether the partition and keep masks are identical."""
+    `step_on_devices` returns them, in STEP_TOLERANCES' terms (d, q_m, t
+    over the weight sites), plus `masks`: whether the partition and keep
+    masks are identical, and, where there are activation sites (`.aq`),
+    their (d, q_m, t) as `act_d`, `act_q_m`, `act_t`, relative."""
     (pw, qw, sw, mw), (pg, qg, sg, mg) = want, got
     cpu = lambda t: t.detach().cpu()
     out = {"loss": abs(float(mg["loss"]) - float(mw["loss"]))
@@ -206,9 +210,14 @@ def step_differences(want: tuple, got: tuple) -> dict:
                         and torch.equal(cpu(sg.keep_mask[k]),
                                         cpu(sw.keep_mask[k]))
                         for k in sw.redundant)}
+    rel = lambda k, f: (abs(float(getattr(qg[k], f))
+                            - float(getattr(qw[k], f)))
+                        / abs(float(getattr(qw[k], f))))
+    act = [k for k in qw if k.endswith(".aq")]
     for f in ("d", "q_m", "t"):
-        out[f] = max(abs(float(getattr(qg[k], f)) - float(getattr(qw[k], f)))
-                     / abs(float(getattr(qw[k], f))) for k in qw)
+        out[f] = max(rel(k, f) for k in qw if k not in act)
+        if act:
+            out[f"act_{f}"] = max(rel(k, f) for k in act)
     return out
 
 

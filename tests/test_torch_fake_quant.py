@@ -161,3 +161,45 @@ def test_wrappers_count_only_kernel_launches():
     assert TFQ.launches == before
     with pytest.raises(ValueError):
         TFQ.fake_quant_bwd(x, *s, torch.randn(7, 5))
+
+
+def _no_card(*args):
+    raise AssertionError("the backward's plan must not ask for the card")
+
+
+@pytest.mark.parametrize("n", [1, 7, 8192, 8195, 8 * 2049 + 3,
+                               2048 * 8192, 2048 * 92672])
+def test_bwd_rows_are_a_function_of_the_element_count(n, monkeypatch):
+    """One partial-sum row per BWD_CHUNK elements (the last one ragged),
+    from n alone: the SM count is never read, so the fold order is the
+    same on every card."""
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "sm_count", _no_card)
+    rows = TFQ.bwd_rows(n)
+    assert (rows - 1) * TFQ.BWD_CHUNK < n <= rows * TFQ.BWD_CHUNK
+
+
+def test_bwd_rows_reject_an_empty_tensor():
+    with pytest.raises(ValueError):
+        TFQ.bwd_rows(0)
+
+
+def test_bwd_chunk_is_the_kernels():
+    """The wrapper sizes the row buffer with BWD_CHUNK; the kernel's
+    blocks take kChunk elements each."""
+    from pathlib import Path
+    src = (Path(TFQ.build.CSRC) / "fake_quant.cu").read_text()
+    assert f"constexpr long long kChunk = {TFQ.BWD_CHUNK};" in src
+
+
+@pytest.mark.parametrize("dtype,off", [(torch.bfloat16, o) for o in range(8)]
+                         + [(torch.float32, o) for o in range(4)])
+def test_empty_coaligned_keeps_the_offset_from_16_bytes(dtype, off):
+    """The forward's output lies as far past a 16-byte boundary as its
+    input, so that one vector loop reads the one and writes the other."""
+    base = torch.zeros(off + 3 * 37, dtype=dtype)
+    x = base[off:].view(3, 37)
+    y = TFQ.empty_coaligned(x)
+    assert y.shape == x.shape and y.dtype == dtype and y.is_contiguous()
+    assert y.data_ptr() % 16 == x.data_ptr() % 16
+    assert y.data_ptr() != x.data_ptr()

@@ -29,10 +29,18 @@ kernel must equal the contiguous kernel on the gathered rows bit for bit,
 and the paged engine's tokens the contiguous engine's. The fake-quant forward and
 dx are bitwise the plain versions' at t = 1 and t != 1 (both take the same
 powf), and the backward's three sums agree to 1e-5 of the sum of their
-terms' magnitudes (another summation order) and repeat bit for bit run to
-run. One smoke train step on the card agrees with its CPU run at
+terms' magnitudes (another summation order; for a few elements, where
+one f32 ulp of the sum exceeds that, two ulps of the plain sum) and repeat
+bit for bit run to run; also at 1, 7 and ragged element counts, on views
+that start 1-7 elements past a 16-byte boundary (bitwise the sums of
+aligned copies), on bf16 x with f32 g, at t = 1 less one ulp; one kernel a
+call and no host sync. dwq's GEMM writes bf16 bitwise its f32 output
+rounded; the tensor-core GEMM launches as a thread's first CUDA call. One
+smoke train step on the card agrees with its CPU run at
 `repro_torch.launch.train.STEP_TOLERANCES` (loss 1e-5, params 1e-4 of
-max|x|, q_m and t 1e-4, d 1e-2; identical masks) and repeats bit for bit.
+max|x|, q_m and t 1e-4, d 1e-2; identical masks) and repeats bit for bit;
+with activation quantizers the masks, the loss and the parameter
+gradients (1e-4 of max|g|) agree and the card step repeats bit for bit.
 """
 import numpy as np
 import pytest
@@ -97,13 +105,13 @@ def _device_kernels(fn) -> list[str]:
     """The names of the device kernels one call of `fn` runs, from a
     torch.profiler trace of a call after a first one outside it. A trace
     that recorded no device event at all (a short session now and then
-    comes back empty on the H100) is taken again, up to three times."""
+    comes back empty on the H100) is taken again, up to eight times."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     cuda = torch.autograd.DeviceType.CUDA
-    for _ in range(3):
+    for _ in range(8):
         with torch.profiler.profile(activities=acts) as prof:
             fn()
             torch.cuda.synchronize()
@@ -559,6 +567,159 @@ def test_fake_quant_backward_repeats_bitwise(cuda):
     assert all(torch.equal(u, v) for u, v in zip(a, b))
 
 
+# element counts 1, 7, 8k + 3 (ragged slots) and past three 8192-element
+# chunks with a ragged tail; t = 1 less one ulp takes the powf body on a t
+# that rounds like 1
+T_BELOW_ONE = float(np.nextafter(np.float32(1.0), np.float32(0.0)))
+FQ_TYPES = {"f32": (torch.float32, torch.float32),
+            "bf16": (torch.bfloat16, torch.bfloat16),
+            "bf16_x_f32_g": (torch.bfloat16, torch.float32)}
+
+
+def _at_offset(t: torch.Tensor, off: int) -> torch.Tensor:
+    """A contiguous copy of t that starts `off` elements past a 16-byte
+    boundary (a view into a larger buffer)."""
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    view = buf[off:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("t", [1.0, 0.85, T_BELOW_ONE], ids=str)
+@pytest.mark.parametrize("types", list(FQ_TYPES))
+@pytest.mark.parametrize("n", [1, 7, 8 * 2049 + 3, 3 * 8192 + 5])
+def test_fake_quant_kernels_at_ragged_and_misaligned_inputs(cuda, n, types,
+                                                            t):
+    """Forward and dx bitwise the plain versions and the sums within 1e-5
+    of their scale (or two ulps of the plain sum, which a few elements
+    summed in another order can reach), for x and g that start 0-7
+    elements past a 16-byte
+    boundary (x and g at different offsets); the sums are also bitwise
+    those of aligned copies: their fold order depends on n alone."""
+    x_dtype, g_dtype = FQ_TYPES[types]
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x, g, sc = _fq_case((n,), x_dtype, t, gen)
+    g = g.to(g_dtype)
+    want_y = ref.fake_quant_fwd_ref(x, *sc)
+    want = ref.fake_quant_bwd_ref(x, *sc, g)
+    scales = TFQ.sum_scales(x, g, *sc)
+    aligned = TFQ.fake_quant_bwd(x, *sc, g)
+    for off in range(8):
+        xo, go = _at_offset(x, off), _at_offset(g, 3 * off % 8)
+        y = TFQ.fake_quant_fwd(xo, *sc)
+        got = TFQ.fake_quant_bwd(xo, *sc, go)
+        again = TFQ.fake_quant_bwd(xo, *sc, go)
+        torch.cuda.synchronize()
+        assert y.dtype == x_dtype and got[0].dtype == x_dtype
+        assert torch.equal(y, want_y), off
+        assert torch.equal(got[0], want[0]), off
+        for a, b, scale in zip(got[1:], want[1:], scales):
+            # at a few elements one f32 ulp of the sum can exceed 1e-5 of
+            # the scale (dd's scale is sum |g| * d, far below |dd|)
+            ulps = 2 * float(np.spacing(np.float32(abs(float(b)))))
+            assert abs(float(a) - float(b)) <= max(1e-5 * scale, ulps), off
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), off
+        assert all(torch.equal(a, b) for a, b in zip(got[1:], aligned[1:])), off
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_fake_quant_is_one_kernel_per_call(cuda, direction):
+    """A profiler trace of one call holds one device kernel: the
+    backward folds its rows in the same launch."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x, g, sc = _fq_case((2048, 8192), torch.bfloat16, 0.85, gen)
+    fn = {"fwd": lambda: TFQ.fake_quant_fwd(x, *sc),
+          "bwd": lambda: TFQ.fake_quant_bwd(x, *sc, g)}[direction]
+    names = _device_kernels(fn)
+    assert len(names) == 1 and f"fq_{direction}" in names[0], names
+
+
+def test_fake_quant_call_makes_no_host_sync(cuda):
+    """t is read on the device (its t == 1 branch is taken per block), so
+    neither call syncs with the host."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    x, g, sc = _fq_case((37, 53), torch.bfloat16, 1.0, gen)
+    TFQ.fake_quant_fwd(x, *sc)          # builds the library first
+    TFQ.fake_quant_bwd(x, *sc, g)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        TFQ.fake_quant_fwd(x, *sc)
+        TFQ.fake_quant_bwd(x, *sc, g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("K,N", [(2048, 8192), (8192, 2048)], ids=str)
+def test_dwq_gemm_writes_bf16_as_its_f32_output_rounded(cuda, K, N):
+    """dwq = x.T @ g at the training shapes (2048 tokens, x.T a view) in
+    bf16 is the f32 output cast to bf16, bit for bit, so the backward
+    takes it with no cast pass; and through `fq_matmul_op` the weight's
+    gradients are those of the f32-and-cast route."""
+    from repro_torch.kernels import ops as TOPS
+    gen = torch.Generator(device=cuda).manual_seed(K + N)
+    x = torch.randn((2048, K), generator=gen, device=cuda).to(torch.bfloat16)
+    g = (torch.randn((2048, N), generator=gen, device=cuda) * 1e-2).to(
+        torch.bfloat16)
+    assert TG.variant(K, torch.bfloat16) == "tc"
+    f32 = TG.gemm(x.T, g, TG.none(), out_dtype=torch.float32)
+    bf16 = TG.gemm(x.T, g, TG.none(), out_dtype=torch.bfloat16)
+    assert torch.equal(bf16, f32.to(torch.bfloat16))
+    w = (torch.randn((K, N), generator=gen, device=cuda) * K ** -0.5).to(
+        torch.bfloat16)
+    qp = init_quant_params(w, bits=8.0, t=0.85)
+    s = [v.clone().requires_grad_(True) for v in (qp.d, qp.q_m, qp.t)]
+    wg = w.clone().requires_grad_(True)
+    got = torch.autograd.grad(TOPS.fq_matmul_op(x, wg, *s), [wg, *s], g)
+    want = TFQ.fake_quant_bwd(w, qp.d, qp.q_m, qp.t, f32.to(torch.bfloat16))
+    assert all(torch.equal(a.reshape(b.shape), b) for a, b in zip(got, want))
+
+
+def test_act_quant_smoke_step_on_card(cuda):
+    """The smoke config's joint step with activation quantizers, each
+    activation site through the fake-quant kernels on the card (their plain
+    versions on the CPU). Held: the card step repeats bit for bit, its
+    masks equal the CPU step's, its loss is within STEP_TOLERANCES, and the
+    loss-and-gradient pass's parameter gradients lie within 1e-4 of each
+    tensor's max|g| of the CPU's (the bound of the CPU test against JAX).
+    The step's params and (d, q_m, t) are reported by `chip_smoke.py`
+    phase 7, not held: a rounding tie of an activation, flipped by the
+    GEMMs' summation order, moves them past STEP_TOLERANCES."""
+    import dataclasses
+    from repro_torch.launch import train as T
+    comp = dataclasses.replace(T.JOINT_STEP0, act_quant=True)
+    before = dict(TFQ.launches)
+    runs = T.step_on_devices("internlm2-1.8b", ["cpu", "cuda"], comp=comp)
+    act = [k for k in runs["cuda"][1] if k.endswith(".aq")]
+    assert act
+    assert TFQ.launches[TFQ.FWD] - before[TFQ.FWD] >= len(act)
+    assert TFQ.launches[TFQ.BWD] - before[TFQ.BWD] >= len(act)
+    diff = T.step_differences(runs["cpu"], runs["cuda"])
+    assert diff["masks"]
+    assert diff["loss"] <= T.STEP_TOLERANCES["loss"]
+    again = T.step_on_devices("internlm2-1.8b", ["cuda"], comp=comp)["cuda"]
+    pg, qg, _, mg = runs["cuda"]
+    assert torch.equal(again[3]["loss"], mg["loss"])
+    assert all(torch.equal(again[0][k], pg[k]) for k in pg)
+    assert all(torch.equal(getattr(again[1][k], f), getattr(qg[k], f))
+               for k in qg for f in ("d", "q_m", "t"))
+    lm, p0, q0, _, _, _ = T.init_geta("internlm2-1.8b", True, comp=comp,
+                                      device="cpu")
+    tokens = torch.randint(0, lm.cfg.vocab, (2, 16),
+                           generator=torch.Generator().manual_seed(0))
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.to(dev) for k, v in p0.items()}
+        q = {k: type(v)(*(t.to(dev) for t in (v.d, v.q_m, v.t)))
+             for k, v in q0.items()}
+        grads[dev] = T.loss_and_grads(lm, p, q, {"tokens": tokens.to(dev)})[1]
+    for k, want in grads["cpu"].items():
+        got = grads["cuda"][k].float().cpu()
+        scale = float(want.float().abs().max())
+        assert float((got - want.float()).abs().max()) <= 1e-4 * scale, k
+
+
 @pytest.mark.parametrize("K,N", [(160, 96), (2048, 1024)])
 @pytest.mark.parametrize("M", [4, 37, 2048])
 @pytest.mark.parametrize("epi", ["none", "col_mask", "fq_col_mask"])
@@ -726,6 +887,37 @@ def test_tc_raises_on_rows_tma_cannot_take(cuda):
     with pytest.raises(ValueError):
         TG.gemm(x, torch.zeros((100, 128), dtype=torch.bfloat16,
                                device=cuda), TG.none())
+
+
+@pytest.mark.parametrize("epi", ["none", "fake_quant_rhs"])
+def test_tc_launches_as_a_threads_first_cuda_call(cuda, epi):
+    """The tensor-core variant encodes its TMA descriptors with
+    cuTensorMapEncodeTiled, which needs the thread's context current: a
+    thread whose first CUDA call it is (autograd's worker, in a backward
+    that starts at a GEMM) must get the same result as the main thread."""
+    import threading
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    x = torch.randn((256, 512), generator=gen, device=cuda).to(torch.bfloat16)
+    w = torch.randn((512, 256), generator=gen, device=cuda).to(torch.bfloat16)
+    qp = init_quant_params(w, bits=8.0, t=0.85)
+    e = {"none": TG.none(),
+         "fake_quant_rhs": TG.fake_quant_rhs(qp.d, qp.q_m, qp.t)}[epi]
+    want = TG.gemm(x, w, e, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    out = {}
+
+    def run():
+        try:
+            out["y"] = TG.gemm(x, w, e, out_dtype=torch.float32)
+            torch.cuda.synchronize()
+        except Exception as err:          # reported below, in this thread
+            out["err"] = err
+
+    worker = threading.Thread(target=run)
+    worker.start()
+    worker.join()
+    assert "err" not in out, out.get("err")
+    assert torch.equal(out["y"], want)
 
 
 # ------------------------------------------------ the GEMM's SIMT variant

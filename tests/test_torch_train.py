@@ -175,3 +175,71 @@ def test_cli_runs_on_cpu_and_needs_cuda_by_default(capsys):
         with pytest.raises(NotImplementedError):
             T.main(["--arch", ARCH, "--steps", "1", "--device", "cpu",
                     *extra])
+
+
+def test_act_quant_step_on_devices_reports_the_activation_sites():
+    """`step_on_devices` takes the CompressionConfig: with `act_quant` the
+    step quantizes the activation sites (and moves their quantizers), and
+    `step_differences` reports those sites apart from the weight sites. On
+    one device it repeats bit for bit (the card test runs it card vs
+    CPU)."""
+    comp = dataclasses.replace(T.JOINT_STEP0, act_quant=True)
+    a = T.step_on_devices(ARCH, ["cpu"], comp=comp)["cpu"]
+    b = T.step_on_devices(ARCH, ["cpu"], comp=comp)["cpu"]
+    act = [k for k in a[1] if k.endswith(".aq")]
+    assert act and len(act) < len(a[1])
+    _, _, q0, _, _, _ = T.init_geta(ARCH, True, comp=comp, device="cpu")
+    assert any(not torch.equal(getattr(a[1][k], f), getattr(q0[k], f))
+               for k in act for f in ("d", "q_m", "t"))
+    diff = T.step_differences(a, b)
+    assert diff.pop("masks")
+    assert set(diff) == {*T.STEP_TOLERANCES, "act_d", "act_q_m", "act_t"}
+    assert all(v == 0.0 for v in diff.values())
+    plain = T.step_differences(*[T.step_on_devices(ARCH, ["cpu"])["cpu"]
+                                 for _ in range(2)])
+    assert set(plain) == {*T.STEP_TOLERANCES, "masks"}
+
+
+@pytest.mark.parametrize("name,want", [
+    ("void (anonymous namespace)::gemm_tc<2, __nv_bfloat16, 0, 256, false,"
+     " true>(CUtensorMap_st, CUtensorMap_st)", "gemm_tc<2"),
+    ("void (anonymous namespace)::fq_bwd<__nv_bfloat16, float, true>("
+     "__nv_bfloat16 const*, float const*)", "fq_bwd<__nv_bfloat16"),
+    ("void (anonymous namespace)::fq_bwd_reduce(float const*, int, float*)",
+     "fq_bwd_reduce"),
+    ("void at::native::vectorized_elementwise_kernel<8, at::native::"
+     "bfloat16_copy_kernel_cuda(at::TensorIteratorBase&)::{lambda(float)#1},"
+     " std::array<char*, 2ul> >(int)", "bfloat16_copy"),
+    ("void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float> >("
+     "at::native::ReduceOp<float>)", "reduce_kernel<512")])
+def test_profile_train_kernel_families(name, want):
+    """The train profile's kernel families: the first template argument,
+    the bare name of a kernel that is no template, every bf16 cast as
+    one."""
+    from repro_torch.launch.profile_train import family
+    assert family(name) == want
+
+
+def test_profile_train_summarizes_a_saved_profile(tmp_path, capsys):
+    """`--families` reads a profile written by `--out` (on the card, by any
+    checkout) and prints its families on a host with no device."""
+    import json
+    from repro_torch.launch import profile_train as PT
+    kernels = [{"name": "void (anonymous namespace)::fq_bwd_reduce(float "
+                "const*, int, float*)", "ms": 0.5, "calls": 2},
+               {"name": "void (anonymous namespace)::fq_bwd<float, float, "
+                "true>(float const*)", "ms": 1.0, "calls": 2},
+               {"name": "void (anonymous namespace)::fq_bwd<float, float, "
+                "false>(float const*)", "ms": 0.25, "calls": 1},
+               {"name": "void at::native::reduce_kernel<512, 1>()",
+                "ms": 9.0, "calls": 4}]
+    path = tmp_path / "profile.json"
+    path.write_text(json.dumps({"device": "card", "rows": [
+        {"step": 0, "stage": 2, "wall_ms": 10.0, "device_ms": 8.0,
+         "idle_share": 0.2, "kernels": kernels}]}))
+    PT.main(["--families", str(path)])
+    out = capsys.readouterr().out.splitlines()
+    assert out == ["step 0 (stage 2): wall 10.0 ms, device busy 8.0 ms, "
+                   "idle share 0.200",
+                   "step 0 family fq_bwd<float: 1.250 ms, 3 calls",
+                   "step 0 family fq_bwd_reduce: 0.500 ms, 2 calls"]

@@ -21,6 +21,7 @@ from repro.core import quant as JQ
 from repro.kernels import gemm_core as JG
 from repro.kernels import ops as JOPS
 from repro.models import layers as JL
+from repro_torch.kernels import fake_quant as TFQ
 from repro_torch.kernels import gemm_core as TG
 from repro_torch.kernels import ops as TOPS
 from repro_torch.models import layers as TL
@@ -39,6 +40,10 @@ def _data(M, seed=0, t=1.0):
     qp = JQ.init_quant_params(q_m=qm, bits=4.0, t=t)
     sc = tuple(np.asarray(v, np.float32) for v in (qp.d, qp.q_m, qp.t))
     return x, w, mask, g, sc
+
+
+def sc_tensors(sc):
+    return [torch.from_numpy(v.copy()) for v in sc]
 
 
 def _close(got, want, scale=None):
@@ -168,3 +173,26 @@ def test_gemm_rejects_a_mask_of_the_wrong_width():
     with pytest.raises(RuntimeError):
         TG.gemm(torch.from_numpy(x), torch.from_numpy(w),
                 TG.col_mask(torch.ones(N + 1)))
+
+
+@pytest.mark.parametrize("t", [1.0, 0.85])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("op", ["fq", "fq_masked"])
+def test_fq_weight_grads_are_the_f32_dwq_cast_route(op, wdtype, t):
+    """dwq written by the GEMM in w's dtype gives the weight's gradients
+    of the route that wrote it in f32 and cast it with `.to(w.dtype)`, bit
+    for bit (one rounding of the same f32 sums)."""
+    x, w, mask, g, sc = _data(33, seed=11, t=t)
+    xt, wt, gt = (torch.from_numpy(a).to(wdtype) for a in (x, w, g))
+    tm = torch.from_numpy(mask)
+    s = [torch.from_numpy(v.copy()).requires_grad_(True) for v in sc]
+    wg = wt.clone().requires_grad_(True)
+    yt = _torch_op(op, tm)(xt, wg, *s)
+    got = torch.autograd.grad(yt, [wg, *s], gt)
+    gm = TOPS._mask_cols(gt, tm) if op == "fq_masked" else gt
+    dwq = TG.gemm(xt.T, gm, TG.none(), out_dtype=torch.float32).to(wdtype)
+    want = TFQ.fake_quant_bwd(wt, *sc_tensors(sc), dwq)
+    assert got[0].dtype == wdtype
+    for a, b in zip(got, want):
+        assert torch.equal(a.reshape(b.shape), b)

@@ -37,11 +37,11 @@ SIMT_SHAPES = ((2048, 8192), (8192, 2048))
 
 def _kernels(fn) -> int:
     """Device kernels of one call of `fn`, from a profiler trace (taken
-    again, up to three times, while it recorded no device event at all)."""
+    again, up to eight times, while it recorded no device event at all)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     cuda = torch.autograd.DeviceType.CUDA
-    for _ in range(3):
+    for _ in range(8):
         with torch.profiler.profile(activities=acts) as prof:
             fn()
             torch.cuda.synchronize()
