@@ -55,27 +55,47 @@ Phases, each printing its own lines:
    a 32-token prompt (plain attention) against 32 sequential decode steps
    (flash-decode kernel); and the smoke config's engine tokens on the
    card against the CPU run of the plain versions (f32: its prefill
-   GEMMs must launch the SIMT variant).
+   GEMMs must launch the SIMT variant). Then the long sequences:
+   `attention_blockwise` in f32 at the model's attention shapes (S 4096,
+   block 512) against `attention_dense` at rtol 1e-5, atol 1e-5; a
+   4096-token prompt prefilled through it (24 calls, one per layer), its
+   last logits within 2^-5 of the logit range of the same prefill
+   through the dense attention (bf16 activations: another summation
+   order flips a bf16 rounding now and then) with the same argmax unless
+   the top-2 gap is within twice that difference, then served by the
+   engine for 8 tokens through graph windows, the first the blockwise
+   prefill's argmax; and one loss-and-gradient pass at 1 x 4096 (16-bit
+   quantizers, remat), every gradient finite, with its peak memory.
 5. The main path: the continuous-batching engine serving internlm2-1.8b
    at full width in bf16 (24 layers, random weights from a seed) on 4
    slots, 8 requests, in the dense fake-quant, compressed int8 and packed
-   4-bit modes. Launch counts are zeroed right before and read right
-   after; every kernel of the path must have launched, the GEMM's
-   small-M variant (decode) and tensor-core variant (prefill) among them.
-   Packed tokens must equal those of an int8 run with the same 4-bit
-   quantizer init; over that int8 run a profiler trace must count exactly
-   one `gemm_small_m` kernel per small-M call (each decode GEMM is one
-   launch; a trace with fewer kernels than calls lost events and is
-   taken again, up to three times).
+   4-bit modes. `warmup()` captures one CUDA graph per window length
+   (1-32 steps) and `run()` decodes by replaying them. Each engine drains
+   the requests three times: once for its stats, once (the first 4
+   requests, 24 tokens each) under a profiler trace, and once through
+   eager `step()`; the three must emit the same tokens, and no graph may
+   be captured during a drain. The wrapper
+   launch counts are zeroed right before and read right after; they count
+   host calls, so a graph's calls count once, at capture: every kernel
+   of the path must have counted, the GEMM's small-M variant (decode) and
+   tensor-core variant (prefill) among them. From the trace, the device
+   kernels must equal the eager calls of the drain (its prefills) plus
+   each replayed window's captured calls: every small-M GEMM, the small-M
+   GEMM of each epilogue (its first template argument), and the
+   decode-attention split and combine kernels; every captured GEMM is a
+   small-M one. Packed tokens must equal those of an int8 run with the
+   same 4-bit quantizer init. Prints each engine's capture time, graph
+   pool and peak memory.
 6. The paged main path: the same engine and requests from the paged KV
-   arena (pages of 16 rows). With bf16 pages its tokens must equal phase
-   5's in each weight mode; packed 4-bit weights with int8 and with int4
-   pages must serve full-length outputs with the bf16 run's first tokens
-   from a smaller pool; with 4 of the 8 requests on one prompt, prefix
-   sharing must hit at least 3 times and leave the tokens of a run
-   without sharing unchanged. Counts are zeroed right before and read
-   right after; the page-indirect kernel must launch 24 times (once per
-   layer) per decode step, and in every page storage of the path.
+   arena (pages of 16 rows), drained the same three ways with the same
+   checks. With bf16 pages its tokens must equal phase 5's in each weight
+   mode; packed 4-bit weights with int8 and with int4 pages must serve
+   full-length outputs with the bf16 run's first tokens from a smaller
+   pool; with 4 of the 8 requests on one prompt, prefix sharing must hit
+   at least 3 times and leave the tokens of a run without sharing
+   unchanged. The page-indirect split kernel must run 24 times (once per
+   layer) per decode step of the traced drain, in every page storage of
+   the path.
 7. Training, the main path of GETA: `train_loop` on internlm2-1.8b at
    full width in bf16 (random weights from seed 0), batch 4 x 512
    tokens, target sparsity 0.3, with the schedule compressed so that
@@ -103,7 +123,11 @@ Phases, each printing its own lines:
    within tolerance held; params and quantizers reported, since a rounding
    tie of an activation flipped by the summation order moves them past
    it). Prints step wall times, tokens/s and peak device memory.
-8. Two JSON lines: the kernel table, then the device line (last).
+8. Two JSON lines: the kernel table, then the device line (last). A
+   serving kernel's `launches` are the host counts of phases 5-6 (a
+   graph's calls once, at capture); `traced_device_launches` are its
+   device kernels in their traced drains (for a GEMM epilogue the
+   small-M kernels, for decode attention the split kernels).
 
 Times are CUDA-event medians with the 50 MB L2 flushed before each launch
 (each decode-step launch finds its weights cold); after the flush the
@@ -128,6 +152,8 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
@@ -139,6 +165,7 @@ GEMM_MS = [4, 8, 512]
 PROMPT_LENS = [64, 128, 256, 512, 96, 200, 32, 384]
 GEN = 64
 SLOTS = 4
+TRACE_GEN = 24            # tokens per request of phases 5-6's traced drains
 PAGE = 16
 SHARED = (1, 3, 5, 7)     # requests that carry request 5's prompt (200
                           # tokens: 12 full pages and a shared tail page)
@@ -853,174 +880,442 @@ def phase_correctness(torch) -> tuple[dict, list[str]]:
     return counts, failures
 
 
-def phase_engine(torch) -> tuple[dict, dict, list[str]]:
+_CAPTURES = [0]      # CUDA graph captures in this process
+
+
+def _count_captures(torch) -> None:
+    """Count every CUDA graph capture as it starts (`torch.cuda.graph`)."""
+    enter = torch.cuda.graph.__enter__
+
+    def counted(self):
+        _CAPTURES[0] += 1
+        return enter(self)
+
+    torch.cuda.graph.__enter__ = counted
+
+
+def _gemm_tally(gc, tally):
+    """Wrap `gc.gemm` so that each CUDA call adds one to tally[(variant,
+    epilogue)]; returns the unwrapped function (restore it after)."""
+    real = gc.gemm
+
+    def tallied(x, w, epi, **kw):
+        out = real(x, w, epi, **kw)
+        if x.is_cuda:
+            tally[(gc.variant(x.shape[0], x.dtype), epi.name)] += 1
+        return out
+
+    tallied.launches = real.launches
+    gc.gemm = tallied
+    return real
+
+
+def _trace_drain(torch, eng, prompts) -> tuple[dict, dict, int]:
+    """Serve the first SLOTS prompts once more, TRACE_GEN tokens each
+    (windows of 16, 4, 2 and 1 steps), under a profiler trace of the
+    card. Returns the tokens, {kernel family: (kernels in the trace,
+    launches expected)} and the decode steps traced. Expected are the
+    eager calls the wrappers made during the drain (the prefills; no
+    capture happens in it) plus each replayed window's captured calls.
+    Families: every small-M GEMM, the small-M GEMM of each epilogue (its
+    first template argument), and the decode-attention split and combine
+    kernels. The drain is short since a long trace loses events (on the
+    H100, drains of 8 requests x 64 tokens, ~170k kernels each, came back
+    a few to a few hundred kernels short in 6 of 10 engines); a trace
+    that still lost some is taken again, up to three times."""
+    from collections import Counter
+    from repro_torch.kernels import gemm_core as gc
     from repro_torch.kernels import ops
-    from repro_torch.launch.engine import WEIGHT_MODES, engine_serve
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(3):
+        for p in prompts[:SLOTS]:
+            eng.submit(p, TRACE_GEN)
+        g0, h0, tally = (Counter(eng.graph_device_launches()),
+                         ops.launch_counts(), Counter())
+        steps0 = eng.stats["decode_steps"]
+        real = _gemm_tally(gc, tally)
+        try:
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                out = eng.run()
+                torch.cuda.synchronize()
+        finally:
+            gc.gemm = real
+        names = Counter(e.name for e in prof.events() if e.device_type == cuda)
+        replayed = Counter(eng.graph_device_launches()) - g0
+        host = {k: v - h0[k] for k, v in ops.launch_counts().items()}
+        attn = sum(v for k, v in host.items() if "decode_attn" in k) + sum(
+            v for k, v in replayed.items() if "decode_attn" in k)
+        fam = {"gemm_small_m": (
+            sum(v for k, v in names.items() if "gemm_small_m" in k),
+            sum(v for (var, _), v in tally.items() if var == "small_m")
+            + replayed["gemm_core.small_m"])}
+        for epi in ("fake_quant_rhs", "dequant", "unpack_dequant"):
+            tag = f"gemm_small_m<{gc._EPI_CODE[epi]},"
+            fam[f"gemm_small_m.{epi}"] = (
+                sum(v for k, v in names.items() if tag in k.replace(" ", "")),
+                tally[("small_m", epi)] + replayed[f"gemm_core.{epi}"])
+        for kern in ("flash_decode_split", "flash_decode_combine"):
+            fam[kern] = (sum(v for k, v in names.items() if kern in k), attn)
+        if all(got >= want for got, want in fam.values()):
+            break
+    # every captured GEMM is a small-M one (M = the slots)
+    fam["graph_gemms_small_m"] = (
+        replayed["gemm_core.small_m"],
+        sum(replayed[f"gemm_core.{e}"] for e in gc._EPI_CODE))
+    return out, fam, eng.stats["decode_steps"] - steps0
+
+
+def _serve_full(torch, prompts, kw) -> tuple[dict, dict, list[str]]:
+    """One engine at full width: build, submit, warm up (which captures
+    the window graphs), drain; then the first requests again, shorter,
+    under a profiler trace (`_trace_drain`), and all of them again through
+    eager `step()`.
+    Returns the first drain's tokens, its stats (with the capture's time,
+    graph pool bytes, peak memory and the trace's families) and the
+    failures: tokens that differ between the three drains, a capture
+    inside a drain, a trace family off its expected count."""
+    from repro_torch.launch.engine import build_engine
+    failures = []
+    eng, _ = build_engine(ARCH, False, max_slots=SLOTS,
+                          max_seq=max(PROMPT_LENS) + GEN, device="cuda", **kw)
+    for p in prompts:
+        eng.submit(p, GEN)
+    torch.cuda.reset_peak_memory_stats()
+    eng.warmup()
+    peak = torch.cuda.max_memory_allocated()
+    captured = _CAPTURES[0]
+    out = eng.run()
+    stats = dict(eng.stats, **eng.throughput(), kv_bytes=eng.kv_bytes(),
+                 kv_pool_bytes=eng.kv_pool_bytes(),
+                 param_bytes=eng.param_bytes(),
+                 graph_pool_bytes=eng.graph_pool_bytes, peak_bytes=peak,
+                 graphs=sorted(eng.graphs), replays=dict(eng.replays))
+    traced, fam, stats["traced_steps"] = _trace_drain(torch, eng, prompts)
+    stats["trace"] = fam
+    for p in prompts:
+        eng.submit(p, GEN)
+    eager = eng._drain(eng.step)
+    if _CAPTURES[0] != captured:
+        failures.append("a CUDA graph was captured inside run()")
+    if sorted(eng.graphs) != eng.warmed_window_ks():
+        failures.append("warmup() did not capture every window length")
+    for name, (got, want) in fam.items():
+        if got != want:
+            failures.append(f"trace: {got} {name} kernels, {want} expected")
+    stats["graph_eq_traced"] = _same(
+        {r: out[r][:TRACE_GEN] for r in sorted(out)[:SLOTS]}, traced)
+    stats["graph_eq_eager"] = _same(out, eager)
+    if not (stats["graph_eq_traced"] and stats["graph_eq_eager"]):
+        failures.append("graph-window tokens differ from a second drain or "
+                        "from eager steps")
+    del eng
+    torch.cuda.empty_cache()
+    return out, stats, failures
+
+
+def _same(a: dict, b: dict) -> bool:
+    """Two drains of the same requests emitted the same tokens, request by
+    request in submission order (a later drain's requests have new ids)."""
+    return len(a) == len(b) and all(
+        np.array_equal(a[r], b[q]) for r, q in zip(sorted(a), sorted(b)))
+
+
+def _graph_line(st) -> str:
+    fam = st["trace"]
+    return (f"graphs {st['graphs']} captured in {st['capture_s']:.2f} s, "
+            f"pool {st['graph_pool_bytes'] / 2 ** 20:.1f} MiB, peak "
+            f"{st['peak_bytes'] / 2 ** 30:.2f} GiB, replays {st['replays']}; "
+            f"tokens {'equal' if st['graph_eq_eager'] else 'DIFFER FROM'} "
+            f"eager step()'s and "
+            f"{'equal' if st['graph_eq_traced'] else 'DIFFER FROM'} a "
+            f"traced drain's ({SLOTS} requests x {TRACE_GEN} tokens, "
+            f"{st['traced_steps']} steps); trace kernels (seen, expected) "
+            + ", ".join(f"{k} {v[0]}/{v[1]}" for k, v in fam.items()
+                        if v[1]))
+
+
+def phase_engine(torch) -> tuple[dict, dict, list[str], dict]:
+    """Phase 5 (see the module docstring). Returns the launch counts, the
+    tokens per mode, the failures and the trace families summed over the
+    modes."""
+    from collections import Counter
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import (WEIGHT_MODES, engine_serve,
+                                           synthetic_prompts)
     expect = {"dense": "gemm_core.fake_quant_rhs",
               "compressed": "gemm_core.dequant",
               "packed_b4": "gemm_core.unpack_dequant"}
-    failures, outs = [], {}
+    failures, outs, seen = [], {}, Counter()
+    prompts = synthetic_prompts(get_arch(ARCH), PROMPT_LENS, seed=0)
     ops.reset_launch_counts()
     for mode, kw in WEIGHT_MODES.items():
         before = ops.launch_counts()
-        stats = {}
         t0 = time.perf_counter()
-        outs[mode] = engine_serve(ARCH, False, PROMPT_LENS, GEN,
-                                  max_slots=SLOTS, verbose=False,
-                                  device="cuda", stats=stats, **kw)
+        toks, stats, fails = _serve_full(torch, prompts, kw)
         wall = time.perf_counter() - t0
+        outs[mode] = toks
         delta = {k: v - before[k] for k, v in ops.launch_counts().items()}
-        toks = outs[mode]
-        ok = (len(toks) == len(PROMPT_LENS)
+        fam = stats["trace"]
+        epi = expect[mode].split(".")[1]
+        ok = (not fails and len(toks) == len(PROMPT_LENS)
               and all(len(t) == GEN and t.min() >= 0 and t.max() < 92672
                       for t in toks.values())
               and delta[expect[mode]] > 0 and delta["decode_attn"] > 0
-              and delta["gemm_core.small_m"] > 0)
+              and delta["gemm_core.small_m"] > 0
+              and fam[f"gemm_small_m.{epi}"][0] > 0
+              and fam["flash_decode_split"][0] > 0)
+        for name, (got, _) in fam.items():
+            seen[name] += got
         print(f"[5 engine] {mode}: decode {stats['decode_tok_per_s']:.1f} "
               f"tok/s ({stats['decode_tokens']} tokens in "
               f"{stats['decode_s']:.3f} s, {stats['decode_steps']} steps), "
               f"prefill {stats['prefill_tok_per_s']:.1f} tok/s "
               f"({stats['prefill_tokens']} tokens in "
               f"{stats['prefill_s']:.3f} s), param_bytes "
-              f"{stats['param_bytes']}, kv_bytes {stats['kv_bytes']}, "
-              f"launches {_nonzero(delta)}, wall {wall:.1f} s "
+              f"{stats['param_bytes']}, kv_bytes {stats['kv_bytes']}, host "
+              f"launches "
+              f"{_nonzero(delta)}, wall {wall:.1f} s; {_graph_line(stats)} "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            failures.append(f"engine {mode}")
+            failures.append(f"engine {mode}: {fails}")
     counts = ops.launch_counts()
-    print(f"[5 engine] main-path launch counts: {_nonzero(counts)}")
+    print(f"[5 engine] main-path launch counts (host calls; a graph's "
+          f"calls count once, at capture): {_nonzero(counts)}")
     for name in [*expect.values(), "decode_attn", "fake_quant.fwd",
                  "gemm_core.small_m", "gemm_core.tc"]:
         if counts[name] <= 0:
             failures.append(f"{name} never launched on the main path")
-    # each decode GEMM is one launch: over this run, the device kernels of
-    # the small-M variant, counted from a profiler trace, equal its calls.
-    # A call is counted only after its launch succeeded, so fewer kernels
-    # than calls means the trace lost events (on the H100 one now and then
-    # drops a few dozen of this run's ~60k): it is taken again, up to
-    # three times.
-    cuda = torch.autograd.DeviceType.CUDA
-    for _ in range(3):
-        before = ops.launch_counts()["gemm_core.small_m"]
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            ref_int8 = engine_serve(ARCH, False, PROMPT_LENS, GEN,
-                                    max_slots=SLOTS, verbose=False,
-                                    device="cuda", compressed=True,
-                                    bits_init=4.0)
-            torch.cuda.synchronize()
-        calls = ops.launch_counts()["gemm_core.small_m"] - before
-        kernels = sum(e.count for e in prof.key_averages()
-                      if e.device_type == cuda and "gemm_small_m" in e.key)
-        if kernels >= calls:
-            break
-    print(f"[5 engine] int8 run at 4-bit init: {calls} small-M GEMM calls, "
-          f"{kernels} gemm_small_m kernels in the profiler trace "
-          f"{'ok' if calls > 0 and kernels == calls else 'FAIL'}")
-    if not (calls > 0 and kernels == calls):
-        failures.append("a decode GEMM was not one launch")
-    same = all((ref_int8[r] == outs["packed_b4"][r]).all() for r in ref_int8)
+    ref_int8 = engine_serve(ARCH, False, PROMPT_LENS, GEN, max_slots=SLOTS,
+                            verbose=False, device="cuda", compressed=True,
+                            bits_init=4.0)
+    same = _same(ref_int8, outs["packed_b4"])
     print(f"[5 engine] packed 4-bit tokens "
           f"{'equal' if same else 'DIFFER FROM'} the int8 run at the same "
           f"4-bit quantizer init ({len(ref_int8)} requests x {GEN} tokens)")
     if not same:
         failures.append("packed tokens differ from int8 tokens")
-    return counts, outs, failures
+    return counts, outs, failures, dict(seen)
 
 
 def _nonzero(counts: dict) -> dict:
     return {k: v for k, v in counts.items() if v}
 
 
-def _serve_paged(torch, prompts, kw) -> tuple[dict, dict]:
-    """One paged engine at full width: build, submit, warm up, drain.
-    Returns its tokens and stats, with the page-indirect launches per
-    decode step counted over the drain."""
-    from repro_torch.kernels import ops
-    from repro_torch.launch.engine import build_engine
-    eng, _ = build_engine(ARCH, False, max_slots=SLOTS,
-                          max_seq=max(PROMPT_LENS) + GEN, device="cuda",
-                          paged=True, page_size=PAGE, **kw)
-    for p in prompts:
-        eng.submit(p, GEN)
-    eng.warmup()
-    before = ops.launch_counts()
-    out = eng.run()
-    paged = sum(v - before[k] for k, v in ops.launch_counts().items()
-                if k.startswith("paged_decode_attn."))
-    stats = dict(eng.stats, **eng.throughput(), kv_bytes=eng.kv_bytes(),
-                 kv_pool_bytes=eng.kv_pool_bytes(),
-                 paged_per_step=paged / max(eng.stats["decode_steps"], 1))
-    del eng
-    torch.cuda.empty_cache()
-    return out, stats
-
-
-def phase_paged(torch, contiguous: dict) -> tuple[dict, list[str]]:
+def phase_paged(torch, contiguous: dict) -> tuple[dict, list[str], dict]:
     """The paged main path at full width (see the module docstring)."""
+    from collections import Counter
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.launch.engine import WEIGHT_MODES, synthetic_prompts
-    failures = []
+    failures, seen = [], Counter()
     prompts = synthetic_prompts(get_arch(ARCH), PROMPT_LENS, seed=0)
     n_layers = get_arch(ARCH).n_layers
 
-    def report(label, out, st, ok):
+    def serve(label, prompts, kw, check):
+        out, st, fails = _serve_full(
+            torch, prompts, dict(kw, paged=True, page_size=PAGE))
+        split = st["trace"]["flash_decode_split"][0]
+        per_step = split / max(st["traced_steps"], 1)
+        storage = {None: "bf16", 8: "int8", 4: "int4"}[kw.get("kv_bits")]
+        seen[f"flash_decode_split.{storage}"] += split
         full = (len(out) == len(prompts)
                 and all(len(t) == GEN for t in out.values()))
-        ok = ok and full and st["paged_per_step"] == n_layers
-        print(f"[6 paged] {label}: decode {st['decode_tok_per_s']:.1f} tok/s "
-              f"({st['decode_tokens']} tokens, {st['decode_steps']} steps), "
-              f"prefill {st['prefill_tok_per_s']:.1f} tok/s "
-              f"({st['prefills']} prefills, {st['prefix_hits']} prefix "
-              f"hits), kv_bytes {st['kv_bytes']}, kv_pool_bytes "
-              f"{st['kv_pool_bytes']}, paged_decode_attn launches per "
-              f"decode step {st['paged_per_step']:.2f} "
-              f"{'ok' if ok else 'FAIL'}")
+        ok, what = check(out, st)
+        ok = ok and full and not fails and per_step == n_layers
+        for name, (got, _) in st["trace"].items():
+            seen[name] += got
+        print(f"[6 paged] {label}, {what}: decode "
+              f"{st['decode_tok_per_s']:.1f} tok/s ({st['decode_tokens']} "
+              f"tokens, {st['decode_steps']} steps), prefill "
+              f"{st['prefill_tok_per_s']:.1f} tok/s ({st['prefills']} "
+              f"prefills, {st['prefix_hits']} prefix hits), kv_bytes "
+              f"{st['kv_bytes']}, kv_pool_bytes {st['kv_pool_bytes']}, "
+              f"page-indirect split kernels per decode step (trace) "
+              f"{per_step:.2f}; {_graph_line(st)} {'ok' if ok else 'FAIL'}")
         if not ok:
-            failures.append(f"paged {label}")
+            failures.append(f"paged {label}: {fails}")
+        return out, st
 
     ops.reset_launch_counts()
     runs = {}
     for mode, kw in WEIGHT_MODES.items():
-        out, st = _serve_paged(torch, prompts, kw)
-        same = all((out[r] == contiguous[mode][r]).all() for r in out)
-        report(f"{mode}, bf16 pages, tokens "
-               f"{'equal' if same else 'DIFFER FROM'} the contiguous run's",
-               out, st, same)
-        runs[mode] = (out, st)
+        runs[mode] = serve(
+            f"{mode}, bf16 pages", prompts, kw,
+            lambda out, st, mode=mode: (
+                _same(out, contiguous[mode]),
+                "tokens " + ("equal" if _same(out, contiguous[mode])
+                             else "DIFFER FROM") + " the contiguous run's"))
     bf16_out, bf16_st = runs["packed_b4"]
     for bits in (8, 4):
-        out, st = _serve_paged(torch, prompts, dict(WEIGHT_MODES["packed_b4"],
-                                                    kv_bits=bits))
-        first = all(out[r][0] == bf16_out[r][0] for r in out)
-        smaller = st["kv_pool_bytes"] < bf16_st["kv_pool_bytes"]
-        report(f"packed_b4, int{bits} pages, first tokens "
-               f"{'equal' if first else 'DIFFER FROM'} the bf16-page run's, "
-               f"pool {st['kv_pool_bytes']} B vs {bf16_st['kv_pool_bytes']} "
-               f"B", out, st, first and smaller)
+        def quantized(out, st):
+            first = all(out[r][0] == bf16_out[r][0] for r in out)
+            smaller = st["kv_pool_bytes"] < bf16_st["kv_pool_bytes"]
+            return first and smaller, (
+                f"first tokens {'equal' if first else 'DIFFER FROM'} the "
+                f"bf16-page run's, pool {st['kv_pool_bytes']} B vs "
+                f"{bf16_st['kv_pool_bytes']} B")
+        serve(f"packed_b4, int{bits} pages", prompts,
+              dict(WEIGHT_MODES["packed_b4"], kv_bits=bits), quantized)
     shared = [prompts[5] if i in SHARED else p for i, p in enumerate(prompts)]
     kw = WEIGHT_MODES["compressed"]
-    want, st = _serve_paged(torch, shared, dict(kw, prefix_sharing=False))
-    same = all((want[i] == want[SHARED[0]]).all() for i in SHARED)
-    report(f"compressed, {len(SHARED)} of {len(shared)} requests on one "
-           f"prompt, no prefix sharing: their tokens "
-           f"{'agree' if same else 'DIFFER'}", want, st, same)
-    got, st = _serve_paged(torch, shared, kw)
-    same = all((got[r] == want[r]).all() for r in got)
-    report(f"compressed, {len(SHARED)} of {len(shared)} requests on one "
-           f"prompt, prefix sharing: tokens "
-           f"{'equal' if same else 'DIFFER FROM'} the run without sharing",
-           got, st, same and st["prefix_hits"] >= len(SHARED) - 1)
+    want, _ = serve(
+        f"compressed, {len(SHARED)} of {len(shared)} requests on one prompt, "
+        f"no prefix sharing", shared, dict(kw, prefix_sharing=False),
+        lambda out, st: (all(_same({0: out[i]}, {0: out[SHARED[0]]})
+                             for i in SHARED), "their tokens agree"))
+    serve(f"compressed, {len(SHARED)} of {len(shared)} requests on one "
+          f"prompt, prefix sharing", shared, kw,
+          lambda out, st: (_same(out, want)
+                           and st["prefix_hits"] >= len(SHARED) - 1,
+                           "tokens equal the run without sharing"))
     counts = ops.launch_counts()
-    print(f"[6 paged] main-path launch counts: {_nonzero(counts)}")
+    print(f"[6 paged] main-path launch counts (host calls; a graph's calls "
+          f"count once, at capture): {_nonzero(counts)}")
     for name in ("gemm_core.fake_quant_rhs", "gemm_core.dequant",
                  "gemm_core.unpack_dequant", *PAGED_KERNELS):
         if counts[name] <= 0:
             failures.append(f"{name} never launched on the paged path")
     if counts["decode_attn"]:
         failures.append("the paged path launched the contiguous kernel")
-    return counts, failures
+    return counts, failures, dict(seen)
+
+
+LONG_PROMPT = 4096     # past attn_block_threshold: attention_blockwise
+LONG_GEN = 8
+
+
+def phase_long(torch) -> list[str]:
+    """Phase 4's full-width long-sequence checks (see the module
+    docstring): a 4096-token prompt through `attention_blockwise`, and one
+    loss-and-gradient pass at 1 x 4096."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.subnet import prepare_serving
+    from repro_torch.launch import train as T
+    from repro_torch.launch.engine import Engine, synthetic_prompts
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import LM
+    failures = []
+    calls = [0]
+    blockwise = layers.attention_blockwise
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return blockwise(*a, **kw)
+
+    # the attention itself at the model's shapes, f32, against the dense
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cfg = get_arch(ARCH)
+    q = torch.randn((1, LONG_PROMPT, cfg.n_heads, cfg.d_head), generator=gen,
+                    device="cuda")
+    k, v = (torch.randn((1, LONG_PROMPT, cfg.n_kv_heads, cfg.d_head),
+                        generator=gen, device="cuda") for _ in range(2))
+    got = blockwise(q, k, v, block=cfg.attn_block_size)
+    want = layers.attention_dense(q, k, v)
+    err = (got - want).abs().max().item()
+    ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5))
+    print(f"[4 correctness] attention_blockwise f32 at S={LONG_PROMPT}, "
+          f"block {cfg.attn_block_size}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv_heads} KV, dh {cfg.d_head} vs attention_dense: "
+          f"max|diff| {err:.2e} (rtol 1e-5, atol 1e-5) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("attention_blockwise vs dense on the card")
+    del q, k, v, got, want
+
+    # a 4096-token prompt prefilled through attention_blockwise (bf16,
+    # compressed weights), against the same prefill through the dense
+    # attention, then served by the engine for LONG_GEN tokens
+    lm = LM(cfg)
+    params, qparams, _ = prepare_serving(
+        lm, lm.init(torch.Generator(device="cuda").manual_seed(0)),
+        compressed=True)
+    prompt = synthetic_prompts(cfg, [LONG_PROMPT], seed=2)[0]
+    toks = torch.as_tensor(prompt, dtype=torch.int64, device="cuda")[None]
+    layers.attention_blockwise = counted
+    try:
+        cache = lm.init_cache(1, LONG_PROMPT, dtype=torch.bfloat16,
+                              device="cuda")
+        blk, _ = lm.prefill(params, qparams, cache, toks, last_logit_only=True)
+    finally:
+        layers.attention_blockwise = blockwise
+    dense_lm = LM(dataclasses.replace(cfg, attn_block_threshold=LONG_PROMPT))
+    cache = lm.init_cache(1, LONG_PROMPT, dtype=torch.bfloat16, device="cuda")
+    dense, _ = dense_lm.prefill(params, qparams, cache, toks,
+                                last_logit_only=True)
+    del cache
+    a, b = blk[0, -1].float(), dense[0, -1].float()
+    diff = (a - b).abs().max().item()
+    scale = b.abs().max().item()
+    top2 = torch.topk(b, 2).values
+    gap = (top2[0] - top2[1]).item()
+    # bf16 activations: the two attentions sum in another order, so a bf16
+    # rounding of their outputs flips now and then and moves through 24
+    # layers; 2^-5 of the logit range, as the prefill-vs-decode check; the
+    # argmax must agree unless the top-2 gap is within twice the diff
+    same_argmax = int(a.argmax()) == int(b.argmax()) or gap <= 2 * diff
+    ok = (calls[0] == cfg.n_layers and diff <= scale / 32 and same_argmax
+          and bool(torch.isfinite(blk).all()))
+    print(f"[4 correctness] {LONG_PROMPT}-token prompt, full width "
+          f"compressed: attention_blockwise calls {calls[0]} (one per "
+          f"layer), last-position logits vs the dense attention's "
+          f"max|diff| {diff:.4f} max|logit| {scale:.4f} (tol "
+          f"{scale / 32:.4f}), argmax {int(a.argmax())} vs "
+          f"{int(b.argmax())} (top-2 gap {gap:.4f}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("4096-token blockwise prefill")
+    eng = Engine(lm, params, qparams, max_slots=1,
+                 max_seq=LONG_PROMPT + LONG_GEN)
+    rid = eng.submit(prompt, LONG_GEN)
+    eng.warmup()
+    out = eng.run()[rid]
+    ok = (len(out) == LONG_GEN and out[0] == int(a.argmax())
+          and 0 <= out.min() and out.max() < cfg.vocab_padded
+          and sum(eng.replays.values()) > 0)
+    print(f"[4 correctness] the {LONG_PROMPT}-token prompt served by the "
+          f"engine: {len(out)} tokens {out.tolist()}, first = the blockwise "
+          f"prefill's argmax, windows {dict(eng.replays)} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("4096-token prompt through the engine")
+    del eng, params, qparams, blk, dense
+    torch.cuda.empty_cache()
+
+    # one loss-and-gradient pass at 1 x 4096 (fake-quant training path)
+    params = lm.init(torch.Generator(device="cuda").manual_seed(0))
+    qparams = lm.init_qparams(params, bits_init=16.0)
+    batch = T.batch_for(cfg, 0, 0, 1, LONG_PROMPT, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    calls[0] = 0
+    layers.attention_blockwise = counted
+    t0 = time.perf_counter()
+    try:
+        loss, gx, gq = T.loss_and_grads(lm, params, qparams, batch)
+        torch.cuda.synchronize()
+    finally:
+        layers.attention_blockwise = blockwise
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finite = (bool(torch.isfinite(loss))
+              and all(bool(torch.isfinite(g).all()) for g in gx.values())
+              and all(bool(torch.isfinite(t).all()) for q in gq.values()
+                      for t in (q.d, q.q_m, q.t)))
+    # the forward and, under remat, its recompute in the backward
+    want_calls = cfg.n_layers * (1 + int(cfg.remat))
+    ok = finite and calls[0] == want_calls
+    print(f"[4 correctness] loss and gradients at 1 x {LONG_PROMPT}, full "
+          f"width bf16, 16-bit quantizers: loss {float(loss):.4f}, every "
+          f"gradient finite {finite}, attention_blockwise calls {calls[0]} "
+          f"(expected {want_calls}), wall {wall:.2f} s, peak memory "
+          f"{peak:.2f} GiB {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("1 x 4096 loss and gradients")
+    del params, qparams, gx, gq, batch
+    torch.cuda.empty_cache()
+    return failures
 
 
 # every stage in 5 steps
@@ -1282,11 +1577,13 @@ def main(argv=None) -> int:
     del timer
     torch.cuda.empty_cache()
     failures = [f"{r['kernel']} {r}" for r in failures]
+    _count_captures(torch)
     smoke_counts, smoke_failures = phase_correctness(torch)
     failures += smoke_failures
-    counts, outs, engine_failures = phase_engine(torch)
+    failures += phase_long(torch)
+    counts, outs, engine_failures, seen = phase_engine(torch)
     failures += engine_failures
-    paged_counts, paged_failures = phase_paged(torch, outs)
+    paged_counts, paged_failures, paged_seen = phase_paged(torch, outs)
     failures += paged_failures
     train_counts, colmask_counts, train_fail = phase_train(torch)
     failures += train_fail
@@ -1296,7 +1593,9 @@ def main(argv=None) -> int:
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(
             {"device": kind, "rows": rows, "launches": counts,
-             "paged_launches": paged_counts, "train_launches": train_counts,
+             "paged_launches": paged_counts, "traced_kernels": seen,
+             "paged_traced_kernels": paged_seen,
+             "train_launches": train_counts,
              "colmask_launches": colmask_counts,
              "smoke_launches": smoke_counts},
             indent=1, default=str))
@@ -1317,6 +1616,13 @@ def main(argv=None) -> int:
         src, replaces = (paged if name in PAGED_KERNELS else
                          attn if name == "decode_attn" else gemm)
         launches = (paged_counts if name in PAGED_KERNELS else counts)[name]
+        # the device kernels of phases 5-6's traced drains (graph replays
+        # included), which the host counts see only at capture
+        device = (paged_seen[f"flash_decode_split.{name.split('.')[1]}"]
+                  if name in PAGED_KERNELS else
+                  seen["flash_decode_split"] if name == "decode_attn" else
+                  seen[f"gemm_small_m.{name.split('.')[1]}"]
+                  + paged_seen[f"gemm_small_m.{name.split('.')[1]}"])
         shape = (f"M={row['M']} K={row['K']} N={row['N']}"
                  + (" bits=4" if "unpack" in name else "")
                  if name.startswith("gemm") else
@@ -1326,6 +1632,7 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches,
+            "traced_device_launches": device,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -1,0 +1,134 @@
+"""Drive the port's continuous-batching engine over mixed-length requests:
+the PyTorch/CUDA twin of `examples/serve_engine.py`.
+
+Submits a handful of requests with different prompt lengths and token
+budgets, warms the engine up (on CUDA this captures one CUDA graph per
+decode-window length), drains it, and prints each request's generated
+tokens plus the throughput counters (decode tok/s, one-shot prefill
+tok/s, slot occupancy). `--compressed` serves from int8 codes through the
+GEMM kernel's dequant epilogue; `--packed` bit-packs the codes at their
+storage width (unpack-dequant epilogue; `--bits 4` serves a 4-bit
+artifact). `--paged` swaps the per-slot contiguous KV arena for the paged
+one: page-granular KV, identical prompts share refcounted pages and skip
+their prefill (`--hot-prompt` sends every request the same prompt; watch
+`prefix_hits`), and `--kv-bits 8|4` stores the pages as int8 or int4
+codes. The modes the port does not have yet (`--pruned`,
+`--speculative`, `--tp`, `--devices`, `--chunked-prefill`) raise
+NotImplementedError naming the ROADMAP item that brings them.
+
+Runs on CUDA by default; `--device cpu` runs the kernels' plain PyTorch
+versions and decodes its windows eagerly:
+
+    PYTHONPATH=src python examples/serve_engine_torch.py --packed --bits 4 \
+        --prompt-lens 16,4,9,12 --gens 24,8,16,12 --slots 2 --device cpu
+
+    PYTHONPATH=src python examples/serve_engine_torch.py --paged \
+        --kv-bits 8 --hot-prompt --prompt-lens 16,16,16,9 --gens 12 \
+        --slots 2 --device cpu
+"""
+import argparse
+
+from repro_torch.launch.engine import build_engine, synthetic_prompts
+from repro_torch.models.layers import not_in_this_slice
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--prompt-lens", default="16,4,9,12",
+                    help="comma-separated per-request prompt lengths")
+    ap.add_argument("--gens", default="24,8,16,12",
+                    help="comma-separated per-request token budgets "
+                         "(a single value broadcasts)")
+    ap.add_argument("--slots", type=int, default=2)
+    ap.add_argument("--no-quant", dest="quant", action="store_false",
+                    default=True)
+    ap.add_argument("--compressed", action="store_true", default=False,
+                    help="decode from int codes (the dequant GEMM "
+                         "epilogue) instead of dense weights")
+    ap.add_argument("--packed", action="store_true", default=False,
+                    help="bit-pack the codes at each site's storage width "
+                         "and decode via the unpack-dequant epilogue "
+                         "(implies --compressed)")
+    ap.add_argument("--bits", type=float, default=8.0,
+                    help="quantizer init width (4 serves a 4-bit packed "
+                         "artifact)")
+    ap.add_argument("--paged", action="store_true", default=False,
+                    help="paged KV arena: page-granular allocation and "
+                         "whole-prompt prefix sharing")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="paged mode: KV rows per page")
+    ap.add_argument("--kv-bits", type=int, default=None, choices=[4, 8],
+                    help="paged mode: int8/int4 page store (implies "
+                         "--paged)")
+    ap.add_argument("--hot-prompt", action="store_true", default=False,
+                    help="requests send prefixes of the first request's "
+                         "tokens, so equal lengths share one prompt")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda; cpu runs the plain "
+                         "PyTorch versions of the kernels)")
+    # the reference example's modes that come with later slices
+    ap.add_argument("--pruned", action="store_true", default=False)
+    ap.add_argument("--sparsity", type=float, default=0.5)
+    ap.add_argument("--speculative", action="store_true", default=False)
+    ap.add_argument("--draft-k", type=int, default=4)
+    ap.add_argument("--draft-sparsity", type=float, default=0.5)
+    ap.add_argument("--draft-bits", type=float, default=8.0)
+    ap.add_argument("--tp", type=int, default=0)
+    ap.add_argument("--devices", type=int, default=0)
+    ap.add_argument("--chunked-prefill", type=int, default=None,
+                    metavar="CHUNK")
+    args = ap.parse_args(argv)
+    if args.devices:
+        raise not_in_this_slice("multi-device serving (--devices)",
+                                "ROADMAP Queue 1 item 14")
+    if args.kv_bits is not None:
+        args.paged = True
+
+    lens = [int(x) for x in args.prompt_lens.split(",")]
+    gens = [int(x) for x in args.gens.split(",")]
+    if len(gens) == 1:
+        gens = gens * len(lens)
+    if len(gens) != len(lens):
+        raise SystemExit("--gens must match --prompt-lens")
+
+    eng, lm = build_engine(args.arch, smoke=True, quantized=args.quant,
+                           compressed=args.compressed, packed=args.packed,
+                           bits_init=args.bits, max_slots=args.slots,
+                           max_seq=max(p + g for p, g in zip(lens, gens)),
+                           verbose=True, device=args.device,
+                           paged=args.paged, page_size=args.page_size,
+                           kv_bits=args.kv_bits, pruned=args.pruned,
+                           speculative=args.speculative, tp=args.tp,
+                           prefill_chunk=args.chunked_prefill)
+    prompts = synthetic_prompts(lm.cfg, lens)
+    if args.hot_prompt:
+        prompts = [prompts[0][:n].copy() for n in lens]
+    rids = [eng.submit(p, g) for p, g in zip(prompts, gens)]
+    eng.warmup()
+    out = eng.run()
+    for rid, n, g in zip(rids, lens, gens):
+        toks = " ".join(str(t) for t in out[rid][:12])
+        more = " ..." if len(out[rid]) > 12 else ""
+        print(f"request {rid}: prompt {n} tokens -> {len(out[rid])}/{g} "
+              f"generated: {toks}{more}")
+    th = eng.throughput()
+    s = eng.stats
+    line = (f"decode on {eng.device}: {s['decode_tokens']} tokens in "
+            f"{s['decode_s']:.2f}s ({th['decode_tok_per_s']:.1f} tok/s, "
+            f"occupancy {th['slot_occupancy']:.2f} over {args.slots} "
+            f"slots); one-shot prefill: {s['prefill_tokens']} tokens "
+            f"({th['prefill_tok_per_s']:.1f} tok/s)")
+    if eng.graphs:
+        line += (f"; {len(eng.graphs)} CUDA graph windows captured in "
+                 f"{s['capture_s']:.2f}s, replays {dict(eng.replays)}")
+    if args.paged:
+        line += (f"; paged: {s['prefills']} prefills, "
+                 f"{s['prefix_hits']} prefix hits, kv_bytes "
+                 f"{eng.kv_bytes()} of {eng.kv_pool_bytes()} pooled")
+    print(line)
+    return out
+
+
+if __name__ == "__main__":
+    main()

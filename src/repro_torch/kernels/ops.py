@@ -162,7 +162,15 @@ def paged_decode_attn_op(q, kpool, vpool, pos, page_table, *, page_size,
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches so far, by kernel variant (GEMM epilogue, fake-quant
-    direction, page storage)."""
+    direction, page storage).
+
+    The wrappers count host calls that launched (or, under CUDA graph
+    capture, recorded) their kernel. A captured graph's calls are counted
+    once, at capture, and never per replay: the engine's decode windows
+    replay graphs (`launch.engine.Engine.graph_launches` holds each
+    graph's counts, `graph_device_launches()` what its replays launched),
+    so over `run()` these counts see only the eager launches; a profiler
+    trace sees every kernel."""
     out = {f"gemm_core.{k}": v for k, v in _gc.gemm.launches.items()}
     out.update({f"fake_quant.{k}": v for k, v in _fq.launches.items()})
     out["decode_attn"] = decode_attn.launches

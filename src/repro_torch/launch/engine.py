@@ -17,18 +17,25 @@ and tensor-parallel modes.
   whole pages of it into the pools.
 - Slots decode together in one batched step at per-slot positions; each
   step writes every slot's K/V row in place.
-- `run()` decodes in event-free windows of up to `MAX_WINDOW` steps (the
-  JAX engine's `lax.scan` window becomes an eager loop): tokens stay on
-  the device and the host syncs once per window.
+- `run()` decodes in event-free windows of up to `MAX_WINDOW` steps, the
+  counterpart of the JAX engine's compiled `lax.scan` window: on CUDA,
+  `warmup()` captures one CUDA graph per power-of-two window length over
+  static token, position and page-table buffers and the live arena, and
+  `_window` copies the slots' state into those buffers, replays the
+  graph and reads its (k, slots) tokens with the window's one host sync.
+  On the CPU the same window body runs eagerly. There is no switch
+  between the two: the device decides. `step()` stays the eager single
+  step, the path the graph windows are held against.
 
 Entry points run on CUDA unless the caller passes `device="cpu"`, and
 raise when no CUDA device is there; nothing falls back silently.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
-from collections import deque
+from collections import Counter, deque
 from typing import Optional
 
 import numpy as np
@@ -38,6 +45,7 @@ from repro_torch.configs import get_arch
 from repro_torch.core.quant import kv_quant_encode
 from repro_torch.core.subnet import (compression_report, prepare_serving,
                                      tree_bytes)
+from repro_torch.kernels import ops as Kops
 from repro_torch.launch import paging
 from repro_torch.launch.scheduler import OneShotScheduler
 from repro_torch.models.layers import PagedView, dtype_of, not_in_this_slice
@@ -132,7 +140,15 @@ class Engine:
         self.scheduler = OneShotScheduler()
         self.stats = {"decode_steps": 0, "decode_tokens": 0, "decode_s": 0.0,
                       "prefills": 0, "prefill_tokens": 0, "prefill_s": 0.0,
-                      "prefix_hits": 0, "admitted": 0, "evicted": 0}
+                      "prefix_hits": 0, "admitted": 0, "evicted": 0,
+                      "capture_s": 0.0}
+        self._static_buffers()
+        # window length -> (CUDA graph, its (k, slots) token output); the
+        # host launch counts each capture made; replays per window length
+        self.graphs: dict[int, tuple] = {}
+        self.graph_launches: dict[int, dict[str, int]] = {}
+        self.replays: Counter = Counter()
+        self.graph_pool_bytes = 0
 
     # ------------------------------------------------------------ requests
     def submit(self, prompt, max_new_tokens: int) -> int:
@@ -363,14 +379,46 @@ class Engine:
             self.stats["evicted"] += 1
         self.done[req.rid] = req
 
-    def _pages(self, table: Optional[np.ndarray] = None
-               ) -> Optional[PagedView]:
-        """A decode step's view of the page tables, `self.page_table`
-        unless another table is given (None: contiguous arena)."""
+    # -------------------------------------------------------------- decode
+    def _static_buffers(self) -> None:
+        """The decode inputs at fixed device addresses, which a captured
+        window reads: tokens (B, 1) and positions (B,) int64 and, paged,
+        the page table (B, Lp) int32; each filled from a host buffer
+        (pinned on CUDA, so the copy is asynchronous)."""
+        B, dev = self.max_slots, self.device
+        shapes = {"tok": ((B, 1), torch.int64), "pos": ((B,), torch.int64)}
+        if self.paged:
+            shapes["table"] = ((B, self.Lp), torch.int32)
+        pin = dev.type == "cuda"
+        self._host = {n: torch.zeros(shape, dtype=dt, pin_memory=pin)
+                      for n, (shape, dt) in shapes.items()}
+        self._static = {n: torch.zeros(shape, dtype=dt, device=dev)
+                        for n, (shape, dt) in shapes.items()}
+        # recorded after the copies out of the pinned buffers
+        self._staged = torch.cuda.Event() if pin else None
+
+    def _stage(self) -> None:
+        """Copy the slots' last tokens, positions and page table into the
+        static buffers, on the current stream."""
+        if self._staged is not None:
+            # the last copies out of the pinned buffers have completed
+            self._staged.synchronize()
+        host = self._host
+        host["tok"][:, 0].copy_(torch.from_numpy(self.last_tok))
+        host["pos"].copy_(torch.from_numpy(self.pos))
+        if self.paged:
+            host["table"].copy_(torch.from_numpy(self.page_table))
+        for name, buf in self._static.items():
+            buf.copy_(host[name], non_blocking=True)
+        if self._staged is not None:
+            self._staged.record()
+
+    def _pages(self) -> Optional[PagedView]:
+        """A decode step's view of the static page-table buffer (None:
+        contiguous arena)."""
         if not self.paged:
             return None
-        table = self.page_table if table is None else table
-        return PagedView(table=torch.tensor(table, device=self.device),
+        return PagedView(table=self._static["table"],
                          page_size=self.page_size, seq_len=self.max_seq,
                          kv_bits=self.kv_bits)
 
@@ -381,6 +429,34 @@ class Engine:
         logits, _ = self.lm.decode_step(self._run_params, self._run_qparams,
                                         self.caches, tok, pos, pages)
         return torch.argmax(logits[:, -1], dim=-1)
+
+    def _window_body(self, k: int) -> torch.Tensor:
+        """k decode steps from the static buffers, each step's tokens and
+        positions feeding the next on the device; returns the (k, B)
+        tokens. The CUDA graphs capture exactly this; the CPU runs it."""
+        tok, pos, pages = self._static["tok"], self._static["pos"], \
+            self._pages()
+        out = []
+        for _ in range(k):
+            nxt = self._decode(tok, pos, pages)
+            out.append(nxt)
+            tok, pos = nxt[:, None], pos + 1
+        return torch.stack(out)
+
+    def _commit(self, toks: np.ndarray) -> None:
+        """Hand k decoded tokens per slot ((k, B) on the host) to the
+        active requests and finish those that are done."""
+        k = toks.shape[0]
+        self.stats["decode_steps"] += k
+        for slot, req in enumerate(self.active):
+            if req is None:
+                continue
+            self.stats["decode_tokens"] += k
+            req.tokens.extend(int(t) for t in toks[:, slot])
+            self.last_tok[slot] = toks[-1, slot]
+            self.pos[slot] += k
+            if req.done:
+                self._finish(req)
 
     def step(self) -> bool:
         """One engine iteration as the scheduler plans it. Returns False
@@ -394,95 +470,148 @@ class Engine:
         return self._admit() > 0
 
     def _act_decode(self) -> bool:
+        """One eager decode step (no graph on any device)."""
         if self.n_active == 0:
             return False
-        tok = torch.as_tensor(self.last_tok, dtype=torch.int64,
-                              device=self.device)[:, None]
-        pos = torch.as_tensor(self.pos, dtype=torch.int64, device=self.device)
         t0 = time.time()
-        nxt = self._decode(tok, pos, self._pages()).cpu().numpy()
+        self._stage()
+        nxt = self._decode(self._static["tok"], self._static["pos"],
+                           self._pages())
+        toks = nxt.cpu().numpy()[None]
         self.stats["decode_s"] += time.time() - t0
-        self.stats["decode_steps"] += 1
-        for slot, req in enumerate(self.active):
-            if req is None:
-                continue
-            self.stats["decode_tokens"] += 1
-            req.tokens.append(int(nxt[slot]))
-            self.last_tok[slot] = nxt[slot]
-            self.pos[slot] += 1
-            if req.done:
-                self._finish(req)
+        self._commit(toks)
         return True
 
+    def warmed_window_ks(self) -> list[int]:
+        """Window lengths `warmup()` captures: the powers of two up to
+        MAX_WINDOW, every length `_window` can ask for (it quantizes each
+        window to min(pow2_floor(remaining), MAX_WINDOW))."""
+        ks, k = [], 1
+        while k <= self.MAX_WINDOW:
+            ks.append(k)
+            k *= 2
+        return ks
+
     def warmup(self) -> None:
-        """Run one decode step and one prefill per queued prompt length
-        (slot state and live cache rows untouched), so the first timed
-        window measures decode, not the kernel build or first-call set-up.
-        The contiguous arena decodes into a scratch arena; the paged one
-        through a table of trash pages, so every write lands there."""
-        lm = self.lm
-        tok = torch.zeros((self.max_slots, 1), dtype=torch.int64,
-                          device=self.device)
-        pos = torch.zeros((self.max_slots,), dtype=torch.int64,
-                          device=self.device)
+        """Make the timed path ready before it is timed. First one eager
+        decode step on scratch state and one prefill per queued prompt
+        length, which build the kernels and do their first-call set-up;
+        then, on CUDA, one CUDA graph per window length of
+        `warmed_window_ks()` (once per engine), the counterpart of the
+        reference's ahead-of-time window compiles. Slot state and live
+        cache rows stay untouched: the contiguous arena's eager step
+        decodes into a scratch arena, the paged one through a table of
+        trash pages, and a capture runs nothing."""
+        lm, dev = self.lm, self.device
+        st = self._static
+        st["tok"].zero_()
+        st["pos"].zero_()
         if self.paged:
+            st["table"].fill_(paging.TRASH_PAGE)
             caches = self.caches
-            pages = self._pages(np.full_like(self.page_table,
-                                             paging.TRASH_PAGE))
         else:
             caches = lm.init_cache(self.max_slots, self.max_seq,
-                                   dtype=dtype_of(lm.cfg), device=self.device)
-            pages = None
-        lm.decode_step(self._run_params, self._run_qparams, caches, tok, pos,
-                       pages)
+                                   dtype=dtype_of(lm.cfg), device=dev)
+        # the eager step runs on the stream the graphs are captured on, so
+        # the set-up that belongs to a stream (cuBLAS's workspace) is done
+        stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        if stream is not None:
+            stream.wait_stream(torch.cuda.current_stream(dev))
+        with (torch.cuda.stream(stream) if stream is not None
+              else contextlib.nullcontext()):
+            lm.decode_step(self._run_params, self._run_qparams, caches,
+                           st["tok"], st["pos"], self._pages())
+        _sync(dev)
+        del caches
         for n in sorted({req.prompt.size for req in self.queue}):
             row = lm.init_cache(1, self.max_seq, dtype=dtype_of(lm.cfg),
-                                device=self.device)
+                                device=dev)
             lm.prefill(self._run_params, self._run_qparams, row,
                        torch.zeros((1, int(n)), dtype=torch.int64,
-                                   device=self.device),
+                                   device=dev),
                        last_logit_only=True)
-        _sync(self.device)
+        _sync(dev)
+        if stream is not None and not self.graphs:
+            self._capture_windows(stream)
+
+    def _capture_windows(self, stream) -> None:
+        """Capture `_window_body(k)` for every k of `warmed_window_ks()`
+        into CUDA graphs that share one memory pool: one graph replays at
+        a time and its tokens are read before the next replay, so a
+        graph's scratch may lie where another's was. Records the capture
+        time, the pool's bytes and each graph's host launch counts (the
+        kernel wrappers count a launch once, at capture)."""
+        dev = self.device
+        pool = torch.cuda.graph_pool_handle()
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        t0 = time.time()
+        for k in self.warmed_window_ks():
+            graph = torch.cuda.CUDAGraph()
+            before = Kops.launch_counts()
+            with torch.cuda.graph(graph, pool=pool, stream=stream):
+                out = self._window_body(k)
+            self.graph_launches[k] = {
+                name: n - before[name]
+                for name, n in Kops.launch_counts().items()
+                if n != before[name]}
+            self.graphs[k] = (graph, out)
+        torch.cuda.synchronize(dev)
+        self.stats["capture_s"] = time.time() - t0
+        self.graph_pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+
+    def graph_device_launches(self) -> dict[str, int]:
+        """Kernel launches the graph replays made so far, by launch-count
+        key: each replay of window k launches what its capture counted."""
+        out: Counter = Counter()
+        for k, n in self.replays.items():
+            for name, c in self.graph_launches[k].items():
+                out[name] += n * c
+        return dict(out)
 
     def _window(self) -> bool:
-        """Admit, then decode up to the next scheduled eviction: k steps in
-        an eager loop with the tokens kept on the device and one host sync
-        at the end. Token-identical to repeated `step()`."""
+        """Admit, then decode up to the next scheduled eviction: k steps
+        (a power of two up to MAX_WINDOW) with the tokens kept on the
+        device and one host sync at the end. On CUDA a replay of the
+        window's captured graph; raises if `warmup()` did not capture it
+        (a capture inside a timed run is a fault). Token-identical to
+        repeated `step()`."""
         self._admit()
         if self.n_active == 0:
             return False
         k = min(req.max_new_tokens - len(req.tokens)
                 for req in self.active if req is not None)
         k = min(1 << (k.bit_length() - 1), self.MAX_WINDOW)
-        tok = torch.as_tensor(self.last_tok, dtype=torch.int64,
-                              device=self.device)[:, None]
-        pos = torch.as_tensor(self.pos, dtype=torch.int64, device=self.device)
         t0 = time.time()
-        pages = self._pages()
-        out = []
-        for _ in range(k):
-            nxt = self._decode(tok, pos, pages)
-            out.append(nxt)
-            tok, pos = nxt[:, None], pos + 1
-        toks = torch.stack(out).cpu().numpy()       # (k, slots)
+        self._stage()
+        if self.device.type == "cuda":
+            if k not in self.graphs:
+                raise RuntimeError(
+                    f"no CUDA graph for a decode window of {k} steps: call "
+                    f"warmup() before run() (it captures "
+                    f"{self.warmed_window_ks()})")
+            graph, toks = self.graphs[k]
+            graph.replay()
+            self.replays[k] += 1
+        else:
+            toks = self._window_body(k)
+        toks = toks.cpu().numpy()       # (k, slots): the window's one sync
         self.stats["decode_s"] += time.time() - t0
-        self.stats["decode_steps"] += k
-        for slot, req in enumerate(self.active):
-            if req is None:
-                continue
-            self.stats["decode_tokens"] += k
-            req.tokens.extend(int(t) for t in toks[:, slot])
-            self.last_tok[slot] = toks[-1, slot]
-            self.pos[slot] += k
-            if req.done:
-                self._finish(req)
+        self._commit(toks)
         return True
 
     def run(self) -> dict[int, np.ndarray]:
-        """Drain the queue; returns rid -> generated tokens for every
-        request finished since the last drain, in rid order."""
+        """Drain the queue in decode windows; returns rid -> generated
+        tokens for every request finished since the last drain, in rid
+        order. On CUDA, `warmup()` must have run."""
+        return self._drain(self._window)
+
+    def _drain(self, drive) -> dict[int, np.ndarray]:
+        """`run()` with `drive` (`_window`, or `step` for the eager path
+        the windows are held against) called until the queue drains."""
         while self.pending:
-            if not self._window() and self.queue:
+            if not drive() and self.queue:
                 raise RuntimeError("queue stuck with no active slots")
         if self.paged:
             # a drain leaves no dirty quarantine behind: every released
@@ -654,5 +783,6 @@ def serve_on_devices(arch: str, smoke: bool, prompt_lens: list[int],
                      max_seq=max(prompt_lens) + gen)
         for p in prompts:
             eng.submit(p, gen)
+        eng.warmup()
         out[dev] = eng.run()
     return out

@@ -1,4 +1,6 @@
-"""Serving CLI of the port: the continuous-batching engine on CUDA.
+"""Serving CLI of the port: the continuous-batching engine on CUDA, and
+the static lockstep loop (`serve_loop`, `--static`) the engine is held
+against.
 
 Three weight modes:
   default       dense weights; every block projection decodes through the
@@ -13,6 +15,9 @@ and two KV arenas: the contiguous one (default) and the paged one
 (`--paged`, `--page-size`; `--kv-bits 8|4` stores int8/int4 pages and
 implies `--paged`), decoded by the page-indirect flash-decode kernel.
 
+`--static` runs `serve_loop`: one fixed batch of `--batch` prompts of
+`--prompt-len` tokens in lockstep, prefilled one token per decode step.
+
 Runs on CUDA; `--device cpu` runs the plain PyTorch versions of the
 kernels instead (as the tests do). In `--smoke` mode `--packed` asserts
 packed tokens equal int8 tokens, and `--paged` (without `--kv-bits`)
@@ -26,10 +31,86 @@ asserts paged tokens equal contiguous tokens. Examples:
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
+import torch
 
-from repro_torch.launch.engine import engine_serve
+from repro_torch.configs import get_arch
+from repro_torch.core.subnet import compression_report, prepare_serving
+from repro_torch.data.synthetic import batch_for
+from repro_torch.launch.engine import _sync, engine_serve, resolve_device
+from repro_torch.models.layers import dtype_of, not_in_this_slice
+from repro_torch.models.transformer import LM
+
+
+def make_serve_step(lm: LM):
+    """One greedy decode step of a fixed batch: (params, qparams, caches,
+    token (B, 1), pos) -> (next token (B, 1), caches)."""
+    def serve_step(params, qparams, caches, token, pos):
+        logits, caches = lm.decode_step(params, qparams, caches, token, pos)
+        return torch.argmax(logits[:, -1], dim=-1)[:, None], caches
+
+    return serve_step
+
+
+def serve_loop(arch: str, smoke: bool, batch: int, prompt_len: int,
+               gen: int, seed: int = 0, quantized: bool = True,
+               compressed: bool = False, packed: bool = False,
+               pruned: bool = False, sparsity: float = 0.5,
+               bits_init: float = 8.0, verbose: bool = True,
+               stats: dict | None = None, prompts=None,
+               device=None) -> np.ndarray:
+    """Static lockstep reference, port of `repro.launch.serve.serve_loop`:
+    decode `gen` tokens after a sequential per-token prefill; returns the
+    (batch, gen) int32 token matrix. The weights are `build_engine`'s at
+    the same seed (the torch RNG on `device`), so the engine is held to
+    this loop on the same model. `stats` receives decode-only timing (the
+    prefill has run every kernel once). `prompts` overrides the synthetic
+    (batch, prompt_len) prompt matrix and sets the length. `pruned` comes
+    with slim serving. Runs on CUDA unless `device` says otherwise."""
+    if pruned:
+        raise not_in_this_slice("pruned serving", "ROADMAP Queue 1 item 8")
+    dev = resolve_device(device)
+    cfg = get_arch(arch, smoke=smoke)
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device=dev).manual_seed(seed))
+    params, qparams, meta = prepare_serving(
+        lm, params, quantized=quantized, compressed=compressed,
+        packed=packed, bits_init=bits_init)
+    if (compressed or packed) and verbose:
+        print(compression_report(arch, meta))
+    if prompts is None:
+        prompts = batch_for(cfg, seed, 0, batch, prompt_len)["tokens"]
+    prompt = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
+                             device=dev)
+    batch, prompt_len = prompt.shape
+    caches = lm.init_cache(batch, prompt_len + gen, dtype=dtype_of(cfg),
+                           device=dev)
+    step = make_serve_step(lm)
+    # prefill via sequential decode (the cache-building path)
+    for p in range(prompt_len):
+        nxt, caches = step(params, qparams, caches, prompt[:, p:p + 1], p)
+    out = [nxt]
+    _sync(dev)
+    t0 = time.time()
+    for g in range(gen - 1):
+        nxt, caches = step(params, qparams, caches, out[-1], prompt_len + g)
+        out.append(nxt)
+    _sync(dev)
+    dt_s = time.time() - t0
+    toks = batch * (gen - 1)
+    if stats is not None:
+        stats.update(decode_s=dt_s, tokens=toks,
+                     tok_per_s=toks / max(dt_s, 1e-9))
+    if verbose:
+        mode = "compressed" if (compressed or packed) else "dense"
+        if packed:
+            mode += "+packed"
+        print(f"{arch} [static/{mode} on {dev}]: generated {toks} tokens "
+              f"in {dt_s:.2f}s ({toks / max(dt_s, 1e-9):.1f} tok/s, "
+              f"batch={batch})")
+    return torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
 
 
 def packed_parity_check(arch: str, smoke: bool, prompt_lens: list[int],
@@ -96,6 +177,13 @@ def main(argv=None):
     ap.add_argument("--arch", default="internlm2-1.8b")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--static", action="store_true", default=False,
+                    help="the lockstep serve_loop instead of the "
+                         "continuous-batching engine")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="static mode: lockstep batch size")
+    ap.add_argument("--prompt-len", type=int, default=16,
+                    help="static mode: shared prompt length")
     ap.add_argument("--prompt-lens", default="16,16,16,16",
                     help="comma-separated per-request prompt lengths")
     ap.add_argument("--slots", type=int, default=4,
@@ -128,6 +216,12 @@ def main(argv=None):
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
     args = ap.parse_args(argv)
+    if args.static:
+        serve_loop(args.arch, args.smoke, args.batch, args.prompt_len,
+                   args.gen, quantized=args.quantized,
+                   compressed=args.compressed, packed=args.packed,
+                   bits_init=args.bits, device=args.device)
+        return
     lens = [int(x) for x in args.prompt_lens.split(",")]
     # --kv-bits quantizes the paged page store: asking for it asks for
     # the paged arena

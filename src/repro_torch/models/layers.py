@@ -11,8 +11,9 @@ kernel whose epilogue decodes it: fake-quant (and the GETA column mask)
 for dense weights with a quantizer, dequant for `<name>.codes`,
 unpack-dequant for `<name>.packed{bits}`. The training forward is
 differentiable: the routed GEMMs and the fake-quant sites are autograd
-Functions over the kernels. Full-sequence attention, norms, rope and SiLU
-are plain PyTorch, as they were plain XLA in the JAX package.
+Functions over the kernels. Full-sequence attention (dense, or blockwise
+past `attn_block_threshold`), norms, rope and SiLU are plain PyTorch, as
+they were plain XLA in the JAX package.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quant import (PACKED_STORAGE_BITS, QuantParams,
@@ -194,14 +196,79 @@ def attention_dense(q, k, v, *, q_offset: int = 0) -> torch.Tensor:
     return out.reshape(B, Sq, H, dh).to(q.dtype)
 
 
+def _attend_q_block(q_i: torch.Tensor, k_blocks: torch.Tensor,
+                    v_blocks: torch.Tensor) -> torch.Tensor:
+    """One query block of `attention_blockwise`: an online softmax over the
+    KV blocks at or before it, the last of them the diagonal one. q_i:
+    (B, blk, KV, g, dh); k/v_blocks: (B, n, blk, KV, dh). Returns
+    (B, blk, KV, g, dh) f32."""
+    B, blk, KV, g, dh = q_i.shape
+    qf = q_i.to(torch.float32)
+    diag = torch.ones((blk, blk), dtype=torch.bool, device=q_i.device).tril()
+    m = torch.full((B, KV, g, blk), -1e30, dtype=torch.float32,
+                   device=q_i.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, KV, g, blk, dh), dtype=torch.float32,
+                      device=q_i.device)
+    n = k_blocks.shape[1]
+    for j in range(n):
+        s = torch.einsum("bqkgd,bskd->bkgqs", qf,
+                         k_blocks[:, j].to(torch.float32)) / math.sqrt(dh)
+        if j == n - 1:
+            s = s.masked_fill(~diag, -1e30)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgqs,bskd->bkgqd", p, v_blocks[:, j].to(torch.float32))
+        m = m_new
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    return out.permute(0, 3, 1, 2, 4)
+
+
+def attention_blockwise(q, k, v, *, block: int = 1024) -> torch.Tensor:
+    """Flash-style causal attention that never materializes S x S: a loop
+    over query blocks, each an online softmax (running max, denominator
+    and accumulator) over KV blocks, with `attention_dense`'s -1e30 mask
+    and a max(l, 1e-30) guard. Shapes as `attention_dense`; S a multiple
+    of `block`.
+
+    The reference also scans the KV blocks after the query block; they
+    are fully masked and leave (m, l, acc) exactly as they were, so they
+    are skipped here. With grad enabled each query block runs under
+    `torch.utils.checkpoint` (non-reentrant), the reference's
+    `jax.checkpoint`: the backward recomputes a block's scores instead of
+    keeping every score tile of the layer."""
+    B, S, H, dh = q.shape
+    KV = k.shape[2]
+    g = H // KV
+    if S % block or k.shape[1] != S:
+        raise ValueError(f"attention_blockwise: S={S} (keys {k.shape[1]}) "
+                         f"must be a multiple of block={block} and Sq == Sk")
+    nb = S // block
+    qb = q.reshape(B, nb, block, KV, g, dh)
+    kb = k.reshape(B, nb, block, KV, dh)
+    vb = v.reshape(B, nb, block, KV, dh)
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    outs = []
+    for i in range(nb):
+        args = (qb[:, i], kb[:, :i + 1], vb[:, :i + 1])
+        outs.append(checkpoint(_attend_q_block, *args, use_reentrant=False)
+                    if remat else _attend_q_block(*args))
+    return torch.stack(outs, dim=1).reshape(B, S, H, dh).to(q.dtype)
+
+
 def attention(q, k, v, cfg: ModelConfig, *, q_offset: int = 0
               ) -> torch.Tensor:
+    """Blockwise for a long self-attention (S > `attn_block_threshold`, a
+    multiple of `attn_block_size`, Sq == Sk), dense otherwise: the
+    reference's dispatch."""
     S = q.shape[1]
     if S > cfg.attn_block_threshold and S % cfg.attn_block_size == 0 \
             and q.shape[1] == k.shape[1]:
-        raise not_in_this_slice(
-            f"blockwise attention (S={S} > attn_block_threshold="
-            f"{cfg.attn_block_threshold})", "ROADMAP Queue 1 item 4")
+        return attention_blockwise(q, k, v, block=cfg.attn_block_size)
     return attention_dense(q, k, v, q_offset=q_offset)
 
 

@@ -67,6 +67,7 @@ class LM(torch.nn.Module):
         self.plan = [SubLayer(0, "attn", "mlp")]
         self.n_blocks = cfg.n_layers
         self.shapes = [Lyr.LayerShapes.from_config(cfg)]
+        self._freqs: dict[torch.device, torch.Tensor] = {}
 
     # ------------------------------------------------------------- params
     def init(self, gen: torch.Generator) -> dict:
@@ -386,6 +387,16 @@ class LM(torch.nn.Module):
         x = Lyr.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         return self._head(params, x), caches
 
+    def _rope_freqs(self, device: torch.device) -> torch.Tensor:
+        """`rope_freqs` on `device`, computed once per LM and device: a
+        decode step captured into a CUDA graph may not copy theta to the
+        card, as computing them does."""
+        freqs = self._freqs.get(device)
+        if freqs is None:
+            freqs = self._freqs[device] = Lyr.rope_freqs(
+                self.cfg.d_head, self.cfg.rope_theta, device)
+        return freqs
+
     def decode_step(self, params: dict, qparams: Optional[dict],
                     caches: dict, token: torch.Tensor, pos,
                     pages: Optional[Lyr.PagedView] = None):
@@ -400,8 +411,8 @@ class LM(torch.nn.Module):
         B = x.shape[0]
         pos = torch.as_tensor(pos, dtype=torch.int64,
                               device=x.device).reshape(-1).expand(B)
-        ang = pos.to(torch.float32)[:, None] * Lyr.rope_freqs(
-            cfg.d_head, cfg.rope_theta, x.device)[None, :]
+        ang = pos.to(torch.float32)[:, None] * self._rope_freqs(
+            x.device)[None, :]
         rope = (torch.cos(ang)[:, None], torch.sin(ang)[:, None])
         x = self._blocks(params, qp_body, x, rope, caches, pos, pages)
         x = Lyr.rmsnorm(x, params["final_norm"], cfg.norm_eps)

@@ -41,6 +41,13 @@ smoke train step on the card agrees with its CPU run at
 max|x|, q_m and t 1e-4, d 1e-2; identical masks) and repeats bit for bit;
 with activation quantizers the masks, the loss and the parameter
 gradients (1e-4 of max|g|) agree and the card step repeats bit for bit.
+The engine's decode windows replay CUDA graphs captured in `warmup()`:
+their tokens equal repeated eager `step()` in every weight mode over the
+contiguous arena and f32, int8 and int4 pages, also after the page table
+changes; every window length is captured once, in `warmup()`, none in
+`run()`; a window body that reads the device from the host makes the
+capture raise, with no eager fallback. `attention_blockwise` on the card
+agrees with `attention_dense` at 1e-5 (f32).
 """
 import numpy as np
 import pytest
@@ -52,8 +59,9 @@ from repro_torch.kernels import decode_attn as TDA
 from repro_torch.kernels import fake_quant as TFQ
 from repro_torch.kernels import gemm_core as TG
 from repro_torch.kernels import ref
-from repro_torch.launch.engine import (WEIGHT_MODES, engine_serve,
-                                       serve_on_devices)
+from repro_torch.launch.engine import (WEIGHT_MODES, build_engine,
+                                       engine_serve, serve_on_devices)
+from repro_torch.models import layers as TL
 
 pytestmark = pytest.mark.gpu
 EPILOGUES = ["fake_quant_rhs", "dequant", "unpack_b2", "unpack_b3",
@@ -960,3 +968,176 @@ def test_simt_f32_x_matches_plain(cuda, epi, M, K, N):
     assert torch.equal(TG.gemm(x, w, e, out_dtype=torch.float32), y)
     if "mask" in epi:
         assert not y[:, mask == 0].any()
+
+
+# ------------------------------------------------------ graph decode windows
+ARENAS = {"contiguous": {}, "paged": dict(paged=True, page_size=8),
+          "paged_int8": dict(paged=True, page_size=8, kv_bits=8),
+          "paged_int4": dict(paged=True, page_size=8, kv_bits=4)}
+LENS, GENS = (5, 9, 3, 12, 7, 9), (9, 5, 12, 3, 7, 17)
+
+
+def _card_engine(mode, arena, **kw):
+    eng, lm = build_engine("internlm2-1.8b", True, max_slots=2, max_seq=32,
+                           device="cuda", **WEIGHT_MODES[mode],
+                           **ARENAS[arena], **kw)
+    return eng, lm
+
+
+def _prompts(lm, repeat=False):
+    rng = np.random.default_rng(7)
+    out = [rng.integers(0, lm.cfg.vocab, n).astype(np.int32) for n in LENS]
+    if repeat:          # requests 3 and 5 on request 1's prompt
+        out[3], out[5] = out[1].copy(), out[1].copy()
+    return out
+
+
+def _captures(monkeypatch) -> list:
+    """Every CUDA graph capture from here on, as it enters."""
+    seen = []
+    enter = torch.cuda.graph.__enter__
+
+    def spy(self):
+        seen.append(self)
+        return enter(self)
+
+    monkeypatch.setattr(torch.cuda.graph, "__enter__", spy)
+    return seen
+
+
+@pytest.mark.parametrize("arena", list(ARENAS))
+@pytest.mark.parametrize("mode", list(WEIGHT_MODES))
+def test_graph_windows_match_eager_steps(cuda, monkeypatch, mode, arena):
+    """Six requests on two slots, budgets that make windows of 16, 8, 4,
+    2 and 1 steps across admissions and evictions: the replayed windows
+    emit the tokens of repeated eager `step()` on an engine of the same
+    weights. Every window length is captured once, in `warmup()`; `run()`
+    captures nothing."""
+    captures = _captures(monkeypatch)
+    eng, lm = _card_engine(mode, arena)
+    ref, _ = _card_engine(mode, arena)
+    prompts = _prompts(lm)
+    for e in (eng, ref):
+        for p, g in zip(prompts, GENS):
+            e.submit(p, g)
+    eng.warmup()
+    ks = eng.warmed_window_ks()
+    assert len(captures) == len(ks) and sorted(eng.graphs) == ks
+    got = eng.run()
+    assert len(captures) == len(ks)
+    want = ref._drain(ref.step)
+    assert sorted(got) == sorted(want) == list(range(len(LENS)))
+    for rid in want:
+        assert len(got[rid]) == GENS[rid]
+        np.testing.assert_array_equal(got[rid], want[rid],
+                                      err_msg=f"request {rid}")
+    assert len(eng.replays) >= 4 and not ref.replays
+    # a second warmup captures nothing more
+    eng.warmup()
+    assert len(captures) == len(ks)
+
+
+@pytest.mark.parametrize("arena", ["paged", "paged_int4"])
+def test_graph_replays_follow_page_table_changes(cuda, arena):
+    """A paged engine serves two batches in turn: the second's admissions
+    land on other pages (the first's were freed and zeroed) and three of
+    its requests share one prompt's pages through the prefix cache. Every
+    replay reads the table staged for it: the tokens equal eager steps'."""
+    eng, lm = _card_engine("compressed", arena)
+    ref, _ = _card_engine("compressed", arena)
+    eng.warmup()
+    for batch in (_prompts(lm), _prompts(lm, repeat=True)):
+        for e in (eng, ref):
+            for p, g in zip(batch, GENS):
+                e.submit(p, g)
+        got, want = eng.run(), ref._drain(ref.step)
+        assert sorted(got) == sorted(want)
+        for rid in want:
+            np.testing.assert_array_equal(got[rid], want[rid],
+                                          err_msg=f"request {rid}")
+    assert eng.stats["prefix_hits"] == ref.stats["prefix_hits"] >= 2
+
+
+def test_window_body_with_a_host_sync_makes_capture_raise(cuda):
+    """A host read inside the window body is refused by the capture, which
+    raises out of `warmup()`; `run()` then raises for the missing graph
+    instead of decoding eagerly."""
+    eng, lm = _card_engine("compressed", "contiguous")
+    decode = eng._decode
+
+    def reads_the_device(tok, pos, pages):
+        nxt = decode(tok, pos, pages)
+        int(nxt[0])                  # a device -> host copy and a sync
+        return nxt
+
+    eng._decode = reads_the_device
+    with pytest.raises(RuntimeError):
+        eng.warmup()
+    eng._decode = decode
+    assert not eng.graphs
+    eng.submit(_prompts(lm)[0], 4)
+    with pytest.raises(RuntimeError, match="call warmup"):
+        eng.run()
+
+
+def test_run_without_warmup_raises_on_card(cuda):
+    eng, lm = _card_engine("dense", "contiguous")
+    eng.submit(_prompts(lm)[0], 4)
+    with pytest.raises(RuntimeError, match="call warmup"):
+        eng.run()
+
+
+def test_graph_launch_accounting(cuda):
+    """Each graph's host launch counts are those of k eager steps, and the
+    replays' launches are the sum over the windows run."""
+    eng, lm = _card_engine("compressed", "contiguous")
+    eng.warmup()
+    one = eng.graph_launches[1]
+    assert one["gemm_core.dequant"] > 0 and one["decode_attn"] > 0
+    for k in eng.warmed_window_ks():
+        assert eng.graph_launches[k] == {n: k * c for n, c in one.items()}
+    for p, g in zip(_prompts(lm), GENS):
+        eng.submit(p, g)
+    eng.run()
+    steps = sum(k * n for k, n in eng.replays.items())
+    assert steps == eng.stats["decode_steps"]
+    assert eng.graph_device_launches() == {n: steps * c
+                                           for n, c in one.items()}
+
+
+@pytest.mark.parametrize("S,block", [(4096, 512), (96, 32)])
+def test_attention_blockwise_on_card_matches_dense(cuda, S, block):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn((1, S, 16, 128), generator=gen, device=cuda)
+    k, v = (torch.randn((1, S, 8, 128), generator=gen, device=cuda)
+            for _ in range(2))
+    got = TL.attention_blockwise(q, k, v, block=block)
+    want = TL.attention_dense(q, k, v)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    if S <= 96:
+        g = torch.randn(q.shape, generator=gen, device=cuda)
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        a = torch.autograd.grad(
+            (TL.attention_blockwise(*ts, block=block) * g).sum(), ts)
+        b = torch.autograd.grad((TL.attention_dense(*ts) * g).sum(), ts)
+        for x, y in zip(a, b):
+            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+
+
+def test_rope_frequencies_are_kept_out_of_the_captured_step(cuda):
+    """`rope_freqs` builds theta on the card with a synchronous copy, which
+    a capture refuses; the decode step reads the LM's kept tensor instead,
+    the same bits as a fresh computation."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import LM
+    dev = torch.device("cuda", torch.cuda.current_device())
+    lm = LM(get_arch("internlm2-1.8b"))
+    kept = lm._rope_freqs(dev)
+    assert torch.equal(kept, TL.rope_freqs(128, lm.cfg.rope_theta, dev))
+    stream = torch.cuda.Stream()
+    with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=stream):
+        again = lm._rope_freqs(dev)           # kept: no copy
+    assert again is kept
+    with pytest.raises(RuntimeError):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=stream):
+            TL.rope_freqs(128, lm.cfg.rope_theta, dev)

@@ -3,8 +3,9 @@
 # chip_smoke.py (kernels against their plain versions, correctness, the
 # engine at full width, contiguous and paged, GETA training at full
 # width), the card-only tests, the decode-step profile in each weight mode
-# over each KV arena, and the train-step profile (one step per QASSO
-# stage). Full logs go to OUT_DIR; the tails are printed.
+# over each KV arena (eager steps), the graph decode windows of 8 and 32
+# steps in each (tools/time_windows.py), and the train-step profile (one
+# step per QASSO stage). Full logs go to OUT_DIR; the tails are printed.
 #
 #     sh tools/chip_check.sh [OUT_DIR]      (default chiprun_out/check)
 #
@@ -25,6 +26,9 @@ for mode in dense compressed packed_b4; do
         sed -n '/decode step on/,$p' "$log" | head -n 15
     done
 done
+python3 tools/time_windows.py --out "$out/windows.json" \
+    > "$out/windows.log" 2>&1 || rc=1
+grep '^|' "$out/windows.log"
 PYTHONPATH=src python3 -m repro_torch.launch.profile_train \
     --out "$out/profile_train.json" > "$out/profile_train.log" 2>&1 || rc=1
 grep -v '^  ' "$out/profile_train.log"
