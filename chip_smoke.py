@@ -13,7 +13,10 @@ Phases, each printing its own lines:
    full-width shapes of internlm2-1.8b's decode (M = 4, 8 slots) and
    prefill (M = 512): the GEMM core's fake_quant_rhs (bf16 weights),
    dequant (int8) and unpack_dequant (bits 2, 3, 4, 8) epilogues over
-   K->N = 2048->2048, 2048->1024, 2048->8192, 8192->2048 and 2048->92672,
+   K->N = 2048->2048, 2048->1024, 2048->8192, 8192->2048 and 2048->92672
+   (and at M = 4 the widths phase 8's pruning leaves, 2048->5734 and
+   5734->2048, in fake_quant_rhs, dequant and unpack_dequant b4, each
+   weight stored as `prepare_serving` stores it: rows padded to 16 bytes),
    split-rows flash-decode attention at B = 4, 8 (KVh 8, g 2, dh 128, S
    576, bf16 K/V) and at long context (B = 4, S = 4096, slots spread over
    the arena), and page-indirect flash decode at the same shapes over
@@ -123,11 +126,37 @@ Phases, each printing its own lines:
    within tolerance held; params and quantizers reported, since a rounding
    tie of an activation flipped by the summation order moves them past
    it). Prints step wall times, tokens/s and peak device memory.
-8. Two JSON lines: the kernel table, then the device line (last). A
+8. Pruned serving at full width: the engine of phase 5 on the subnet at
+   magnitude masks of sparsity 0.3 (d_ff 8192 -> 5734 in every layer, 6
+   of the 8 KV-head groups: 12 heads), phase 5's 8 requests, in the
+   three weight modes over the contiguous arena, each drained the same
+   three ways with phase 5's checks (graph windows equal eager steps and
+   a traced drain; the trace's small-M kernels equal the host counts),
+   the launch counts zeroed before the three engines and read after.
+   Against phase 5, per mode: param_bytes, decode tok/s, and the block
+   projections' bytes, which must equal the bytes the sliced widths
+   predict (the heads fall by 2/8, the MLP units by 2458/8192: the units'
+   sparsity is 0.3, the bytes' ~0.29); kv_bytes exactly 6/8 of phase 5's.
+   Packed 4-bit tokens must equal an int8 run's at the same 4-bit init;
+   packed 4-bit over bf16 pages the contiguous run's tokens, over int8
+   pages full-length outputs with its first tokens from a smaller pool.
+   Against the masked reference engine (the dense model with the pruned
+   units multiplied by zero, same seed and quantizers): the first decode
+   step's logits within 2^-5 of the logit range with the same argmax
+   (bf16 sums over K 5734 and the masked 8192 split differently, so only
+   the f32 smoke config is held to token identity; its card tests do),
+   greedy-token agreement and first divergences printed. Then GETA's
+   train-then-deploy path: phase 7's final params, quantizers and QASSO
+   keep masks (exactly k_units pruned) through `construct_subnet`
+   (sparsity, mean bits, code bytes printed), then `prepare_serving(
+   keep_masks=..., compressed=True)` serves one request of 16 tokens
+   through the engine, held to its masked reference the same way.
+9. Two JSON lines: the kernel table, then the device line (last). A
    serving kernel's `launches` are the host counts of phases 5-6 (a
-   graph's calls once, at capture); `traced_device_launches` are its
-   device kernels in their traced drains (for a GEMM epilogue the
-   small-M kernels, for decode attention the split kernels).
+   graph's calls once, at capture), a pruned-shape GEMM row's those of
+   phase 8; `traced_device_launches` are its device kernels in their
+   traced drains (for a GEMM epilogue the small-M kernels, for decode
+   attention the split kernels).
 
 Times are CUDA-event medians with the 50 MB L2 flushed before each launch
 (each decode-step launch finds its weights cold); after the flush the
@@ -172,6 +201,16 @@ SHARED = (1, 3, 5, 7)     # requests that carry request 5's prompt (200
 PAGED_KERNELS = ("paged_decode_attn.bf16", "paged_decode_attn.int8",
                  "paged_decode_attn.int4")
 REPORT_SHAPE = (4, 2048, 8192)      # the JSON line's GEMM row: w_gate at decode
+PRUNE_SPARSITY = 0.3       # phase 8: d_ff 8192 -> 5734, 8 -> 6 KV heads
+# phase 3's rows at those widths (M = 4): w_gate / w_up, then w_down
+PRUNED_GEMMS = [(2048, 5734), (5734, 2048)]
+PRUNED_EPIS = ("fake_quant_rhs", "dequant", "unpack_dequant_b4")
+GETA_GEN = 16              # phase 8's request from phase 7's trained masks
+# phase 8: the pruned engine's first decode-step logits against the masked
+# reference's, in units of the reference's logit range: phase 4's bound for
+# bf16 activations summed in another order (here K = 5734 against the
+# masked K = 8192, split differently)
+MASKED_TOL = 2 ** -5
 TOKENS = 2048                        # training batch 4 x 512
 TRAIN_BATCH, TRAIN_SEQ = 4, 512
 FQ_SHAPES = {"head": (2048, 92672), "w_gate": (2048, 8192)}
@@ -341,6 +380,49 @@ def _gemm_cases(torch, K, N, gen):
                lambda cb=cb, db=db: (cb * db).to(torch.bfloat16))
 
 
+def _report_name(label: str) -> str:
+    """The kernel line's name of a GEMM epilogue row."""
+    return ("gemm_core.unpack_dequant" if label.startswith("unpack") else
+            f"gemm_core.{label}")
+
+
+def _gemm_row(torch, timer, gc, label, x, w, epi, w_lib, tag="") -> dict:
+    """One GEMM row of phase 3: the kernel against its plain version (a
+    second call bitwise the first), its time, the plain version's, the
+    library call's (torch.matmul on the decoded weight) and the bound;
+    the tensor-core rows at both block heights, the small-M rows' kernels
+    per call from a profiler trace."""
+    (M, K), N = x.shape, w.shape[1]
+    call = lambda: gc.gemm(x, w, epi, out_dtype=torch.float32)
+    y, again = call(), call()
+    want = gc.plain(x, w, epi, torch.float32)
+    torch.cuda.synchronize()
+    err = (y - want).abs().max().item()
+    tol = 1e-4 * want.abs().max().item()
+    ok = bool(torch.allclose(y, want, rtol=1e-4, atol=tol)
+              and torch.isfinite(y).all() and torch.equal(y, again))
+    row = {"kernel": f"gemm_core.{label}", "M": M, "K": K, "N": N,
+           "variant": gc.variant(M, x.dtype), "max_abs_err": err,
+           "atol": tol, "ok": ok}
+    del y, again, want
+    row["ms"] = timer(call)
+    row["plain_ms"] = timer(lambda: gc.plain(x, w, epi, torch.float32))
+    row["library_ms"] = timer(lambda: torch.matmul(x, w_lib))
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        gc.bytes_moved(M, N, K, 2, w, 4, epi), gc.flops(M, N, K))
+    if row["variant"] == "tc":
+        row["heights"] = _height_ms(timer, gc, call, M, N)
+    _one_kernel(torch, row, call)
+    print(f"[3 kernels] {row['kernel']:<29} M={M:<3} K={K:<4} "
+          f"N={N:<5} {row['variant']}{tag} ms={row['ms']:.4f} "
+          f"plain_ms={row['plain_ms']:.4f} "
+          f"library_ms={row['library_ms']:.4f} "
+          f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+          f"err={err:.2e} tol={tol:.2e}{_heights(row)}"
+          f"{_per_call(row)} {'ok' if row['ok'] else 'FAIL'}")
+    return row
+
+
 def phase_kernels(torch, timer) -> tuple[list, dict, list]:
     from repro_torch.kernels import decode_attn as da
     from repro_torch.kernels import gemm_core as gc
@@ -353,47 +435,29 @@ def phase_kernels(torch, timer) -> tuple[list, dict, list]:
         for label, w, epi, dequantized in _gemm_cases(torch, K, N, gen):
             w_lib = dequantized()
             for M in GEMM_MS:
-                x = xs[M]
-                call = lambda: gc.gemm(x, w, epi, out_dtype=torch.float32)
-                y, again = call(), call()
-                want = gc.plain(x, w, epi, torch.float32)
-                torch.cuda.synchronize()
-                err = (y - want).abs().max().item()
-                tol = 1e-4 * want.abs().max().item()
-                ok = bool(torch.allclose(y, want, rtol=1e-4, atol=tol)
-                          and torch.isfinite(y).all()
-                          and torch.equal(y, again))
-                row = {"kernel": f"gemm_core.{label}", "M": M, "K": K,
-                       "N": N, "variant": gc.variant(M, x.dtype),
-                       "max_abs_err": err, "atol": tol, "ok": ok}
-                del y, again, want
-                row["ms"] = timer(call)
-                row["plain_ms"] = timer(lambda: gc.plain(x, w, epi,
-                                                         torch.float32))
-                row["library_ms"] = timer(lambda: torch.matmul(x, w_lib))
-                row["bound_ms"], row["bound_by"] = bound_ms(
-                    gc.bytes_moved(M, N, K, 2, w, 4, epi), gc.flops(M, N, K))
-                if row["variant"] == "tc":
-                    row["heights"] = _height_ms(timer, gc, call, M, N)
-                _one_kernel(torch, row, call)
+                row = _gemm_row(torch, timer, gc, label, xs[M], w, epi, w_lib)
                 rows.append(row)
                 if not row["ok"]:
                     failures.append(row)
-                print(f"[3 kernels] {row['kernel']:<29} M={M:<3} K={K:<4} "
-                      f"N={N:<5} {row['variant']} ms={row['ms']:.4f} "
-                      f"plain_ms={row['plain_ms']:.4f} "
-                      f"library_ms={row['library_ms']:.4f} "
-                      f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
-                      f"err={err:.2e} tol={tol:.2e}{_heights(row)}"
-                      f"{_per_call(row)} {'ok' if row['ok'] else 'FAIL'}")
-                if (M, K, N) == REPORT_SHAPE and label in (
-                        "fake_quant_rhs", "dequant", "unpack_dequant_b4"):
-                    name = ("gemm_core.unpack_dequant"
-                            if label.startswith("unpack") else
-                            f"gemm_core.{label}")
-                    report[name] = row
+                if (M, K, N) == REPORT_SHAPE and label in PRUNED_EPIS:
+                    report[_report_name(label)] = row
             del w_lib
         del xs
+        torch.cuda.empty_cache()
+    # the decode rows at sparsity 0.3's widths, each weight stored as
+    # prepare_serving stores it (rows padded to 16 bytes)
+    for K, N in PRUNED_GEMMS:
+        x = torch.randn((SLOTS, K), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        for label, w, epi, dequantized in _gemm_cases(torch, K, N, gen):
+            if label not in PRUNED_EPIS:
+                continue
+            row = _gemm_row(torch, timer, gc, label, x, gc.aligned_rows(w),
+                            epi, dequantized(), tag=" (pruned, padded rows)")
+            rows.append(row)
+            if not row["ok"]:
+                failures.append(row)
+            report[f"{_report_name(label)}.pruned.{K}x{N}"] = row
         torch.cuda.empty_cache()
 
     KVh, g, dh = 8, 2, 128
@@ -989,6 +1053,10 @@ def _serve_full(torch, prompts, kw) -> tuple[dict, dict, list[str]]:
     stats = dict(eng.stats, **eng.throughput(), kv_bytes=eng.kv_bytes(),
                  kv_pool_bytes=eng.kv_pool_bytes(),
                  param_bytes=eng.param_bytes(),
+                 param_alloc_bytes=eng.serving_meta["param_alloc_bytes"],
+                 block_weight_bytes=_block_weight_bytes(eng.params),
+                 sparsity=eng.serving_meta.get("sparsity"),
+                 shapes=eng.lm.shapes[0],
                  graph_pool_bytes=eng.graph_pool_bytes, peak_bytes=peak,
                  graphs=sorted(eng.graphs), replays=dict(eng.replays))
     traced, fam, stats["traced_steps"] = _trace_drain(torch, eng, prompts)
@@ -1014,6 +1082,29 @@ def _serve_full(torch, prompts, kw) -> tuple[dict, dict, list[str]]:
     return out, stats, failures
 
 
+def _block_weight_bytes(params: dict) -> int:
+    """Logical bytes of the served block projections (dense weights, codes
+    or packed words; not the norms, not the scales)."""
+    return sum(v.numel() * v.element_size() for k, v in params.items()
+               if k.startswith("blocks.") and (".attn." in k or ".mlp." in k)
+               and not k.endswith(".scale"))
+
+
+def _predicted_block_bytes(cfg, shp, mode: str) -> int:
+    """The block projections' bytes at the widths `shp` in a weight mode,
+    from the shapes alone: weights in the config's dtype (dense), int8
+    codes (compressed, 8-bit init) or 4-bit codes packed 8 to an int32
+    word along K (packed_b4)."""
+    D, dh = cfg.d_model, cfg.d_head
+    Q, KV, F = shp.n_heads * dh, shp.n_kv_heads * dh, shp.d_ff
+    mats = [(D, Q), (D, KV), (D, KV), (Q, D), (D, F), (D, F), (F, D)]
+    item = 2 if cfg.dtype == "bfloat16" else 4
+    per = {"dense": lambda K, N: item * K * N,
+           "compressed": lambda K, N: K * N,
+           "packed_b4": lambda K, N: 4 * -(-K // 8) * N}[mode]
+    return cfg.n_layers * sum(per(K, N) for K, N in mats)
+
+
 def _same(a: dict, b: dict) -> bool:
     """Two drains of the same requests emitted the same tokens, request by
     request in submission order (a later drain's requests have new ids)."""
@@ -1035,10 +1126,10 @@ def _graph_line(st) -> str:
                         if v[1]))
 
 
-def phase_engine(torch) -> tuple[dict, dict, list[str], dict]:
+def phase_engine(torch) -> tuple[dict, dict, list[str], dict, dict]:
     """Phase 5 (see the module docstring). Returns the launch counts, the
-    tokens per mode, the failures and the trace families summed over the
-    modes."""
+    tokens per mode, the failures, the trace families summed over the
+    modes and the stats per mode."""
     from collections import Counter
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
@@ -1047,7 +1138,7 @@ def phase_engine(torch) -> tuple[dict, dict, list[str], dict]:
     expect = {"dense": "gemm_core.fake_quant_rhs",
               "compressed": "gemm_core.dequant",
               "packed_b4": "gemm_core.unpack_dequant"}
-    failures, outs, seen = [], {}, Counter()
+    failures, outs, seen, by_mode = [], {}, Counter(), {}
     prompts = synthetic_prompts(get_arch(ARCH), PROMPT_LENS, seed=0)
     ops.reset_launch_counts()
     for mode, kw in WEIGHT_MODES.items():
@@ -1055,7 +1146,7 @@ def phase_engine(torch) -> tuple[dict, dict, list[str], dict]:
         t0 = time.perf_counter()
         toks, stats, fails = _serve_full(torch, prompts, kw)
         wall = time.perf_counter() - t0
-        outs[mode] = toks
+        outs[mode], by_mode[mode] = toks, stats
         delta = {k: v - before[k] for k, v in ops.launch_counts().items()}
         fam = stats["trace"]
         epi = expect[mode].split(".")[1]
@@ -1096,7 +1187,7 @@ def phase_engine(torch) -> tuple[dict, dict, list[str], dict]:
           f"4-bit quantizer init ({len(ref_int8)} requests x {GEN} tokens)")
     if not same:
         failures.append("packed tokens differ from int8 tokens")
-    return counts, outs, failures, dict(seen)
+    return counts, outs, failures, dict(seen), by_mode
 
 
 def _nonzero(counts: dict) -> dict:
@@ -1180,6 +1271,244 @@ def phase_paged(torch, contiguous: dict) -> tuple[dict, list[str], dict]:
     if counts["decode_attn"]:
         failures.append("the paged path launched the contiguous kernel")
     return counts, failures, dict(seen)
+
+
+def _first_step_logits(torch, eng, prompts, gen) -> "torch.Tensor":
+    """Submit `prompts` (`gen` tokens each) to `eng`, admit them and return
+    the (slots, V) f32 logits of its first batched decode step, on the
+    slots' state as `run()` would stage it. The step writes the K/V rows
+    `run()`'s first step writes again, so the engine may then be warmed
+    up and run."""
+    for p in prompts:
+        eng.submit(p, gen)
+    eng._admit()
+    eng._stage()
+    with torch.no_grad():
+        logits, _ = eng.lm.decode_step(eng._run_params, eng._run_qparams,
+                                       eng.caches, eng._static["tok"],
+                                       eng._static["pos"], eng._pages())
+    return logits[:, -1].float()
+
+
+def _held_to_masked(torch, label, got, want, toks, ref_toks) -> tuple:
+    """Phase 8's comparison of a pruned engine with its masked reference:
+    the first decode step's logits within MASKED_TOL of the logit range
+    with the same argmax per slot (checked), greedy-token agreement and
+    the first divergence per request (printed). Returns (ok, line)."""
+    diff = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    same_argmax = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    ok = diff <= MASKED_TOL * scale and same_argmax
+    agree, first = [], []
+    for r in sorted(ref_toks):
+        a, b = toks[r], ref_toks[r]
+        eq = a == b
+        agree.append(float(eq.mean()))
+        first.append(int(np.argmin(eq)) if not eq.all() else None)
+    line = (f"{label}: first decode step's logits vs the masked reference "
+            f"max|diff| {diff:.4f} of max|logit| {scale:.4f} (tol "
+            f"{MASKED_TOL} x, {diff / max(scale, 1e-30):.2e}), argmax "
+            f"{'equal' if same_argmax else 'DIFFERS'} "
+            f"{'ok' if ok else 'FAIL'}; greedy tokens agree "
+            f"{np.mean(agree):.3f} (per request {[round(a, 3) for a in agree]}"
+            f"), first divergence {first}")
+    return ok, line
+
+
+def phase_pruned(torch, full: dict, geta) -> tuple[dict, list[str], dict]:
+    """Phase 8 (see the module docstring). `full`: phase 5's stats per
+    mode; `geta`: phase 7's final (params, qparams, keep masks). Returns
+    the launch counts of the pruned main path, the failures and its trace
+    families summed over the modes."""
+    from collections import Counter
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import (WEIGHT_MODES,
+                                           build_masked_reference_engine,
+                                           engine_serve, synthetic_prompts)
+    from repro_torch.models.layers import LayerShapes
+    cfg = get_arch(ARCH)
+    prompts = synthetic_prompts(cfg, PROMPT_LENS, seed=0)
+    prune = dict(pruned=True, sparsity=PRUNE_SPARSITY)
+    expect = {"dense": "gemm_core.fake_quant_rhs",
+              "compressed": "gemm_core.dequant",
+              "packed_b4": "gemm_core.unpack_dequant"}
+    failures, seen, outs = [], Counter(), {}
+    ops.reset_launch_counts()
+    for mode, kw in WEIGHT_MODES.items():
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        toks, st, fails = _serve_full(torch, prompts, dict(kw, **prune))
+        wall = time.perf_counter() - t0
+        outs[mode] = toks
+        delta = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        for name, (got, _) in st["trace"].items():
+            seen[name] += got
+        f, shp = full[mode], st["shapes"]
+        kv_ok = st["kv_bytes"] * cfg.n_kv_heads == f["kv_bytes"] * 6 \
+            and shp.n_kv_heads == 6
+        blk_want = (_predicted_block_bytes(cfg, shp, mode),
+                    _predicted_block_bytes(cfg, LayerShapes.from_config(cfg),
+                                           mode))
+        blk_ok = (st["block_weight_bytes"], f["block_weight_bytes"]) == \
+            blk_want and shp.d_ff == 5734
+        epi = expect[mode].split(".")[1]
+        ok = (not fails and kv_ok and blk_ok
+              and abs(st["sparsity"] - PRUNE_SPARSITY) < 1e-3
+              and len(toks) == len(PROMPT_LENS)
+              and all(len(t) == GEN and t.min() >= 0 and t.max() < 92672
+                      for t in toks.values())
+              and delta[expect[mode]] > 0 and delta["decode_attn"] > 0
+              and st["trace"][f"gemm_small_m.{epi}"][0] > 0)
+        print(f"[8 pruned] {mode} at sparsity {st['sparsity']:.4f} (d_ff "
+              f"{shp.d_ff}, {shp.n_heads} heads, {shp.n_kv_heads} of "
+              f"{cfg.n_kv_heads} KV heads): decode "
+              f"{st['decode_tok_per_s']:.1f} tok/s vs phase 5's "
+              f"{f['decode_tok_per_s']:.1f} ({st['decode_tokens']} tokens, "
+              f"{st['decode_steps']} steps), prefill "
+              f"{st['prefill_tok_per_s']:.1f} vs "
+              f"{f['prefill_tok_per_s']:.1f} tok/s; param_bytes "
+              f"{st['param_bytes']} vs {f['param_bytes']} (x"
+              f"{st['param_bytes'] / f['param_bytes']:.4f}; allocated "
+              f"{st['param_alloc_bytes']}), block weights "
+              f"{st['block_weight_bytes']} vs {f['block_weight_bytes']} (x"
+              f"{st['block_weight_bytes'] / f['block_weight_bytes']:.4f}, "
+              f"predicted from the widths {blk_want}) "
+              f"{'ok' if blk_ok else 'FAIL'}, kv_bytes {st['kv_bytes']} vs "
+              f"{f['kv_bytes']} (6/8: {'ok' if kv_ok else 'FAIL'}); host "
+              f"launches {_nonzero(delta)}, wall {wall:.1f} s; "
+              f"{_graph_line(st)} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"pruned {mode}: {fails}")
+    counts = ops.launch_counts()
+    print(f"[8 pruned] main-path launch counts (host calls; a graph's calls "
+          f"count once, at capture): {_nonzero(counts)}; the tensor-core "
+          f"prefill copied x {counts['gemm_core.copies']} times (w_down's "
+          f"rows of 5734 bf16 = 11468 bytes)")
+    for name in [*expect.values(), "decode_attn", "fake_quant.fwd",
+                 "gemm_core.small_m", "gemm_core.tc"]:
+        if counts[name] <= 0:
+            failures.append(f"{name} never launched on the pruned path")
+    if counts["gemm_core.copies"] <= 0:
+        failures.append("no x copy on the pruned prefill (w_down K 5734)")
+
+    common = dict(max_slots=SLOTS, verbose=False, device="cuda", **prune)
+    ref_int8 = engine_serve(ARCH, False, PROMPT_LENS, GEN, compressed=True,
+                            bits_init=4.0, **common)
+    same = _same(ref_int8, outs["packed_b4"])
+    print(f"[8 pruned] packed 4-bit tokens "
+          f"{'equal' if same else 'DIFFER FROM'} the int8 run's at the same "
+          f"4-bit quantizer init {'ok' if same else 'FAIL'}")
+    if not same:
+        failures.append("pruned packed tokens differ from int8 tokens")
+    for kv_bits in (None, 8):
+        st: dict = {}
+        out = engine_serve(ARCH, False, PROMPT_LENS, GEN, paged=True,
+                           page_size=PAGE, kv_bits=kv_bits, stats=st,
+                           **WEIGHT_MODES["packed_b4"], **common)
+        full_len = all(len(t) == GEN for t in out.values())
+        if kv_bits is None:
+            ok = full_len and _same(out, outs["packed_b4"])
+            what = "tokens " + ("equal" if ok else "DIFFER FROM") + \
+                " the contiguous run's"
+            bf16_pool = st["kv_pool_bytes"]
+        else:
+            first = all(out[r][0] == outs["packed_b4"][q][0]
+                        for r, q in zip(sorted(out), sorted(outs["packed_b4"])))
+            ok = full_len and first and st["kv_pool_bytes"] < bf16_pool
+            what = (f"full-length outputs, first tokens "
+                    f"{'equal' if first else 'DIFFER FROM'} the contiguous "
+                    f"run's, pool {st['kv_pool_bytes']} B vs bf16 pages' "
+                    f"{bf16_pool} B")
+        print(f"[8 pruned] packed_b4 over {'int8' if kv_bits else 'bf16'} "
+              f"pages: {what}; decode {st['decode_tok_per_s']:.1f} tok/s, "
+              f"kv_bytes {st['kv_bytes']} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"pruned paged kv_bits={kv_bits}")
+
+    # the masked reference: the same model served dense with the pruned
+    # units multiplied by zero; bf16 sums over K = 8192 (zeros included)
+    # and K = 5734 split differently, so the logits are held to a bound
+    ref, lm = build_masked_reference_engine(
+        ARCH, False, sparsity=PRUNE_SPARSITY, max_slots=SLOTS,
+        max_seq=max(PROMPT_LENS) + GEN, device="cuda")
+    want = _first_step_logits(torch, ref, prompts, GEN)
+    ref.warmup()
+    ref_toks = ref.run()
+    del ref
+    torch.cuda.empty_cache()
+    from repro_torch.launch.engine import build_engine
+    eng, _ = build_engine(ARCH, False, max_slots=SLOTS,
+                          max_seq=max(PROMPT_LENS) + GEN, device="cuda",
+                          **prune)
+    got = _first_step_logits(torch, eng, prompts[:SLOTS], GEN)
+    del eng
+    torch.cuda.empty_cache()
+    ok, line = _held_to_masked(torch, "dense, magnitude masks", got,
+                               want[:SLOTS], outs["dense"], ref_toks)
+    print(f"[8 pruned] {line}")
+    if not ok:
+        failures.append("pruned vs masked reference logits")
+    failures += _geta_serving(torch, *geta)
+    return counts, failures, dict(seen)
+
+
+def _geta_serving(torch, params, qparams, keep) -> list[str]:
+    """Phase 7's trained model through `construct_subnet` and into the
+    engine: QASSO's keep masks (exactly k_units pruned) slice it, its
+    learned bit widths become codes; one request of GETA_GEN tokens is
+    served compressed, held to the masked reference (the trained params,
+    whose pruned units QASSO already zeroed, with the masks multiplied
+    in, served dense with the trained quantizers)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.qadg import build_qadg
+    from repro_torch.core.subnet import construct_subnet, prepare_serving
+    from repro_torch.launch.engine import Engine, synthetic_prompts
+    from repro_torch.models.transformer import LM
+    cfg = get_arch(ARCH)
+    lm = LM(cfg)
+    qadg = build_qadg(lm.build_graph().graph)
+    t0 = time.perf_counter()
+    sub = construct_subnet(qadg, params, qparams, keep)
+    codes = sum(v.numel() * v.element_size()
+                for v in sub.int_weights.values())
+    dense = sum(sub.params[k].numel() * sub.params[k].element_size()
+                for k in sub.int_weights)
+    m = sub.meta
+    print(f"[8 pruned] GETA: construct_subnet on phase 7's trained params "
+          f"and QASSO's keep masks in {time.perf_counter() - t0:.2f} s: "
+          f"sparsity {m['sparsity']:.4f}, {m['n_sites']} sites at mean "
+          f"{m['mean_bits']:.3f} bits ({m['mean_storage_bits']:.2f} "
+          f"storage), {len(sub.int_weights)} weights as codes: {codes} B "
+          f"vs {dense} B as sliced dense weights (x{codes / dense:.4f})")
+    failures = []
+    if abs(m["sparsity"] - PRUNE_SPARSITY) > 1e-3:
+        failures.append("GETA subnet sparsity")
+    del sub
+    torch.cuda.empty_cache()
+    prompt = synthetic_prompts(cfg, [128], seed=3)
+    p, q, meta = prepare_serving(lm, params, qparams, keep_masks=keep,
+                                 compressed=True)
+    eng = Engine(lm, p, q, max_slots=1, max_seq=128 + GETA_GEN)
+    masked = qadg.space.apply_masks(params, keep)
+    ref = Engine(LM(cfg), masked, qparams, max_slots=1,
+                 max_seq=128 + GETA_GEN)
+    logits, toks = [], []
+    for e in (eng, ref):
+        logits.append(_first_step_logits(torch, e, prompt, GETA_GEN))
+        e.warmup()
+        toks.append(e.run())
+    ok, line = _held_to_masked(torch, "GETA, QASSO's masks, compressed",
+                               logits[0], logits[1], toks[0], toks[1])
+    full = all(len(t) == GETA_GEN for t in toks[0].values())
+    print(f"[8 pruned] {line}; served {GETA_GEN} tokens at sparsity "
+          f"{meta['sparsity']:.4f}, param_bytes {meta['param_bytes']}, "
+          f"kv_bytes {eng.kv_bytes()} {'ok' if ok and full else 'FAIL'}")
+    if not (ok and full):
+        failures.append("GETA subnet vs masked reference")
+    del eng, ref, masked, p
+    torch.cuda.empty_cache()
+    return failures
 
 
 LONG_PROMPT = 4096     # past attn_block_threshold: attention_blockwise
@@ -1379,9 +1708,10 @@ def _bitwise(torch, a, b) -> bool:
     return a.shape == b.shape and torch.equal(a, b)
 
 
-def phase_train(torch) -> tuple[dict, dict, list[str]]:
+def phase_train(torch) -> tuple[dict, dict, list[str], tuple]:
     """Phase 7 (see the module docstring). Returns (launch counts of
-    `train_loop`, launch counts of the `.colmask` step, failures)."""
+    `train_loop`, launch counts of the `.colmask` step, failures, the
+    final params, quantizers and QASSO keep masks)."""
     from repro_torch.configs import CompressionConfig, get_arch
     from repro_torch.core.quant import bit_width
     from repro_torch.kernels import ops
@@ -1451,6 +1781,7 @@ def phase_train(torch) -> tuple[dict, dict, list[str]]:
     # one loss-and-gradient pass with .colmask params, quantized and not,
     # its launches counted from 0 on their own
     params, qparams = state["params"], state["qparams"]
+    geta = (params, qparams, keep)       # phase 8 serves the trained subnet
     del state
     torch.cuda.empty_cache()
     batch = T.batch_for(lm_cfg, 0, 5, TRAIN_BATCH, TRAIN_SEQ, device="cuda")
@@ -1483,7 +1814,7 @@ def phase_train(torch) -> tuple[dict, dict, list[str]]:
           f"{rel:.1e}, tol 1e-3) {check(rel < 1e-3, 'colmask plain loss')}; "
           f"launches {colmask_counts} predicted {want_c} "
           f"{check(colmask_counts == want_c, 'colmask launch counts')}")
-    del params, qparams, masked, ones, zeroed, batch
+    del masked, ones, zeroed, batch
     torch.cuda.empty_cache()
 
     # two runs of a joint step 0 from one seeded state
@@ -1544,7 +1875,7 @@ def phase_train(torch) -> tuple[dict, dict, list[str]]:
           f"{check(ok, 'act_quant smoke step card vs cpu')}; reported: "
           + ", ".join(f"{k} {diff[k]:.1e}" for k in (
               "params", "d", "q_m", "t", "act_d", "act_q_m", "act_t")))
-    return counts, colmask_counts, failures
+    return counts, colmask_counts, failures, geta
 
 
 def main(argv=None) -> int:
@@ -1581,12 +1912,16 @@ def main(argv=None) -> int:
     smoke_counts, smoke_failures = phase_correctness(torch)
     failures += smoke_failures
     failures += phase_long(torch)
-    counts, outs, engine_failures, seen = phase_engine(torch)
+    counts, outs, engine_failures, seen, full_stats = phase_engine(torch)
     failures += engine_failures
     paged_counts, paged_failures, paged_seen = phase_paged(torch, outs)
     failures += paged_failures
-    train_counts, colmask_counts, train_fail = phase_train(torch)
+    train_counts, colmask_counts, train_fail, geta = phase_train(torch)
     failures += train_fail
+    pruned_counts, pruned_fail, pruned_seen = phase_pruned(torch, full_stats,
+                                                           geta)
+    failures += pruned_fail
+    del geta
 
     if args.out:
         out = Path(args.out)
@@ -1596,6 +1931,8 @@ def main(argv=None) -> int:
              "paged_launches": paged_counts, "traced_kernels": seen,
              "paged_traced_kernels": paged_seen,
              "train_launches": train_counts,
+             "pruned_launches": pruned_counts,
+             "pruned_traced_kernels": pruned_seen,
              "colmask_launches": colmask_counts,
              "smoke_launches": smoke_counts},
             indent=1, default=str))
@@ -1642,6 +1979,25 @@ def main(argv=None) -> int:
             "kernels_per_launch": row["kernels_per_call"],
             **({"rows_per_split_ms": row["rows_ms"],
                 "at_S4096": row["at_S4096"]} if "at_S4096" in row else {})})
+    # the decode GEMMs at sparsity 0.3's widths, launched by phase 8
+    for K, N in PRUNED_GEMMS:
+        for label in PRUNED_EPIS:
+            base = _report_name(label)
+            row = report[f"{base}.pruned.{K}x{N}"]
+            epi = base.split(".")[1]
+            kernels.append({
+                "name": f"{base}.pruned.{K}x{N}", "route": "cuda",
+                "source": gemm[0], "replaces": gemm[1],
+                "launches": pruned_counts[base],
+                "traced_device_launches": pruned_seen[f"gemm_small_m.{epi}"],
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "shape": f"M={row['M']} K={K} N={N}"
+                         + (" bits=4" if "unpack" in base else "")
+                         + " rows padded to 16 bytes",
+                "variant": row["variant"],
+                "kernels_per_launch": row["kernels_per_call"]})
     fq_src = "src/repro_torch/kernels/csrc/fake_quant.cu"
     train_src = {"fake_quant.fwd": (fq_src,
                                     "src/repro/kernels/fake_quant.py:31"),

@@ -12,9 +12,12 @@ artifact). `--paged` swaps the per-slot contiguous KV arena for the paged
 one: page-granular KV, identical prompts share refcounted pages and skip
 their prefill (`--hot-prompt` sends every request the same prompt; watch
 `prefix_hits`), and `--kv-bits 8|4` stores the pages as int8 or int4
-codes. The modes the port does not have yet (`--pruned`,
-`--speculative`, `--tp`, `--devices`, `--chunked-prefill`) raise
-NotImplementedError naming the ROADMAP item that brings them.
+codes. `--pruned --sparsity S` serves the physically sliced subnet at
+magnitude masks of sparsity S (fewer KV heads and MLP units: smaller
+GEMMs and KV arena), in any weight mode and arena. The modes the port
+does not have yet (`--speculative`, `--tp`, `--devices`,
+`--chunked-prefill`) raise NotImplementedError naming the ROADMAP item
+that brings them.
 
 Runs on CUDA by default; `--device cpu` runs the kernels' plain PyTorch
 versions and decodes its windows eagerly:
@@ -25,6 +28,9 @@ versions and decodes its windows eagerly:
     PYTHONPATH=src python examples/serve_engine_torch.py --paged \
         --kv-bits 8 --hot-prompt --prompt-lens 16,16,16,9 --gens 12 \
         --slots 2 --device cpu
+
+    PYTHONPATH=src python examples/serve_engine_torch.py --pruned \
+        --sparsity 0.3 --compressed --device cpu
 """
 import argparse
 
@@ -67,9 +73,11 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
-    # the reference example's modes that come with later slices
-    ap.add_argument("--pruned", action="store_true", default=False)
+    ap.add_argument("--pruned", action="store_true", default=False,
+                    help="serve the physically sliced subnet at magnitude "
+                         "masks of --sparsity")
     ap.add_argument("--sparsity", type=float, default=0.5)
+    # the reference example's modes that come with later slices
     ap.add_argument("--speculative", action="store_true", default=False)
     ap.add_argument("--draft-k", type=int, default=4)
     ap.add_argument("--draft-sparsity", type=float, default=0.5)
@@ -99,6 +107,7 @@ def main(argv=None):
                            verbose=True, device=args.device,
                            paged=args.paged, page_size=args.page_size,
                            kv_bits=args.kv_bits, pruned=args.pruned,
+                           sparsity=args.sparsity,
                            speculative=args.speculative, tp=args.tp,
                            prefill_chunk=args.chunked_prefill)
     prompts = synthetic_prompts(lm.cfg, lens)

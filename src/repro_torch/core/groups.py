@@ -75,6 +75,12 @@ class PruningSpace:
     def prunable_families(self) -> list[GroupFamily]:
         return [f for f in self.families if f.prunable]
 
+    def init_masks(self, device=None) -> dict:
+        """All-keep (units,) f32 masks, one per prunable family."""
+        return {f.name: torch.ones((f.units,), dtype=torch.float32,
+                                   device=device)
+                for f in self.prunable_families()}
+
     def total_units(self) -> int:
         return sum(f.units for f in self.prunable_families())
 
@@ -89,6 +95,25 @@ class PruningSpace:
                 out[m.param] = arr * broadcast_to_axis(
                     am.to(arr.dtype), arr.ndim, m.axis)
         return out
+
+    def member_view(self, arr: torch.Tensor, member: Member,
+                    units: int) -> torch.Tensor:
+        """One member tensor as (units, -1): row i is unit i's slice."""
+        a = torch.movedim(arr, member.axis, 0)
+        n = a.shape[0]
+        a = a.reshape(n, -1)
+        if member.layout == "contiguous":
+            return a.reshape(units, -1)
+        a = a.reshape(member.unit_size, units, a.shape[1])
+        return torch.movedim(a, 1, 0).reshape(units, -1)
+
+    def group_matrix(self, params: dict, family: GroupFamily
+                     ) -> torch.Tensor:
+        """(units, W) f32 matrix of every member slice per unit, members
+        side by side: the [x]_g view of magnitude scores."""
+        return torch.cat([self.member_view(params[m.param].to(torch.float32),
+                                           m, family.units)
+                          for m in family.members], dim=1)
 
     def materialize(self, params: dict, masks: dict
                     ) -> tuple[dict, dict[str, np.ndarray]]:

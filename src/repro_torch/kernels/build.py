@@ -36,8 +36,8 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 # C signatures of the exported launchers (see the csrc headers)
 SIGNATURES = {
-    "repro_gemm": (_P, _I, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _I,
-                   _I, _I, _I, _I, _I, _P),
+    "repro_gemm": (_P, _I, _LL, _P, _I, _LL, _I, _I, _P, _I, _P, _P, _P,
+                   _P, _I, _I, _I, _I, _I, _I, _P),
     "repro_gemm_tc": (_P, _LL, _I, _P, _I, _LL, _I, _I, _I, _P, _I, _P, _P,
                       _P, _P, _I, _I, _I, _I, _I, _P),
     "repro_decode_attn": (_P, _I, _P, _P, _I, _P, _I, _LL, _P, _P, _I, _I,

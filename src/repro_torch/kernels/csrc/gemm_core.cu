@@ -103,6 +103,20 @@
 // Rounding uses rintf (ties to even, like torch.round and jnp.round).
 // Packed fields decode only for k < K; the zero tail of the last word is
 // never relied on.
+//
+// Ragged widths: any N >= 1 and K >= 1, as pruning leaves them (d_ff 8192
+// at sparsity 0.3 keeps 5734 units: N = 5734 for w_gate, K = 5734 for
+// w_down). The small-M and SIMT variants read w with rows ldw >= N
+// elements apart, ldw a multiple of 4 on a base aligned to 4 columns
+// (16-byte rows load whole chunks; the serving path stores pruned weights
+// so, `gemm_core.aligned_rows`), and x at any row stride lda; the wrapper
+// copies any other weight into 16-byte rows (counted). A chunk or 4-column
+// group that straddles N reads the row's padding, which feeds only columns
+// past N. Stores and the per-column scale or mask are masked per column
+// (N % 4 != 0 stores column by column). The tensor-core variant's TMA
+// needs 16-byte rows and zero-fills past N and K; the wrapper copies an
+// operand whose rows TMA cannot take (counted), and odd N stores column
+// by column.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -216,9 +230,12 @@ __device__ __forceinline__ uint4 ld_stream(const void* p) {
 }
 
 // The chunk of `row` at columns col .. col + C - 1, C = 16 / sizeof(WT),
-// col a multiple of C; zero past N. With `vec` (16-byte aligned rows, so
-// N % C == 0) one 16-byte load; otherwise one load per 4 columns, which
-// N % 4 == 0 keeps aligned.
+// col a multiple of C; zero from col >= N on. With `vec` (rows 16-byte
+// aligned) one 16-byte load; otherwise one load per 4 columns, each
+// 4-column group aligned (rows a multiple of 4 columns apart on a base so
+// aligned: the wrapper copies any other weight into 16-byte rows). A chunk
+// or group that straddles N lies within its row's stride: its columns past
+// N read the row's padding and feed only outputs past N, never stored.
 template <typename WT>
 __device__ __forceinline__ uint4 load_chunk(const WT* row, int col, int N,
                                             bool vec) {
@@ -351,10 +368,10 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // The chunk at p (C = 16 / sizeof(WT) columns from col, a multiple of C)
-// into dst by cp.async; the columns past N are not copied: they feed only
-// outputs past N, which are never stored. With `vec` (16-byte aligned rows:
-// N % C == 0) one 16-byte copy; otherwise one copy per 4 columns, which
-// N % 4 == 0 keeps aligned.
+// into dst by cp.async, as `load_chunk` reads it; the columns past N that
+// are copied read the row's padding, those past the last 4-column group
+// that holds a column below N are not copied: they feed only outputs past
+// N, which are never stored.
 template <typename WT>
 __device__ __forceinline__ void copy_chunk(uint4* dst, const WT* p, int col,
                                            int N, bool vec) {
@@ -417,9 +434,10 @@ __host__ __device__ constexpr int sm_smem_bytes(int win) {
 // MT = 4 keeps its registers within 128 so two blocks share an SM
 template <int EPI, typename WT, int BITS, int MT>
 __global__ void __launch_bounds__(SM_THREADS, MT <= 4 ? 2 : 1)
-gemm_small_m(const void* __restrict__ x, int x_bf16,
-             const void* __restrict__ w, EpiArgs e, void* __restrict__ out,
-             int out_bf16, int M, int N, int K, int k_slice) {
+gemm_small_m(const void* __restrict__ x, int x_bf16, long long lda,
+             const void* __restrict__ w, long long ldw, EpiArgs e,
+             void* __restrict__ out, int out_bf16, int M, int N, int K,
+             int k_slice) {
   using Tr = ChunkTraits<EPI, WT, BITS>;
   constexpr int CPW = Tr::kCpw, CC = Tr::kCols, NCH = SM_COLS / CC;
   constexpr int STEP = SM_LOADS / NCH;           // raw rows a stage
@@ -433,9 +451,10 @@ gemm_small_m(const void* __restrict__ x, int x_bf16,
   const int kb = blockIdx.x * k_slice, ke = min(K, kb + k_slice);
   const int win = min(k_slice, SM_WINDOW), rg = win / SM_GROUPS;
   const WT* wp = static_cast<const WT*>(w);
-  const bool vec = (N * (int)sizeof(WT)) % 16 == 0;
+  const bool vec = (ldw * (int)sizeof(WT)) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 16 == 0;
   const bool x_vec =
-      K % 4 == 0 &&
+      K % 4 == 0 && lda % 4 == 0 &&
       reinterpret_cast<uintptr_t>(x) % (x_bf16 ? 8 : 16) == 0;
   int col[NCH];
 #pragma unroll
@@ -477,7 +496,7 @@ gemm_small_m(const void* __restrict__ x, int x_bf16,
       const int llo = lo / CPW, lhi = lo < hi ? (hi - 1) / CPW + 1 : llo;
       const int nsteps = (lhi - llo + STEP - 1) / STEP;
       // stages are issued in order: the next raw row to copy, its slot
-      const WT* src = wp + (long long)llo * N;
+      const WT* src = wp + (long long)llo * ldw;
       int next = llo, slot = 0;
       auto issue = [&]() {
         uint4* dst = ring + slot * SM_LOADS * SM_THREADS + tid;
@@ -488,7 +507,7 @@ gemm_small_m(const void* __restrict__ x, int x_bf16,
             for (int c = 0; c < NCH; ++c)
               copy_chunk<WT>(dst + (i * NCH + c) * SM_THREADS, src + col[c],
                              col[c], N, vec);
-          src += N;
+          src += ldw;
           ++next;
         }
         slot = slot == SM_STAGES - 1 ? 0 : slot + 1;
@@ -505,7 +524,7 @@ gemm_small_m(const void* __restrict__ x, int x_bf16,
           const int m = i / nq, q = i - m * nq;
           float t[4] = {0.f, 0.f, 0.f, 0.f};
           if (m < M) {
-            const long long o = (long long)m * K + wb + 4 * q;
+            const long long o = (long long)m * lda + wb + 4 * q;
             if (x_bf16) {
               const uint2 u = *reinterpret_cast<const uint2*>(
                   static_cast<const __nv_bfloat16*>(x) + o);
@@ -527,7 +546,7 @@ gemm_small_m(const void* __restrict__ x, int x_bf16,
           const int m = i / nk, kk = i - m * nk;
           float t = 0.f;
           if (m < M) {
-            const long long o = (long long)m * K + wb + kk;
+            const long long o = (long long)m * lda + wb + kk;
             t = x_bf16 ? to_f32(static_cast<const __nv_bfloat16*>(x)[o])
                        : static_cast<const float*>(x)[o];
           }
@@ -665,9 +684,9 @@ struct GmTraits : ChunkTraits<EPI, WT, BITS> {
 
 template <int EPI, typename WT, int BITS>
 __global__ void __launch_bounds__(GM_THREADS, 2)
-gemm_general(const float* __restrict__ x, const void* __restrict__ w,
-             EpiArgs e, void* __restrict__ out, int out_bf16, int M, int N,
-             int K) {
+gemm_general(const float* __restrict__ x, long long lda,
+             const void* __restrict__ w, long long ldw, EpiArgs e,
+             void* __restrict__ out, int out_bf16, int M, int N, int K) {
   using Tr = GmTraits<EPI, WT, BITS>;
   constexpr int CC = Tr::kCols, PT = Tr::kPerThread, CPW = Tr::kCpw;
   __shared__ __align__(16) float As[GM_STAGES][GM_BM][GM_APITCH];
@@ -676,8 +695,10 @@ gemm_general(const float* __restrict__ x, const void* __restrict__ w,
   const int m0 = blockIdx.y * GM_BM, n0 = blockIdx.x * GM_BN;
   const int nsteps = (K + GM_BK - 1) / GM_BK;
   const WT* wp = static_cast<const WT*>(w);
-  const bool vec = (N * (int)sizeof(WT)) % 16 == 0;
-  const bool x_vec = K % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const bool vec = (ldw * (int)sizeof(WT)) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const bool x_vec = K % 4 == 0 && lda % 4 == 0 &&
+                     (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   const int raw_rows = (K + CPW - 1) / CPW;
   // the thread's chunks are q = tid + i * 256 of a step's kRows x kPerRow;
   // 256 is a multiple of kPerRow, so their columns are the same every step
@@ -703,7 +724,7 @@ gemm_general(const float* __restrict__ x, const void* __restrict__ w,
       const int q = tid + i * GM_THREADS;
       const int rr = r0 + q / Tr::kPerRow;
       raw[i] = q < Tr::kChunks && rr < raw_rows
-                   ? load_chunk<WT>(wp + (long long)rr * N, ccol, N, vec)
+                   ? load_chunk<WT>(wp + (long long)rr * ldw, ccol, N, vec)
                    : make_uint4(0u, 0u, 0u, 0u);
     }
   };
@@ -762,12 +783,12 @@ gemm_general(const float* __restrict__ x, const void* __restrict__ w,
       float* dst = &As[stage][r][c];
       if (x_vec) {
         const bool ok = m < M && k < K;
-        cp_async16(dst, ok ? x + (long long)m * K + k : x, ok ? 16 : 0);
+        cp_async16(dst, ok ? x + (long long)m * lda + k : x, ok ? 16 : 0);
       } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const bool ok = m < M && k + j < K;
-          cp_async4(dst + j, ok ? x + (long long)m * K + k + j : x,
+          cp_async4(dst + j, ok ? x + (long long)m * lda + k + j : x,
                     ok ? 4 : 0);
         }
       }
@@ -835,11 +856,15 @@ gemm_general(const float* __restrict__ x, const void* __restrict__ w,
     if (m >= M) continue;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int n = n0 + h * 64 + tx * 4;      // N % 4 == 0: all four or none
+      const int n = n0 + h * 64 + tx * 4;
       if (n >= N) continue;
       const long long o = (long long)m * N + n;
       const float* v = &acc[i][4 * h];
-      if (out_bf16) {
+      if (N % 4) {           // rows not 16-byte aligned: column by column
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (n + j < N) store_out(out, out_bf16, o + j, v[j]);
+      } else if (out_bf16) {
         __nv_bfloat16* p = static_cast<__nv_bfloat16*>(out) + o;
         __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
         q[0] = __floats2bfloat162_rn(v[0], v[1]);
@@ -1324,15 +1349,19 @@ gemm_tc(const __grid_constant__ CUtensorMap ta,
       for (int half = 0; half < 2; ++half) {
         const int row = m0 + (r * H + h) * 64 + w * 16 + (l >> 2) + half * 8;
         const int col = n0 + g * 64 + j * 8 + (l & 3) * 2;
-        if (row >= M || col >= N) continue;     // N is even: col + 1 < N
+        if (row >= M || col >= N) continue;
+        const bool pair = col + 1 < N;
         float v0 = acc[h][j * 4 + half * 2] * d;
         float v1 = acc[h][j * 4 + half * 2 + 1] * d;
         if (e.scale != nullptr) {
           v0 *= e.scale[col * e.scale_stride];
-          v1 *= e.scale[(col + 1) * e.scale_stride];
+          if (pair) v1 *= e.scale[(col + 1) * e.scale_stride];
         }
         const long long o = static_cast<long long>(row) * N + col;
-        if (out_bf16)
+        if (N % 2) {        // odd N: rows not 4-byte aligned, one by one
+          store_out(out, out_bf16, o, v0);
+          if (pair) store_out(out, out_bf16, o + 1, v1);
+        } else if (out_bf16)
           *reinterpret_cast<__nv_bfloat162*>(
               static_cast<__nv_bfloat16*>(out) + o) =
               __floats2bfloat162_rn(v0, v1);
@@ -1496,8 +1525,8 @@ cudaError_t tc_by_epilogue(int epi, int w_dtype, int bits, const TcCall& c) {
 }
 
 struct GemmCall {
-  const void* x; int x_bf16; const void* w; EpiArgs e; void* out;
-  int out_bf16; int M, N, K, cluster, k_slice;
+  const void* x; int x_bf16; long long lda; const void* w; long long ldw;
+  EpiArgs e; void* out; int out_bf16; int M, N, K, cluster, k_slice;
   cudaStream_t st;
 };
 
@@ -1521,8 +1550,8 @@ cudaError_t launch_small_m(const GemmCall& c) {
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kern, c.x, c.x_bf16, c.w, c.e, c.out,
-                            c.out_bf16, c.M, c.N, c.K, c.k_slice);
+  return cudaLaunchKernelEx(&cfg, kern, c.x, c.x_bf16, c.lda, c.w, c.ldw,
+                            c.e, c.out, c.out_bf16, c.M, c.N, c.K, c.k_slice);
 }
 
 // M <= 8: the small-M variant, with 4 or 8 rows of accumulators; M > 8
@@ -1534,8 +1563,8 @@ cudaError_t launch(const GemmCall& c) {
   if (c.x_bf16) return cudaErrorInvalidValue;
   dim3 grid((c.N + GM_BN - 1) / GM_BN, (c.M + GM_BM - 1) / GM_BM);
   gemm_general<EPI, WT, BITS><<<grid, GM_THREADS, 0, c.st>>>(
-      static_cast<const float*>(c.x), c.w, c.e, c.out, c.out_bf16, c.M, c.N,
-      c.K);
+      static_cast<const float*>(c.x), c.lda, c.w, c.ldw, c.e, c.out,
+      c.out_bf16, c.M, c.N, c.K);
   return cudaGetLastError();
 }
 
@@ -1570,15 +1599,18 @@ cudaError_t by_epilogue(int epi, int w_dtype, int bits, const GemmCall& c) {
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success). Pointers are device
-// pointers; x is (M, K) row-major (f32 or bf16; f32 only when M > 8), w
-// (K, N) or (ceil(K/cpw), N) row-major, out (M, N) row-major (f32 or bf16);
-// scale has N floats (scale_stride 1) or one (scale_stride 0). N must be a
-// multiple of 4 and w 16-byte aligned. When M <= 8, `cluster` blocks of
+// pointers; x is (M, K) with rows lda elements apart (f32 or bf16; f32 only
+// when M > 8), w (K, N) or (ceil(K/cpw), N) with rows ldw elements apart,
+// out (M, N) row-major (f32 or bf16); scale has N floats (scale_stride 1) or
+// one (scale_stride 0). Any N >= 1 and K >= 1; ldw a multiple of 4 and w's
+// base aligned to 4 columns (16 bytes for 4-byte types). When M <= 8,
+// `cluster` blocks of
 // `k_slice` K rows each share a column strip (gemm_core.small_m_plan):
 // 1 <= cluster <= 8, k_slice a multiple of 256 and, above 2048, of 2048,
 // and every block holds a row of K.
-extern "C" int repro_gemm(const void* x, int x_dtype, const void* w,
-                          int w_dtype, int epi, int bits, const float* scale,
+extern "C" int repro_gemm(const void* x, int x_dtype, long long lda,
+                          const void* w, int w_dtype, long long ldw, int epi,
+                          int bits, const float* scale,
                           int scale_stride, const float* fq_d,
                           const float* fq_qm, const float* fq_t, void* out,
                           int out_dtype, int M, int N, int K, int cluster,
@@ -1592,9 +1624,13 @@ extern "C" int repro_gemm(const void* x, int x_dtype, const void* w,
        (k_slice <= SM_WINDOW || k_slice % SM_WINDOW == 0) &&
        (long long)(cluster - 1) * k_slice < K &&
        (long long)cluster * k_slice >= K);
-  if (!dt_ok || !plan_ok || M < 1 || N < 1 || K < 1 || N % 4)
+  const int w_size = w_dtype == DT_BF16 || w_dtype == DT_I16 ? 2
+                     : w_dtype == DT_I8 ? 1 : 4;
+  const bool w_ok = ldw >= N && ldw % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(w) % (4 * w_size) == 0;
+  if (!dt_ok || !plan_ok || !w_ok || M < 1 || N < 1 || K < 1 || lda < K)
     return cudaErrorInvalidValue;
-  const GemmCall c{x, x_dtype == DT_BF16, w,
+  const GemmCall c{x, x_dtype == DT_BF16, lda, w, ldw,
                    EpiArgs{scale, scale_stride, fq_d, fq_qm, fq_t}, out,
                    out_dtype == DT_BF16, M, N, K, cluster, k_slice,
                    static_cast<cudaStream_t>(stream)};
@@ -1605,8 +1641,9 @@ extern "C" int repro_gemm(const void* x, int x_dtype, const void* w,
 // elements apart, or with x_transposed the view of a (K, M) array with rows
 // lda apart; w is (K, N) (or (ceil(K/cpw), N) words) with rows ldb apart,
 // or with w_transposed (float weights only) the view of an (N, K) array.
-// Both base addresses and row strides must be multiples of 16 bytes, and N
-// even. bm: rows per block, 128 or 256 (`gemm_core.tc_block_m`); it never
+// Both base addresses and row strides must be multiples of 16 bytes (TMA);
+// N and K are any (TMA zero-fills past them; odd N stores column by
+// column). bm: rows per block, 128 or 256 (`gemm_core.tc_block_m`); it never
 // changes the sums, only how the rows are shared out. No split-K, no
 // workspace. Returns the cudaError_t of the launch;
 // cudaErrorInvalidValue for a combination it does not take or a tensor map

@@ -26,14 +26,26 @@ launch failed. There is no fallback from one to the other. On the card,
            their partials over DSMEM in a fixed order (`small_m_plan`)
   tc       M > 8, bf16 x: wgmma tiles fed by TMA, which reads x and w in
            place, row-major or as a transposed view (`x.T`, `w.T`); int
-           codes and packed words row-major only. A row stride TMA cannot
-           take (not a multiple of 16 bytes) raises.
+           codes and packed words row-major only.
   simt     M > 8, f32 x: a register-tiled SGEMM (128x128 tiles) in f32
-           FMAs, on contiguous copies of x and w (the f32 configuration's
-           1e-4 card-vs-CPU parity rests on it)
+           FMAs (the f32 configuration's 1e-4 card-vs-CPU parity rests on
+           it)
+
+Every variant takes any N >= 1 and K >= 1: the widths pruning leaves
+(d_ff 8192 at sparsity 0.3 keeps 5734 units) included. The serving path
+stores every weight whose rows are not 16-byte multiples with its rows
+padded (`aligned_rows`, once, in `core.subnet.prepare_serving`), so the
+kernels load it in whole 16-byte chunks and TMA reads it in place. The
+wrapper copies into such rows any operand a variant cannot read in place
+(`operands`): for the tensor-core variant rows that are not 16-byte
+multiples (w_down's input x at K = 5734), for the others a weight whose
+rows are not a multiple of 4 columns apart (their 4-column loads); they
+read a row-major x at any row stride.
 
 `gemm.launches` counts kernel launches: the GEMM kernel per epilogue name
-and per variant. Every call is one launch. Only the CUDA path adds to it.
+and per variant (every call is one launch), and under "copies" the
+operand copies the wrapper made before a launch. Only the CUDA path adds
+to it.
 """
 from __future__ import annotations
 
@@ -63,6 +75,7 @@ SMALL_M_MAX = 8      # rows the kernel's small-M (decode) variant takes
 _SMALL_M_BN, _SMALL_M_GROUPS, _SMALL_M_WINDOW = 128, 32, 2048
 SMALL_M_CLUSTER_MAX = 8
 _TC_BN = 128         # columns per block of the tensor-core variant
+_ROW_ALIGN = 16      # bytes: TMA's row stride, the kernels' chunk
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,47 +207,81 @@ def tc_block_m(M: int, N: int, sm_count: int) -> int:
     return 256 if waves(256) < waves(128) else 128
 
 
-def tma_layout(t: torch.Tensor, name: str) -> tuple[torch.Tensor, int, bool]:
-    """(t, ld, transposed) for the tensor-core variant: a 2-D operand that
-    is row-major (strides (ld, 1)) or the transposed view of a row-major
-    array (strides (1, ld)) is read in place; any other layout is copied
-    row-major first. Raises if TMA cannot take the rows: ld bytes or the
-    base address not a multiple of 16."""
+def padded_ld(cols: int, itemsize: int) -> int:
+    """The leading dimension of rows of `cols` elements padded to the next
+    multiple of 16 bytes."""
+    per = _ROW_ALIGN // itemsize
+    return -(-cols // per) * per
+
+
+def aligned_rows(t: torch.Tensor) -> torch.Tensor:
+    """t itself when its rows (the last dim, unit stride) start 16 bytes
+    apart on a 16-byte aligned base, else a copy whose rows are padded with
+    zeros to the next 16 bytes, viewed at t's shape (`[..., :N]` of the
+    padded allocation): the layout the small-M variant loads in whole
+    chunks and TMA reads in place. The logical shape and values are t's."""
+    cols, es = t.shape[-1], t.element_size()
+    if (t.stride(-1) == 1 and (t.stride(-2) * es) % _ROW_ALIGN == 0
+            and t.data_ptr() % _ROW_ALIGN == 0):
+        return t
+    out = torch.zeros((*t.shape[:-1], padded_ld(cols, es)), dtype=t.dtype,
+                      device=t.device)
+    out[..., :cols] = t
+    return out[..., :cols]
+
+
+def _copied(t: torch.Tensor) -> tuple[torch.Tensor, int, bool]:
+    """(copy, ld, False): a row-major copy of the 2-D t in a fresh
+    allocation, its rows `padded_ld` elements apart (the padding is
+    uninitialised: TMA reads nothing past N or K, and the other variants'
+    columns past N are never stored); counted in `gemm.launches["copies"]`
+    on the card."""
+    if t.is_cuda:
+        gemm.launches["copies"] += 1
+    rows, cols = t.shape
+    ld = padded_ld(cols, t.element_size())
+    out = torch.empty((rows, ld), dtype=t.dtype, device=t.device)[:, :cols]
+    out.copy_(t)
+    return out, ld, False
+
+
+def _in_place(t: torch.Tensor, transposed_ok: bool, align: int):
+    """(t, ld, transposed) if a variant can read t where it lies: row-major
+    (strides (ld, 1)) or, where `transposed_ok`, the transposed view of a
+    row-major array (strides (1, ld)), its rows a multiple of `align`
+    bytes apart on a base so aligned. Else None."""
     rows, cols = t.shape
     s0, s1 = t.stride()
     if s1 == 1 and s0 >= cols:
         ld, transposed = s0, False
-    elif s0 == 1 and s1 >= rows:
+    elif transposed_ok and s0 == 1 and s1 >= rows:
         ld, transposed = s1, True
     else:
-        t = t.contiguous()
-        ld, transposed = cols, False
-    if (ld * t.element_size()) % 16 or t.data_ptr() % 16:
-        raise ValueError(
-            f"gemm: TMA needs {name}'s rows 16-byte aligned: shape "
-            f"{tuple(t.shape)}, stride {t.stride()}, {t.dtype}, address "
-            f"{t.data_ptr():#x}")
+        return None
+    if (ld * t.element_size()) % align or t.data_ptr() % align:
+        return None
     return t, ld, transposed
 
 
 def operands(x: torch.Tensor, w: torch.Tensor, epi: Epilogue):
     """(variant, (x, lda, x_transposed), (w, ldb, w_transposed)): the
-    kernel a CUDA call launches and its operands as it reads them. The
-    tensor-core variant takes x and w in place (`tma_layout`); the others
-    take contiguous copies. Raises on what the variant does not take."""
+    kernel a CUDA call launches and its operands as it reads them, in
+    place where the variant can (`_in_place`), else copied into 16-byte
+    rows (`_copied`). The tensor-core variant reads x and w with 16-byte
+    rows (TMA), row-major or transposed; the others read x row-major at any
+    stride and w row-major with rows a multiple of 4 columns apart on a
+    base so aligned (their 4-column loads; 16-byte rows load whole
+    chunks). Raises on transposed codes, which no variant reads."""
     kind = variant(x.shape[0], x.dtype)
-    if kind == TC:
-        x, w = tma_layout(x, "x"), tma_layout(w, "w")
-        if w[2] and epi.name in (DEQUANT, UNPACK):
-            raise ValueError(f"gemm {epi.name}: the codes must be row-major "
-                             f"(K, N), not a transposed view")
-    else:
-        x, w = ((t.contiguous(), t.shape[1], False) for t in (x, w))
-    if w[0].shape[1] % 4 or w[0].data_ptr() % 16:
-        raise ValueError(f"gemm: the kernel writes and loads columns in "
-                         f"groups and needs N % 4 == 0 and a 16-byte "
-                         f"aligned w (N={w[0].shape[1]})")
-    return kind, x, w
+    tc = kind == TC
+    x_op = (_in_place(x, tc, _ROW_ALIGN if tc else x.element_size())
+            or _copied(x))
+    w_align = _ROW_ALIGN if tc else min(_ROW_ALIGN, 4 * w.element_size())
+    w_op = _in_place(w, tc, w_align) or _copied(w)
+    if w_op[2] and epi.name in (DEQUANT, UNPACK):
+        raise ValueError(f"gemm {epi.name}: the codes must be row-major "
+                         f"(K, N), not a transposed view")
+    return kind, x_op, w_op
 
 
 def gemm(x: torch.Tensor, w: torch.Tensor, epi: Epilogue, *,
@@ -290,9 +337,9 @@ def gemm(x: torch.Tensor, w: torch.Tensor, epi: Epilogue, *,
             plan = small_m_plan(M, N, K, build.sm_count(dev))
             cluster, k_slice = plan.cluster, plan.k_slice
         err = lib.repro_gemm(
-            x.data_ptr(), _DTYPE_CODE[x.dtype], w.data_ptr(),
-            _DTYPE_CODE[w.dtype], _EPI_CODE[epi.name], epi.bits, ptr(scale),
-            scale_stride, *map(ptr, fq), out.data_ptr(),
+            x.data_ptr(), _DTYPE_CODE[x.dtype], lda, w.data_ptr(),
+            _DTYPE_CODE[w.dtype], ldb, _EPI_CODE[epi.name], epi.bits,
+            ptr(scale), scale_stride, *map(ptr, fq), out.data_ptr(),
             _DTYPE_CODE[out_dtype], M, N, K, cluster, k_slice, stream)
     build.check(err, f"gemm {epi.name} {kind} (M={M}, N={N}, K={K})")
     gemm.launches[epi.name] += 1
@@ -300,7 +347,8 @@ def gemm(x: torch.Tensor, w: torch.Tensor, epi: Epilogue, *,
     return out
 
 
-gemm.launches = {name: 0 for name in (*_EPI_CODE, SMALL_M, TC, SIMT)}
+gemm.launches = {name: 0 for name in (*_EPI_CODE, SMALL_M, TC, SIMT,
+                                      "copies")}
 
 
 def bytes_moved(M: int, N: int, K: int, x_itemsize: int, w: torch.Tensor,

@@ -162,7 +162,8 @@ def paged_decode_attn_op(q, kpool, vpool, pos, page_table, *, page_size,
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches so far, by kernel variant (GEMM epilogue, fake-quant
-    direction, page storage).
+    direction, page storage), and `gemm_core.copies`: the operand copies
+    the GEMM wrapper made before its launches (`gemm_core.operands`).
 
     The wrappers count host calls that launched (or, under CUDA graph
     capture, recorded) their kernel. A captured graph's calls are counted

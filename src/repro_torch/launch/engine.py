@@ -1,6 +1,6 @@
 """Continuous-batching serving engine: port of `repro.launch.engine.Engine`
-with its contiguous and paged KV arenas, without its speculative, chunked
-and tensor-parallel modes.
+with its contiguous and paged KV arenas and its pruned (slim) mode,
+without its speculative, chunked and tensor-parallel modes.
 
 - Requests queue with their own prompt and token budget; a finished
   request frees its slot and the next queued request is admitted.
@@ -17,6 +17,12 @@ and tensor-parallel modes.
   whole pages of it into the pools.
 - Slots decode together in one batched step at per-slot positions; each
   step writes every slot's K/V row in place.
+- A pruned engine (`build_engine(pruned=True)` or `keep_masks=`) serves
+  the physically sliced subnet: `prepare_serving` slices the weights and
+  installs the SlimPlan on the LM, so every GEMM runs at the surviving
+  widths and the KV arena holds the surviving KV heads only.
+  `build_masked_reference_engine` is its oracle: the same model with the
+  pruned units multiplied by zero, token-identical.
 - `run()` decodes in event-free windows of up to `MAX_WINDOW` steps, the
   counterpart of the JAX engine's compiled `lax.scan` window: on CUDA,
   `warmup()` captures one CUDA graph per power-of-two window length over
@@ -43,8 +49,9 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.core.quant import kv_quant_encode
-from repro_torch.core.subnet import (compression_report, prepare_serving,
-                                     tree_bytes)
+from repro_torch.core.subnet import (compression_report,
+                                     masked_reference_params,
+                                     prepare_serving, tree_bytes)
 from repro_torch.kernels import ops as Kops
 from repro_torch.launch import paging
 from repro_torch.launch.scheduler import OneShotScheduler
@@ -149,6 +156,8 @@ class Engine:
         self.graph_launches: dict[int, dict[str, int]] = {}
         self.replays: Counter = Counter()
         self.graph_pool_bytes = 0
+        # what `build_engine`'s prepare_serving reported (sparsity, bytes)
+        self.serving_meta: dict = {}
 
     # ------------------------------------------------------------ requests
     def submit(self, prompt, max_new_tokens: int) -> int:
@@ -660,10 +669,9 @@ WEIGHT_MODES = {"dense": {}, "compressed": dict(compressed=True),
                 "packed_b4": dict(packed=True, bits_init=4.0)}
 
 
-def _reject_later_modes(pruned=False, speculative=False, tp=0,
+def _reject_later_modes(speculative=False, tp=0,
                         prefill_chunk=None) -> None:
     for on, what, where in (
-            (pruned, "pruned serving", "ROADMAP Queue 1 item 8"),
             (speculative, "speculative decoding", "ROADMAP Queue 1 item 10"),
             (prefill_chunk, "chunked prefill", "ROADMAP Queue 1 item 11"),
             (tp and tp > 1, "tensor-parallel serving",
@@ -672,41 +680,73 @@ def _reject_later_modes(pruned=False, speculative=False, tp=0,
             raise not_in_this_slice(what, where)
 
 
+def _init_lm(arch: str, smoke: bool, seed: int, dev: torch.device
+             ) -> tuple[LM, dict]:
+    """The LM at `arch` scale and its params from the torch RNG on `dev`
+    seeded by `seed`: every engine of one (arch, seed, device) serves the
+    same weights."""
+    lm = LM(get_arch(arch, smoke=smoke))
+    return lm, lm.init(torch.Generator(device=dev).manual_seed(seed))
+
+
 def build_engine(arch: str, smoke: bool = True, *, quantized: bool = True,
                  compressed: bool = False, packed: bool = False,
-                 bits_init: float = 8.0, max_slots: int = 4,
-                 max_seq: int = 64, seed: int = 0, verbose: bool = False,
-                 device=None, paged: bool = False, page_size: int = 16,
-                 kv_bits: Optional[int] = None, n_pages: Optional[int] = None,
-                 prefix_sharing: bool = True,
+                 pruned: bool = False, sparsity: float = 0.5,
+                 keep_masks: Optional[dict] = None, bits_init: float = 8.0,
+                 max_slots: int = 4, max_seq: int = 64, seed: int = 0,
+                 verbose: bool = False, device=None, paged: bool = False,
+                 page_size: int = 16, kv_bits: Optional[int] = None,
+                 n_pages: Optional[int] = None, prefix_sharing: bool = True,
                  **later_modes) -> tuple[Engine, LM]:
     """Init an LM at `arch` scale from the torch RNG (seeded by `seed`) on
     `device` (CUDA by default) and wrap it in an Engine. `packed` implies
     `compressed`; `bits_init` sets the quantizer init width, so
-    `bits_init=4` serves a 4-bit packed artifact. `paged` serves from the
+    `bits_init=4` serves a 4-bit packed artifact. `pruned` serves the
+    sliced subnet at magnitude masks of `sparsity`, or at `keep_masks`
+    (which imply `pruned`): its GEMMs and KV arena run at the surviving
+    widths, in any weight mode and either arena. `paged` serves from the
     paged KV arena (`page_size` rows per page, `kv_bits` 8 or 4 for
     quantized pages, `n_pages` for the pool, `prefix_sharing` for
-    whole-prompt page sharing). The speculative, chunked,
-    tensor-parallel and pruned modes of the JAX engine raise
-    NotImplementedError naming the slice that brings them, with the
-    paged arena or without."""
+    whole-prompt page sharing). The speculative, chunked and
+    tensor-parallel modes of the JAX engine raise NotImplementedError
+    naming the slice that brings them. `Engine.serving_meta` keeps
+    prepare_serving's report (`sparsity` when pruned) and `kv_bytes`."""
     _reject_later_modes(**later_modes)
+    pruned = pruned or keep_masks is not None
     dev = resolve_device(device)
     compressed = compressed or packed
-    cfg = get_arch(arch, smoke=smoke)
-    lm = LM(cfg)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    params = lm.init(gen)
+    lm, params = _init_lm(arch, smoke, seed, dev)
     params, qparams, meta = prepare_serving(
         lm, params, quantized=quantized, compressed=compressed,
-        packed=packed, bits_init=bits_init)
+        packed=packed, bits_init=bits_init, keep_masks=keep_masks,
+        prune_sparsity=(sparsity if pruned and keep_masks is None else None))
     eng = Engine(lm, params, qparams, max_slots=max_slots, max_seq=max_seq,
                  paged=paged, page_size=page_size, kv_bits=kv_bits,
                  n_pages=n_pages, prefix_sharing=prefix_sharing)
     meta["kv_bytes"] = eng.kv_bytes()
-    if verbose and compressed:
+    eng.serving_meta = meta
+    if verbose and (compressed or pruned):
         print(compression_report(arch, meta))
     return eng, lm
+
+
+def build_masked_reference_engine(arch: str, smoke: bool = True, *,
+                                  sparsity: float = 0.5,
+                                  quantized: bool = True, max_slots: int = 4,
+                                  max_seq: int = 64, seed: int = 0,
+                                  device=None, **engine_kw
+                                  ) -> tuple[Engine, LM]:
+    """The pruned engine's oracle: the model of `build_engine(pruned=True)`
+    at the same seed and device, served dense and keep-all with the same
+    magnitude masks multiplied in instead of sliced away, and the same
+    quantizer init, so its decode is token-identical. `engine_kw` goes to
+    the Engine (the paged arena's keywords)."""
+    dev = resolve_device(device)
+    lm, params = _init_lm(arch, smoke, seed, dev)
+    masked, qparams = masked_reference_params(lm, params, sparsity,
+                                              quantized=quantized)
+    return Engine(lm, masked, qparams, max_slots=max_slots, max_seq=max_seq,
+                  **engine_kw), lm
 
 
 def synthetic_prompts(cfg, prompt_lens: list[int], seed: int = 0
@@ -724,7 +764,8 @@ def synthetic_prompts(cfg, prompt_lens: list[int], seed: int = 0
 
 def engine_serve(arch: str, smoke: bool, prompt_lens: list[int], gen: int,
                  *, quantized: bool = True, compressed: bool = False,
-                 packed: bool = False, bits_init: float = 8.0,
+                 packed: bool = False, pruned: bool = False,
+                 sparsity: float = 0.5, bits_init: float = 8.0,
                  max_slots: int = 4, seed: int = 0, verbose: bool = True,
                  device=None, stats: dict | None = None,
                  **engine_kw) -> dict[int, np.ndarray]:
@@ -734,6 +775,7 @@ def engine_serve(arch: str, smoke: bool, prompt_lens: list[int], gen: int,
     max_seq = max(prompt_lens) + gen
     eng, lm = build_engine(arch, smoke, quantized=quantized,
                            compressed=compressed, packed=packed,
+                           pruned=pruned, sparsity=sparsity,
                            bits_init=bits_init, max_slots=max_slots,
                            max_seq=max_seq, seed=seed, verbose=verbose,
                            device=device, **engine_kw)
@@ -745,11 +787,14 @@ def engine_serve(arch: str, smoke: bool, prompt_lens: list[int], gen: int,
     if stats is not None:
         stats.update(eng.stats, **th, param_bytes=eng.param_bytes(),
                      kv_bytes=eng.kv_bytes(),
-                     kv_pool_bytes=eng.kv_pool_bytes())
+                     kv_pool_bytes=eng.kv_pool_bytes(),
+                     sparsity=eng.serving_meta.get("sparsity"))
     if verbose:
         mode = "compressed" if (compressed or packed) else "dense"
         if packed:
             mode += "+packed"
+        if pruned:
+            mode += f"+pruned@{eng.serving_meta['sparsity']:.2f}"
         if eng.paged:
             mode += "+paged" + (f"@kv{eng.kv_bits}" if eng.kv_bits else "")
         print(f"{arch} [engine/{mode} on {eng.device}]: {len(prompt_lens)} "

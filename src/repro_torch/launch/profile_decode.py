@@ -3,6 +3,7 @@ against the device time of the kernels it launched, at full width.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \
         [--mode dense|compressed|packed_b4] [--paged] [--window K]
+        [--pruned [--sparsity S]]
 
 Serves internlm2-1.8b at full width with every one of its 4 slots holding
 a 128-token prompt, then times 8 batched decode steps on the host clock
@@ -15,7 +16,9 @@ the small-M GEMM kernels (`gemm_small_m`, every decode projection and the
 head) and of decode attention (the union of its split and combine
 kernels), the top kernels by device time, and every kernel of those two
 families by name with its device ms and calls per step. `--paged` serves
-from the paged KV arena (bf16 pages of 16 rows). Needs a CUDA device.
+from the paged KV arena (bf16 pages of 16 rows); `--pruned` serves the
+sliced subnet at magnitude masks of `--sparsity` (default 0.3: d_ff 5734,
+6 of 8 KV heads). Needs a CUDA device.
 
 Without `--window` the steps are the engine's eager `step()` decodes.
 `--window K` times `run()`'s decode windows of K steps instead: the
@@ -91,7 +94,13 @@ def main(argv=None) -> dict:
                     help="serve from the paged KV arena")
     ap.add_argument("--window", type=int, default=None, metavar="K",
                     help="time run()'s decode windows of K steps")
+    ap.add_argument("--pruned", action="store_true",
+                    help="serve the sliced subnet at --sparsity")
+    ap.add_argument("--sparsity", type=float, default=0.3)
     args = ap.parse_args(argv)
+    # an older engine's build_engine may not take the pruned keywords
+    prune = (dict(pruned=True, sparsity=args.sparsity) if args.pruned
+             else {})
     k = args.window or 1
     with torch.profiler.profile(activities=ACTS):
         torch.zeros(1, device="cuda")
@@ -101,7 +110,8 @@ def main(argv=None) -> dict:
     gen = 1 + k * (2 + reps + profiled)
     eng, lm = build_engine(ARCH, False, max_slots=SLOTS,
                            max_seq=PROMPT_LEN + gen, device="cuda",
-                           paged=args.paged, **WEIGHT_MODES[args.mode])
+                           paged=args.paged, **WEIGHT_MODES[args.mode],
+                           **prune)
     for p in synthetic_prompts(lm.cfg, [PROMPT_LEN] * SLOTS):
         eng.submit(p, gen)
     if args.window:
@@ -128,6 +138,8 @@ def main(argv=None) -> dict:
                          if DECODE_ATTN in e.key]) / steps
     gemm = [r for r in kernels if SMALL_M in r[0]]
     out = {"mode": args.mode, "paged": args.paged, "window": args.window,
+           "sparsity": args.sparsity if args.pruned else None,
+           "kv_bytes": eng.kv_bytes(), "param_bytes": eng.param_bytes(),
            "wall_ms_per_step": wall_ms, "device_ms_per_step": busy_ms,
            "idle_share": 1.0 - busy_ms / wall_ms,
            "decode_tok_per_s": SLOTS / wall_ms * 1e3,
@@ -139,6 +151,8 @@ def main(argv=None) -> dict:
            "graph_pool_bytes": getattr(eng, "graph_pool_bytes", None),
            "peak_bytes": torch.cuda.max_memory_allocated()}
     arena = "paged" if args.paged else "contiguous"
+    if args.pruned:
+        arena += f", pruned at sparsity {args.sparsity}"
     what = (f"decode window of {k} steps" if args.window else
             "decode step (eager)")
     print(f"{ARCH} [{args.mode}, {arena} arena] {what} on "

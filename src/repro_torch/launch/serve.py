@@ -14,19 +14,26 @@ Three weight modes:
 and two KV arenas: the contiguous one (default) and the paged one
 (`--paged`, `--page-size`; `--kv-bits 8|4` stores int8/int4 pages and
 implies `--paged`), decoded by the page-indirect flash-decode kernel.
+`--pruned --sparsity S` serves the physically sliced subnet at magnitude
+masks of sparsity S (surviving KV heads and MLP units: smaller GEMMs and
+KV arena) in any of the weight modes and arenas.
 
 `--static` runs `serve_loop`: one fixed batch of `--batch` prompts of
 `--prompt-len` tokens in lockstep, prefilled one token per decode step.
 
 Runs on CUDA; `--device cpu` runs the plain PyTorch versions of the
 kernels instead (as the tests do). In `--smoke` mode `--packed` asserts
-packed tokens equal int8 tokens, and `--paged` (without `--kv-bits`)
-asserts paged tokens equal contiguous tokens. Examples:
+packed tokens equal int8 tokens, `--paged` (without `--kv-bits`) asserts
+paged tokens equal contiguous tokens, and `--pruned` alone asserts the
+pruned tokens equal the masked dense reference's; each stacks with
+`--pruned`. Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --full --compressed
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --packed \
       --bits 4 --prompt-lens 12,5 --gen 8 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --paged \
       --kv-bits 8 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --pruned \
+      --sparsity 0.3 --compressed --device cpu
 """
 from __future__ import annotations
 
@@ -39,8 +46,10 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.core.subnet import compression_report, prepare_serving
 from repro_torch.data.synthetic import batch_for
-from repro_torch.launch.engine import _sync, engine_serve, resolve_device
-from repro_torch.models.layers import dtype_of, not_in_this_slice
+from repro_torch.launch.engine import (_sync, build_masked_reference_engine,
+                                       engine_serve, resolve_device,
+                                       synthetic_prompts)
+from repro_torch.models.layers import dtype_of
 from repro_torch.models.transformer import LM
 
 
@@ -67,18 +76,19 @@ def serve_loop(arch: str, smoke: bool, batch: int, prompt_len: int,
     the same seed (the torch RNG on `device`), so the engine is held to
     this loop on the same model. `stats` receives decode-only timing (the
     prefill has run every kernel once). `prompts` overrides the synthetic
-    (batch, prompt_len) prompt matrix and sets the length. `pruned` comes
-    with slim serving. Runs on CUDA unless `device` says otherwise."""
-    if pruned:
-        raise not_in_this_slice("pruned serving", "ROADMAP Queue 1 item 8")
+    (batch, prompt_len) prompt matrix and sets the length. `pruned`
+    decodes the sliced subnet at magnitude masks of `sparsity` (its KV
+    arena at the surviving heads). Runs on CUDA unless `device` says
+    otherwise."""
     dev = resolve_device(device)
     cfg = get_arch(arch, smoke=smoke)
     lm = LM(cfg)
     params = lm.init(torch.Generator(device=dev).manual_seed(seed))
     params, qparams, meta = prepare_serving(
         lm, params, quantized=quantized, compressed=compressed,
-        packed=packed, bits_init=bits_init)
-    if (compressed or packed) and verbose:
+        packed=packed, bits_init=bits_init,
+        prune_sparsity=(sparsity if pruned else None))
+    if (compressed or packed or pruned) and verbose:
         print(compression_report(arch, meta))
     if prompts is None:
         prompts = batch_for(cfg, seed, 0, batch, prompt_len)["tokens"]
@@ -107,41 +117,80 @@ def serve_loop(arch: str, smoke: bool, batch: int, prompt_len: int,
         mode = "compressed" if (compressed or packed) else "dense"
         if packed:
             mode += "+packed"
+        if pruned:
+            mode += f"+pruned@{meta['sparsity']:.2f}"
         print(f"{arch} [static/{mode} on {dev}]: generated {toks} tokens "
               f"in {dt_s:.2f}s ({toks / max(dt_s, 1e-9):.1f} tok/s, "
               f"batch={batch})")
     return torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
 
 
-def packed_parity_check(arch: str, smoke: bool, prompt_lens: list[int],
-                        gen: int, *, bits_init: float = 8.0, max_slots: int,
+def _assert_same(got: dict, want: dict, what: str) -> None:
+    assert sorted(got) == sorted(want), (sorted(got), sorted(want))
+    for rid in want:
+        np.testing.assert_array_equal(
+            got[rid], want[rid], err_msg=f"{what} (request {rid})")
+
+
+def pruned_parity_check(arch: str, smoke: bool, prompt_lens: list[int],
+                        gen: int, *, sparsity: float, quantized: bool = True,
+                        compressed: bool = False, max_slots: int,
                         seed: int = 0, verbose: bool = True,
+                        device=None) -> dict:
+    """Assert the pruned engine's decode is token-identical to the masked
+    dense reference (same seed, masks and quantizer init): a pruned unit
+    contributes exact zeros, so slicing it away must not change a greedy
+    token. Returns the pruned engine's output."""
+    max_seq = max(prompt_lens) + gen
+    # `compressed` quantizes the pruned arm, so the reference quantizes too
+    ref, lm = build_masked_reference_engine(
+        arch, smoke, sparsity=sparsity, quantized=(quantized or compressed),
+        max_slots=max_slots, max_seq=max_seq, seed=seed, device=device)
+    for p in synthetic_prompts(lm.cfg, prompt_lens, seed):
+        ref.submit(p, gen)
+    ref.warmup()
+    want = ref.run()
+    got = engine_serve(arch, smoke, prompt_lens, gen, quantized=quantized,
+                       compressed=compressed, pruned=True, sparsity=sparsity,
+                       max_slots=max_slots, seed=seed, verbose=verbose,
+                       device=device)
+    _assert_same(got, want, "pruned decode diverged from the masked "
+                            "reference")
+    print(f"{arch}: pruned decode (sparsity {sparsity:.2f}) token-identical "
+          f"to the masked dense reference over {len(want)} requests")
+    return got
+
+
+def packed_parity_check(arch: str, smoke: bool, prompt_lens: list[int],
+                        gen: int, *, pruned: bool = False,
+                        sparsity: float = 0.5, bits_init: float = 8.0,
+                        max_slots: int, seed: int = 0, verbose: bool = True,
                         device=None) -> dict:
     """Assert the packed engine's decode is token-identical to the
     unpacked int8 path at the same seed and quantizer init: the packing
     round trip is exact and the GEMM sums the decoded weights in the same
-    order, so every greedy token must match. Returns the packed engine's
+    order, so every greedy token must match. Stacks with `pruned` (both
+    arms serve the same sliced shapes). Returns the packed engine's
     output."""
-    want = engine_serve(arch, smoke, prompt_lens, gen, compressed=True,
-                        bits_init=bits_init, max_slots=max_slots, seed=seed,
-                        verbose=False, device=device)
-    got = engine_serve(arch, smoke, prompt_lens, gen, compressed=True,
-                       packed=True, bits_init=bits_init, max_slots=max_slots,
-                       seed=seed, verbose=verbose, device=device)
-    assert sorted(got) == sorted(want), (sorted(got), sorted(want))
-    for rid in want:
-        np.testing.assert_array_equal(
-            got[rid], want[rid],
-            err_msg=f"packed decode diverged from the unpacked int8 "
-                    f"reference (request {rid})")
+    common = dict(compressed=True, pruned=pruned, sparsity=sparsity,
+                  bits_init=bits_init, max_slots=max_slots, seed=seed,
+                  device=device)
+    want = engine_serve(arch, smoke, prompt_lens, gen, verbose=False,
+                        **common)
+    got = engine_serve(arch, smoke, prompt_lens, gen, packed=True,
+                       verbose=verbose, **common)
+    _assert_same(got, want, "packed decode diverged from the unpacked int8 "
+                            "reference")
     print(f"{arch}: packed decode token-identical to the unpacked int8 "
-          f"path over {len(want)} requests")
+          f"path over {len(want)} requests"
+          + (f" (pruned @ {sparsity:.2f})" if pruned else ""))
     return got
 
 
 def paged_parity_check(arch: str, smoke: bool, prompt_lens: list[int],
                        gen: int, *, quantized: bool = True,
                        compressed: bool = False, packed: bool = False,
+                       pruned: bool = False, sparsity: float = 0.5,
                        bits_init: float = 8.0, page_size: int = 16,
                        max_slots: int, seed: int = 0, verbose: bool = True,
                        device=None) -> dict:
@@ -151,21 +200,20 @@ def paged_parity_check(arch: str, smoke: bool, prompt_lens: list[int],
     the page-indirect kernel runs the contiguous kernel's arithmetic in
     its order over the same rows, and prefix sharing reuses only
     bitwise-equal whole-prompt pages, so every greedy token must match.
-    Returns the paged engine's output."""
+    Stacks with `pruned` (the pools take the sliced KV heads). Returns the
+    paged engine's output."""
     common = dict(quantized=quantized, compressed=compressed, packed=packed,
-                  bits_init=bits_init, max_slots=max_slots, seed=seed,
-                  device=device)
+                  pruned=pruned, sparsity=sparsity, bits_init=bits_init,
+                  max_slots=max_slots, seed=seed, device=device)
     want = engine_serve(arch, smoke, prompt_lens, gen, verbose=False,
                         **common)
     got = engine_serve(arch, smoke, prompt_lens, gen, verbose=verbose,
                        paged=True, page_size=page_size, **common)
-    assert sorted(got) == sorted(want), (sorted(got), sorted(want))
-    for rid in want:
-        np.testing.assert_array_equal(
-            got[rid], want[rid],
-            err_msg=f"paged decode diverged from the contiguous arena "
-                    f"(request {rid})")
+    _assert_same(got, want, "paged decode diverged from the contiguous "
+                            "arena")
     mode = "packed" if packed else "compressed" if compressed else "dense"
+    if pruned:
+        mode += f"+pruned@{sparsity:.2f}"
     print(f"{arch}: paged KV decode (page_size={page_size}) "
           f"token-identical to the contiguous arena over {len(want)} "
           f"requests ({mode})")
@@ -212,15 +260,24 @@ def main(argv=None):
     ap.add_argument("--kv-bits", type=int, choices=(8, 4), default=None,
                     help="paged mode: store pages as int8 or int4 codes "
                          "with per-row scales (implies --paged)")
+    ap.add_argument("--pruned", action="store_true", default=False,
+                    help="serve the physically sliced subnet at magnitude "
+                         "masks of --sparsity (smaller GEMMs and KV arena); "
+                         "in --smoke mode alone also asserts tokens "
+                         "identical to the masked dense reference")
+    ap.add_argument("--sparsity", type=float, default=0.5,
+                    help="pruned mode: target fraction of prunable units "
+                         "removed")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
     args = ap.parse_args(argv)
+    prune = dict(pruned=args.pruned, sparsity=args.sparsity)
     if args.static:
         serve_loop(args.arch, args.smoke, args.batch, args.prompt_len,
                    args.gen, quantized=args.quantized,
                    compressed=args.compressed, packed=args.packed,
-                   bits_init=args.bits, device=args.device)
+                   bits_init=args.bits, device=args.device, **prune)
         return
     lens = [int(x) for x in args.prompt_lens.split(",")]
     # --kv-bits quantizes the paged page store: asking for it asks for
@@ -231,18 +288,24 @@ def main(argv=None):
                            quantized=args.quantized,
                            compressed=args.compressed, packed=args.packed,
                            bits_init=args.bits, page_size=args.page_size,
-                           max_slots=args.slots, device=args.device)
+                           max_slots=args.slots, device=args.device, **prune)
         return
     if args.packed and args.smoke:
         packed_parity_check(args.arch, args.smoke, lens, args.gen,
                             bits_init=args.bits, max_slots=args.slots,
+                            device=args.device, **prune)
+        return
+    if args.pruned and args.smoke and not args.paged:
+        pruned_parity_check(args.arch, args.smoke, lens, args.gen,
+                            sparsity=args.sparsity, quantized=args.quantized,
+                            compressed=args.compressed, max_slots=args.slots,
                             device=args.device)
         return
     engine_serve(args.arch, args.smoke, lens, args.gen,
                  quantized=args.quantized, compressed=args.compressed,
                  packed=args.packed, bits_init=args.bits,
                  max_slots=args.slots, device=args.device, paged=args.paged,
-                 page_size=args.page_size, kv_bits=args.kv_bits)
+                 page_size=args.page_size, kv_bits=args.kv_bits, **prune)
 
 
 if __name__ == "__main__":

@@ -43,8 +43,10 @@ def not_in_this_slice(what: str, where: str) -> NotImplementedError:
 
 @dataclasses.dataclass(frozen=True)
 class LayerShapes:
-    """Physical dims one sublayer executes at (the dense config's here;
-    pruned widths come with slim serving)."""
+    """Physical dims one sublayer executes at: the config's, or a pruned
+    subnet's surviving widths (`core.subnet.derive_slim_plan`), which
+    `LM.apply_slim_plan` installs. The residual width d_model and d_head
+    are never pruned."""
     d_model: int
     n_heads: int = 0
     n_kv_heads: int = 0

@@ -66,8 +66,24 @@ class LM(torch.nn.Module):
         self.cfg = cfg
         self.plan = [SubLayer(0, "attn", "mlp")]
         self.n_blocks = cfg.n_layers
+        # the physical dims of each position-in-period, which prefill,
+        # decode and the KV arenas read instead of the config's: a pruned
+        # subnet's after `apply_slim_plan`
         self.shapes = [Lyr.LayerShapes.from_config(cfg)]
+        self.slim_plan = None
         self._freqs: dict[torch.device, torch.Tensor] = {}
+
+    def apply_slim_plan(self, plan) -> None:
+        """Run at a `core.subnet.SlimPlan`'s widths: the forward, prefill
+        and decode then take sliced params (`PruningSpace.materialize`
+        output) and `init_cache` / `init_paged_cache` allocate the KV of
+        the surviving KV heads only."""
+        if len(plan.layer_shapes) != len(self.plan):
+            raise ValueError(
+                f"slim plan has {len(plan.layer_shapes)} sublayer shapes, "
+                f"model period has {len(self.plan)}")
+        self.shapes = list(plan.layer_shapes)
+        self.slim_plan = plan
 
     # ------------------------------------------------------------- params
     def init(self, gen: torch.Generator) -> dict:

@@ -190,7 +190,7 @@ def test_cli_packed_smoke_on_cpu(capsys):
 @pytest.mark.parametrize("kw", [dict(paged=True, speculative=True),
                                 dict(speculative=True),
                                 dict(tp=2), dict(prefill_chunk=4),
-                                dict(pruned=True)])
+                                dict(pruned=True, speculative=True)])
 def test_later_modes_raise_naming_their_slice(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         TE.build_engine(ARCH, True, device="cpu", **kw)
@@ -317,12 +317,27 @@ def test_serve_loop_matches_jax_serve_loop(models, mode, monkeypatch):
     assert tstats["tokens"] == jstats["tokens"] == 3 * 6
 
 
-def test_serve_loop_pruned_raises_and_cli_runs(capsys):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        TSV.serve_loop(ARCH, True, 2, 4, 3, pruned=True, device="cpu")
+def test_serve_loop_pruned_raises_and_cli_runs(capsys, models, monkeypatch):
+    """`serve_loop(pruned=True)` (which raised before slim serving) decodes
+    the sliced subnet: on the JAX package's init weights it emits the JAX
+    `serve_loop(pruned=True)`'s tokens at the ragged sparsity 0.3; the
+    static CLI runs, pruned too."""
+    *_, np_params = models
+    with monkeypatch.context() as m:
+        m.setattr(TLM, "init", lambda self, gen:
+                  convert.params_from_numpy(np_params))
+        prompts = np.random.default_rng(5).integers(0, 512, (2, 5)).astype(
+            np.int32)
+        kw = dict(pruned=True, sparsity=0.3, verbose=False, prompts=prompts)
+        want = np.asarray(jserve_loop(ARCH, True, 2, 5, 4, **kw))
+        got = TSV.serve_loop(ARCH, True, 2, 5, 4, device="cpu", **kw)
+    np.testing.assert_array_equal(got, want)
     TSV.main(["--static", "--batch", "2", "--prompt-len", "5", "--gen", "3",
               "--compressed", "--device", "cpu"])
     assert "static/compressed on cpu" in capsys.readouterr().out
+    TSV.main(["--static", "--batch", "2", "--prompt-len", "5", "--gen", "3",
+              "--pruned", "--sparsity", "0.3", "--device", "cpu"])
+    assert "static/dense+pruned@0.30 on cpu" in capsys.readouterr().out
 
 
 def test_make_serve_step_is_the_decode_argmax(models):
@@ -496,7 +511,8 @@ def test_example_serves_on_cpu(argv, capsys):
         assert "2 prefix hits" in text
 
 
-@pytest.mark.parametrize("argv", [["--pruned"], ["--speculative"],
+@pytest.mark.parametrize("argv", [["--pruned", "--speculative"],
+                                  ["--speculative"],
                                   ["--tp", "2"], ["--devices", "4"],
                                   ["--chunked-prefill", "8"]])
 def test_example_later_modes_raise(argv):

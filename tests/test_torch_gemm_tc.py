@@ -6,8 +6,12 @@ the variant and the arithmetic it composes are checked:
 
 - `variant`: M <= 8 takes the small-M variant, M > 8 the tensor-core one
   for bf16 x and the SIMT one for f32 x; `operands` reads row-major and
-  transposed views in place for the tensor-core variant, copies for the
-  others, and raises on rows TMA cannot take.
+  transposed views in place for the tensor-core variant and row-major
+  operands at any row stride for the others, copies what a variant cannot
+  read in place (for the tensor-core variant, rows TMA cannot take:
+  copied into rows padded to 16 bytes), and takes every width pruning
+  leaves (N 5734, 5733, 5735, 1536, 768; K 5734, 2048) in every variant
+  and epilogue.
 - The split p0 = bf16(v), p1 = bf16(v - p0) is exact for every integer
   |v| < 2^16 (in fact 2^17), and a third piece bf16(v - p0 - p1) makes it
   exact for every integer |v| < 2^24 and every f32 weight: codes of
@@ -100,26 +104,100 @@ def test_tc_copies_a_layout_without_a_unit_stride():
                                   "w_misaligned_base", "w_rows_200_bytes",
                                   "codes_transposed"])
 def test_tc_raises_on_what_tma_cannot_take(case):
-    x = torch.zeros((64, 256), dtype=BF16)
-    w = torch.zeros((256, 128), dtype=BF16)
-    epi = TG.none()
+    """What TMA cannot read in place (rows or a base address off 16
+    bytes) no longer raises since the GEMM takes pruned widths: it is
+    copied row-major into rows padded to 16 bytes, with the same values.
+    Transposed codes, which no variant reads, still raise."""
+    gen = torch.Generator().manual_seed(0)
+    rand = lambda *shape: torch.randn(shape, generator=gen).to(BF16)
+    x, w, epi = rand(64, 256), rand(256, 128), TG.none()
     if case == "x_rows_200_bytes":
-        x = torch.zeros((64, 100), dtype=BF16)
-        w = torch.zeros((100, 128), dtype=BF16)
+        x, w = rand(64, 100), rand(100, 128)
     elif case == "x_T_rows_200_bytes":
-        x = torch.zeros((256, 100), dtype=BF16).T        # (100, 256)
-        w = torch.zeros((256, 128), dtype=BF16)
+        x = rand(256, 100).T                              # (100, 256)
     elif case == "w_misaligned_base":
-        w = torch.zeros((256, 136), dtype=BF16)[:, 8:]   # 16 B off, ok
-        TG.operands(x, w, epi)
-        w = torch.zeros((256, 136), dtype=BF16)[:, 4:132]    # 8 B off
+        w = rand(256, 136)[:, 8:]                         # 16 B off, ok
+        _, _, (wo, ldb, _) = TG.operands(x, w, epi)
+        assert wo.data_ptr() == w.data_ptr() and ldb == 136
+        w = rand(256, 136)[:, 4:132]                      # 8 B off
     elif case == "w_rows_200_bytes":
-        w = torch.zeros((256, 100), dtype=BF16)
+        w = rand(256, 100)
     else:
         w = torch.zeros((128, 256), dtype=torch.int8).T
-        epi = TG.dequant(torch.ones(128))
-    with pytest.raises(ValueError):
-        TG.operands(x, w, epi)
+        with pytest.raises(ValueError):
+            TG.operands(x, w, TG.dequant(torch.ones(128)))
+        return
+    kind, xs, ws = TG.operands(x, w, epi)
+    assert kind == "tc"
+    bad = "x" if case.startswith("x") else "w"
+    for name, t, (got, ld, transposed) in (("x", x, xs), ("w", w, ws)):
+        if name != bad:
+            assert got.data_ptr() == t.data_ptr()
+            continue
+        assert got.data_ptr() != t.data_ptr() and not transposed
+        assert got.stride() == (ld, 1) and (ld * 2) % 16 == 0
+        assert got.data_ptr() % 16 == 0 and torch.equal(got, t)
+
+
+# the widths pruning leaves at full width: d_ff 8192 at sparsity 0.3 keeps
+# 5734 units (w_gate's N, w_down's K), 12 of 16 heads 1536, 6 of 8 KV heads
+# 768; 5733 and 5735 the odd neighbours
+PRUNED_N = [5734, 5733, 5735, 1536, 768]
+PRUNED_K = [5734, 2048]
+
+
+def _pruned_weights(K, N):
+    """(label, weight as `materialize` leaves it: contiguous, epilogue)
+    for every epilogue the serving and training paths use."""
+    z = torch.zeros(())
+    yield "none", torch.empty((K, N), dtype=BF16), TG.none()
+    yield "col_mask", torch.empty((K, N), dtype=BF16), TG.col_mask(
+        torch.ones(N))
+    yield "fake_quant_rhs", torch.empty((K, N), dtype=BF16), \
+        TG.fake_quant_rhs(z, z, z)
+    yield "fq_col_mask", torch.empty((K, N), dtype=BF16), TG.fq_col_mask(
+        z, z, z, torch.ones(N))
+    yield "dequant", torch.empty((K, N), dtype=torch.int8), TG.dequant(
+        torch.ones(N))
+    for bits in (2, 3, 4, 8):
+        cpw = 32 // bits
+        yield f"unpack_b{bits}", torch.empty((-(-K // cpw), N),
+                                             dtype=torch.int32), \
+            TG.unpack_dequant(bits, torch.ones(N))
+
+
+@pytest.mark.parametrize("K", PRUNED_K)
+@pytest.mark.parametrize("N", PRUNED_N)
+@pytest.mark.parametrize("M,dtype", [(4, BF16), (512, BF16), (64, F32)],
+                         ids=["small_m", "tc", "simt"])
+def test_operands_take_pruned_widths(M, dtype, N, K):
+    """Every variant and epilogue takes the full-width pruned shapes, x and
+    w contiguous as `materialize` leaves them: no ValueError. A weight is
+    read in place where its rows suit the variant (16-byte rows for the
+    tensor-core variant's TMA, rows a multiple of 4 columns apart for the
+    others' 4-column loads), else copied into 16-byte rows; stored with
+    `aligned_rows`, as `prepare_serving` leaves served weights, it is read
+    in place by every variant. x is read in place by the small-M and SIMT
+    variants at any row stride, and copied for the tensor-core variant
+    when its rows are not 16-byte multiples (K = 5734)."""
+    x = torch.empty((M, K), dtype=dtype)
+    for label, w, epi in _pruned_weights(K, N):
+        for store in (w, TG.aligned_rows(w)):
+            kind, (xo, lda, _), (wo, ldb, _) = TG.operands(x, store, epi)
+            assert kind == TG.variant(M, dtype), label
+            assert wo.shape == store.shape and xo.shape == x.shape
+            ld, es = store.stride(0), store.element_size()
+            fits = (ld * es) % 16 == 0 if kind == "tc" else ld % 4 == 0
+            assert fits or store is w, label
+            if fits:
+                assert wo.data_ptr() == store.data_ptr() and ldb == ld
+            else:
+                assert wo.data_ptr() != store.data_ptr(), label
+                assert (ldb * es) % 16 == 0 and ldb >= N, label
+            if kind != "tc" or (K * x.element_size()) % 16 == 0:
+                assert xo.data_ptr() == x.data_ptr() and lda == K
+            else:
+                assert (lda * 2) % 16 == 0 and lda >= K
 
 
 @pytest.mark.parametrize("n,limit,zero_below", [(2, 2 ** 16, 257),

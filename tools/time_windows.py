@@ -2,6 +2,7 @@
 both KV arenas, for the engine of any checkout.
 
     python3 tools/time_windows.py [--src DIR] [--ks 8,32] [--out PATH]
+        [--pruned [--sparsity S]]
 
 Run from the repo root on a CUDA card. Imports `repro_torch` from DIR
 (default: this checkout's `src`; for example an unpacked earlier
@@ -10,7 +11,9 @@ checkout's `launch/profile_decode.py` in its window mode against it, in
 one process: for each of dense, compressed and packed 4-bit weights,
 over the contiguous arena and the paged one (bf16 pages of 16 rows), and
 each window length K of `--ks`, 4 slots at prompt 128, 8 windows on the
-host clock and 8 profiled. Prints profile_decode's lines per row, then a
+host clock and 8 profiled. `--pruned` adds, after each unpruned row, the
+same row on the sliced subnet at magnitude masks of `--sparsity` (this
+checkout's engine only). Prints profile_decode's lines per row, then a
 table (wall ms, device busy ms, idle share and decode tok/s per step,
 capture seconds and graph pool bytes per engine) and, last, a JSON line
 of all rows; `--out` also writes them to PATH.
@@ -36,7 +39,12 @@ def main(argv=None) -> int:
     ap.add_argument("--ks", default="8,32",
                     help="comma-separated window lengths")
     ap.add_argument("--out", default=None, help="also write the rows here")
+    ap.add_argument("--pruned", action="store_true",
+                    help="also time each row on the sliced subnet")
+    ap.add_argument("--sparsity", type=float, default=0.3)
     args = ap.parse_args(argv)
+    variants = [[]] + ([["--pruned", "--sparsity", str(args.sparsity)]]
+                       if args.pruned else [])
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
     spec = importlib.util.spec_from_file_location(
@@ -53,14 +61,17 @@ def main(argv=None) -> int:
         for mode in MODES:
             for paged in (False, True):
                 argv = ["--mode", mode, "--window", str(k)]
-                rows.append(prof.main(argv + (["--paged"] if paged else [])))
-                gc.collect()
-                torch.cuda.empty_cache()
-    print("| K | mode | arena | wall ms/step | busy ms/step | idle | decode "
-          "tok/s | capture s | graph pool B |")
+                for extra in variants:
+                    rows.append(prof.main(argv + extra
+                                          + (["--paged"] if paged else [])))
+                    gc.collect()
+                    torch.cuda.empty_cache()
+    print("| K | mode | arena | sparsity | wall ms/step | busy ms/step | idle "
+          "| decode tok/s | capture s | graph pool B |")
     for r in rows:
         print(f"| {r['window']} | {r['mode']} | "
               f"{'paged' if r['paged'] else 'contiguous'} | "
+              f"{r.get('sparsity') or 0} | "
               f"{r['wall_ms_per_step']:.3f} | {r['device_ms_per_step']:.3f} "
               f"| {r['idle_share']:.3f} | {r['decode_tok_per_s']:.1f} | "
               f"{r['capture_s']} | {r['graph_pool_bytes']} |")
