@@ -16,7 +16,11 @@ Phases, each printing its own lines:
    K->N = 2048->2048, 2048->1024, 2048->8192, 8192->2048 and 2048->92672
    (and at M = 4 the widths phase 8's pruning leaves, 2048->5734 and
    5734->2048, in fake_quant_rhs, dequant and unpack_dequant b4, each
-   weight stored as `prepare_serving` stores it: rows padded to 16 bytes),
+   weight stored as `prepare_serving` stores it: rows padded to 16 bytes;
+   and at the heights of phase 9's verify pass, M = 12 and 20, on the
+   tensor-core variant, in the same three epilogues over every
+   projection shape of a verify pass: 2048->8192, 8192->2048,
+   2048->92672, 2048->2048 and 2048->1024),
    split-rows flash-decode attention at B = 4, 8 (KVh 8, g 2, dh 128, S
    576, bf16 K/V) and at long context (B = 4, S = 4096, slots spread over
    the arena), and page-indirect flash decode at the same shapes over
@@ -151,12 +155,48 @@ Phases, each printing its own lines:
    (sparsity, mean bits, code bytes printed), then `prepare_serving(
    keep_masks=..., compressed=True)` serves one request of 16 tokens
    through the engine, held to its masked reference the same way.
-9. Two JSON lines: the kernel table, then the device line (last). A
+9. Speculative decoding and chunked prefill at full width (bf16, 4
+   slots, phase 5's 8 requests). The pair `build_checkpoint_engines`
+   builds: the magnitude-masked checkpoint at sparsity 0.5 as the target,
+   served dense fake-quant b8 and as int8 codes, its s50 packed subnet as
+   the draft, faithful (b8) and aggressive (b2), draft_k 4. Per engine:
+   the first round's verify logits (by hand, then rolled back) against
+   the plain engine's first decode step (within 2^-5 of the range, the
+   same argmax unless the top-2 gap is within twice the difference);
+   `warmup()` captures one graph per draft length of `_spec_ks()`; a
+   drain of graph rounds (the measurement); then the first 4 requests
+   (6 tokens each) three times, in graph rounds, in eager rounds with
+   the rollback invariant after every round (both arenas' rows at and
+   past each active slot's position zero) and in graph rounds under a
+   profiler trace, equal tokens, the trace's small-M and tensor-core
+   GEMMs and decode-attention kernels equal to the replayed graphs'
+   captured calls plus the drain's eager ones; no capture in any drain;
+   the k = 2 and 4 graphs (verify M = 12, 20) hold tensor-core GEMMs and
+   replay. Printed: decode tok/s
+   (committed tokens over round time), ms per round by k, acceptance
+   (faithful must exceed aggressive), capture time, graph pool, kv_bytes
+   of both arenas, peak memory, token agreement with the plain engine
+   (graph windows) and first divergences (bf16: the verify pass sums in
+   other tiles than the decode step, so token identity is held in f32,
+   by the card tests). The faithful dense pair over bf16 pages must emit
+   the contiguous pair's tokens, over int8 pages full-length outputs with
+   its first tokens. Chunked prefill (chunk 128: 96 -> 64 + 32, 200 ->
+   128 + 64 + 8) on the dense and packed 4-bit engines, contiguous and
+   paged: the first token's logits of a chunked prefill against the
+   one-shot prefill's (same rule), tokens against phase 5's one-shot
+   engines (agreement printed), prefill tok/s against phase 5's, the
+   one-step decode graph captured in `warmup()`; then the longest gap
+   between two decode steps of a slot while a 512-token prompt is
+   prefilled, chunked and one-shot, three runs each. The launch counts
+   are zeroed before the phase and read after it.
+10. Two JSON lines: the kernel table, then the device line (last). A
    serving kernel's `launches` are the host counts of phases 5-6 (a
    graph's calls once, at capture), a pruned-shape GEMM row's those of
-   phase 8; `traced_device_launches` are its device kernels in their
-   traced drains (for a GEMM epilogue the small-M kernels, for decode
-   attention the split kernels).
+   phase 8, a verify-height row's those of phase 9 (the captures of its
+   draft length's graphs, with `replayed_launches` the replays' kernels);
+   `traced_device_launches` are its device kernels in their traced
+   drains (for a GEMM epilogue the small-M kernels, for decode attention
+   the split kernels).
 
 Times are CUDA-event medians with the 50 MB L2 flushed before each launch
 (each decode-step launch finds its weights cold); after the flush the
@@ -195,6 +235,7 @@ PROMPT_LENS = [64, 128, 256, 512, 96, 200, 32, 384]
 GEN = 64
 SLOTS = 4
 TRACE_GEN = 24            # tokens per request of phases 5-6's traced drains
+TRACE_WARMUP = 64         # fill kernels that open each traced drain
 PAGE = 16
 SHARED = (1, 3, 5, 7)     # requests that carry request 5's prompt (200
                           # tokens: 12 full pages and a shared tail page)
@@ -206,6 +247,12 @@ PRUNE_SPARSITY = 0.3       # phase 8: d_ff 8192 -> 5734, 8 -> 6 KV heads
 PRUNED_GEMMS = [(2048, 5734), (5734, 2048)]
 PRUNED_EPIS = ("fake_quant_rhs", "dequant", "unpack_dequant_b4")
 GETA_GEN = 16              # phase 8's request from phase 7's trained masks
+# phase 3's rows at phase 9's verify heights (4 slots x (k + 1), k = 2, 4)
+VERIFY_MS = [12, 20]
+# every projection shape of a verify pass: w_gate / w_up, w_down, the head,
+# wq / wo and wk / wv
+VERIFY_SHAPES = [(2048, 8192), (8192, 2048), (2048, 92672), (2048, 2048),
+                 (2048, 1024)]
 # phase 8: the pruned engine's first decode-step logits against the masked
 # reference's, in units of the reference's logit range: phase 4's bound for
 # bf16 activations summed in another order (here K = 5734 against the
@@ -458,6 +505,24 @@ def phase_kernels(torch, timer) -> tuple[list, dict, list]:
             if not row["ok"]:
                 failures.append(row)
             report[f"{_report_name(label)}.pruned.{K}x{N}"] = row
+        torch.cuda.empty_cache()
+    # the verify pass's heights on the tensor-core variant
+    for K, N in VERIFY_SHAPES:
+        xs = {M: torch.randn((M, K), generator=gen, device="cuda",
+                             dtype=torch.bfloat16) for M in VERIFY_MS}
+        for label, w, epi, dequantized in _gemm_cases(torch, K, N, gen):
+            if label not in PRUNED_EPIS:
+                continue
+            w_lib = dequantized()
+            for M in VERIFY_MS:
+                row = _gemm_row(torch, timer, gc, label, xs[M], w, epi,
+                                w_lib, tag=" (verify)")
+                rows.append(row)
+                if not row["ok"] or row["variant"] != "tc":
+                    failures.append(row)
+                report[f"{_report_name(label)}.verify.M{M}.{K}x{N}"] = row
+            del w_lib
+        del xs
         torch.cuda.empty_cache()
 
     KVh, g, dh = 8, 2, 128
@@ -945,6 +1010,7 @@ def phase_correctness(torch) -> tuple[dict, list[str]]:
 
 
 _CAPTURES = [0]      # CUDA graph captures in this process
+_TRACE_TAKES = []    # {"engine", "takes"} of every traced drain
 
 
 def _count_captures(torch) -> None:
@@ -974,26 +1040,34 @@ def _gemm_tally(gc, tally):
     return real
 
 
-def _trace_drain(torch, eng, prompts) -> tuple[dict, dict, int]:
-    """Serve the first SLOTS prompts once more, TRACE_GEN tokens each
-    (windows of 16, 4, 2 and 1 steps), under a profiler trace of the
-    card. Returns the tokens, {kernel family: (kernels in the trace,
-    launches expected)} and the decode steps traced. Expected are the
-    eager calls the wrappers made during the drain (the prefills; no
-    capture happens in it) plus each replayed window's captured calls.
-    Families: every small-M GEMM, the small-M GEMM of each epilogue (its
-    first template argument), and the decode-attention split and combine
-    kernels. The drain is short since a long trace loses events (on the
+def _trace_drain(torch, eng, prompts, label, spec=False, gen=TRACE_GEN
+                 ) -> tuple[dict, dict, int, int]:
+    """Serve the first SLOTS prompts once more, `gen` tokens each
+    (windows of 16, 4, 2 and 1 steps, or, `spec`, speculative rounds),
+    under a profiler trace of the card. Returns the tokens, {kernel
+    family: (kernels in the trace, launches expected)}, the decode
+    steps traced and the takes the trace needed (also kept under
+    `label` in _TRACE_TAKES, which the --out JSON holds). Expected are the eager calls the wrappers made during
+    the drain (the prefills; no capture happens in it) plus each replayed
+    graph's captured calls. Families: every small-M GEMM, the small-M
+    GEMM of each epilogue (its first template argument; `spec`: every
+    tensor-core GEMM instead, since a round's graph holds GEMMs of both
+    variants, which the launch counts do not tell apart by epilogue), and
+    the decode-attention split and combine kernels. The drain is short
+    since a long trace loses events (on the
     H100, drains of 8 requests x 64 tokens, ~170k kernels each, came back
     a few to a few hundred kernels short in 6 of 10 engines); a trace
-    that still lost some is taken again, up to three times."""
+    that still lost some is taken again, up to three times. A session
+    also lost its first few kernels now and then (the drain's first
+    prefill GEMMs), so each starts with TRACE_WARMUP fill kernels,
+    which no family counts."""
     from collections import Counter
     from repro_torch.kernels import gemm_core as gc
     from repro_torch.kernels import ops
     cuda = torch.autograd.DeviceType.CUDA
-    for _ in range(3):
+    for takes in range(1, 4):
         for p in prompts[:SLOTS]:
-            eng.submit(p, TRACE_GEN)
+            eng.submit(p, gen)
         g0, h0, tally = (Counter(eng.graph_device_launches()),
                          ops.launch_counts(), Counter())
         steps0 = eng.stats["decode_steps"]
@@ -1001,6 +1075,10 @@ def _trace_drain(torch, eng, prompts) -> tuple[dict, dict, int]:
         try:
             with torch.profiler.profile(
                     activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                warm = torch.zeros(1, device="cuda")
+                for _ in range(TRACE_WARMUP):
+                    warm.fill_(1.0)
+                torch.cuda.synchronize()
                 out = eng.run()
                 torch.cuda.synchronize()
         finally:
@@ -1014,7 +1092,13 @@ def _trace_drain(torch, eng, prompts) -> tuple[dict, dict, int]:
             sum(v for k, v in names.items() if "gemm_small_m" in k),
             sum(v for (var, _), v in tally.items() if var == "small_m")
             + replayed["gemm_core.small_m"])}
-        for epi in ("fake_quant_rhs", "dequant", "unpack_dequant"):
+        if spec:
+            fam["gemm_tc"] = (
+                sum(v for k, v in names.items() if "gemm_tc" in k),
+                sum(v for (var, _), v in tally.items() if var == "tc")
+                + replayed["gemm_core.tc"])
+        for epi in () if spec else ("fake_quant_rhs", "dequant",
+                                    "unpack_dequant"):
             tag = f"gemm_small_m<{gc._EPI_CODE[epi]},"
             fam[f"gemm_small_m.{epi}"] = (
                 sum(v for k, v in names.items() if tag in k.replace(" ", "")),
@@ -1023,11 +1107,13 @@ def _trace_drain(torch, eng, prompts) -> tuple[dict, dict, int]:
             fam[kern] = (sum(v for k, v in names.items() if kern in k), attn)
         if all(got >= want for got, want in fam.values()):
             break
-    # every captured GEMM is a small-M one (M = the slots)
-    fam["graph_gemms_small_m"] = (
-        replayed["gemm_core.small_m"],
-        sum(replayed[f"gemm_core.{e}"] for e in gc._EPI_CODE))
-    return out, fam, eng.stats["decode_steps"] - steps0
+    if not spec:
+        # every captured GEMM of a window is a small-M one (M = the slots)
+        fam["graph_gemms_small_m"] = (
+            replayed["gemm_core.small_m"],
+            sum(replayed[f"gemm_core.{e}"] for e in gc._EPI_CODE))
+    _TRACE_TAKES.append({"engine": label, "takes": takes})
+    return out, fam, eng.stats["decode_steps"] - steps0, takes
 
 
 def _serve_full(torch, prompts, kw) -> tuple[dict, dict, list[str]]:
@@ -1059,7 +1145,8 @@ def _serve_full(torch, prompts, kw) -> tuple[dict, dict, list[str]]:
                  shapes=eng.lm.shapes[0],
                  graph_pool_bytes=eng.graph_pool_bytes, peak_bytes=peak,
                  graphs=sorted(eng.graphs), replays=dict(eng.replays))
-    traced, fam, stats["traced_steps"] = _trace_drain(torch, eng, prompts)
+    traced, fam, stats["traced_steps"], stats["trace_takes"] = _trace_drain(
+        torch, eng, prompts, repr(kw))
     stats["trace"] = fam
     for p in prompts:
         eng.submit(p, GEN)
@@ -1121,7 +1208,8 @@ def _graph_line(st) -> str:
             f"eager step()'s and "
             f"{'equal' if st['graph_eq_traced'] else 'DIFFER FROM'} a "
             f"traced drain's ({SLOTS} requests x {TRACE_GEN} tokens, "
-            f"{st['traced_steps']} steps); trace kernels (seen, expected) "
+            f"{st['traced_steps']} steps, trace taken "
+            f"{st['trace_takes']}x); trace kernels (seen, expected) "
             + ", ".join(f"{k} {v[0]}/{v[1]}" for k, v in fam.items()
                         if v[1]))
 
@@ -1509,6 +1597,418 @@ def _geta_serving(torch, params, qparams, keep) -> list[str]:
     del eng, ref, masked, p
     torch.cuda.empty_cache()
     return failures
+
+
+# ------------------------------------------------------------------ phase 9
+SPEC_SPARSITY = 0.5         # the checkpoint pair's masks and draft
+SPEC_K = 4                  # draft_k: rounds of k in {0, 1, 2, 4}
+SPEC_DRAFTS = {"faithful": 8.0, "aggressive": 2.0}    # the draft's bits
+SPEC_TARGETS = {"dense": False, "compressed": True}   # compressed= target
+CHUNK = 128                 # chunked prefill: 96 -> 64+32, 200 -> 128+64+8
+GAP_PROMPT = 512            # the prompt prefilled while a slot decodes
+SPEC_TOL = 2 ** -5          # bf16 logits summed in another order
+# the short workload's tokens per request (its three drains: graph, eager,
+# traced): a traced round holds ~8500 kernels, and a trace of ~200k (24
+# tokens, the aggressive draft) came back short on the H100
+SPEC_TRACE_GEN = 6
+GAP_TRIALS = 3
+
+
+def _logits_held(torch, got, want) -> tuple[bool, str]:
+    """`got` within SPEC_TOL of `want`'s range, with `want`'s argmax in
+    every row unless its top-2 gap is within twice the difference."""
+    diff = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    top2 = torch.topk(want, 2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]).min().item()
+    same = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    ok = diff <= SPEC_TOL * scale and (same or gap <= 2 * diff)
+    return ok, (f"max|diff| {diff:.4f} of max|logit| {scale:.4f} "
+                f"({diff / max(scale, 1e-30):.2e}, tol {SPEC_TOL}), argmax "
+                f"{'equal' if same else 'DIFFERS'} (least top-2 gap "
+                f"{gap:.4f})")
+
+
+def _agreement(got: dict, want: dict) -> str:
+    """Greedy-token agreement of two drains of the same requests and each
+    request's first divergence (None: none)."""
+    agree, first = [], []
+    for r, q in zip(sorted(got), sorted(want)):
+        n = min(len(got[r]), len(want[q]))
+        eq = got[r][:n] == want[q][:n]
+        agree.append(float(eq.mean()))
+        first.append(int(np.argmin(eq)) if not eq.all() else None)
+    return (f"tokens agree {np.mean(agree):.3f}, first divergences "
+            f"{first}")
+
+
+def _first_verify_logits(torch, eng, prompts, gen, k) -> "torch.Tensor":
+    """Submit `prompts` to the speculative engine, admit, and run the
+    first round's draft steps and verify pass by hand on the live arenas;
+    return the verify logits of position 0 (the plain engine's first
+    decode step's input), (slots, V) f32. The rows the pass wrote are
+    rolled back, so the engine is as admission left it and may be warmed
+    up and run."""
+    from repro_torch.launch.speculative import rollback_rows
+    for p in prompts:
+        eng.submit(p, gen)
+    eng._admit()
+    eng._stage()
+    tok, pos = eng._static["tok"], eng._static["pos"]
+    d = eng.draft
+    with torch.no_grad():
+        t, p, props = tok, pos, []
+        for _ in range(k + 1):
+            lg, _ = d.lm.decode_step(eng._draft_params, eng._draft_qparams,
+                                     eng.dcaches, t, p)
+            t, p = lg[:, -1].argmax(-1)[:, None], p + 1
+            props.append(t)
+        chunk = torch.cat([tok] + props[:k], dim=1)
+        logits, _ = eng.lm.verify_chunk(eng._run_params, eng._run_qparams,
+                                        eng.caches, chunk, pos)
+    rollback_rows(eng.caches, pos, pos + k)
+    rollback_rows(eng.dcaches, pos, pos + k)
+    return logits[:, 0].float()
+
+
+def _never_drafted(torch, eng) -> bool:
+    """Rows at and past every active slot's position are zero in both
+    arenas (the contiguous ones: phase 9 checks its eager drains there)."""
+    for slot, req in enumerate(eng.active):
+        if req is None:
+            continue
+        pos = int(eng.pos[slot])
+        for arena in (eng.caches, eng.dcaches):
+            for c in arena.values():
+                if torch.any(c[:, slot, pos:]):
+                    return False
+    return True
+
+
+def _spec_line(eng, st) -> str:
+    per_k = {k: round(1e3 * eng.spec_round_s[k] / n, 3)
+             for k, n in sorted(eng.spec_rounds.items())}
+    return (f"decode {st['decode_tok_per_s']:.1f} tok/s "
+            f"({st['decode_tokens']} committed tokens in "
+            f"{st['decode_s']:.3f} s, "
+            f"{st['spec_steps']} rounds), acceptance "
+            f"{st['acceptance_rate']:.3f} ({st['spec_accepted']}/"
+            f"{st['spec_drafted']}), ms per round by k {per_k}, rounds by k "
+            f"{dict(sorted(eng.spec_rounds.items()))}, capture "
+            f"{st['capture_s']:.2f} s of {sorted(eng.graphs)}, graph "
+            f"pool {eng.graph_pool_bytes / 2 ** 20:.1f} MiB, kv_bytes "
+            f"{eng.kv_bytes()} (target {st['kv_target']} + draft "
+            f"{st['kv_draft']}), peak {st['peak_bytes'] / 2 ** 30:.2f} GiB")
+
+
+def _spec_engine(torch, target, draft, prompts, base_logits, base_toks,
+                 **engine_kw) -> tuple[dict, dict, list[str]]:
+    """One checkpoint pair's speculative engine at full width (see the
+    module docstring): first-round verify logits against the plain
+    engine's first step, warm-up (the round graphs), then graph rounds,
+    eager rounds with the rollback invariant after each (contiguous
+    only), and a short workload twice, untraced and under a profiler
+    trace. Returns (tokens of the graph drain, stats, failures)."""
+    from repro_torch.launch.speculative import build_checkpoint_engines
+    failures = []
+    spec, base, _ = build_checkpoint_engines(
+        ARCH, False, sparsity=SPEC_SPARSITY, draft_bits=SPEC_DRAFTS[draft],
+        draft_k=SPEC_K, max_slots=SLOTS, max_seq=max(PROMPT_LENS) + GEN,
+        compressed=SPEC_TARGETS[target], device="cuda", **engine_kw)
+    if base_logits is None:
+        # the plain engine of the same target arrays, through phase 5's
+        # graph windows
+        base_logits = _first_step_logits(torch, base, prompts, GEN)
+        base.warmup()
+        base_toks = base.run()
+        base_st = dict(base.stats, **base.throughput())
+    else:
+        base_st = None
+    del base
+    torch.cuda.empty_cache()
+    if spec.paged:
+        # its arenas are pools: the contiguous pair holds the logits
+        for p in prompts:
+            spec.submit(p, GEN)
+        ok_logits, logit_line = True, "checked on the contiguous pair"
+    else:
+        got = _first_verify_logits(torch, spec, prompts, GEN, SPEC_K)
+        ok_logits, logit_line = _logits_held(torch, got,
+                                             base_logits[:SLOTS])
+    torch.cuda.reset_peak_memory_stats()
+    spec.warmup()
+    captured = _CAPTURES[0]
+    out = spec.run()
+    st = dict(spec.stats, **spec.throughput(),
+              kv_target=sum(c.numel() * c.element_size()
+                            for c in spec.caches.values()),
+              kv_draft=sum(c.numel() * c.element_size()
+                           for c in spec.dcaches.values()),
+              peak_bytes=torch.cuda.max_memory_allocated(),
+              rounds=dict(spec.spec_rounds),
+              round_s=dict(spec.spec_round_s),
+              graph_pool_bytes=spec.graph_pool_bytes,
+              replays=dict(spec.replays),
+              graph_launches=spec.graph_launches)
+    line = _spec_line(spec, st)
+    full = (len(out) == len(prompts)
+            and all(len(t) == GEN and t.min() >= 0 and t.max() < 92672
+                    for t in out.values()))
+    eager_ok = None
+    if not spec.paged:
+        # the first SLOTS requests, SPEC_TRACE_GEN tokens each, three
+        # times: graph rounds, eager rounds, graph rounds under a trace
+        for p in prompts[:SLOTS]:
+            spec.submit(p, SPEC_TRACE_GEN)
+        short = spec.run()
+        for p in prompts[:SLOTS]:
+            spec.submit(p, SPEC_TRACE_GEN)
+        eager_ok = True
+        while spec.pending:
+            spec.eager_step()
+            eager_ok = eager_ok and _never_drafted(torch, spec)
+        eager = spec._drain(spec.eager_step)
+        st["graph_eq_eager"] = _same(short, eager)
+        if not (eager_ok and st["graph_eq_eager"]):
+            failures.append("graph rounds differ from eager rounds, or the "
+                            "rollback left rows past pos")
+        traced, fam, st["traced_steps"], st["trace_takes"] = _trace_drain(
+            torch, spec, prompts, f"speculative {target}/{draft}",
+            spec=True, gen=SPEC_TRACE_GEN)
+        st["trace"] = fam
+        st["graph_eq_traced"] = _same(short, traced)
+        for name, (seen, want) in fam.items():
+            if seen != want:
+                failures.append(f"trace: {seen} {name} kernels, {want} "
+                                f"expected")
+        if not st["graph_eq_traced"]:
+            failures.append("a traced drain's tokens differ from an "
+                            "untraced drain's")
+    if _CAPTURES[0] != captured:
+        failures.append("a CUDA graph was captured inside a drain")
+    if sorted(spec.graphs) != spec._spec_ks():
+        failures.append("warmup() did not capture every draft length")
+    for k in (2, 4):
+        if spec.graph_launches[k].get("gemm_core.tc", 0) <= 0:
+            failures.append(f"the k={k} verify took no tensor-core GEMM")
+    if not (full and ok_logits):
+        failures.append(f"outputs or first-round logits ({logit_line})")
+    agree = _agreement(out, base_toks)
+    kind = "paged " if spec.paged else ""
+    checks = "" if eager_ok is None else (
+        f"; {SLOTS} requests x {SPEC_TRACE_GEN} tokens in graph rounds == "
+        f"in eager rounds {'yes' if st['graph_eq_eager'] else 'NO'} "
+        f"(rollback invariant after every eager round "
+        f"{'held' if eager_ok else 'BROKEN'}) == in traced graph rounds "
+        f"{'yes' if st['graph_eq_traced'] else 'NO'} (trace taken "
+        f"{st['trace_takes']}x; kernels "
+        f"(seen, expected) "
+        + ", ".join(f"{k} {v[0]}/{v[1]}" for k, v in st["trace"].items())
+        + ")")
+    print(f"[9 speculative] {kind}{target} target, {draft} draft "
+          f"(s{100 * SPEC_SPARSITY:.0f}/b{SPEC_DRAFTS[draft]:.0f}, k "
+          f"{SPEC_K}): {line}; first-round verify logits vs the plain "
+          f"engine's first step: {logit_line}; vs the plain engine: "
+          f"{agree}{checks} {'ok' if not failures else 'FAIL'}")
+    st["base_logits"], st["base_toks"], st["base_stats"] = \
+        base_logits, base_toks, base_st
+    del spec
+    torch.cuda.empty_cache()
+    return out, st, failures
+
+
+def _chunked_logits(torch, eng, prompt) -> tuple["torch.Tensor", ...]:
+    """The first generated token's logits of `prompt` through the
+    engine's chunked prefill (`verify_chunk` over `chunk_plan`) and
+    through its one-shot prefill, f32, on fresh rows."""
+    from repro_torch.launch.scheduler import chunk_plan
+    toks = torch.as_tensor(prompt, dtype=torch.int64, device="cuda")[None]
+    with torch.no_grad():
+        row, done = eng._fresh_row(), 0
+        for c in chunk_plan(len(prompt), CHUNK):
+            lg, _ = eng.lm.verify_chunk(eng._run_params, eng._run_qparams,
+                                        row, toks[:, done:done + c], done,
+                                        last_logit_only=True)
+            done += c
+        one, _ = eng.lm.prefill(eng._run_params, eng._run_qparams,
+                                eng._fresh_row(), toks, last_logit_only=True)
+    return lg[0, -1].float(), one[0, -1].float()
+
+
+def _decode_gaps(torch, eng, chunked: bool) -> list[float]:
+    """The longest interval (ms, host clock) between two decode steps of
+    a slot that decodes while a GAP_PROMPT-token prompt arrives and is
+    prefilled, in each of GAP_TRIALS runs: one-step decodes replaying the
+    captured one-step window, the prompt prefilled one-shot at admission,
+    or chunk by chunk between the steps."""
+    from repro_torch.launch.engine import synthetic_prompts
+    short, long_ = synthetic_prompts(eng.lm.cfg, [32, GAP_PROMPT], seed=5)
+    real = eng._commit
+    eng.submit(short, GEN)
+    eng.warmup()
+    eng.run()
+    gaps = []
+    for _ in range(GAP_TRIALS):
+        stamps = []
+
+        def commit(toks):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            real(toks)
+
+        eng._commit = commit
+        eng.submit(short, GEN)
+        steps = 0
+        while eng.pending:
+            if steps == 8:
+                eng.submit(long_, 8)
+            if chunked:
+                eng.step()
+            else:
+                eng._admit()
+                if eng.n_active:
+                    eng._stage()
+                    eng._commit(eng._replay(1))
+            steps += 1
+        del eng._commit
+        eng.run()
+        gaps.append(1e3 * max(b - a for a, b in zip(stamps, stamps[1:])))
+    return gaps
+
+
+def phase_spec(torch, full: dict, one_shot: dict
+               ) -> tuple[dict, list[str], dict, dict]:
+    """Phase 9 (see the module docstring). `full`: phase 5's stats per
+    mode; `one_shot`: phase 5's tokens per mode. Returns the launch
+    counts of the phase, its failures, its trace families summed and the
+    speculative engines' stats."""
+    from collections import Counter
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import (WEIGHT_MODES, build_engine,
+                                           synthetic_prompts)
+    cfg = get_arch(ARCH)
+    prompts = synthetic_prompts(cfg, PROMPT_LENS, seed=0)
+    failures, seen, stats = [], Counter(), {}
+    ops.reset_launch_counts()
+    outs = {}
+    for target in SPEC_TARGETS:
+        base_logits = base_toks = None
+        for draft in SPEC_DRAFTS:
+            t0 = time.perf_counter()
+            out, st, fails = _spec_engine(torch, target, draft, prompts,
+                                          base_logits, base_toks)
+            base_logits, base_toks = st["base_logits"], st["base_toks"]
+            if st["base_stats"] is not None:
+                b = st["base_stats"]
+                print(f"[9 speculative] {target} target, plain engine "
+                      f"(graph windows): decode {b['decode_tok_per_s']:.1f} "
+                      f"tok/s ({b['decode_tokens']} tokens in "
+                      f"{b['decode_s']:.3f} s)")
+            print(f"[9 speculative] {target}/{draft}: wall "
+                  f"{time.perf_counter() - t0:.1f} s")
+            outs[target, draft] = out
+            stats[target, draft] = st
+            failures += [f"spec {target}/{draft}: {f}" for f in fails]
+            for name, (got, _) in st.get("trace", {}).items():
+                seen[name] += got
+        acc = {d: stats[target, d]["acceptance_rate"] for d in SPEC_DRAFTS}
+        ok = acc["faithful"] > acc["aggressive"]
+        print(f"[9 speculative] {target} target: acceptance faithful "
+              f"{acc['faithful']:.3f} vs aggressive {acc['aggressive']:.3f} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{target}: faithful acceptance not above "
+                            f"aggressive")
+    replays = Counter()
+    for st in stats.values():
+        replays.update(st["replays"])
+    for k in (2, 4):
+        if replays[k] <= 0:
+            failures.append(f"no round of draft length {k} (verify M = "
+                            f"{SLOTS * (k + 1)}) replayed")
+    # the faithful dense pair over pages
+    for kv_bits in (None, 8):
+        out, st, fails = _spec_engine(
+            torch, "dense", "faithful", prompts,
+            stats["dense", "faithful"]["base_logits"],
+            stats["dense", "faithful"]["base_toks"], paged=True,
+            page_size=PAGE, kv_bits=kv_bits)
+        want = outs["dense", "faithful"]
+        if kv_bits is None:
+            ok = _same(out, want)
+            what = "tokens " + ("equal" if ok else "DIFFER FROM") + \
+                " the contiguous pair's"
+        else:
+            ok = all(len(t) == GEN for t in out.values()) and all(
+                out[r][0] == want[q][0]
+                for r, q in zip(sorted(out), sorted(want)))
+            what = ("full-length outputs, first tokens "
+                    + ("equal" if ok else "DIFFER FROM")
+                    + " the contiguous pair's")
+        print(f"[9 speculative] paged dense/faithful over "
+              f"{'int8' if kv_bits else 'bf16'} pages: {what} "
+              f"{'ok' if ok and not fails else 'FAIL'}")
+        if not ok or fails:
+            failures.append(f"paged spec kv_bits={kv_bits}: {fails}")
+    # chunked prefill: logits of the first token, tokens against phase 5's
+    # one-shot engines, prefill rate, and the decode gap
+    for mode in ("dense", "packed_b4"):
+        for paged in (False, True):
+            kw = dict(WEIGHT_MODES[mode], max_slots=SLOTS,
+                      max_seq=max(PROMPT_LENS) + GEN, device="cuda",
+                      prefill_chunk=CHUNK)
+            if paged:
+                kw.update(paged=True, page_size=PAGE)
+            eng, _ = build_engine(ARCH, False, **kw)
+            lg, one = _chunked_logits(torch, eng, prompts[5])
+            ok_l, logit_line = _logits_held(torch, lg[None], one[None])
+            for p in prompts:
+                eng.submit(p, GEN)
+            captured = _CAPTURES[0]
+            eng.warmup()
+            out = eng.run()
+            st = dict(eng.stats, **eng.throughput())
+            ok = (ok_l and _CAPTURES[0] == captured + 1
+                  and sorted(eng.graphs) == [1]
+                  and all(len(t) == GEN for t in out.values())
+                  and st["chunked_prefills"] == len(prompts))
+            print(f"[9 chunked] {mode}, {'paged' if paged else 'contiguous'}"
+                  f", chunk {CHUNK}: first token's logits, chunked prefill "
+                  f"of {len(prompts[5])} tokens vs one-shot: {logit_line}; "
+                  f"vs phase 5's one-shot engine: "
+                  f"{_agreement(out, one_shot[mode])}; prefill "
+                  f"{st['prefill_tok_per_s']:.1f} tok/s vs phase 5's "
+                  f"{full[mode]['prefill_tok_per_s']:.1f} "
+                  f"({st['prefill_chunks']} chunks), decode "
+                  f"{st['decode_tok_per_s']:.1f} tok/s "
+                  f"({st['decode_steps_mid_prefill']} steps mid-prefill) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"chunked {mode} paged={paged}")
+            if mode == "dense" and not paged:
+                gap_c = _decode_gaps(torch, eng, chunked=True)
+            del eng
+            torch.cuda.empty_cache()
+    eng, _ = build_engine(ARCH, False, max_slots=SLOTS,
+                          max_seq=max(PROMPT_LENS) + GEN, device="cuda")
+    gap_o = _decode_gaps(torch, eng, chunked=False)
+    del eng
+    torch.cuda.empty_cache()
+    print(f"[9 chunked] longest gap between two decode steps of a slot "
+          f"while a {GAP_PROMPT}-token prompt is prefilled (dense, one-step "
+          f"graph decodes; {GAP_TRIALS} runs each): chunked ({CHUNK}) "
+          f"{[round(g, 2) for g in gap_c]} ms, one-shot "
+          f"{[round(g, 2) for g in gap_o]} ms")
+    counts = ops.launch_counts()
+    print(f"[9 speculative] phase launch counts (host calls; a graph's "
+          f"calls count once, at capture): {_nonzero(counts)}")
+    for name in ("gemm_core.fake_quant_rhs", "gemm_core.dequant",
+                 "gemm_core.unpack_dequant", "gemm_core.small_m",
+                 "gemm_core.tc", "decode_attn", "paged_decode_attn.bf16"):
+        if counts[name] <= 0:
+            failures.append(f"{name} never launched in phase 9")
+    return counts, failures, dict(seen), stats
 
 
 LONG_PROMPT = 4096     # past attn_block_threshold: attention_blockwise
@@ -1922,6 +2422,9 @@ def main(argv=None) -> int:
                                                            geta)
     failures += pruned_fail
     del geta
+    spec_counts, spec_fail, spec_seen, spec_stats = phase_spec(
+        torch, full_stats, outs)
+    failures += spec_fail
 
     if args.out:
         out = Path(args.out)
@@ -1934,7 +2437,14 @@ def main(argv=None) -> int:
              "pruned_launches": pruned_counts,
              "pruned_traced_kernels": pruned_seen,
              "colmask_launches": colmask_counts,
-             "smoke_launches": smoke_counts},
+             "smoke_launches": smoke_counts,
+             "spec_launches": spec_counts,
+             "spec_traced_kernels": spec_seen,
+             "trace_takes": _TRACE_TAKES,
+             "spec_engines": {f"{t}/{d}": {
+                 k: v for k, v in st.items()
+                 if k not in ("base_logits", "base_toks", "base_stats")}
+                 for (t, d), st in spec_stats.items()}},
             indent=1, default=str))
     if failures:
         for f in failures:
@@ -1998,6 +2508,32 @@ def main(argv=None) -> int:
                          + " rows padded to 16 bytes",
                 "variant": row["variant"],
                 "kernels_per_launch": row["kernels_per_call"]})
+    # the verify heights, launched by phase 9's round graphs: a row's
+    # launches are the captures of its draft length's graphs (host counts),
+    # `replayed_launches` the kernels their replays ran
+    for label, target in (("fake_quant_rhs", "dense"),
+                          ("dequant", "compressed")):
+        for M in VERIFY_MS:
+            k = M // SLOTS - 1
+            K, N = REPORT_SHAPE[1:]
+            row = report[f"gemm_core.{label}.verify.M{M}.{K}x{N}"]
+            engines = [st for (t, _), st in spec_stats.items()
+                       if t == target]
+            per_graph = [st["graph_launches"][k].get("gemm_core.tc", 0)
+                         for st in engines]
+            kernels.append({
+                "name": f"gemm_core.{label}.verify.M{M}", "route": "cuda",
+                "source": gemm[0], "replaces": gemm[1],
+                "launches": sum(per_graph),
+                "replayed_launches": sum(
+                    n * st["replays"].get(k, 0)
+                    for n, st in zip(per_graph, engines)),
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "shape": f"M={M} K={K} N={N} (verify, k={k})",
+                "variant": row["variant"],
+                "block_height_ms": row["heights"]})
     fq_src = "src/repro_torch/kernels/csrc/fake_quant.cu"
     train_src = {"fake_quant.fwd": (fq_src,
                                     "src/repro/kernels/fake_quant.py:31"),

@@ -14,10 +14,15 @@ their prefill (`--hot-prompt` sends every request the same prompt; watch
 `prefix_hits`), and `--kv-bits 8|4` stores the pages as int8 or int4
 codes. `--pruned --sparsity S` serves the physically sliced subnet at
 magnitude masks of sparsity S (fewer KV heads and MLP units: smaller
-GEMMs and KV arena), in any weight mode and arena. The modes the port
-does not have yet (`--speculative`, `--tp`, `--devices`,
-`--chunked-prefill`) raise NotImplementedError naming the ROADMAP item
-that brings them.
+GEMMs and KV arena), in any weight mode and arena. `--speculative`
+attaches the self-speculative draft (the same init params sliced to
+`--draft-sparsity` and packed at `--draft-bits`) proposing up to
+`--draft-k` tokens a round, which the target verifies in one chunked
+pass; the report adds the acceptance rate. `--chunked-prefill C`
+prefills each prompt C rows at a time between decode steps; the report
+adds the chunks and the decode steps that ran mid-prefill. The modes the
+port does not have yet (`--tp`, `--devices`) raise NotImplementedError
+naming the ROADMAP item that brings them.
 
 Runs on CUDA by default; `--device cpu` runs the kernels' plain PyTorch
 versions and decodes its windows eagerly:
@@ -31,6 +36,12 @@ versions and decodes its windows eagerly:
 
     PYTHONPATH=src python examples/serve_engine_torch.py --pruned \
         --sparsity 0.3 --compressed --device cpu
+
+    PYTHONPATH=src python examples/serve_engine_torch.py --speculative \
+        --draft-k 4 --draft-sparsity 0 --draft-bits 8 --device cpu
+
+    PYTHONPATH=src python examples/serve_engine_torch.py \
+        --chunked-prefill 8 --device cpu
 """
 import argparse
 
@@ -77,15 +88,24 @@ def main(argv=None):
                     help="serve the physically sliced subnet at magnitude "
                          "masks of --sparsity")
     ap.add_argument("--sparsity", type=float, default=0.5)
-    # the reference example's modes that come with later slices
-    ap.add_argument("--speculative", action="store_true", default=False)
-    ap.add_argument("--draft-k", type=int, default=4)
-    ap.add_argument("--draft-sparsity", type=float, default=0.5)
-    ap.add_argument("--draft-bits", type=float, default=8.0)
+    ap.add_argument("--speculative", action="store_true", default=False,
+                    help="draft/verify decoding: a sliced, packed subnet "
+                         "of the same init params drafts tokens, the "
+                         "target verifies them in one chunked pass")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="most proposals a speculative round")
+    ap.add_argument("--draft-sparsity", type=float, default=0.5,
+                    help="draft subnet sparsity (0 keeps all units)")
+    ap.add_argument("--draft-bits", type=float, default=8.0,
+                    help="draft quantizer width (8 tracks the target "
+                         "closely; 2 is cheap but rarely accepted)")
+    ap.add_argument("--chunked-prefill", type=int, default=None,
+                    metavar="CHUNK",
+                    help="prefill prompts at most CHUNK rows a step into a "
+                         "staging row, so decode runs on mid-prefill")
+    # the reference example's modes that come with a later slice
     ap.add_argument("--tp", type=int, default=0)
     ap.add_argument("--devices", type=int, default=0)
-    ap.add_argument("--chunked-prefill", type=int, default=None,
-                    metavar="CHUNK")
     args = ap.parse_args(argv)
     if args.devices:
         raise not_in_this_slice("multi-device serving (--devices)",
@@ -108,7 +128,10 @@ def main(argv=None):
                            paged=args.paged, page_size=args.page_size,
                            kv_bits=args.kv_bits, pruned=args.pruned,
                            sparsity=args.sparsity,
-                           speculative=args.speculative, tp=args.tp,
+                           speculative=args.speculative,
+                           draft_k=args.draft_k,
+                           draft_sparsity=args.draft_sparsity,
+                           draft_bits=args.draft_bits, tp=args.tp,
                            prefill_chunk=args.chunked_prefill)
     prompts = synthetic_prompts(lm.cfg, lens)
     if args.hot_prompt:
@@ -126,11 +149,22 @@ def main(argv=None):
     line = (f"decode on {eng.device}: {s['decode_tokens']} tokens in "
             f"{s['decode_s']:.2f}s ({th['decode_tok_per_s']:.1f} tok/s, "
             f"occupancy {th['slot_occupancy']:.2f} over {args.slots} "
-            f"slots); one-shot prefill: {s['prefill_tokens']} tokens "
+            f"slots); {'chunked' if args.chunked_prefill else 'one-shot'} "
+            f"prefill: {s['prefill_tokens']} tokens "
             f"({th['prefill_tok_per_s']:.1f} tok/s)")
     if eng.graphs:
-        line += (f"; {len(eng.graphs)} CUDA graph windows captured in "
+        kind = "rounds" if eng.draft is not None else "windows"
+        line += (f"; {len(eng.graphs)} CUDA graph {kind} captured in "
                  f"{s['capture_s']:.2f}s, replays {dict(eng.replays)}")
+    if args.speculative:
+        line += (f"; speculative: {s['spec_accepted']}/{s['spec_drafted']} "
+                 f"drafted tokens accepted ({th['acceptance_rate']:.2f}) "
+                 f"over {s['spec_steps']} rounds")
+    if args.chunked_prefill:
+        line += (f"; chunked@{args.chunked_prefill}: "
+                 f"{s['prefill_chunks']} chunks, "
+                 f"{s['decode_steps_mid_prefill']} decode steps "
+                 f"mid-prefill")
     if args.paged:
         line += (f"; paged: {s['prefills']} prefills, "
                  f"{s['prefix_hits']} prefix hits, kv_bytes "

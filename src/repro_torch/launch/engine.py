@@ -1,6 +1,6 @@
 """Continuous-batching serving engine: port of `repro.launch.engine.Engine`
-with its contiguous and paged KV arenas and its pruned (slim) mode,
-without its speculative, chunked and tensor-parallel modes.
+with its contiguous and paged KV arenas, its pruned (slim), speculative
+and chunked-prefill modes, without tensor parallelism.
 
 - Requests queue with their own prompt and token budget; a finished
   request frees its slot and the next queued request is admitted.
@@ -32,6 +32,21 @@ without its speculative, chunked and tensor-parallel modes.
   On the CPU the same window body runs eagerly. There is no switch
   between the two: the device decides. `step()` stays the eager single
   step, the path the graph windows are held against.
+- A speculative engine (`draft=`, `launch/speculative.py`) keeps a second
+  KV arena at the draft's widths (paged through the same page table and
+  allocator) and decodes in rounds: the draft proposes up to `draft_k`
+  tokens, the target verifies them in one chunked pass and commits its
+  own argmaxes. On CUDA `warmup()` captures one graph per draft length
+  of `_spec_ks()` (the reference's per-k jit) and each round replays one,
+  reading (target tokens, commits) with the round's one host sync; the
+  paged round gathers each slot's contiguous view from the pools and
+  scatters back the pages it touched. `_spec_body` is the eager round.
+- A chunked-prefill engine (`scheduler=ChunkedPrefillScheduler(C)`,
+  `launch/scheduler.py`) prefills each prompt C rows at a time through
+  `LM.verify_chunk` into a staging row, one chunk per step between the
+  decode steps of the active slots, and hands the finished row to a free
+  slot as a one-shot prefill row. Chunks run eagerly; on CUDA its decode
+  replays the captured one-step window.
 
 Entry points run on CUDA unless the caller passes `device="cpu"`, and
 raise when no CUDA device is there; nothing falls back silently.
@@ -48,13 +63,17 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_arch
-from repro_torch.core.quant import kv_quant_encode
+from repro_torch.core.quant import kv_quant_decode, kv_quant_encode
 from repro_torch.core.subnet import (compression_report,
                                      masked_reference_params,
                                      prepare_serving, tree_bytes)
 from repro_torch.kernels import ops as Kops
 from repro_torch.launch import paging
-from repro_torch.launch.scheduler import OneShotScheduler
+from repro_torch.launch.scheduler import (ChunkedPrefillScheduler,
+                                          OneShotScheduler, PrefillJob,
+                                          chunk_buckets, chunk_plan)
+from repro_torch.launch.speculative import (DraftModel, build_draft,
+                                            make_spec_step, pow2_floor)
 from repro_torch.models.layers import PagedView, dtype_of, not_in_this_slice
 from repro_torch.models.transformer import LM
 
@@ -76,6 +95,35 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+# why each chunked-scoring mode needs full (window == 0) arenas and
+# attention mixers everywhere (the reference's messages)
+_FULL_ATTENTION_WHY = {
+    "speculative decoding": (
+        "a ring wrap overwrites pre-wrap rows that a rejection could never "
+        "roll back",
+        "rollback zeroes KV rows); plan has {bad} layers whose recurrent "
+        "state cannot be rolled back"),
+    "chunked prefill": (
+        "verify_chunk writes at absolute positions and a ring wrap would "
+        "fold chunk rows onto each other",
+        "each chunk resumes from cache rows alone); plan has {bad} layers "
+        "with recurrent state that one-shot prefill threads internally"),
+}
+
+
+def _require_full_attention(lm: LM, mode: str) -> None:
+    """Refuse `mode` (a key of _FULL_ATTENTION_WHY) on a sliding-window
+    config or a plan with non-attention mixers."""
+    window_why, mixer_why = _FULL_ATTENTION_WHY[mode]
+    if lm.cfg.window > 0:
+        raise ValueError(f"{mode} needs full (window == 0) KV arenas: "
+                         f"{window_why}")
+    bad = sorted({s.mixer for s in lm.plan if s.mixer != "attn"})
+    if bad:
+        raise ValueError(f"{mode} needs attention mixers everywhere ("
+                         + mixer_why.format(bad=bad))
+
+
 @dataclasses.dataclass
 class Request:
     rid: int
@@ -94,21 +142,27 @@ class Request:
 
 class Engine:
     """Continuous-batching decode over a slot arena (contiguous, or paged
-    with `paged=True`). Drive it one `step()` at a time, or with `run()`
-    until every submitted request finished."""
+    with `paged=True`), with an optional speculative draft (`draft=`) and
+    step policy (`scheduler=`). Drive it one `step()` at a time, or with
+    `run()` until every submitted request finished."""
 
     MAX_WINDOW = 32
 
     def __init__(self, lm: LM, params: dict, qparams: Optional[dict], *,
-                 max_slots: int = 4, max_seq: int = 64, paged: bool = False,
-                 page_size: int = 16, kv_bits: Optional[int] = None,
-                 n_pages: Optional[int] = None, prefix_sharing: bool = True):
+                 max_slots: int = 4, max_seq: int = 64,
+                 draft: Optional[DraftModel] = None, draft_k: int = 4,
+                 paged: bool = False, page_size: int = 16,
+                 kv_bits: Optional[int] = None,
+                 n_pages: Optional[int] = None, prefix_sharing: bool = True,
+                 scheduler=None):
+        cfg = lm.cfg
         self.lm = lm
         self.max_slots = max_slots
         self.max_seq = max_seq
         self.params = params
         self.qparams = qparams
         self.device = params["embed"].device
+        self.dtype = dtype_of(cfg)
         # the head's fake-quant is the same every step: split the
         # quantizers once (re-splitting the result is the identity)
         self._run_params, self._run_qparams = lm._prequantize(params, qparams)
@@ -131,33 +185,75 @@ class Engine:
             self.page_table = np.full((max_slots, self.Lp),
                                       paging.TRASH_PAGE, np.int32)
             self.slot_pages: list[list[int]] = [[] for _ in range(max_slots)]
-            self.caches = lm.init_paged_cache(
-                self.n_pages, self.page_size, dtype=dtype_of(lm.cfg),
-                kv_bits=kv_bits, device=self.device)
-        else:
-            self.caches = lm.init_cache(max_slots, max_seq,
-                                        dtype=dtype_of(lm.cfg),
-                                        device=self.device)
+        self.caches = self._arena(lm)
         self.pos = np.zeros((max_slots,), np.int32)
         self.last_tok = np.zeros((max_slots,), np.int32)
         self.active: list[Optional[Request]] = [None] * max_slots
         self.queue: deque[Request] = deque()
         self.done: dict[int, Request] = {}
         self._next_rid = 0
-        self.scheduler = OneShotScheduler()
         self.stats = {"decode_steps": 0, "decode_tokens": 0, "decode_s": 0.0,
                       "prefills": 0, "prefill_tokens": 0, "prefill_s": 0.0,
-                      "prefix_hits": 0, "admitted": 0, "evicted": 0,
-                      "capture_s": 0.0}
+                      "draft_prefills": 0, "draft_prefill_tokens": 0,
+                      "draft_prefill_s": 0.0, "prefix_hits": 0,
+                      "admitted": 0, "evicted": 0, "spec_steps": 0,
+                      "spec_drafted": 0, "spec_accepted": 0,
+                      "prefill_chunks": 0, "chunked_prefills": 0,
+                      "decode_steps_mid_prefill": 0, "capture_s": 0.0}
+
+        # speculative decoding: a second KV arena at the draft's widths,
+        # sharing this engine's slots, positions and (paged) page table
+        self.draft = draft
+        self.draft_k = int(draft_k)
+        self.dcaches = None
+        if draft is not None:
+            _require_full_attention(lm, "speculative decoding")
+            if not 1 <= self.draft_k < max_seq:
+                raise ValueError(
+                    f"draft_k={self.draft_k} must be in [1, "
+                    f"max_seq={max_seq})")
+            self._draft_params, self._draft_qparams = \
+                draft.lm._prequantize(draft.params, draft.qparams)
+            self.dcaches = self._arena(draft.lm)
+            self._spec_step = make_spec_step(lm, draft.lm)
+
+        # the step policy; a chunked policy stages prefills chunk by chunk
+        self.scheduler = scheduler if scheduler is not None \
+            else OneShotScheduler()
+        self._handoff: deque = deque()     # (req, first token, row) staged
+        self._prefill_job: Optional[PrefillJob] = None
+        chunk = getattr(self.scheduler, "chunk", None)
+        self._chunk = int(chunk) if chunk else None
+        if self._chunk:
+            # chunks go through verify_chunk, with its preconditions
+            _require_full_attention(lm, "chunked prefill")
+
         self._static_buffers()
-        # window length -> (CUDA graph, its (k, slots) token output); the
-        # host launch counts each capture made; replays per window length
+        # k -> (CUDA graph, its output); the host launch counts each
+        # capture made; replays per k. k is a window length, whose graph
+        # outputs (k, slots) tokens, or, in a speculative engine, a draft
+        # length, whose round outputs (slots, k + 2): the target tokens,
+        # then the commits
         self.graphs: dict[int, tuple] = {}
         self.graph_launches: dict[int, dict[str, int]] = {}
         self.replays: Counter = Counter()
+        # speculative rounds and their host seconds, per draft length
+        self.spec_rounds: Counter = Counter()
+        self.spec_round_s: Counter = Counter()
         self.graph_pool_bytes = 0
+        self._eager = False
         # what `build_engine`'s prepare_serving reported (sparsity, bytes)
         self.serving_meta: dict = {}
+
+    def _arena(self, lm: LM) -> dict:
+        """A zeroed KV arena of `lm`'s widths: the page pools when paged,
+        else (n_blocks, slots, max_seq, KVh, dh) per leaf."""
+        if self.paged:
+            return lm.init_paged_cache(self.n_pages, self.page_size,
+                                       dtype=self.dtype, kv_bits=self.kv_bits,
+                                       device=self.device)
+        return lm.init_cache(self.max_slots, self.max_seq, dtype=self.dtype,
+                             device=self.device)
 
     # ------------------------------------------------------------ requests
     def submit(self, prompt, max_new_tokens: int) -> int:
@@ -192,22 +288,38 @@ class Engine:
 
     @property
     def pending(self) -> bool:
-        return bool(self.queue) or self.n_active > 0
+        return (bool(self.queue) or self.n_active > 0
+                or self._prefill_job is not None or bool(self._handoff))
 
     # ----------------------------------------------------------- lifecycle
+    def _tokens(self, prompt: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(prompt[None], dtype=torch.int64,
+                               device=self.device)
+
     def _prefill(self, row: dict, prompt: np.ndarray) -> int:
         """Prefill the prompt into `row`, a (1, S) cache whose rows are
         zero, in place; returns the first generated token."""
         t0 = time.time()
-        toks = torch.as_tensor(prompt[None], dtype=torch.int64,
-                               device=self.device)
         logits, _ = self.lm.prefill(self._run_params, self._run_qparams, row,
-                                    toks, last_logit_only=True)
+                                    self._tokens(prompt),
+                                    last_logit_only=True)
         first = int(torch.argmax(logits[:, -1], dim=-1)[0])
         self.stats["prefill_s"] += time.time() - t0
         self.stats["prefills"] += 1
         self.stats["prefill_tokens"] += int(prompt.size)
         return first
+
+    def _prefill_draft(self, row: dict, prompt: np.ndarray) -> None:
+        """The draft's one-shot prefill of the prompt into `row` (zero rows
+        of the draft's widths), in place. Its time and tokens are draft
+        work, counted apart from the target's prefill rate."""
+        t0 = time.time()
+        self.draft.lm.prefill(self._draft_params, self._draft_qparams, row,
+                              self._tokens(prompt), last_logit_only=True)
+        _sync(self.device)
+        self.stats["draft_prefill_s"] += time.time() - t0
+        self.stats["draft_prefills"] += 1
+        self.stats["draft_prefill_tokens"] += int(prompt.size)
 
     def _admit(self) -> int:
         """Prefill queued requests into free slots. Returns #admitted."""
@@ -229,14 +341,23 @@ class Engine:
                 admitted += int(got)
         return admitted
 
-    def _admit_contiguous(self, req: Request, slot: int) -> bool:
-        """Zero the slot's arena row and prefill the prompt into it in
-        place. Returns True (occupies the slot) or False (finished at
-        admission)."""
-        row = {k: c[:, slot:slot + 1] for k, c in self.caches.items()}
+    @staticmethod
+    def _slot_row(caches: dict, slot: int) -> dict:
+        """The slot's (1, max_seq) row of a contiguous arena, zeroed (views
+        into the arena)."""
+        row = {k: c[:, slot:slot + 1] for k, c in caches.items()}
         for c in row.values():
             c.zero_()
-        first = self._prefill(row, req.prompt)
+        return row
+
+    def _admit_contiguous(self, req: Request, slot: int) -> bool:
+        """Zero the slot's arena row and prefill the prompt into it in
+        place (and the draft's, when one is attached). Returns True
+        (occupies the slot) or False (finished at admission)."""
+        first = self._prefill(self._slot_row(self.caches, slot), req.prompt)
+        if self.draft is not None and req.max_new_tokens > 1:
+            self._prefill_draft(self._slot_row(self.dcaches, slot),
+                                req.prompt)
         return self._occupy(req, slot, first)
 
     def _occupy(self, req: Request, slot: int, first: int) -> bool:
@@ -255,35 +376,42 @@ class Engine:
         return True
 
     # ------------------------------------------------------ paged lifecycle
+    def _arenas(self) -> list[dict]:
+        return [self.caches] + ([self.dcaches] if self.draft is not None
+                                else [])
+
     def _flush_dirty(self) -> None:
-        """Zero released pages on the device and return them to the free
-        list (the allocator's zero-before-reuse contract)."""
+        """Zero released pages on the device (in every arena's pools) and
+        return them to the free list (the allocator's zero-before-reuse
+        contract)."""
         dirty = self.alloc.take_dirty()
         if not dirty:
             return
         ids = torch.as_tensor(dirty, dtype=torch.int64, device=self.device)
-        for c in self.caches.values():
-            c[:, ids] = 0
+        for arena in self._arenas():
+            for c in arena.values():
+                c[:, ids] = 0
         self.alloc.mark_zeroed(dirty)
 
     def _copy_page(self, src: int, dst: int) -> None:
-        for c in self.caches.values():
-            c[:, dst] = c[:, src]
+        for arena in self._arenas():
+            for c in arena.values():
+                c[:, dst] = c[:, src]
 
-    def _insert_pages(self, row: dict, pages: list[int]) -> None:
+    def _insert_pages(self, pools: dict, row: dict, pages: list[int]) -> None:
         """Scatter a prefilled (1, Lp * P) cache's first len(pages) pages
-        into the pools: whole pages, so the prefill's zero tail keeps the
+        into `pools`: whole pages, so the prefill's zero tail keeps the
         page remainders zero; encoded when the pools hold codes."""
         P, npp = self.page_size, len(pages)
         phys = torch.as_tensor(pages, dtype=torch.int64, device=self.device)
         for key, r in row.items():
             r = r[:, 0, :npp * P]                      # (nb, npp*P, KVh, dh)
             blocks = r.reshape((r.shape[0], npp, P) + r.shape[2:])
-            pool = self.caches[key]
+            pool = pools[key]
             if self.kv_bits is not None:
                 codes, scale = kv_quant_encode(blocks, self.kv_bits)
                 pool[:, phys] = codes
-                self.caches[key + "_scale"][:, phys] = scale
+                pools[key + "_scale"][:, phys] = scale
             else:
                 pool[:, phys] = blocks.to(pool.dtype)
 
@@ -299,10 +427,16 @@ class Engine:
             self._flush_dirty()
         return True
 
-    def _admit_paged(self, req: Request, slot: int) -> Optional[bool]:
+    def _admit_paged(self, req: Request, slot: int,
+                     prefilled: Optional[tuple] = None) -> Optional[bool]:
         """Admit one request into `slot` under the paged arena. Returns
         True (occupies the slot), False (finished at admission: retry the
-        slot) or None (allocator pressure: requeue)."""
+        slot) or None (allocator pressure: requeue).
+
+        `prefilled=(first token, staged row)` hands in a chunked prefill's
+        result: the prefill and its stats are skipped, the rest (page
+        scatter, draft prefill, prefix-cache registration) runs as for a
+        one-shot prefill."""
         P = self.page_size
         S = int(req.prompt.size)
         npg_req = paging.pages_for_rows(S + req.max_new_tokens - 1, P)
@@ -317,6 +451,8 @@ class Engine:
             if ent is not None:
                 first = int(ent.first_token)
                 self.stats["prefix_hits"] += 1
+            elif prefilled is not None:
+                first = int(prefilled[0])
             else:
                 first = self._prefill(self._fresh_row(), req.prompt)
             return self._occupy(req, slot, first)
@@ -324,7 +460,7 @@ class Engine:
         if ent is not None:
             # prefix hit: share the full prompt pages (one more refcount),
             # copy the pristine tail template into an owned page, reuse the
-            # memoized first token, and skip the prefill
+            # memoized first token, and skip both prefills
             n_owned = npg_req - n_full
             if not self._reserve_pages(n_owned, keep_last=True):
                 return None
@@ -339,9 +475,17 @@ class Engine:
             if not self._reserve_pages(npg_req):
                 return None
             pages = self.alloc.alloc(npg_req)
-            row = self._fresh_row()
-            first = self._prefill(row, req.prompt)
-            self._insert_pages(row, pages[:paging.pages_for_rows(S, P)])
+            if prefilled is not None:
+                first, row = int(prefilled[0]), prefilled[1]
+            else:
+                row = self._fresh_row()
+                first = self._prefill(row, req.prompt)
+            npp = paging.pages_for_rows(S, P)
+            self._insert_pages(self.caches, row, pages[:npp])
+            if self.draft is not None:
+                drow = self._fresh_row(self.draft.lm)
+                self._prefill_draft(drow, req.prompt)
+                self._insert_pages(self.dcaches, drow, pages[:npp])
             if cache is not None:
                 # register the prompt for sharing (best effort): the cache
                 # takes its own refcount on the full pages and a pristine
@@ -365,12 +509,14 @@ class Engine:
         self.slot_pages[slot] = list(pages)
         return self._occupy(req, slot, first)
 
-    def _fresh_row(self) -> dict:
-        """A zeroed (1, Lp * P) contiguous cache for one prefill: whole
-        pages of rows, so `_insert_pages` cuts it without padding."""
-        return self.lm.init_cache(1, self.Lp * self.page_size,
-                                  dtype=dtype_of(self.lm.cfg),
-                                  device=self.device)
+    def _fresh_row(self, lm: Optional[LM] = None) -> dict:
+        """A zeroed one-slot contiguous cache of `lm`'s widths (the
+        target's by default) for one prefill: Lp * P rows when paged
+        (whole pages, so `_insert_pages` cuts it without padding), else
+        max_seq (an arena row, for a chunked prefill's staging)."""
+        rows = self.Lp * self.page_size if self.paged else self.max_seq
+        return (lm or self.lm).init_cache(1, rows, dtype=self.dtype,
+                                          device=self.device)
 
     def _finish(self, req: Request) -> None:
         req.finish_t = time.time()
@@ -387,6 +533,97 @@ class Engine:
             req.slot = -1
             self.stats["evicted"] += 1
         self.done[req.rid] = req
+
+    # ----------------------------------------------------- chunked prefill
+    def _act_prefill_chunk(self) -> bool:
+        """Run one chunk of the prefill in flight (starting a job from the
+        queue when none is): `verify_chunk` at the rows written so far
+        into the job's staging row. A finished job goes to the handoff
+        queue with its row and first token; a paged prefix-cache hit skips
+        staging and hands off at once."""
+        if self._prefill_job is None:
+            if not self.queue or len(self._handoff) >= self.max_slots:
+                return False
+            req = self.queue.popleft()
+            if (self.paged and self.prefix_cache is not None
+                    and self.prefix_cache.lookup(req.prompt) is not None):
+                # pages and first token are pinned already: `_admit_paged`
+                # takes the hit
+                self._handoff.append((req, None, None))
+                return True
+            self._prefill_job = PrefillJob(
+                req=req, caches=self._fresh_row(),
+                chunks=chunk_plan(int(req.prompt.size), self._chunk))
+        job = self._prefill_job
+        c = job.chunks.pop(0)
+        toks = self._tokens(job.req.prompt[job.done_rows:job.done_rows + c])
+        t0 = time.time()
+        logits, _ = self.lm.verify_chunk(
+            self._run_params, self._run_qparams, job.caches, toks,
+            torch.full((1,), job.done_rows, dtype=torch.int64,
+                       device=self.device), last_logit_only=True)
+        first = int(torch.argmax(logits[:, -1], dim=-1)[0])
+        self.stats["prefill_s"] += time.time() - t0
+        self.stats["prefill_chunks"] += 1
+        job.done_rows += c
+        if not job.chunks:
+            # the last chunk's last logits predict the first new token
+            job.first = first
+            self.stats["prefills"] += 1
+            self.stats["chunked_prefills"] += 1
+            self.stats["prefill_tokens"] += int(job.req.prompt.size)
+            self._handoff.append((job.req, job.first, job.caches))
+            self._prefill_job = None
+        return True
+
+    def _free_slot(self) -> Optional[int]:
+        for i, r in enumerate(self.active):
+            if r is None:
+                return i
+        return None
+
+    def _act_handoff(self) -> bool:
+        """Admit finished prefill jobs from the handoff queue into free
+        slots, in order, stopping at the first that cannot be placed (no
+        free slot, allocator pressure). A staged row goes in as a one-shot
+        prefill row would."""
+        progress = False
+        if self.paged:
+            self._flush_dirty()
+        while self._handoff:
+            req, first, row = self._handoff[0]
+            if self.paged:
+                slot = self._free_slot()
+                if req.max_new_tokens > 1 and slot is None:
+                    break
+                got = self._admit_paged(
+                    req, -1 if slot is None else slot,
+                    prefilled=None if first is None else (first, row))
+                if got is None:
+                    break
+            elif req.max_new_tokens == 1:
+                # one-token request: the staged first token is the answer
+                self._occupy(req, -1, int(first))
+            else:
+                slot = self._free_slot()
+                if slot is None:
+                    break
+                self._insert_staged(req, int(first), row, slot)
+            self._handoff.popleft()
+            progress = True
+        return progress
+
+    def _insert_staged(self, req: Request, first: int, row: dict,
+                       slot: int) -> None:
+        """Copy a staged row into the slot's contiguous arena row, prefill
+        the draft one-shot when one is attached (its sliced shapes make it
+        the cheap half), and seat the request."""
+        for key, c in self.caches.items():
+            c[:, slot:slot + 1].copy_(row[key])
+        if self.draft is not None:
+            self._prefill_draft(self._slot_row(self.dcaches, slot),
+                                req.prompt)
+        self._occupy(req, slot, first)
 
     # -------------------------------------------------------------- decode
     def _static_buffers(self) -> None:
@@ -469,28 +706,172 @@ class Engine:
 
     def step(self) -> bool:
         """One engine iteration as the scheduler plans it. Returns False
-        when no action made progress."""
+        when no action made progress. On CUDA a speculative round, and a
+        chunked engine's decode, replay graphs captured in `warmup()`."""
         progress = False
         for act in self.scheduler.plan_step(self):
             progress = bool(getattr(self, "_act_" + act)()) or progress
         return progress
 
+    def eager_step(self) -> bool:
+        """`step()` with every decode action eager on any device: the path
+        the graph replays of a speculative or chunked engine are held
+        against (a plain engine's `step()` is eager already)."""
+        self._eager = True
+        try:
+            return self.step()
+        finally:
+            self._eager = False
+
+    def _replaying(self) -> bool:
+        return self.device.type == "cuda" and not self._eager
+
     def _act_admit(self) -> bool:
         return self._admit() > 0
 
     def _act_decode(self) -> bool:
-        """One eager decode step (no graph on any device)."""
+        """One batched decode over every active slot, or, with a draft
+        attached, one speculative round. A plain engine's decode is eager;
+        a chunked engine's replays the one-step window on CUDA."""
         if self.n_active == 0:
             return False
+        if self.draft is not None:
+            return self._spec_round()
         t0 = time.time()
         self._stage()
-        nxt = self._decode(self._static["tok"], self._static["pos"],
-                           self._pages())
-        toks = nxt.cpu().numpy()[None]
+        if self._chunk and self._replaying():
+            toks = self._replay(1)
+        else:
+            nxt = self._decode(self._static["tok"], self._static["pos"],
+                               self._pages())
+            toks = nxt.cpu().numpy()[None]
         self.stats["decode_s"] += time.time() - t0
+        if self._prefill_job is not None:
+            # decode batches that ran while a prompt was mid-prefill: zero
+            # in a one-shot engine, which cannot decode during a prefill
+            self.stats["decode_steps_mid_prefill"] += 1
         self._commit(toks)
         return True
 
+    # --------------------------------------------------------- speculative
+    def _spec_ks(self) -> list[int]:
+        """Draft lengths a round can run: 0 and the powers of two up to
+        draft_k. `_spec_round` quantizes to this set, so it is exactly the
+        set of graphs `warmup()` captures."""
+        ks, k = [0], 1
+        while k <= self.draft_k:
+            ks.append(k)
+            k *= 2
+        return ks
+
+    def _gather(self, pools: dict) -> dict:
+        """Each slot's contiguous (n_blocks, B, max_seq, KVh, dh) view of
+        `pools`, read through the static page table and decoded from int8
+        or int4 pages: the arena shape the contiguous engine's round runs
+        on, so its reductions are the same."""
+        P, dev = self.page_size, self.device
+        r = torch.arange(self.max_seq, device=dev)
+        phys = (self._static["table"][:, r // P].to(torch.int64) * P
+                + r % P)                                     # (B, max_seq)
+        views = {}
+        for key, pool in pools.items():
+            if key.endswith("_scale"):
+                continue
+            flat = pool.view(pool.shape[0], -1, *pool.shape[3:])
+            rows = flat[:, phys]
+            if self.kv_bits is not None:
+                sc = pools[key + "_scale"]
+                scale = sc.view(sc.shape[0], -1, sc.shape[3])[:, phys]
+                rows = kv_quant_decode(rows, scale, self.kv_bits)
+            views[key] = rows.to(self.dtype)
+        return views
+
+    def _scatter(self, pools: dict, views: dict, pos: torch.Tensor,
+                 k: int) -> None:
+        """Write back into `pools` the pages a round of draft length k can
+        have touched: rows [pos, pos + k] lie in the k // P + 2 logical
+        pages from pos // P (clamped to the table: a clamped duplicate
+        writes the same block). Re-encoded when the pools hold codes.
+        Pages past a slot's allocation alias the zero page and receive
+        zeros; an idle slot's all go to the trash page."""
+        P, Lp, dev = self.page_size, self.Lp, self.device
+        npg = min(k // P + 2, Lp)
+        lp = torch.clamp(pos[:, None] // P
+                         + torch.arange(npg, device=dev)[None, :], 0, Lp - 1)
+        phys = torch.gather(self._static["table"].to(torch.int64), 1, lp)
+        r = lp[..., None] * P + torch.arange(P, device=dev)   # (B, npg, P)
+        inside = (r < self.max_seq)[None, ..., None, None]
+        r = torch.clamp(r, max=self.max_seq - 1)
+        slots = torch.arange(self.max_slots, device=dev)[:, None, None]
+        for key, view in views.items():
+            blocks = view[:, slots, r].masked_fill(~inside, 0)
+            pool = pools[key]
+            if self.kv_bits is not None:
+                codes, scale = kv_quant_encode(blocks, self.kv_bits)
+                pool[:, phys] = codes
+                pools[key + "_scale"][:, phys] = scale
+            else:
+                pool[:, phys] = blocks.to(pool.dtype)
+
+    def _spec_body(self, k: int, tcaches: dict, dcaches: dict
+                   ) -> torch.Tensor:
+        """One speculative round of draft length k from the static buffers
+        over the target and draft arenas `tcaches` / `dcaches` (written in
+        place; paged: their pools, through gathered views); returns the
+        (B, k + 2) int64 target tokens then commits. The CUDA graphs
+        capture exactly this; the CPU runs it."""
+        tok, pos = self._static["tok"], self._static["pos"]
+        tv, dv = ((self._gather(tcaches), self._gather(dcaches))
+                  if self.paged else (tcaches, dcaches))
+        tgt, n_commit, _, _ = self._spec_step(
+            self._run_params, self._run_qparams, self._draft_params,
+            self._draft_qparams, tv, dv, tok, pos, k)
+        if self.paged:
+            self._scatter(tcaches, tv, pos, k)
+            self._scatter(dcaches, dv, pos, k)
+        return torch.cat([tgt, n_commit[:, None]], dim=1)
+
+    def _spec_round(self) -> bool:
+        """One speculative round over the active slots, committing 1 to
+        k + 1 tokens per slot. k = pow2_floor(min(draft_k, min remaining -
+        1)): a power of two keeps the set of rounds bounded (`_spec_ks`),
+        and the cap keeps every slot's k + 1 writes inside its rows and
+        its commits inside its budget. On CUDA the round replays its
+        captured graph and raises if `warmup()` did not capture it."""
+        rem = min(req.max_new_tokens - len(req.tokens)
+                  for req in self.active if req is not None)
+        k = pow2_floor(min(self.draft_k, rem - 1))
+        t0 = time.time()
+        self._stage()
+        if self._replaying():
+            out = self._replay(k)         # (B, k + 2): the round's one sync
+        else:
+            out = self._spec_body(k, self.caches,
+                                  self.dcaches).cpu().numpy()
+        dt = time.time() - t0
+        self.stats["decode_s"] += dt
+        self.spec_rounds[k] += 1
+        self.spec_round_s[k] += dt
+        tgt, ncm = out[:, :k + 1], out[:, k + 1]
+        # decode_steps counts positions scored, decode_tokens only the
+        # committed tokens (rejected drafts show as drafted - accepted)
+        self.stats["decode_steps"] += k + 1
+        self.stats["spec_steps"] += 1
+        for slot, req in enumerate(self.active):
+            if req is None:
+                continue
+            n = int(ncm[slot])
+            self.stats["decode_tokens"] += n
+            self.stats["spec_drafted"] += k
+            self.stats["spec_accepted"] += n - 1
+            req.tokens.extend(int(t) for t in tgt[slot, :n])
+            self.last_tok[slot] = tgt[slot, n - 1]
+            self.pos[slot] += n
+            if req.done:
+                self._finish(req)
+        return True
+
+    # -------------------------------------------------------------- warmup
     def warmed_window_ks(self) -> list[int]:
         """Window lengths `warmup()` captures: the powers of two up to
         MAX_WINDOW, every length `_window` can ask for (it quantizes each
@@ -502,82 +883,134 @@ class Engine:
         return ks
 
     def warmup(self) -> None:
-        """Make the timed path ready before it is timed. First one eager
-        decode step on scratch state and one prefill per queued prompt
-        length, which build the kernels and do their first-call set-up;
-        then, on CUDA, one CUDA graph per window length of
-        `warmed_window_ks()` (once per engine), the counterpart of the
-        reference's ahead-of-time window compiles. Slot state and live
-        cache rows stay untouched: the contiguous arena's eager step
-        decodes into a scratch arena, the paged one through a table of
-        trash pages, and a capture runs nothing."""
+        """Make the timed path ready before it is timed. First the decode
+        path once, eagerly, on scratch state (one decode step, or one
+        speculative round per draft length of `_spec_ks()`), and one
+        prefill per queued prompt length (a chunked engine: one chunk per
+        length of `chunk_buckets`, and the draft's prefills), which build
+        the kernels and do their first-call set-up; then, on CUDA, the
+        graphs, once per engine: one per window length of
+        `warmed_window_ks()`, or, speculative, one round per draft length,
+        or, chunked, the one-step window. Slot state and live cache rows
+        stay untouched: contiguous arenas are decoded as scratch copies,
+        paged ones through a table of trash pages, and a capture runs
+        nothing."""
         lm, dev = self.lm, self.device
         st = self._static
         st["tok"].zero_()
         st["pos"].zero_()
         if self.paged:
             st["table"].fill_(paging.TRASH_PAGE)
-            caches = self.caches
-        else:
-            caches = lm.init_cache(self.max_slots, self.max_seq,
-                                   dtype=dtype_of(lm.cfg), device=dev)
-        # the eager step runs on the stream the graphs are captured on, so
-        # the set-up that belongs to a stream (cuBLAS's workspace) is done
+        # the eager passes run on the stream the graphs are captured on,
+        # so the set-up that belongs to a stream (cuBLAS's workspace) is
+        # done
         stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
         if stream is not None:
             stream.wait_stream(torch.cuda.current_stream(dev))
+        scratch = (lambda arena: arena) if self.paged else \
+            (lambda arena: {k: torch.zeros_like(c) for k, c in arena.items()})
         with (torch.cuda.stream(stream) if stream is not None
               else contextlib.nullcontext()):
-            lm.decode_step(self._run_params, self._run_qparams, caches,
-                           st["tok"], st["pos"], self._pages())
+            if self.draft is not None:
+                for k in self._spec_ks():
+                    self._spec_body(k, scratch(self.caches),
+                                    scratch(self.dcaches))
+            else:
+                lm.decode_step(self._run_params, self._run_qparams,
+                               scratch(self.caches), st["tok"], st["pos"],
+                               self._pages())
         _sync(dev)
-        del caches
-        for n in sorted({req.prompt.size for req in self.queue}):
-            row = lm.init_cache(1, self.max_seq, dtype=dtype_of(lm.cfg),
-                                device=dev)
-            lm.prefill(self._run_params, self._run_qparams, row,
-                       torch.zeros((1, int(n)), dtype=torch.int64,
-                                   device=dev),
-                       last_logit_only=True)
+        lengths = sorted({int(req.prompt.size) for req in self.queue})
+        if self._chunk:
+            row = self._fresh_row()
+            for c in chunk_buckets(self._chunk):
+                lm.verify_chunk(self._run_params, self._run_qparams, row,
+                                torch.zeros((1, c), dtype=torch.int64,
+                                            device=dev), 0,
+                                last_logit_only=True)
+        else:
+            for n in lengths:
+                lm.prefill(self._run_params, self._run_qparams,
+                           self._fresh_row(),
+                           torch.zeros((1, n), dtype=torch.int64, device=dev),
+                           last_logit_only=True)
+        if self.draft is not None:
+            for n in lengths:
+                self.draft.lm.prefill(
+                    self._draft_params, self._draft_qparams,
+                    self._fresh_row(self.draft.lm),
+                    torch.zeros((1, n), dtype=torch.int64, device=dev),
+                    last_logit_only=True)
         _sync(dev)
-        if stream is not None and not self.graphs:
-            self._capture_windows(stream)
+        if stream is None or self.graphs:
+            return
+        body = self._window_body if self.draft is None else (
+            lambda k: self._spec_body(k, self.caches, self.dcaches))
+        self.graphs, self.graph_launches = self._capture(
+            {k: lambda k=k: body(k) for k in self._graph_ks()}, stream)
 
-    def _capture_windows(self, stream) -> None:
-        """Capture `_window_body(k)` for every k of `warmed_window_ks()`
-        into CUDA graphs that share one memory pool: one graph replays at
-        a time and its tokens are read before the next replay, so a
-        graph's scratch may lie where another's was. Records the capture
-        time, the pool's bytes and each graph's host launch counts (the
-        kernel wrappers count a launch once, at capture)."""
+    def _graph_ks(self) -> list[int]:
+        """The k of the graphs `warmup()` captures on CUDA: draft lengths
+        (speculative), the one-step window (chunked) or the window
+        lengths."""
+        if self.draft is not None:
+            return self._spec_ks()
+        return [1] if self._chunk else self.warmed_window_ks()
+
+    def _capture(self, bodies: dict, stream) -> tuple[dict, dict]:
+        """Capture each body of `bodies` (key -> a function of the static
+        buffers and the live arenas) into a CUDA graph; the graphs share
+        one memory pool: one replays at a time and its output is read
+        before the next replay, so a graph's scratch may lie where
+        another's was. Returns (key -> (graph, output), key -> the host
+        launch counts of its capture: the kernel wrappers count a launch
+        once, at capture), and adds the capture's time and the pool's
+        bytes to the engine's."""
         dev = self.device
         pool = torch.cuda.graph_pool_handle()
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         t0 = time.time()
-        for k in self.warmed_window_ks():
+        graphs, launches = {}, {}
+        for key, body in bodies.items():
             graph = torch.cuda.CUDAGraph()
             before = Kops.launch_counts()
             with torch.cuda.graph(graph, pool=pool, stream=stream):
-                out = self._window_body(k)
-            self.graph_launches[k] = {
-                name: n - before[name]
-                for name, n in Kops.launch_counts().items()
-                if n != before[name]}
-            self.graphs[k] = (graph, out)
+                out = body()
+            launches[key] = {name: n - before[name]
+                             for name, n in Kops.launch_counts().items()
+                             if n != before[name]}
+            graphs[key] = (graph, out)
         torch.cuda.synchronize(dev)
-        self.stats["capture_s"] = time.time() - t0
-        self.graph_pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.stats["capture_s"] += time.time() - t0
+        self.graph_pool_bytes += torch.cuda.memory_reserved(dev) - reserved
+        return graphs, launches
 
     def graph_device_launches(self) -> dict[str, int]:
         """Kernel launches the graph replays made so far, by launch-count
-        key: each replay of window k launches what its capture counted."""
+        key: each replay launches what its capture counted."""
         out: Counter = Counter()
         for k, n in self.replays.items():
             for name, c in self.graph_launches[k].items():
                 out[name] += n * c
         return dict(out)
+
+    def _replay(self, k: int) -> np.ndarray:
+        """Replay graph k from the staged buffers: a window of k steps,
+        returning its (k, slots) tokens, or a speculative round of draft
+        length k, returning (slots, k + 2); its one host sync."""
+        if k not in self.graphs:
+            what = (f"a speculative round of draft length {k}"
+                    if self.draft is not None
+                    else f"a decode window of {k} steps")
+            raise RuntimeError(
+                f"no CUDA graph for {what}: call warmup() before run() (it "
+                f"captures {self._graph_ks()})")
+        graph, out = self.graphs[k]
+        graph.replay()
+        self.replays[k] += 1
+        return out.cpu().numpy()
 
     def _window(self) -> bool:
         """Admit, then decode up to the next scheduled eviction: k steps
@@ -586,6 +1019,18 @@ class Engine:
         window's captured graph; raises if `warmup()` did not capture it
         (a capture inside a timed run is a fault). Token-identical to
         repeated `step()`."""
+        if self.draft is not None:
+            # a speculative round commits 1..k+1 tokens per slot, so the
+            # count-based event schedule of a window would misfire
+            raise RuntimeError(
+                "speculative engines decode through step(): _window's "
+                "event accounting assumes exactly one token per slot "
+                "per step")
+        if self._chunk:
+            raise RuntimeError(
+                "chunked-prefill engines decode through step(): a fused "
+                "window cannot interleave prefill chunks; it would bring "
+                "back the head-of-line block chunking removes")
         self._admit()
         if self.n_active == 0:
             return False
@@ -595,32 +1040,29 @@ class Engine:
         t0 = time.time()
         self._stage()
         if self.device.type == "cuda":
-            if k not in self.graphs:
-                raise RuntimeError(
-                    f"no CUDA graph for a decode window of {k} steps: call "
-                    f"warmup() before run() (it captures "
-                    f"{self.warmed_window_ks()})")
-            graph, toks = self.graphs[k]
-            graph.replay()
-            self.replays[k] += 1
+            toks = self._replay(k)
         else:
-            toks = self._window_body(k)
-        toks = toks.cpu().numpy()       # (k, slots): the window's one sync
+            toks = self._window_body(k).numpy()
         self.stats["decode_s"] += time.time() - t0
         self._commit(toks)
         return True
 
     def run(self) -> dict[int, np.ndarray]:
-        """Drain the queue in decode windows; returns rid -> generated
-        tokens for every request finished since the last drain, in rid
-        order. On CUDA, `warmup()` must have run."""
-        return self._drain(self._window)
+        """Drain the queue; returns rid -> generated tokens for every
+        request finished since the last drain, in rid order. A plain
+        engine decodes in windows; a speculative or chunked engine drives
+        `step()` (its rounds already score several positions a dispatch;
+        its chunks interleave with decode). On CUDA, `warmup()` must have
+        run."""
+        drive = (self.step if (self.draft is not None or self._chunk)
+                 else self._window)
+        return self._drain(drive)
 
     def _drain(self, drive) -> dict[int, np.ndarray]:
-        """`run()` with `drive` (`_window`, or `step` for the eager path
-        the windows are held against) called until the queue drains."""
+        """`run()` with `drive` (`_window`, `step` or `eager_step`) called
+        until the queue drains."""
         while self.pending:
-            if not drive() and self.queue:
+            if not drive() and (self.queue or self._handoff):
                 raise RuntimeError("queue stuck with no active slots")
         if self.paged:
             # a drain leaves no dirty quarantine behind: every released
@@ -633,30 +1075,38 @@ class Engine:
 
     def throughput(self) -> dict[str, float]:
         s = self.stats
-        return {
+        out = {
             "decode_tok_per_s": s["decode_tokens"] / max(s["decode_s"], 1e-9),
             "prefill_tok_per_s": (s["prefill_tokens"]
                                   / max(s["prefill_s"], 1e-9)),
             "slot_occupancy": (s["decode_tokens"]
                                / max(s["decode_steps"] * self.max_slots, 1)),
         }
+        if self.draft is not None:
+            # decode_tokens counts committed tokens only, so the headline
+            # rate is the accepted-token rate
+            out["accepted_tok_per_s"] = out["decode_tok_per_s"]
+            out["acceptance_rate"] = (s["spec_accepted"]
+                                      / max(s["spec_drafted"], 1))
+        return out
 
     def kv_bytes(self) -> int:
-        """KV bytes the engine is using: the whole contiguous arena, or,
-        paged, the allocated pages (live and reserved) pro-rated over the
-        pools, plus the page table."""
+        """KV bytes the engine is using, the draft's arena included: the
+        whole contiguous arenas, or, paged, the allocated pages (live and
+        reserved) pro-rated over the pools, plus the page table."""
         if not self.paged:
-            return tree_bytes(self.caches)
+            return sum(tree_bytes(a) for a in self._arenas())
         n_alloc = self.alloc.n_live + paging.N_RESERVED
         return self.page_table.nbytes + sum(
             c.numel() * c.element_size() // self.n_pages * n_alloc
-            for c in self.caches.values())
+            for a in self._arenas() for c in a.values())
 
     def kv_pool_bytes(self) -> int:
         """KV bytes the engine pins on the device whatever its load: the
-        whole arena or pools, plus the page table when paged."""
+        whole arenas or pools (the draft's included), plus the page table
+        when paged."""
         table = self.page_table.nbytes if self.paged else 0
-        return tree_bytes(self.caches) + table
+        return sum(tree_bytes(a) for a in self._arenas()) + table
 
     def param_bytes(self) -> int:
         return tree_bytes(self.params)
@@ -669,15 +1119,10 @@ WEIGHT_MODES = {"dense": {}, "compressed": dict(compressed=True),
                 "packed_b4": dict(packed=True, bits_init=4.0)}
 
 
-def _reject_later_modes(speculative=False, tp=0,
-                        prefill_chunk=None) -> None:
-    for on, what, where in (
-            (speculative, "speculative decoding", "ROADMAP Queue 1 item 10"),
-            (prefill_chunk, "chunked prefill", "ROADMAP Queue 1 item 11"),
-            (tp and tp > 1, "tensor-parallel serving",
-             "ROADMAP Queue 1 item 14")):
-        if on:
-            raise not_in_this_slice(what, where)
+def _reject_later_modes(tp: int = 0) -> None:
+    if tp and tp > 1:
+        raise not_in_this_slice("tensor-parallel serving",
+                                "ROADMAP Queue 1 item 14")
 
 
 def _init_lm(arch: str, smoke: bool, seed: int, dev: torch.device
@@ -689,15 +1134,24 @@ def _init_lm(arch: str, smoke: bool, seed: int, dev: torch.device
     return lm, lm.init(torch.Generator(device=dev).manual_seed(seed))
 
 
+def _scheduler(prefill_chunk: Optional[int]):
+    return (ChunkedPrefillScheduler(chunk=int(prefill_chunk))
+            if prefill_chunk else None)
+
+
 def build_engine(arch: str, smoke: bool = True, *, quantized: bool = True,
                  compressed: bool = False, packed: bool = False,
                  pruned: bool = False, sparsity: float = 0.5,
                  keep_masks: Optional[dict] = None, bits_init: float = 8.0,
                  max_slots: int = 4, max_seq: int = 64, seed: int = 0,
-                 verbose: bool = False, device=None, paged: bool = False,
-                 page_size: int = 16, kv_bits: Optional[int] = None,
+                 verbose: bool = False, device=None,
+                 speculative: bool = False, draft_k: int = 4,
+                 draft_sparsity: float = 0.5, draft_bits: float = 2.0,
+                 paged: bool = False, page_size: int = 16,
+                 kv_bits: Optional[int] = None,
                  n_pages: Optional[int] = None, prefix_sharing: bool = True,
-                 **later_modes) -> tuple[Engine, LM]:
+                 tp: int = 0, prefill_chunk: Optional[int] = None
+                 ) -> tuple[Engine, LM]:
     """Init an LM at `arch` scale from the torch RNG (seeded by `seed`) on
     `device` (CUDA by default) and wrap it in an Engine. `packed` implies
     `compressed`; `bits_init` sets the quantizer init width, so
@@ -707,23 +1161,44 @@ def build_engine(arch: str, smoke: bool = True, *, quantized: bool = True,
     widths, in any weight mode and either arena. `paged` serves from the
     paged KV arena (`page_size` rows per page, `kv_bits` 8 or 4 for
     quantized pages, `n_pages` for the pool, `prefix_sharing` for
-    whole-prompt page sharing). The speculative, chunked and
-    tensor-parallel modes of the JAX engine raise NotImplementedError
-    naming the slice that brings them. `Engine.serving_meta` keeps
-    prepare_serving's report (`sparsity` when pruned) and `kv_bytes`."""
-    _reject_later_modes(**later_modes)
+    whole-prompt page sharing). `speculative` attaches a draft built from
+    the same init params (`launch.speculative.build_draft`, sliced at
+    `draft_sparsity` and packed at `draft_bits`) proposing up to `draft_k`
+    tokens a round; `prefill_chunk` prefills in chunks of that many rows
+    (`ChunkedPrefillScheduler`). Tensor parallelism (`tp > 1`) raises
+    NotImplementedError naming the slice that brings it.
+    `Engine.serving_meta` keeps prepare_serving's report (`sparsity` when
+    pruned), `kv_bytes`, and the speculative and chunked settings."""
+    _reject_later_modes(tp)
     pruned = pruned or keep_masks is not None
     dev = resolve_device(device)
     compressed = compressed or packed
     lm, params = _init_lm(arch, smoke, seed, dev)
+    draft = None
+    if speculative:
+        # from the init params the target serves, before the target's
+        # prepare_serving (the draft runs its own on its own LM)
+        draft = build_draft(arch, smoke, params, sparsity=draft_sparsity,
+                            bits=draft_bits, seed=seed)
     params, qparams, meta = prepare_serving(
         lm, params, quantized=quantized, compressed=compressed,
         packed=packed, bits_init=bits_init, keep_masks=keep_masks,
         prune_sparsity=(sparsity if pruned and keep_masks is None else None))
     eng = Engine(lm, params, qparams, max_slots=max_slots, max_seq=max_seq,
-                 paged=paged, page_size=page_size, kv_bits=kv_bits,
-                 n_pages=n_pages, prefix_sharing=prefix_sharing)
+                 draft=draft, draft_k=draft_k, paged=paged,
+                 page_size=page_size, kv_bits=kv_bits, n_pages=n_pages,
+                 prefix_sharing=prefix_sharing,
+                 scheduler=_scheduler(prefill_chunk))
     meta["kv_bytes"] = eng.kv_bytes()
+    if prefill_chunk:
+        meta["prefill_chunk"] = int(prefill_chunk)
+    if draft is not None:
+        meta["speculative"] = {
+            "draft_k": int(draft_k),
+            "draft_sparsity": float(draft.meta.get("sparsity", 0.0)),
+            "draft_bits": float(draft_bits),
+            "draft_param_bytes": tree_bytes(draft.params),
+            "draft_kv_bytes": tree_bytes(eng.dcaches)}
     eng.serving_meta = meta
     if verbose and (compressed or pruned):
         print(compression_report(arch, meta))
@@ -762,6 +1237,25 @@ def synthetic_prompts(cfg, prompt_lens: list[int], seed: int = 0
     return [mat[i, :n].astype(np.int32) for i, n in enumerate(prompt_lens)]
 
 
+def _mode_label(eng: Engine, compressed: bool, packed: bool,
+                pruned: bool) -> str:
+    mode = "compressed" if (compressed or packed) else "dense"
+    if packed:
+        mode += "+packed"
+    if pruned:
+        mode += f"+pruned@{eng.serving_meta['sparsity']:.2f}"
+    if eng.draft is not None:
+        sm = eng.serving_meta.get("speculative", {})
+        mode += (f"+spec(k={eng.draft_k}, draft "
+                 f"s{100 * sm.get('draft_sparsity', 0.0):.0f}/"
+                 f"b{sm.get('draft_bits', 0.0):.0f})")
+    if eng.paged:
+        mode += "+paged" + (f"@kv{eng.kv_bits}" if eng.kv_bits else "")
+    if eng._chunk:
+        mode += f"+chunked@{eng._chunk}"
+    return mode
+
+
 def engine_serve(arch: str, smoke: bool, prompt_lens: list[int], gen: int,
                  *, quantized: bool = True, compressed: bool = False,
                  packed: bool = False, pruned: bool = False,
@@ -770,8 +1264,8 @@ def engine_serve(arch: str, smoke: bool, prompt_lens: list[int], gen: int,
                  device=None, stats: dict | None = None,
                  **engine_kw) -> dict[int, np.ndarray]:
     """Submit one request per prompt length, run to drain, report tok/s.
-    `engine_kw` goes to `build_engine` (the paged arena's keywords, and
-    the later modes that raise)."""
+    `engine_kw` goes to `build_engine` (the speculative, paged and
+    chunked keywords, and `tp`, which raises)."""
     max_seq = max(prompt_lens) + gen
     eng, lm = build_engine(arch, smoke, quantized=quantized,
                            compressed=compressed, packed=packed,
@@ -790,42 +1284,51 @@ def engine_serve(arch: str, smoke: bool, prompt_lens: list[int], gen: int,
                      kv_pool_bytes=eng.kv_pool_bytes(),
                      sparsity=eng.serving_meta.get("sparsity"))
     if verbose:
-        mode = "compressed" if (compressed or packed) else "dense"
-        if packed:
-            mode += "+packed"
-        if pruned:
-            mode += f"+pruned@{eng.serving_meta['sparsity']:.2f}"
-        if eng.paged:
-            mode += "+paged" + (f"@kv{eng.kv_bits}" if eng.kv_bits else "")
-        print(f"{arch} [engine/{mode} on {eng.device}]: {len(prompt_lens)} "
-              f"requests ({', '.join(str(n) for n in prompt_lens)} prompt "
-              f"tokens, {gen} new each) on {max_slots} slots — "
-              f"{eng.stats['decode_tokens']} decode tokens in "
-              f"{eng.stats['decode_s']:.2f}s ({th['decode_tok_per_s']:.1f} "
-              f"tok/s, occupancy {th['slot_occupancy']:.2f}); one-shot "
-              f"prefill {th['prefill_tok_per_s']:.1f} tok/s")
+        mode = _mode_label(eng, compressed, packed, pruned)
+        line = (f"{arch} [engine/{mode} on {eng.device}]: "
+                f"{len(prompt_lens)} requests "
+                f"({', '.join(str(n) for n in prompt_lens)} prompt tokens, "
+                f"{gen} new each) on {max_slots} slots — "
+                f"{eng.stats['decode_tokens']} decode tokens in "
+                f"{eng.stats['decode_s']:.2f}s "
+                f"({th['decode_tok_per_s']:.1f} tok/s, occupancy "
+                f"{th['slot_occupancy']:.2f}); "
+                f"{'chunked' if eng._chunk else 'one-shot'} prefill "
+                f"{th['prefill_tok_per_s']:.1f} tok/s")
+        if eng.draft is not None:
+            line += (f"; acceptance {th['acceptance_rate']:.2f} over "
+                     f"{eng.stats['spec_steps']} rounds")
+        print(line)
     return out
 
 
 def serve_on_devices(arch: str, smoke: bool, prompt_lens: list[int],
                      gen: int, devices: list[str], *, max_slots: int = 4,
-                     seed: int = 0, **mode
+                     seed: int = 0, speculative: bool = False,
+                     draft_k: int = 4, draft_sparsity: float = 0.5,
+                     draft_bits: float = 2.0,
+                     prefill_chunk: Optional[int] = None, **mode
                      ) -> dict[str, dict[int, np.ndarray]]:
     """Greedy tokens of one model served on each of `devices`, keyed by
     device. The weights are drawn once from the CPU generator seeded by
     `seed` and copied to each device (the CPU and CUDA generators draw
     different numbers from one seed), so the runs differ only in where
-    the kernels, or their plain versions, run."""
+    the kernels, or their plain versions, run. `mode` goes to
+    `prepare_serving`; `speculative` attaches `build_draft`'s draft of the
+    same params, `prefill_chunk` a chunked scheduler."""
     lm = LM(get_arch(arch, smoke=smoke))
     base = lm.init(torch.Generator().manual_seed(seed))
     prompts = synthetic_prompts(lm.cfg, prompt_lens, seed)
     out = {}
     for dev in devices:
         d = resolve_device(dev)
-        params, qparams, _ = prepare_serving(
-            lm, {k: v.to(d) for k, v in base.items()}, **mode)
+        on_dev = {k: v.to(d) for k, v in base.items()}
+        draft = (build_draft(arch, smoke, on_dev, sparsity=draft_sparsity,
+                             bits=draft_bits) if speculative else None)
+        params, qparams, _ = prepare_serving(lm, on_dev, **mode)
         eng = Engine(lm, params, qparams, max_slots=max_slots,
-                     max_seq=max(prompt_lens) + gen)
+                     max_seq=max(prompt_lens) + gen, draft=draft,
+                     draft_k=draft_k, scheduler=_scheduler(prefill_chunk))
         for p in prompts:
             eng.submit(p, gen)
         eng.warmup()

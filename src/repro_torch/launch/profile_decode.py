@@ -3,7 +3,8 @@ against the device time of the kernels it launched, at full width.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \
         [--mode dense|compressed|packed_b4] [--paged] [--window K]
-        [--pruned [--sparsity S]]
+        [--pruned [--sparsity S]] [--speculative K]
+        [--prefill S [--chunk C]]
 
 Serves internlm2-1.8b at full width with every one of its 4 slots holding
 a 128-token prompt, then times 8 batched decode steps on the host clock
@@ -33,6 +34,19 @@ checkout's package (`PYTHONPATH=OTHER/src python
 src/repro_torch/launch/profile_decode.py --window 8`) it times that
 engine's windows. A short profiler session runs before the engine is
 built, so the tracer is up before any graph is captured.
+
+`--speculative K` times the speculative rounds of the checkpoint pair
+(`launch.speculative.build_checkpoint_engines`: the target at sparsity
+0.5's masks, `--mode` dense or compressed, its s50 subnet packed at
+DRAFT_BITS, the faithful draft) with every round at draft length K (a power
+of two: budgets long enough that no slot caps it), replaying the round
+graphs `warmup()` captured: 8 rounds on the host clock and 8 profiled,
+reported per round, with the committed tokens per round and the
+tensor-core GEMMs (`gemm_tc`, the verify pass's projections from M = 12)
+as their own family. `--prefill S` times the prefill of one S-token
+prompt instead, one-shot into a fresh row, or with `--chunk C` one chunk
+of C rows (`LM.verify_chunk`) at position S - C of a staging row: eager,
+8 calls timed and 8 profiled.
 """
 from __future__ import annotations
 
@@ -50,8 +64,10 @@ PROMPT_LEN = 128
 STEPS = 8
 WINDOWS = 8
 PROFILED_STEPS = 32       # window mode: steps of the profiled windows
+DRAFT_BITS = 8.0          # speculative mode: the faithful draft's bits
 DECODE_ATTN = "flash_decode"     # the decode-attention kernels' names
 SMALL_M = "gemm_small_m"         # the small-M GEMM kernels' names
+TC = "gemm_tc"                   # the tensor-core GEMM kernels' names
 ACTS = [torch.profiler.ProfilerActivity.CUDA]
 
 
@@ -97,7 +113,21 @@ def main(argv=None) -> dict:
     ap.add_argument("--pruned", action="store_true",
                     help="serve the sliced subnet at --sparsity")
     ap.add_argument("--sparsity", type=float, default=0.3)
+    ap.add_argument("--speculative", type=int, default=None, metavar="K",
+                    help="time speculative rounds of draft length K of the "
+                         "checkpoint pair")
+    ap.add_argument("--prefill", type=int, default=None, metavar="S",
+                    help="time the prefill of one S-token prompt")
+    ap.add_argument("--chunk", type=int, default=None, metavar="C",
+                    help="prefill mode: one chunk of C rows at S - C")
     args = ap.parse_args(argv)
+    if args.speculative is not None:
+        if args.mode == "packed_b4" or args.window or args.pruned:
+            ap.error("--speculative serves the dense or compressed target "
+                     "of the checkpoint pair, in rounds, unpruned")
+        return _main_speculative(args)
+    if args.prefill is not None:
+        return _main_prefill(args)
     # an older engine's build_engine may not take the pruned keywords
     prune = (dict(pruned=True, sparsity=args.sparsity) if args.pruned
              else {})
@@ -180,5 +210,125 @@ def main(argv=None) -> dict:
     return out
 
 
+def _families(prof, units: int) -> dict:
+    """Per unit (step, round or call): the device busy time, the kernels,
+    and the device ms and calls of the small-M GEMMs, the tensor-core
+    GEMMs and decode attention."""
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = sorted(((e.key, _device_us(e) / 1e3 / units, e.count // units)
+                      for e in prof.key_averages()
+                      if e.device_type == cuda and _device_us(e) > 0),
+                     key=lambda r: -r[1])
+    events = [e for e in prof.events() if e.device_type == cuda]
+    fam = {"kernels": kernels, "busy_ms": _union_ms(events) / units,
+           "kernels_per_unit": len(events) / units}
+    for label, tag in (("small_m", SMALL_M), ("tc", TC),
+                       ("decode_attn", DECODE_ATTN)):
+        rows = [r for r in kernels if tag in r[0]]
+        fam[label + "_ms"] = _union_ms([e for e in events
+                                        if tag in e.key]) / units
+        fam[label + "_calls"] = sum(n for *_, n in rows)
+    return fam
+
+
+def _report(head: str, unit: str, wall_ms: float, fam: dict) -> None:
+    print(f"{head}: wall {wall_ms:.3f} ms/{unit}, device busy "
+          f"{fam['busy_ms']:.3f} ms/{unit}, idle share "
+          f"{1.0 - fam['busy_ms'] / wall_ms:.3f}, "
+          f"{fam['kernels_per_unit']:.1f} kernels/{unit}")
+    for label in ("small_m", "tc", "decode_attn"):
+        print(f"  {label}: {fam[label + '_ms']:.4f} ms/{unit} of device "
+              f"time, {fam[label + '_calls']} calls/{unit}")
+    for name, ms, n in fam["kernels"][:12]:
+        print(f"  {ms:9.4f} ms/{unit}  {n:5d} calls/{unit}  {name[:90]}")
+
+
+def _main_speculative(args) -> dict:
+    from repro_torch.launch.speculative import build_checkpoint_engines
+    k = args.speculative
+    with torch.profiler.profile(activities=ACTS):
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+    gen = 2 + (k + 1) * (3 + STEPS + STEPS) + k
+    eng, _, lm = build_checkpoint_engines(
+        ARCH, False, sparsity=0.5, draft_bits=DRAFT_BITS, draft_k=k,
+        max_slots=SLOTS, max_seq=PROMPT_LEN + gen,
+        compressed=args.mode != "dense", device="cuda", paged=args.paged)
+    for p in synthetic_prompts(lm.cfg, [PROMPT_LEN] * SLOTS):
+        eng.submit(p, gen)
+    torch.cuda.reset_peak_memory_stats()
+    eng.warmup()
+    eng._admit()
+    fn = eng._spec_round
+    for _ in range(2):
+        fn()
+    tok0 = eng.stats["decode_tokens"]
+    wall_ms, prof = _timed(fn, STEPS, STEPS)
+    if set(eng.spec_rounds) != {k}:
+        raise RuntimeError(f"rounds ran at draft lengths "
+                           f"{dict(eng.spec_rounds)}, not only {k}")
+    wall_ms /= STEPS
+    committed = (eng.stats["decode_tokens"] - tok0) / (2 * STEPS)
+    fam = _families(prof, STEPS)
+    out = {"mode": args.mode, "paged": args.paged, "speculative": k,
+           "draft_bits": DRAFT_BITS, "wall_ms_per_round": wall_ms,
+           "device_ms_per_round": fam["busy_ms"],
+           "idle_share": 1.0 - fam["busy_ms"] / wall_ms,
+           "committed_per_round": committed,
+           "decode_tok_per_s": committed / wall_ms * 1e3,
+           "acceptance_rate": eng.throughput()["acceptance_rate"],
+           **{key: v for key, v in fam.items() if key != "kernels"},
+           "capture_s": eng.stats["capture_s"],
+           "graph_pool_bytes": eng.graph_pool_bytes,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    arena = "paged" if args.paged else "contiguous"
+    _report(f"{ARCH} [{args.mode} target, draft s50/b"
+            f"{DRAFT_BITS:.0f}, {arena} arena] speculative round of "
+            f"draft length {k} (graph replay) on "
+            f"{torch.cuda.get_device_name(0)}, {SLOTS} slots at prompt "
+            f"{PROMPT_LEN}; {committed:.2f} tokens committed a round "
+            f"({out['decode_tok_per_s']:.1f} tok/s), acceptance "
+            f"{out['acceptance_rate']:.3f}", "round", wall_ms, fam)
+    return out
+
+
+def _main_prefill(args) -> dict:
+    S, C = args.prefill, args.chunk
+    with torch.profiler.profile(activities=ACTS):
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+    eng, lm = build_engine(ARCH, False, max_slots=1, max_seq=S + 1,
+                           device="cuda", **WEIGHT_MODES[args.mode])
+    toks = torch.as_tensor(synthetic_prompts(lm.cfg, [S])[0],
+                           dtype=torch.int64, device="cuda")[None]
+    p, q = eng._run_params, eng._run_qparams
+    if C is None:
+        def fn():
+            lm.prefill(p, q, eng._fresh_row(), toks, last_logit_only=True)
+    else:
+        row = eng._fresh_row()
+        pos = torch.full((1,), S - C, dtype=torch.int64, device="cuda")
+
+        def fn():
+            lm.verify_chunk(p, q, row, toks[:, S - C:], pos,
+                            last_logit_only=True)
+    with torch.no_grad():
+        for _ in range(2):
+            fn()
+        wall_ms, prof = _timed(fn, STEPS, STEPS)
+    wall_ms /= STEPS
+    fam = _families(prof, STEPS)
+    out = {"mode": args.mode, "prefill": S, "chunk": C,
+           "wall_ms_per_call": wall_ms, "device_ms_per_call": fam["busy_ms"],
+           "idle_share": 1.0 - fam["busy_ms"] / wall_ms,
+           **{key: v for key, v in fam.items() if key != "kernels"}}
+    what = (f"one-shot prefill of {S} tokens" if C is None else
+            f"one chunk of {C} rows at position {S - C}")
+    _report(f"{ARCH} [{args.mode}] {what} (eager) on "
+            f"{torch.cuda.get_device_name(0)}", "call", wall_ms, fam)
+    return out
+
+
 if __name__ == "__main__":
     main()
+

@@ -16,17 +16,25 @@ and two KV arenas: the contiguous one (default) and the paged one
 implies `--paged`), decoded by the page-indirect flash-decode kernel.
 `--pruned --sparsity S` serves the physically sliced subnet at magnitude
 masks of sparsity S (surviving KV heads and MLP units: smaller GEMMs and
-KV arena) in any of the weight modes and arenas.
+KV arena) in any of the weight modes and arenas. `--speculative` attaches
+a draft (the same init params sliced at `--draft-sparsity`, a percentage
+or a fraction, and packed at `--draft-bits`) proposing up to `--draft-k`
+tokens a round, which the target verifies in one chunked pass;
+`--chunked-prefill C` prefills each prompt C rows at a time between
+decode steps.
 
 `--static` runs `serve_loop`: one fixed batch of `--batch` prompts of
 `--prompt-len` tokens in lockstep, prefilled one token per decode step.
 
 Runs on CUDA; `--device cpu` runs the plain PyTorch versions of the
-kernels instead (as the tests do). In `--smoke` mode `--packed` asserts
-packed tokens equal int8 tokens, `--paged` (without `--kv-bits`) asserts
-paged tokens equal contiguous tokens, and `--pruned` alone asserts the
-pruned tokens equal the masked dense reference's; each stacks with
-`--pruned`. Examples:
+kernels instead (as the tests do). In `--smoke` mode `--chunked-prefill`
+asserts chunked tokens equal one-shot tokens (and that decode ran
+mid-prefill), `--paged` (without `--kv-bits`) asserts paged tokens equal
+contiguous tokens (stacking with `--speculative`), `--speculative`
+asserts speculative tokens equal the plain engine's, `--packed` asserts
+packed tokens equal int8 tokens, and `--pruned` alone asserts the pruned
+tokens equal the masked dense reference's; each stacks with `--pruned`.
+Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --full --compressed
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --packed \
       --bits 4 --prompt-lens 12,5 --gen 8 --device cpu
@@ -34,6 +42,10 @@ pruned tokens equal the masked dense reference's; each stacks with
       --kv-bits 8 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --pruned \
       --sparsity 0.3 --compressed --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --speculative \
+      --draft-k 4 --draft-sparsity 50 --draft-bits 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
+      --chunked-prefill 8 --prompt-lens 12,5,21 --gen 8 --device cpu
 """
 from __future__ import annotations
 
@@ -191,20 +203,27 @@ def paged_parity_check(arch: str, smoke: bool, prompt_lens: list[int],
                        gen: int, *, quantized: bool = True,
                        compressed: bool = False, packed: bool = False,
                        pruned: bool = False, sparsity: float = 0.5,
-                       bits_init: float = 8.0, page_size: int = 16,
+                       bits_init: float = 8.0, speculative: bool = False,
+                       draft_k: int = 4, draft_sparsity: float = 0.5,
+                       draft_bits: float = 2.0, page_size: int = 16,
                        max_slots: int, seed: int = 0, verbose: bool = True,
                        device=None) -> dict:
     """Assert the paged engine's decode is token-identical to the
     contiguous arena's on the same weights, prompts and seed, in any of
     the weight modes. The paged arena changes only where KV rows live:
     the page-indirect kernel runs the contiguous kernel's arithmetic in
-    its order over the same rows, and prefix sharing reuses only
-    bitwise-equal whole-prompt pages, so every greedy token must match.
-    Stacks with `pruned` (the pools take the sliced KV heads). Returns the
-    paged engine's output."""
+    its order over the same rows, a speculative round runs on contiguous
+    views of the pages of the contiguous arena's shape, and prefix
+    sharing reuses only bitwise-equal whole-prompt pages, so every greedy
+    token must match. Stacks with `pruned` (the pools take the sliced KV
+    heads) and `speculative` (the draft's pools page through the same
+    tables). Returns the paged engine's output."""
     common = dict(quantized=quantized, compressed=compressed, packed=packed,
                   pruned=pruned, sparsity=sparsity, bits_init=bits_init,
                   max_slots=max_slots, seed=seed, device=device)
+    if speculative:
+        common.update(speculative=True, draft_k=draft_k,
+                      draft_sparsity=draft_sparsity, draft_bits=draft_bits)
     want = engine_serve(arch, smoke, prompt_lens, gen, verbose=False,
                         **common)
     got = engine_serve(arch, smoke, prompt_lens, gen, verbose=verbose,
@@ -214,9 +233,80 @@ def paged_parity_check(arch: str, smoke: bool, prompt_lens: list[int],
     mode = "packed" if packed else "compressed" if compressed else "dense"
     if pruned:
         mode += f"+pruned@{sparsity:.2f}"
+    if speculative:
+        mode += f"+spec(k={draft_k})"
     print(f"{arch}: paged KV decode (page_size={page_size}) "
           f"token-identical to the contiguous arena over {len(want)} "
           f"requests ({mode})")
+    return got
+
+
+def speculative_parity_check(arch: str, smoke: bool,
+                             prompt_lens: list[int], gen: int, *,
+                             quantized: bool = True,
+                             compressed: bool = False, packed: bool = False,
+                             pruned: bool = False, sparsity: float = 0.5,
+                             bits_init: float = 8.0, draft_k: int = 4,
+                             draft_sparsity: float = 0.5,
+                             draft_bits: float = 2.0, max_slots: int,
+                             seed: int = 0, verbose: bool = True,
+                             device=None) -> dict:
+    """Assert the speculative engine's decode is token-identical to the
+    plain engine's on the same target weights, prompts and seed: a round
+    commits only the target's argmaxes, so any divergence means the
+    rollback or the position bookkeeping corrupted an arena. Holds
+    exactly where the verify pass and the decode step sum alike (f32, as
+    the smoke config runs). Returns the speculative engine's output."""
+    common = dict(quantized=quantized, compressed=compressed, packed=packed,
+                  pruned=pruned, sparsity=sparsity, bits_init=bits_init,
+                  max_slots=max_slots, seed=seed, device=device)
+    want = engine_serve(arch, smoke, prompt_lens, gen, verbose=False,
+                        **common)
+    got = engine_serve(arch, smoke, prompt_lens, gen, verbose=verbose,
+                       speculative=True, draft_k=draft_k,
+                       draft_sparsity=draft_sparsity, draft_bits=draft_bits,
+                       **common)
+    _assert_same(got, want, "speculative decode diverged from the "
+                            "non-speculative engine")
+    print(f"{arch}: speculative decode (draft k={draft_k}, "
+          f"s{100 * draft_sparsity:.0f}/b{draft_bits:.0f}) token-identical "
+          f"to the non-speculative engine over {len(want)} requests")
+    return got
+
+
+def chunked_prefill_parity_check(arch: str, smoke: bool,
+                                 prompt_lens: list[int], gen: int, *,
+                                 prefill_chunk: int, quantized: bool = True,
+                                 compressed: bool = False,
+                                 packed: bool = False, pruned: bool = False,
+                                 sparsity: float = 0.5,
+                                 bits_init: float = 8.0, paged: bool = False,
+                                 page_size: int = 16, max_slots: int,
+                                 seed: int = 0, verbose: bool = True,
+                                 device=None) -> dict:
+    """Assert the chunked-prefill engine's decode is token-identical to
+    the one-shot engine's, and that decode ran while a prompt was
+    mid-prefill whenever a later prompt needed several chunks. Returns
+    the chunked engine's output."""
+    common = dict(quantized=quantized, compressed=compressed, packed=packed,
+                  pruned=pruned, sparsity=sparsity, bits_init=bits_init,
+                  paged=paged, page_size=page_size, max_slots=max_slots,
+                  seed=seed, device=device)
+    want = engine_serve(arch, smoke, prompt_lens, gen, verbose=False,
+                        **common)
+    st: dict = {}
+    got = engine_serve(arch, smoke, prompt_lens, gen, verbose=verbose,
+                       prefill_chunk=prefill_chunk, stats=st, **common)
+    _assert_same(got, want, f"chunked prefill (chunk={prefill_chunk}) "
+                            f"diverged from the one-shot engine")
+    if len(prompt_lens) > 1 and any(n > prefill_chunk
+                                    for n in prompt_lens[1:]):
+        # a later prompt took several chunks while request 0 decoded
+        assert st["decode_steps_mid_prefill"] > 0, st
+    print(f"{arch}: chunked prefill (chunk={prefill_chunk}) "
+          f"token-identical to the one-shot engine over {len(want)} "
+          f"requests; {st['prefill_chunks']} chunks, "
+          f"{st['decode_steps_mid_prefill']} decode steps ran mid-prefill")
     return got
 
 
@@ -268,6 +358,27 @@ def main(argv=None):
     ap.add_argument("--sparsity", type=float, default=0.5,
                     help="pruned mode: target fraction of prunable units "
                          "removed")
+    ap.add_argument("--speculative", action="store_true", default=False,
+                    help="self-speculative decoding: a pruned, packed "
+                         "subnet of the same init params drafts up to "
+                         "--draft-k tokens a round and the target verifies "
+                         "them in one chunked pass; the tokens are always "
+                         "the target's (in --smoke mode also asserts them "
+                         "identical to the non-speculative engine's)")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="speculative mode: most draft proposals a round")
+    ap.add_argument("--draft-sparsity", type=float, default=50.0,
+                    help="speculative mode: the draft's sparsity, a "
+                         "percentage (50) or a fraction (0.5); 0 keeps all "
+                         "units (a packed-only draft)")
+    ap.add_argument("--draft-bits", type=float, default=2.0,
+                    help="speculative mode: the draft's quantizer init "
+                         "width (packed storage bits)")
+    ap.add_argument("--chunked-prefill", type=int, default=None,
+                    metavar="CHUNK",
+                    help="prefill each prompt CHUNK rows at a time between "
+                         "decode steps (in --smoke mode also asserts tokens "
+                         "identical to the one-shot engine's)")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
@@ -283,12 +394,30 @@ def main(argv=None):
     # --kv-bits quantizes the paged page store: asking for it asks for
     # the paged arena
     args.paged = args.paged or args.kv_bits is not None
+    # `--draft-sparsity 50` and `--draft-sparsity 0.5` mean the same
+    draft_sparsity = (args.draft_sparsity / 100.0
+                      if args.draft_sparsity > 1.0 else args.draft_sparsity)
+    spec = dict(draft_k=args.draft_k, draft_sparsity=draft_sparsity,
+                draft_bits=args.draft_bits)
+    weights = dict(quantized=args.quantized, compressed=args.compressed,
+                   packed=args.packed, bits_init=args.bits)
+    if args.chunked_prefill and args.smoke:
+        chunked_prefill_parity_check(
+            args.arch, args.smoke, lens, args.gen,
+            prefill_chunk=args.chunked_prefill, paged=args.paged,
+            page_size=args.page_size, max_slots=args.slots,
+            device=args.device, **weights, **prune)
+        return
     if args.paged and args.smoke and args.kv_bits is None:
         paged_parity_check(args.arch, args.smoke, lens, args.gen,
-                           quantized=args.quantized,
-                           compressed=args.compressed, packed=args.packed,
-                           bits_init=args.bits, page_size=args.page_size,
-                           max_slots=args.slots, device=args.device, **prune)
+                           speculative=args.speculative,
+                           page_size=args.page_size, max_slots=args.slots,
+                           device=args.device, **weights, **spec, **prune)
+        return
+    if args.speculative and args.smoke:
+        speculative_parity_check(args.arch, args.smoke, lens, args.gen,
+                                 max_slots=args.slots, device=args.device,
+                                 **weights, **spec, **prune)
         return
     if args.packed and args.smoke:
         packed_parity_check(args.arch, args.smoke, lens, args.gen,
@@ -302,10 +431,11 @@ def main(argv=None):
                             device=args.device)
         return
     engine_serve(args.arch, args.smoke, lens, args.gen,
-                 quantized=args.quantized, compressed=args.compressed,
-                 packed=args.packed, bits_init=args.bits,
                  max_slots=args.slots, device=args.device, paged=args.paged,
-                 page_size=args.page_size, kv_bits=args.kv_bits, **prune)
+                 page_size=args.page_size, kv_bits=args.kv_bits,
+                 speculative=args.speculative,
+                 prefill_chunk=args.chunked_prefill, **weights,
+                 **(spec if args.speculative else {}), **prune)
 
 
 if __name__ == "__main__":

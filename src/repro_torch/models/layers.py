@@ -301,23 +301,24 @@ def attn_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
                chunked: bool = False, pages: Optional[PagedView] = None):
     """Attention sublayer; lp is one layer's view of the params.
 
-    Four branches: the full sequence (no cache), the one-shot prefill
-    (cache and S > 1: the prompt's K/V go to rows [0, S) of a zeroed cache
-    and attention runs over the prompt itself), the paged decode (`pages`
-    given: the token's K/V row goes to its slot's physical row in the
-    shared pools and the page-indirect kernel attends through the page
-    table) and the contiguous decode (cache and S == 1: the token's K/V go
-    to row `pos` of each slot and the flash-decode kernel attends over the
-    arena). cache is (k_cache, v_cache, pos) with k/v (B, S_max, KVh, dh)
-    views of the stacked arena, or, paged, (k_pool, v_pool, pos, k_scale,
-    v_scale) with (n_pages, P, KVh, dh*) pools and (n_pages, P, KVh)
-    scales (None unless `pages.kv_bits` is set). Every cache branch writes
-    the cache IN PLACE (advanced-index assignment into the view) and
-    returns the same tensors. Returns (out, new_cache)."""
-    if chunked:
-        raise not_in_this_slice(
-            "chunked cache scoring (speculative verify, chunked prefill)",
-            "ROADMAP Queue 1 items 10-11")
+    Five branches: the full sequence (no cache), the chunked scoring
+    (`chunked`: an S-token chunk mid-sequence, the speculative verify pass
+    and chunked prefill; each slot's S K/V rows go to rows
+    [pos[b], pos[b] + S) and query i attends over arena rows
+    [0, pos[b] + i]), the one-shot prefill (cache and S > 1: the prompt's
+    K/V go to rows [0, S) of a zeroed cache and attention runs over the
+    prompt itself), the paged decode (`pages` given: the token's K/V row
+    goes to its slot's physical row in the shared pools and the
+    page-indirect kernel attends through the page table) and the
+    contiguous decode (cache and S == 1: the token's K/V go to row `pos`
+    of each slot and the flash-decode kernel attends over the arena).
+    cache is (k_cache, v_cache, pos) with k/v (B, S_max, KVh, dh) views of
+    the stacked arena, or, paged, (k_pool, v_pool, pos, k_scale, v_scale)
+    with (n_pages, P, KVh, dh*) pools and (n_pages, P, KVh) scales (None
+    unless `pages.kv_bits` is set). Every cache branch writes the cache IN
+    PLACE (advanced-index assignment into the view) and returns the same
+    tensors. The chunked scoring is plain PyTorch, as the reference's is
+    plain XLA. Returns (out, new_cache)."""
     B, S, _ = x.shape
     shapes = shapes or LayerShapes.from_config(cfg)
     H, KVh, dh = shapes.n_heads, shapes.n_kv_heads, shapes.d_head
@@ -333,7 +334,38 @@ def attn_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
     v = v.reshape(B, S, KVh, dh)
 
     new_cache = None
-    if cache is not None and S > 1:
+    if cache is not None and chunked:
+        # full arenas only: a ring write would overwrite rows that a
+        # rejected draft could never roll back
+        if cfg.window > 0:
+            raise ValueError(
+                f"{prefix}: chunked cache scoring needs a full (non-ring) "
+                f"arena; window={cfg.window} layers overwrite rows on wrap")
+        ck, cv, pos = cache
+        pos = torch.as_tensor(pos, dtype=torch.int64,
+                              device=x.device).reshape(-1).expand(B)
+        steps = torch.arange(S, device=x.device)
+        # the reference's dynamic_update_slice clamps a chunk that would
+        # run past the arena (an idle slot's) back inside it
+        start = torch.clamp(pos, max=ck.shape[1] - S)
+        rows = start[:, None] + steps[None, :]                 # (B, S)
+        slots = torch.arange(B, device=x.device)[:, None]
+        ck[slots, rows] = k.to(ck.dtype)
+        cv[slots, rows] = v.to(cv.dtype)
+        g = H // KVh
+        qh = q.reshape(B, S, KVh, g, dh)
+        scores = torch.einsum("bqkgd,bskd->bkgqs", qh.to(torch.float32),
+                              ck.to(torch.float32)) / math.sqrt(dh)
+        valid = (torch.arange(ck.shape[1], device=x.device)[None, None, :]
+                 <= pos[:, None, None] + steps[None, :, None])
+        # masked_fill, not torch.where with a -1e30 tensor: building that
+        # tensor copies from the host, which a CUDA graph capture refuses
+        scores = scores.masked_fill(~valid[:, None, None], -1e30)
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bkgqs,bskd->bqkgd", probs,
+                           cv.to(torch.float32)).to(x.dtype)
+        new_cache = (ck, cv, pos + S)
+    elif cache is not None and S > 1:
         ck, cv, pos = cache
         ck[:, :S] = k.to(ck.dtype)
         cv[:, :S] = v.to(cv.dtype)

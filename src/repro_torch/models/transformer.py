@@ -188,7 +188,7 @@ class LM(torch.nn.Module):
         return views
 
     def _block(self, lp, qp_body, x, rope, caches=None, pos=None,
-               pages=None, i=0):
+               pages=None, i=0, chunked=False):
         """One layer of the stack on the residual stream x."""
         cfg = self.cfg
         for sub, shp in zip(self.plan, self.shapes):
@@ -204,19 +204,20 @@ class LM(torch.nn.Module):
                 cache += (None, None)
             mix, _ = Lyr.attn_apply(lp, qp_body, cfg, h, rope=rope,
                                     prefix=f"{pre}.attn", cache=cache,
-                                    shapes=shp, pages=pages)
+                                    shapes=shp, pages=pages,
+                                    chunked=chunked)
             x = x + mix
             h2 = Lyr.rmsnorm(x, lp[f"{pre}.norm2"], cfg.norm_eps)
             x = x + Lyr.mlp_apply(lp, qp_body, cfg, h2, prefix=f"{pre}.mlp")
         return x
 
     def _blocks(self, params, qp_body, x, rope, caches=None, pos=None,
-                pages=None):
+                pages=None, chunked=False):
         """Run the layer stack; with `caches`, each attention sublayer
         writes its K/V into the cache in place (into the shared page pools
-        through `pages`, a `Lyr.PagedView`, when given). A training
-        forward (grad enabled, no cache) under `cfg.remat` checkpoints
-        each layer."""
+        through `pages`, a `Lyr.PagedView`, when given; at rows pos + [0,
+        S) with `chunked`). A training forward (grad enabled, no cache)
+        under `cfg.remat` checkpoints each layer."""
         remat = (self.cfg.remat and caches is None
                  and torch.is_grad_enabled())
         for i, lp in enumerate(self._layer_views(params)):
@@ -224,7 +225,8 @@ class LM(torch.nn.Module):
                 x = checkpoint(self._block, lp, qp_body, x, rope,
                                use_reentrant=False)
             else:
-                x = self._block(lp, qp_body, x, rope, caches, pos, pages, i)
+                x = self._block(lp, qp_body, x, rope, caches, pos, pages, i,
+                                chunked)
         return x
 
     def forward(self, params: dict, qparams: Optional[dict],
@@ -412,6 +414,47 @@ class LM(torch.nn.Module):
             freqs = self._freqs[device] = Lyr.rope_freqs(
                 self.cfg.d_head, self.cfg.rope_theta, device)
         return freqs
+
+    def verify_chunk(self, params: dict, qparams: Optional[dict],
+                     caches: dict, tokens: torch.Tensor, pos,
+                     last_logit_only: bool = False):
+        """Score a T-token chunk mid-sequence against the live contiguous
+        caches: the speculative verify pass and chunked prefill. tokens:
+        (B, T), column 0 at each slot's absolute position pos[b] (an int
+        or a (B,) tensor). Writes K/V rows [pos, pos + T) of every slot in
+        place and returns (logits (B, T, V), caches); `last_logit_only`
+        projects only the final position through the head. Rope is taken
+        at pos + [0, T) from the cached frequencies, so the pass can be
+        captured in a CUDA graph.
+
+        Attention mixers only: a recurrent state cannot be rolled back
+        when a draft is rejected (KV rows can be zeroed)."""
+        bad = sorted({sub.mixer for sub in self.plan if sub.mixer != "attn"})
+        if bad:
+            raise ValueError(
+                f"verify_chunk needs attention mixers everywhere (rollback "
+                f"zeroes KV rows); plan has {bad} layers whose recurrent "
+                f"state cannot be rolled back")
+        if any(sub.ffn == "moe" for sub in self.plan):
+            raise Lyr.not_in_this_slice(
+                "verify_chunk over MoE layers (full-capacity routing)",
+                "ROADMAP Queue 1 item 12 (other families)")
+        cfg = self.cfg
+        params, qp_body = self._prequantize(params, qparams)
+        x = self._embed_tokens(params, tokens)
+        B, T = x.shape[0], x.shape[1]
+        pos = torch.as_tensor(pos, dtype=torch.int64,
+                              device=x.device).reshape(-1).expand(B)
+        posf = (pos[:, None] + torch.arange(T, device=x.device)[None, :]
+                ).to(torch.float32)
+        ang = posf[..., None] * self._rope_freqs(x.device)[None, None, :]
+        rope = (torch.cos(ang), torch.sin(ang))               # (B, T, dh/2)
+        x = self._blocks(params, qp_body, x, rope, caches, pos,
+                         chunked=True)
+        if last_logit_only:
+            x = x[:, -1:]
+        x = Lyr.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        return self._head(params, x), caches
 
     def decode_step(self, params: dict, qparams: Optional[dict],
                     caches: dict, token: torch.Tensor, pos,

@@ -13,8 +13,8 @@ buffers; on the card a CUDA graph replay, here the same body run eagerly)
 are held to repeated eager `step()` and to the JAX engine over both KV
 arenas, the port's `serve_loop` to the JAX `serve_loop` and to the port's
 engine, and the rest mirrors `tests/test_engine.py` (its stateful-family
-prefill test waits for the other families, its speculative tests for
-speculative decoding: the port raises for both).
+prefill test waits for the other families, which the port raises for;
+its speculative tests are mirrored in `tests/test_torch_speculative*.py`).
 """
 import jax
 import jax.numpy as jnp
@@ -187,10 +187,10 @@ def test_cli_packed_smoke_on_cpu(capsys):
     assert "token-identical" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("kw", [dict(paged=True, speculative=True),
-                                dict(speculative=True),
-                                dict(tp=2), dict(prefill_chunk=4),
-                                dict(pruned=True, speculative=True)])
+@pytest.mark.parametrize("kw", [dict(paged=True, tp=2),
+                                dict(speculative=True, tp=2),
+                                dict(tp=2), dict(prefill_chunk=4, tp=4),
+                                dict(pruned=True, tp=2)])
 def test_later_modes_raise_naming_their_slice(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         TE.build_engine(ARCH, True, device="cpu", **kw)
@@ -511,10 +511,10 @@ def test_example_serves_on_cpu(argv, capsys):
         assert "2 prefix hits" in text
 
 
-@pytest.mark.parametrize("argv", [["--pruned", "--speculative"],
-                                  ["--speculative"],
+@pytest.mark.parametrize("argv", [["--pruned", "--tp", "2"],
+                                  ["--speculative", "--tp", "2"],
                                   ["--tp", "2"], ["--devices", "4"],
-                                  ["--chunked-prefill", "8"]])
+                                  ["--chunked-prefill", "8", "--tp", "2"]])
 def test_example_later_modes_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         _example().main(argv + ["--device", "cpu"])

@@ -60,6 +60,20 @@ copy of an x whose rows TMA cannot take). The smoke config's pruned
 engine (f32) emits its masked reference's tokens and the CPU run's at
 sparsity 0.5 and 0.3, its graph windows eager `step()`'s, its paged
 arena the contiguous one's.
+
+Speculative decoding and chunked prefill (`test_spec_*`, `test_chunked_*`,
+`test_verify_heights_*`): the tensor-core GEMM at the verify heights M =
+12, 20, 36 (bf16 x, every serving epilogue, the pruned widths) within the
+GEMM's bound of the plain version and bitwise on a repeat; the smoke
+config (f32) speculative engine's tokens equal the plain engine's on the
+card and the CPU run's, for a faithful and an aggressive draft; its
+graph-replayed rounds equal eager rounds bit for bit (contiguous, f32
+and int8 pages), with the rollback invariant after every eager round
+(rows at and past each active slot's position zero in both arenas);
+`warmup()` captures exactly `len(_spec_ks())` graphs and a drain none;
+paged speculative (unquantized pages) equals contiguous; chunked tokens
+equal one-shot tokens on the card (whose decode replays the one-step
+window) and the CPU run's.
 """
 import numpy as np
 import pytest
@@ -1381,3 +1395,169 @@ def test_pruned_graph_windows_match_eager_steps(cuda, monkeypatch, mode,
         flat = contiguous.run()
         for rid in flat:
             np.testing.assert_array_equal(got[rid], flat[rid])
+
+
+# ------------------------------------- speculative decoding, chunked prefill
+VERIFY_MS = [12, 20, 36]          # 4 slots x (k + 1) at k = 2, 4, 8
+
+
+@pytest.mark.parametrize("epi", ["fake_quant_rhs", "dequant", "unpack_b4",
+                                 "unpack_b2"])
+@pytest.mark.parametrize("M", VERIFY_MS)
+@pytest.mark.parametrize("K,N", PRUNED_SHAPES + [(2048, 8192), (2048, 2048),
+                                                (2048, 1024)], ids=str)
+def test_verify_heights_tc_match_plain(cuda, K, N, M, epi):
+    """The verify pass's heights take the tensor-core variant (a 128-row
+    block mostly past M): within the GEMM's bound of the plain version,
+    bitwise on a repeat, rows past M never written (the output has M)."""
+    gen = torch.Generator(device=cuda).manual_seed(K + N + M)
+    w, e, _ = _pruned_operands(epi, K, N, torch.bfloat16, gen)
+    w = TG.aligned_rows(w)
+    x = torch.randn((M, K), generator=gen, device=cuda).to(torch.bfloat16)
+    assert TG.variant(M, x.dtype) == "tc"
+    y = TG.gemm(x, w, e, out_dtype=torch.float32)
+    again = TG.gemm(x, w, e, out_dtype=torch.float32)
+    want = TG.plain(x, w, e, torch.float32)
+    torch.cuda.synchronize()
+    assert y.shape == (M, N)
+    torch.testing.assert_close(y, want, rtol=1e-4,
+                               atol=1e-4 * want.abs().max().item())
+    assert torch.equal(y, again)
+
+
+SPEC_DRAFTS = {"faithful": dict(draft_sparsity=0.0, draft_bits=8.0),
+               "aggressive": dict(draft_sparsity=0.5, draft_bits=2.0)}
+
+
+@pytest.mark.parametrize("draft", list(SPEC_DRAFTS))
+@pytest.mark.parametrize("mode", ["dense", "compressed"])
+def test_spec_smoke_on_card_matches_plain_and_cpu(cuda, mode, draft):
+    """The smoke config (f32) speculative engine on the card: its tokens
+    equal the plain engine's on the card and its own CPU run's."""
+    kw = dict(WEIGHT_MODES[mode], speculative=True, draft_k=4,
+              **SPEC_DRAFTS[draft])
+    got = serve_on_devices("internlm2-1.8b", True, [6, 3, 9, 12], 8,
+                           ["cuda", "cpu"], max_slots=2, **kw)
+    plain = serve_on_devices("internlm2-1.8b", True, [6, 3, 9, 12], 8,
+                             ["cuda"], max_slots=2, **WEIGHT_MODES[mode])
+    for want in (got["cpu"], plain["cuda"]):
+        assert sorted(got["cuda"]) == sorted(want)
+        for rid in want:
+            np.testing.assert_array_equal(got["cuda"][rid], want[rid],
+                                          err_msg=f"request {rid}")
+
+
+def _spec_never_drafted(eng) -> None:
+    """Rows at and past each active slot's position are zero in both
+    arenas (gathered from the pools when paged)."""
+    arenas = [eng.caches, eng.dcaches]
+    if eng.paged:
+        eng._stage()
+        arenas = [eng._gather(a) for a in arenas]
+    for slot, req in enumerate(eng.active):
+        if req is None:
+            continue
+        pos = int(eng.pos[slot])
+        assert pos == req.prompt.size + len(req.tokens) - 1
+        for arena in arenas:
+            for c in arena.values():
+                assert not torch.any(c[:, slot, pos:]), (slot, pos)
+
+
+@pytest.mark.parametrize("arena", ["contiguous", "paged", "paged_int8"])
+def test_spec_graph_rounds_match_eager_rounds(cuda, monkeypatch, arena):
+    """The replayed rounds emit the tokens of eager rounds (bit for bit:
+    the same kernels on the same inputs) on an engine of the same
+    weights, whose every round keeps the never-drafted state; `warmup()`
+    captures one graph per draft length of `_spec_ks()`, the drain none,
+    and a second warm-up nothing more; every round ran a captured k."""
+    captures = _captures(monkeypatch)
+    kw = dict(speculative=True, draft_k=4, **SPEC_DRAFTS["aggressive"])
+    eng, lm = _card_engine("compressed", arena, **kw)
+    ref, _ = _card_engine("compressed", arena, **kw)
+    prompts = _prompts(lm)
+    for e in (eng, ref):
+        for p, g in zip(prompts, GENS):
+            e.submit(p, g)
+    eng.warmup()
+    ks = eng._spec_ks()
+    assert len(captures) == len(ks) and sorted(eng.graphs) == ks
+    got = eng.run()
+    assert len(captures) == len(ks)
+    while ref.pending:
+        ref.eager_step()
+        _spec_never_drafted(ref)
+    want = ref._drain(ref.eager_step)
+    assert sorted(got) == sorted(want) == list(range(len(LENS)))
+    for rid in want:
+        assert len(got[rid]) == GENS[rid]
+        np.testing.assert_array_equal(got[rid], want[rid],
+                                      err_msg=f"request {rid}")
+    assert sum(eng.replays.values()) == eng.stats["spec_steps"] > 0
+    assert not ref.replays
+    eng.warmup()
+    assert len(captures) == len(ks)
+
+
+def test_spec_run_without_warmup_raises_on_card(cuda):
+    eng, lm = _card_engine("dense", "contiguous", speculative=True)
+    eng.submit(_prompts(lm)[0], 4)
+    with pytest.raises(RuntimeError, match="call warmup"):
+        eng.run()
+
+
+@pytest.mark.parametrize("draft", list(SPEC_DRAFTS))
+def test_spec_paged_matches_contiguous_on_card(cuda, draft):
+    """Paged speculative rounds (unquantized pages) run on gathered views
+    of the contiguous arena's shape: the tokens equal the contiguous
+    speculative engine's, and the plain engine's."""
+    kw = dict(speculative=True, draft_k=4, **SPEC_DRAFTS[draft])
+    outs = []
+    for arena, extra in (("paged", kw), ("contiguous", kw),
+                         ("contiguous", {})):
+        eng, lm = _card_engine("dense", arena, **extra)
+        for p, g in zip(_prompts(lm, repeat=True), GENS):
+            eng.submit(p, g)
+        eng.warmup()
+        outs.append(eng.run())
+    for want in outs[1:]:
+        for rid in want:
+            np.testing.assert_array_equal(outs[0][rid], want[rid],
+                                          err_msg=f"request {rid}")
+
+
+@pytest.mark.parametrize("arena", ["contiguous", "paged"])
+@pytest.mark.parametrize("mode", ["dense", "packed_b4"])
+def test_chunked_prefill_on_card_matches_one_shot_and_cpu(cuda, mode,
+                                                          arena):
+    """Chunked prefill (chunks of 8 rows, f32: the SIMT GEMM, and their
+    power-of-two tails: the small-M GEMM) on the card: tokens equal the
+    one-shot engine's on the card and the chunked engine's on the CPU
+    (CPU-drawn weights on both devices); its decode replays the one-step
+    window captured in `warmup()`."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.scheduler import ChunkedPrefillScheduler
+    from repro_torch.models.transformer import LM
+    lm = LM(get_arch("internlm2-1.8b", smoke=True))
+    base = lm.init(torch.Generator().manual_seed(0))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params, qparams, _ = prepare_serving(
+            lm, {k: v.to(dev) for k, v in base.items()}, **WEIGHT_MODES[mode])
+        for chunk in (8, None):
+            eng = Engine(lm, params, qparams, max_slots=2, max_seq=32,
+                         scheduler=(ChunkedPrefillScheduler(chunk) if chunk
+                                    else None), **ARENAS[arena])
+            for p, g in zip(_prompts(lm), GENS):
+                eng.submit(p, g)
+            eng.warmup()
+            runs[dev, chunk] = eng.run()
+            if dev == "cuda" and chunk:
+                assert sorted(eng.graphs) == [1]
+                assert eng.replays[1] == eng.stats["decode_steps"] > 0
+                assert eng.stats["decode_steps_mid_prefill"] > 0
+    got = runs["cuda", 8]
+    for key in (("cuda", None), ("cpu", 8), ("cpu", None)):
+        for rid in runs[key]:
+            np.testing.assert_array_equal(got[rid], runs[key][rid],
+                                          err_msg=f"{key} request {rid}")
