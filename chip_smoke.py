@@ -34,7 +34,9 @@ Phases, each printing its own lines:
    kernel on the gathered rows bit for bit. Then the training shapes (T =
    B*S = 2048 tokens):
    the fake-quant forward and backward kernels on the head weight
-   (2048 x 92672 bf16) and a w_gate slice (2048 x 8192 bf16) at t = 1 and
+   (2048 x 92672 bf16), a w_gate slice (2048 x 8192 bf16) and phase 11's
+   largest shapes in f32, VGG7's conv5 weight (3 x 3 x 512 x 512) and its
+   first activation site (64 x 32 x 32 x 128), at t = 1 and
    t = 0.85 (forward and dx bitwise at both, the three sums within
    1e-5 of the sum of their terms' magnitudes and bitwise on a second
    call, one device kernel per call from a profiler trace); the GEMM's
@@ -189,14 +191,50 @@ Phases, each printing its own lines:
    between two decode steps of a slot while a 512-token prompt is
    prefilled, chunked and one-shot, three runs each. The launch counts
    are zeroed before the phase and read after it.
-10. Two JSON lines: the kernel table, then the device line (last). A
+10. The checkpointed, fault-tolerant run loop: `train_loop` on
+   internlm2-1.8b at full width (d_model 2048, d_ff 8192, vocab 92544)
+   with its depth cut to 4 of 24 layers (a checkpoint of the whole
+   model, ~19 GB with AdamW's f32 moments, would take most of the
+   phase to write), bf16, batch 4 x 512, 8 steps (warm-up 1, projection
+   1 x 1, pruning 2 x 2, cool-down 2) under
+   torch.use_deterministic_algorithms: once uninterrupted, once with a
+   checkpoint every 5 steps and a failure injected at step 7, which
+   restores step 5 and replays 5-7 across the joint stage's end. The
+   final trees must be equal bit for bit (every leaf: params, quantizers,
+   the QASSO state with its Python-int counters, the data key), the
+   killed run's 10 losses the clean run's at each step, one restart, the
+   stages in order, and each run's launch counts at
+   `predicted_train_launches`. Prints the checkpoint's bytes, the save
+   and restore seconds, the step walls past step 5 and peak memory; the
+   checkpoint directory is removed.
+11. The paper's substrates at the JAX package's full specs: VGG7 (widths
+   128-512, fc 1024) with weight and activation quantizers (Table 4) and
+   ResNet20 with weight quantizers (Table 2), each on batches of 64
+   32 x 32 images (`image_batch`, NHWC), and the BERT encoder at its
+   defaults (4 layers, d_model 256, 4 heads, d_ff 1024, vocab 8192) on
+   `qa_batch` at 16 x 64 (Table 3's harness), each through 6 GETA steps
+   (every stage) under torch.use_deterministic_algorithms. Checks: finite
+   losses, stages in order, every site's bits in [b_l, b_u_final],
+   exactly k_units pruned units, all zero, two runs of the first joint
+   step from one state bitwise equal, the fake-quant launches at
+   `predicted_substrate_launches` (each weight and activation site once
+   forward and once backward a step, each weight once more in a joint
+   step) and no GEMM kernel (convolutions and products are plain
+   PyTorch, as they are plain XLA in the JAX package). Then
+   `construct_subnet` and `model_bops` on the trained state; prints
+   sparsity, mean bits, rel_bops, step walls, images or tokens per
+   second and peak memory.
+12. Two JSON lines: the kernel table, then the device line (last). A
    serving kernel's `launches` are the host counts of phases 5-6 (a
    graph's calls once, at capture), a pruned-shape GEMM row's those of
    phase 8, a verify-height row's those of phase 9 (the captures of its
-   draft length's graphs, with `replayed_launches` the replays' kernels);
+   draft length's graphs, with `replayed_launches` the replays' kernels),
+   the fake-quant rows at phase 11's shapes those of phase 11;
    `traced_device_launches` are its device kernels in their traced
    drains (for a GEMM epilogue the small-M kernels, for decode attention
    the split kernels).
+
+Each phase prints its seconds.
 
 Times are CUDA-event medians with the 50 MB L2 flushed before each launch
 (each decode-step launch finds its weights cold); after the flush the
@@ -261,6 +299,9 @@ MASKED_TOL = 2 ** -5
 TOKENS = 2048                        # training batch 4 x 512
 TRAIN_BATCH, TRAIN_SEQ = 4, 512
 FQ_SHAPES = {"head": (2048, 92672), "w_gate": (2048, 8192)}
+# phase 11's largest fake-quant shapes, f32: VGG7's largest conv weight
+# (conv5, HWIO) and its first activation site (relu0 at batch 64, NHWC)
+CNN_FQ_SHAPES = {"vgg7_conv": (3, 3, 512, 512), "vgg7_act": (64, 32, 32, 128)}
 # (label, M, K, N, layout, t, bits) of the training GEMMs, each in the
 # layout the train step hands it: x.T @ g (dwq, x.T a view), g @ fq(w.T)
 # (dx, w.T a view) and the forward, for w_gate (2048 -> 8192) and w_down
@@ -729,11 +770,17 @@ def _fq_rows(torch, timer, gen) -> tuple[list, dict, list]:
     from repro_torch.kernels import fake_quant as fq
     from repro_torch.kernels import ref
     rows, report, failures = [], {}, []
-    for label, shape in FQ_SHAPES.items():
+    cases = [(label, shape, torch.bfloat16)
+             for label, shape in FQ_SHAPES.items()] + [
+        (label, shape, torch.float32)
+        for label, shape in CNN_FQ_SHAPES.items()]
+    for label, shape, dtype in cases:
         x = torch.randn(shape, generator=gen, device="cuda",
-                        dtype=torch.bfloat16) * shape[0] ** -0.5
+                        dtype=dtype) * shape[0] ** -0.5
+        if label.endswith("_act"):          # a ReLU's output
+            x = torch.relu(x)
         g = torch.randn(shape, generator=gen, device="cuda",
-                        dtype=torch.bfloat16) * 1e-3
+                        dtype=dtype) * 1e-3
         for t in (1.0, 0.85):
             qp = init_quant_params(q_m=x.float().abs().max() * 0.9, bits=8.0,
                                    t=t)
@@ -778,7 +825,8 @@ def _fq_rows(torch, timer, gen) -> tuple[list, dict, list]:
             del got, want, again
             for r in (row, brow):
                 print(f"[3 kernels] {r['kernel']:<29} {label:<6} "
-                      f"{shape[0]}x{shape[1]} t={t} ms={r['ms']:.4f} "
+                      f"{'x'.join(map(str, shape))} {str(dtype)[6:]} t={t} "
+                      f"ms={r['ms']:.4f} "
                       f"plain_ms={r['plain_ms']:.4f} library_ms=none "
                       f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
                       f"err={r['max_abs_err']:.2e}"
@@ -789,10 +837,11 @@ def _fq_rows(torch, timer, gen) -> tuple[list, dict, list]:
                       + f"{_per_call(r)} {'ok' if r['ok'] else 'FAIL'}")
                 if not r["ok"]:
                     failures.append(r)
-                if TRAIN_REPORT[r["kernel"]] == (label, t):
-                    report[r["kernel"]] = r
-                elif TRAIN_REPORT[r["kernel"]] == (label, 1.0):
-                    report[r["kernel"] + ".at_t0.85"] = r
+                key = (r["kernel"] if TRAIN_REPORT[r["kernel"]][0] == label
+                       else f"{r['kernel']}.{label}"
+                       if label in CNN_FQ_SHAPES else None)
+                if key is not None:
+                    report[key if t == 1.0 else key + ".at_t0.85"] = r
         del x, g
         torch.cuda.empty_cache()
     return rows, report, failures
@@ -2378,6 +2427,318 @@ def phase_train(torch) -> tuple[dict, dict, list[str], tuple]:
     return counts, colmask_counts, failures, geta
 
 
+# ----------------------------------------------------------------- phase 10
+RUN_LAYERS = 4          # phase 10's depth cut: 4 of 24 layers, widths full
+RUN_STEPS, RUN_EVERY, RUN_FAIL = 8, 5, 7
+# every stage in 8 steps: warm-up 1, projection 1 x 1, pruning 2 x 2,
+# cool-down 2; the checkpoint at 5 holds the state after the first pruning
+# period, and the replay of steps 5-6 crosses from the last joint step
+# (which hard-zeroes G_R and freezes the keep mask) into cool-down
+COMP8 = dict(target_sparsity=0.3, warmup_steps=1, projection_periods=1,
+             projection_steps=1, pruning_periods=2, pruning_steps=2,
+             cooldown_steps=2)
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def _same_tree(torch, a, b) -> bool:
+    """Two state trees equal leaf for leaf: structure, types, dtypes,
+    devices and bits."""
+    from repro_torch.checkpoint.checkpoint import tree_flatten
+    (la, sa), (lb, sb) = tree_flatten(a), tree_flatten(b)
+    return sa == sb and all(
+        (type(x) is type(y) and x.dtype == y.dtype and x.device == y.device
+         and torch.equal(x, y)) if isinstance(x, torch.Tensor)
+        else (type(x) is type(y) and x == y) for x, y in zip(la, lb))
+
+
+def phase_run_loop(torch) -> tuple[dict, list]:
+    """Phase 10 (see the module docstring). Returns the killed run's
+    launch counts and the failures."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import CompressionConfig, get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as T
+    from repro_torch.models.transformer import LM
+    failures = []
+
+    def check(ok, what):
+        if not ok:
+            failures.append(what)
+        return "ok" if ok else "FAIL"
+
+    batch, seq = TRAIN_BATCH, TRAIN_SEQ
+    torch.use_deterministic_algorithms(True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    runs = {}
+    try:
+        for label, kw in (("clean", {}), ("killed", dict(
+                ckpt_dir=tmp, checkpoint_every=RUN_EVERY,
+                inject_failure_at=RUN_FAIL))):
+            ops.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            hist, report = [], {}
+            t0 = time.perf_counter()
+            state, _, qasso, losses = T.train_loop(
+                ARCH, False, RUN_STEPS, batch, seq, seed=0,
+                comp=CompressionConfig(**COMP8), verbose=False,
+                device="cuda", history=hist, report=report,
+                layers=RUN_LAYERS, **kw)
+            runs[label] = dict(
+                state=state, qasso=qasso, losses=losses, hist=hist,
+                report=report, counts=ops.launch_counts(),
+                wall=time.perf_counter() - t0,
+                peak=torch.cuda.max_memory_allocated() / 2 ** 30)
+        runs["killed"]["bytes"] = _dir_bytes(Path(tmp) / f"step_{RUN_EVERY}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.use_deterministic_algorithms(False)
+    clean, killed = runs["clean"], runs["killed"]
+    cfg = get_arch(ARCH)
+    lm = LM(dataclasses.replace(cfg, n_layers=RUN_LAYERS))
+    stages = [h["stage"] for h in clean["hist"]]
+    k_stages = [h["stage"] for h in killed["hist"]]
+    result = killed["report"]["run_result"]
+    tokens = batch * seq
+    print(f"[10 run loop] internlm2-1.8b at full width (d_model "
+          f"{lm.cfg.d_model}, d_ff {lm.cfg.d_ff}, vocab {lm.cfg.vocab}), "
+          f"depth cut to {lm.cfg.n_layers} of {cfg.n_layers} layers, "
+          f"{lm.cfg.dtype}, batch {batch}x{seq}, {RUN_STEPS} steps, "
+          f"checkpoint every {RUN_EVERY}, a failure injected at step "
+          f"{RUN_FAIL}")
+    for i, h in enumerate(clean["hist"]):
+        print(f"[10 run loop] clean step {i} stage {h['stage']} loss "
+              f"{h['loss']:.6f} wall {h['wall_s']:.3f} s "
+              f"{tokens / h['wall_s']:.1f} tok/s")
+    same = _same_tree(torch, clean["state"], killed["state"])
+    replay = clean["losses"][:RUN_FAIL] + clean["losses"][RUN_EVERY:]
+    want_stages = stages[:RUN_FAIL] + stages[RUN_EVERY:]
+    print(f"[10 run loop] killed run: {len(killed['losses'])} losses (want "
+          f"{RUN_STEPS + RUN_FAIL - RUN_EVERY}), each the clean run's at its "
+          f"step {check(killed['losses'] == replay, 'replayed losses')}; "
+          f"restarts {result.restarts} "
+          f"{check(result.restarts == 1, 'one restart')}; stages {stages}, "
+          f"killed {k_stages} "
+          f"{check(stages == [0, 1, 2, 2, 2, 2, 3, 3] and k_stages == want_stages, 'run loop stages')}"
+          f"; final trees (params, quantizers, the QASSO state with its int "
+          f"counters, rng) {'bitwise equal' if same else 'DIFFER'} "
+          f"{check(same, 'killed run bitwise the clean run')}; losses finite "
+          f"{check(all(math.isfinite(x) for x in clean['losses']), 'finite run-loop loss')}")
+    save_s = killed["report"]["save_s"]
+    restore_s = killed["report"]["restore_s"]
+    walls = ", ".join(f"{h['wall_s']:.3f}" for h in clean["hist"][5:])
+    print(f"[10 run loop] checkpoint at step {RUN_EVERY}: "
+          f"{killed['bytes']} bytes ({killed['bytes'] / 2 ** 30:.2f} GiB); "
+          f"save {', '.join(f'{s:.3f}' for s in save_s)} s, restore "
+          f"{', '.join(f'{s:.3f}' for s in restore_s)} s "
+          f"{check(len(save_s) == 1 and len(restore_s) == 1, 'one save, one restore')}"
+          f"; clean step walls past step 5: {walls} s; runs {clean['wall']:.1f}"
+          f" s clean, {killed['wall']:.1f} s killed; peak memory "
+          f"{clean['peak']:.2f} GiB clean, {killed['peak']:.2f} GiB killed")
+    for label, stg in (("clean", stages), ("killed", k_stages)):
+        want = predicted_train_launches(lm, runs[label]["qasso"], stg)
+        counts = runs[label]["counts"]
+        got = {k: counts[k] for k in want}
+        others = {k: v for k, v in counts.items() if v and k not in want}
+        ok = got == want and not others
+        print(f"[10 run loop] {label} run launches {got} predicted {want} "
+              f"{check(ok, f'{label} run-loop launch counts')}"
+              + (f" unexpected {others}" if others else ""))
+    return killed["counts"], failures
+
+
+# ----------------------------------------------------------------- phase 11
+# the paper's substrates: every stage in 6 steps (warm-up 1, projection
+# 2 x 1, pruning 2 x 1, cool-down 1) under `benchmarks/geta_experiments.py`'s
+# choices (bits [4, 16], b_r 2, Adam, lr_quant 1e-3)
+SUB_SCHED = dict(target_sparsity=0.35, bit_lower=4.0, bit_upper=16.0,
+                 warmup_steps=1, projection_periods=2, projection_steps=1,
+                 bit_reduction=2.0, pruning_periods=2, pruning_steps=1,
+                 cooldown_steps=1, base_optimizer="adam", lr_quant=1e-3)
+SUB_STAGES = [0, 1, 1, 2, 2, 3]
+CNN_BATCH = 64
+BERT_BATCH, BERT_SEQ = 16, 64
+
+
+def substrates() -> list[dict]:
+    """Phase 11's models at the JAX package's full specs: VGG7 with weight
+    and activation quantizers (Table 4), ResNet20 with weight quantizers
+    (Table 2), the BERT encoder at its defaults (Table 3's harness)."""
+    from repro_torch.data.synthetic import image_batch, qa_batch
+    from repro_torch.models import bert, cnn
+    enc = bert.BertEncoder()
+
+    def images(i):
+        return image_batch(0, i, CNN_BATCH, device="cuda")
+
+    return [dict(name=cnn.VGG7.name, model=cnn.CNN(cnn.VGG7), act_quant=True,
+                 bits=16.0, lr=3e-3, unit="images", per_step=CNN_BATCH,
+                 batch=images),
+            dict(name=cnn.RESNET20.name, model=cnn.CNN(cnn.RESNET20),
+                 act_quant=False, bits=16.0, lr=3e-3, unit="images",
+                 per_step=CNN_BATCH, batch=images),
+            dict(name="bert", model=enc, act_quant=False, bits=8.0, lr=2e-3,
+                 unit="tokens", per_step=BERT_BATCH * BERT_SEQ,
+                 batch=lambda i: qa_batch(0, i, BERT_BATCH, BERT_SEQ, enc.V,
+                                          device="cuda"))]
+
+
+def predicted_substrate_launches(qasso, stages, act_sites: int) -> dict:
+    """Fake-quant launches of a substrate's steps: every weight site and
+    every activation site its forward quantizes once forward and once
+    backward; a joint step also fake-quantizes each weight site's params
+    once (Alg 2 line 18). Convolutions and products are plain PyTorch: no
+    GEMM kernel."""
+    sites = len(qasso.weight_sites) + act_sites
+    joint = sum(s == 2 for s in stages) * sum(
+        len(s.quantized_params) for s in qasso.weight_sites)
+    return {"fake_quant.fwd": sites * len(stages) + joint,
+            "fake_quant.bwd": sites * len(stages)}
+
+
+def _tally_fq_shapes(tally: dict):
+    """Count the fake-quant wrappers' launches by "kernel shape" until
+    the returned function is called: each call adds the difference of its
+    wrapper's own count across the call."""
+    from repro_torch.kernels import fake_quant as fq
+    orig = {fq.FWD: fq.fake_quant_fwd, fq.BWD: fq.fake_quant_bwd}
+
+    def wrap(direction):
+        def call(x, *args):
+            before = fq.launches[direction]
+            out = orig[direction](x, *args)
+            key = f"fake_quant.{direction} {'x'.join(map(str, x.shape))}"
+            tally[key] = tally.get(key, 0) + fq.launches[direction] - before
+            return out
+        return call
+
+    fq.fake_quant_fwd, fq.fake_quant_bwd = wrap(fq.FWD), wrap(fq.BWD)
+
+    def restore():
+        fq.fake_quant_fwd, fq.fake_quant_bwd = orig[fq.FWD], orig[fq.BWD]
+    return restore
+
+
+def phase_substrates(torch) -> tuple[dict, list]:
+    """Phase 11 (see the module docstring). Returns, per model, the
+    fake-quant launch counts and, under "by_shape", those launches by
+    kernel and shape; and the failures."""
+    from repro_torch.checkpoint import clone_tree
+    from repro_torch.core.bops import model_bops
+    from repro_torch.core.qadg import build_qadg
+    from repro_torch.core.qasso import QASSO, QASSOConfig
+    from repro_torch.core.quant import bit_width
+    from repro_torch.core.subnet import construct_subnet
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as T
+    from repro_torch.optim.schedules import constant
+    failures, out = [], {}
+
+    def check(ok, what):
+        if not ok:
+            failures.append(what)
+        return "ok" if ok else "FAIL"
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        for sub in substrates():
+            m, name = sub["model"], sub["name"]
+            torch.cuda.reset_peak_memory_stats()
+            params = m.init(torch.Generator(device="cuda").manual_seed(0))
+            qparams = m.init_qparams(params, bits_init=sub["bits"],
+                                     act_quant=sub["act_quant"])
+            qadg = build_qadg(m.build_graph(act_quant=sub["act_quant"])
+                              .graph)
+            qadg.space.validate(params)
+            qasso = QASSO(qadg.space, qadg.sites, QASSOConfig(**SUB_SCHED),
+                          constant(sub["lr"]))
+            state = qasso.init(params, qparams)
+            step = T.make_geta_train_step(m, qasso)
+            stages, losses, walls, snap, by_shape = [], [], [], None, {}
+            ops.reset_launch_counts()
+            restore = _tally_fq_shapes(by_shape)
+            for i in range(qasso.cfg.total_steps):
+                b = sub["batch"](i)
+                if qasso.stage_index(i) == 2 and snap is None:
+                    snap = (clone_tree(params), clone_tree(qparams),
+                            clone_tree(state), b)
+                t0 = time.perf_counter()
+                params, qparams, state, met = step(params, qparams, state, b)
+                losses.append(float(met["loss"]))         # syncs the device
+                walls.append(time.perf_counter() - t0)
+                stages.append(met["stage"])
+            restore()
+            counts = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            # two runs of the first joint step from one state
+            reps = [step(*clone_tree(snap[:3]), snap[3]) for _ in range(2)]
+            (p0, q0, s0, m0), (p1, q1, s1, m1) = reps
+            same = (_same_tree(torch, (p0, q0, s0.redundant, s0.keep_mask),
+                               (p1, q1, s1.redundant, s1.keep_mask))
+                    and torch.equal(m0["loss"], m1["loss"]))
+            del reps, snap
+            keep = state.keep_mask
+            n_pruned = sum(int(torch.sum(v < 0.5)) for v in keep.values())
+            elem_keep = qasso._keep_elem_tree(params, keep)
+            nonzero = sum(int(torch.count_nonzero(
+                p * (1.0 - elem_keep[k]).to(p.dtype)))
+                for k, p in params.items())
+            b_l, b_u = qasso.cfg.bit_lower, qasso.cfg.bit_upper_final
+            bits = [float(bit_width(q.d, q.q_m, q.t))
+                    for q in qparams.values()]
+            act = sum(s.kind == "act" for s in qadg.sites)
+            want = predicted_substrate_launches(qasso, stages, act)
+            got = {k: counts[k] for k in want}
+            gemm = {k: v for k, v in counts.items()
+                    if k.startswith("gemm_core") and v}
+            sn = construct_subnet(qadg, params, qparams, keep)
+            macs = (m.layer_macs(BERT_BATCH, BERT_SEQ) if name == "bert"
+                    else m.layer_macs(batch=1))
+            bops = model_bops(qadg, params, qparams, macs, masks=keep)
+            wall = statistics.median(walls)
+            out[name] = dict(got, by_shape=by_shape)
+            print(f"[11 substrates] {name}: {len(qadg.sites)} sites ({act} "
+                  f"activation), {qasso.total_units} units, stages {stages} "
+                  f"{check(stages == SUB_STAGES, f'{name} stages')}, losses "
+                  f"{', '.join(f'{x:.4f}' for x in losses)} finite "
+                  f"{check(all(math.isfinite(x) for x in losses), f'{name} finite loss')}"
+                  f", pruned units {n_pruned} (k_units {qasso.k_units}) "
+                  f"{check(n_pruned == qasso.k_units, f'{name} sparsity')}, "
+                  f"nonzero pruned elements {nonzero} "
+                  f"{check(nonzero == 0, f'{name} pruned units zero')}, bits "
+                  f"[{min(bits):.3f}, {max(bits):.3f}] in [{b_l}, {b_u}] "
+                  f"{check(b_l - 1e-3 <= min(bits) and max(bits) <= b_u + 1e-3, f'{name} bits')}"
+                  f", two runs of a joint step from one state "
+                  f"{'bitwise equal' if same else 'DIFFER'} "
+                  f"{check(same, f'{name} step reproducible')}")
+            tallied = {k: sum(v for key, v in by_shape.items()
+                              if key.split()[0] == k) for k in want}
+            at = {key: v for key, v in by_shape.items()
+                  if key.split()[1] in {"x".join(map(str, sh))
+                                        for sh in CNN_FQ_SHAPES.values()}}
+            print(f"[11 substrates] {name}: launches {got} predicted {want} "
+                  f"{check(got == want, f'{name} fake-quant launches')}, "
+                  f"by shape {tallied} "
+                  f"{check(tallied == got, f'{name} launches by shape')}"
+                  + (f" ({at} at phase 3's CNN shapes)" if at else "") +
+                  f", GEMM kernels {gemm or 'none'} "
+                  f"{check(not gemm, f'{name} launched a GEMM kernel')}; "
+                  f"construct_subnet sparsity {sn.meta['sparsity']:.4f} mean "
+                  f"bits {sn.meta['mean_bits']:.3f}; rel_bops "
+                  f"{bops['rel_bops']:.5f}; step wall median {wall:.4f} s "
+                  f"({', '.join(f'{w:.4f}' for w in walls)}), "
+                  f"{sub['per_step'] / wall:.1f} {sub['unit']}/s; peak "
+                  f"memory {peak:.2f} GiB")
+            del params, qparams, state, step
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out, failures
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -2397,8 +2758,16 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import ops
 
+    t_phase = [time.perf_counter()]
+
+    def lap(label):
+        now = time.perf_counter()
+        print(f"[{label}] phase seconds {now - t_phase[0]:.1f}")
+        t_phase[0] = now
+
     kind = phase_device(torch)
     phase_build()
+    lap("2 build")
     timer = Timer(torch)
     rows, report, failures = phase_kernels(torch, timer)
     train_rows, train_report, train_failures = phase_train_kernels(torch,
@@ -2408,23 +2777,37 @@ def main(argv=None) -> int:
     del timer
     torch.cuda.empty_cache()
     failures = [f"{r['kernel']} {r}" for r in failures]
+    lap("3 kernels")
     _count_captures(torch)
     smoke_counts, smoke_failures = phase_correctness(torch)
     failures += smoke_failures
     failures += phase_long(torch)
+    lap("4 correctness")
     counts, outs, engine_failures, seen, full_stats = phase_engine(torch)
     failures += engine_failures
+    lap("5 engine")
     paged_counts, paged_failures, paged_seen = phase_paged(torch, outs)
     failures += paged_failures
+    lap("6 paged")
     train_counts, colmask_counts, train_fail, geta = phase_train(torch)
     failures += train_fail
+    lap("7 train")
     pruned_counts, pruned_fail, pruned_seen = phase_pruned(torch, full_stats,
                                                            geta)
     failures += pruned_fail
     del geta
+    lap("8 pruned")
     spec_counts, spec_fail, spec_seen, spec_stats = phase_spec(
         torch, full_stats, outs)
     failures += spec_fail
+    lap("9 speculative")
+    torch.cuda.empty_cache()
+    run_counts, run_fail = phase_run_loop(torch)
+    failures += run_fail
+    lap("10 run loop")
+    sub_counts, sub_fail = phase_substrates(torch)
+    failures += sub_fail
+    lap("11 substrates")
 
     if args.out:
         out = Path(args.out)
@@ -2440,6 +2823,8 @@ def main(argv=None) -> int:
              "smoke_launches": smoke_counts,
              "spec_launches": spec_counts,
              "spec_traced_kernels": spec_seen,
+             "run_loop_launches": run_counts,
+             "substrate_launches": sub_counts,
              "trace_takes": _TRACE_TAKES,
              "spec_engines": {f"{t}/{d}": {
                  k: v for k, v in st.items()
@@ -2575,6 +2960,26 @@ def main(argv=None) -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": shape, **({"variant": row["variant"]}
                                if "variant" in row else {}), **extra})
+    # the fake-quant kernels at phase 11's VGG7 shapes (f32): launches are
+    # phase 11's VGG7 launches at the row's shape (conv5's weight site; the
+    # relu0 and relu1 activation sites), over its len(SUB_STAGES) steps
+    for base in ("fake_quant.fwd", "fake_quant.bwd"):
+        for label, shape in CNN_FQ_SHAPES.items():
+            row = train_report[f"{base}.{label}"]
+            t85 = train_report[f"{base}.{label}.at_t0.85"]
+            n = sub_counts["vgg7"]["by_shape"].get(
+                f"{base} {'x'.join(map(str, shape))}", 0)
+            kernels.append({
+                "name": f"{base}.{label}", "route": "cuda", "source": fq_src,
+                "replaces": train_src[base][1], "launches": n,
+                "launches_per_step": n / len(SUB_STAGES),
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "shape": f"{label} {'x'.join(map(str, shape))} f32 t=1",
+                "at_t0.85": {k: t85[k] for k in (
+                    "ms", "plain_ms", "max_abs_err", "kernels_per_call")},
+                "kernels_per_launch": row["kernels_per_call"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -3,7 +3,9 @@
 The step is the JAX package's: loss -> gradients of (params, qparams) ->
 QASSO update. `LM.loss` runs the block projections through the GEMM
 kernels' autograd Functions and the quantizers through the fake-quant
-kernels; QASSO runs its stage logic on the host.
+kernels; QASSO runs its stage logic on the host. `train_loop(ckpt_dir=)`
+checkpoints the whole state and resumes from the newest checkpoint after
+a failure (`--ckpt-dir`).
 
 Runs on CUDA; `--device cpu` runs the plain PyTorch versions of the
 kernels instead (as the tests do). Examples:
@@ -11,20 +13,26 @@ kernels instead (as the tests do). Examples:
       --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
       --full --steps 5 --batch 4 --seq 512
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 20 \
+      --ckpt-dir /path/to/ckpt --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Optional
 
 import torch
 
+from repro_torch.checkpoint import (clone_tree, restore_checkpoint,
+                                    save_checkpoint)
 from repro_torch.configs import CompressionConfig, get_arch, get_overrides
 from repro_torch.core.qadg import build_qadg
 from repro_torch.core.qasso import QASSO, QASSOConfig
 from repro_torch.core.quant import QuantParams
-from repro_torch.data.synthetic import batch_for
+from repro_torch.data.synthetic import batch_for, step_key
+from repro_torch.distributed.fault import FaultConfig, FaultTolerantLoop
 from repro_torch.launch.engine import resolve_device
 from repro_torch.models.layers import not_in_this_slice
 from repro_torch.models.transformer import LM
@@ -139,12 +147,16 @@ def default_compression(steps: int) -> CompressionConfig:
 
 
 def init_geta(arch: str, smoke: bool, *, seed: int = 0,
-              comp: Optional[CompressionConfig] = None, device=None):
+              comp: Optional[CompressionConfig] = None, device=None,
+              layers: Optional[int] = None):
     """(lm, params, qparams, qadg, qasso, qstate) as `train_loop` starts
     them: random params from a `torch.Generator` seeded with `seed` on the
-    device, 16-bit quantizers, the QADG space and QASSO."""
+    device, 16-bit quantizers, the QADG space and QASSO. `layers` cuts
+    the depth to that many layers; every width stays the config's."""
     dev = resolve_device(device)
     cfg = get_arch(arch, smoke=smoke)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     comp = comp or CompressionConfig()
     lm = LM(cfg)
     params = lm.init(torch.Generator(device=dev).manual_seed(seed))
@@ -224,28 +236,82 @@ def step_differences(want: tuple, got: tuple) -> dict:
 def train_loop(arch: str, smoke: bool, steps: int, batch: int, seq: int,
                ckpt_dir: Optional[str] = None, seed: int = 0,
                comp: Optional[CompressionConfig] = None,
+               inject_failure_at: Optional[int] = None,
                log_every: int = 10, verbose: bool = True, mesh=None,
-               fsdp: bool = False, device=None, history: list | None = None):
+               fsdp: bool = False, checkpoint_every: Optional[int] = None,
+               device=None, history: list | None = None,
+               report: dict | None = None, layers: Optional[int] = None):
     """GETA training on one device. Returns (state, qadg, qasso, losses)
-    with state = {"params", "qparams", "qstate"}; `history`, when given,
-    receives each step's metrics as Python numbers (stage, loss, lr,
-    sparsity, bits) and its wall time."""
-    if ckpt_dir:
-        raise not_in_this_slice("checkpointing (--ckpt-dir)",
-                                "ROADMAP Queue 1 item 13")
+    with state = {"params", "qparams", "qstate", "rng"}: "rng" is the data
+    key of the next step (`data.synthetic.step_key`), so the stream of a
+    restored run is the saved one. `layers` cuts the depth (widths stay).
+    The loop is `run_steps`' (see there for `ckpt_dir`,
+    `checkpoint_every`, `inject_failure_at`, `history` and `report`)."""
     if mesh is not None or fsdp:
         raise not_in_this_slice("sharded training (--devices, --fsdp)",
                                 "ROADMAP Queue 1 item 14")
     comp = comp or default_compression(steps)
     lm, params, qparams, qadg, qasso, qstate = init_geta(
-        arch, smoke, seed=seed, comp=comp, device=device)
+        arch, smoke, seed=seed, comp=comp, device=device, layers=layers)
     dev = params["embed"].device
-    step_fn = make_geta_train_step(lm, qasso)
+    initial = {"params": params, "qparams": qparams, "qstate": qstate,
+               "rng": step_key(seed, 0)}
+    del params, qparams, qstate
+    state, losses = run_steps(
+        make_geta_train_step(lm, qasso), initial, steps,
+        lambda i, key: batch_for(lm.cfg, seed, i, batch, seq, device=dev,
+                                 key=key),
+        lambda i: step_key(seed, i), ckpt_dir=ckpt_dir,
+        checkpoint_every=checkpoint_every,
+        inject_failure_at=inject_failure_at, log_every=log_every,
+        verbose=verbose, history=history, report=report)
+    return state, qadg, qasso, losses
+
+
+def run_steps(step, initial: dict, steps: int, batch_fn, key_fn, *,
+              ckpt_dir: Optional[str] = None,
+              checkpoint_every: Optional[int] = None,
+              inject_failure_at: Optional[int] = None, log_every: int = 10,
+              verbose: bool = False, history: list | None = None,
+              report: dict | None = None):
+    """`steps` train steps from `initial` = {"params", "qparams",
+    "qstate", "rng"}: step i draws `batch_fn(i, state["rng"])` and leaves
+    rng = `key_fn(i + 1)`. Returns (final state, losses).
+
+    With `ckpt_dir`, a `FaultTolerantLoop` checkpoints the whole state
+    every `checkpoint_every` steps (default steps // 4) and, after a
+    failure (`inject_failure_at` raises once at that step), restores the
+    newest checkpoint, or `initial` if there is none, and replays: the
+    final state equals an uninterrupted run's bit for bit, and `losses`
+    holds the replayed steps' losses too; `initial` is kept unchanged for
+    a restart before any checkpoint (the first step after one steps from
+    a copy of the moments, which the update advances in place). Without
+    `ckpt_dir` the entries move out of `initial`, which is left empty, so
+    nothing holds the first step's tensors once they are replaced.
+    `history`, when given, receives each step's metrics as
+    Python numbers (stage, loss, lr, sparsity, bits) and its wall time;
+    `report`, when given, receives the `RunResult` (with `ckpt_dir`) and
+    each save's and restore's seconds."""
     losses = []
-    for i in range(steps):
-        b = batch_for(lm.cfg, seed, i, batch, seq, device=dev)
+    pending_failure = [inject_failure_at]   # one-shot injection
+    report = {} if report is None else report
+    report.update(save_s=[], restore_s=[])
+
+    def step_fn(state, i):
+        if pending_failure[0] is not None and i == pending_failure[0]:
+            pending_failure[0] = None
+            raise RuntimeError("injected node failure")
+        if state is initial:
+            # the loop restarts from `initial` if a failure comes before
+            # any checkpoint: step from a copy of the moments
+            state = dict(state, qstate=state["qstate"]._replace(
+                base=clone_tree(state["qstate"].base)))
+        b = batch_fn(i, state["rng"])
         t0 = time.perf_counter()
-        params, qparams, qstate, metrics = step_fn(params, qparams, qstate, b)
+        p, q, s, metrics = step(state["params"], state["qparams"],
+                                state["qstate"], b)
+        # Python numbers: the loss read syncs the device, so the wall time
+        # (and the loop's straggler monitor) times the step's device work
         m = {k: (v if isinstance(v, int) else float(v))
              for k, v in metrics.items()}
         m["wall_s"] = time.perf_counter() - t0
@@ -256,8 +322,35 @@ def train_loop(arch: str, smoke: bool, steps: int, batch: int, seq: int,
             print(f"step {i:4d} stage={m['stage']} loss={m['loss']:.4f} "
                   f"bits=[{m['bits_min']:.1f},{m['bits_max']:.1f}] "
                   f"sparsity={m['sparsity_hard']:.3f}")
-    state = {"params": params, "qparams": qparams, "qstate": qstate}
-    return state, qadg, qasso, losses
+        return {"params": p, "qparams": q, "qstate": s, "rng": key_fn(i + 1)}
+
+    if not ckpt_dir:
+        state = dict(initial)
+        initial.clear()
+        for i in range(steps):
+            state = step_fn(state, i)
+        return state, losses
+
+    def save_fn(state, i):
+        t0 = time.perf_counter()
+        save_checkpoint(ckpt_dir, i, state)
+        report["save_s"].append(time.perf_counter() - t0)
+
+    def restore_fn():
+        t0 = time.perf_counter()
+        out = restore_checkpoint(ckpt_dir, initial)
+        if out is not None:
+            report["restore_s"].append(time.perf_counter() - t0)
+        return out
+
+    loop = FaultTolerantLoop(
+        FaultConfig(checkpoint_every=checkpoint_every or max(steps // 4, 1)),
+        step_fn, save_fn, restore_fn)
+    state, result = loop.run(initial, steps)
+    report["run_result"] = result
+    if verbose:
+        print(f"done: {result}")
+    return state, losses
 
 
 def main(argv=None):

@@ -76,6 +76,16 @@ class PagedView:
     kv_bits: Optional[int] = None
 
 
+def pick(logits: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """logits[..., index] along the last axis by a masked sum: exact (one
+    term is not zero), as the JAX package computes a gold logit, and its
+    backward needs no scatter."""
+    iota = torch.arange(logits.shape[-1], dtype=index.dtype,
+                        device=index.device)
+    return torch.sum(torch.where(iota == index[..., None], logits, 0.0),
+                     dim=-1)
+
+
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
@@ -179,20 +189,23 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 
 
 # -------------------------------------------------------------- attention
-def attention_dense(q, k, v, *, q_offset: int = 0) -> torch.Tensor:
-    """Full materialized causal attention. q: (B, Sq, H, dh); k/v:
-    (B, Sk, KV, dh), GQA by reshape."""
+def attention_dense(q, k, v, *, q_offset: int = 0,
+                    causal: bool = True) -> torch.Tensor:
+    """Full materialized attention, causal unless `causal=False` (the
+    BERT encoder). q: (B, Sq, H, dh); k/v: (B, Sk, KV, dh), GQA by
+    reshape."""
     B, Sq, H, dh = q.shape
     KV = k.shape[2]
     g = H // KV
     qh = q.reshape(B, Sq, KV, g, dh)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qh.to(torch.float32),
                           k.to(torch.float32)) / math.sqrt(dh)
-    qi = torch.arange(Sq, device=q.device)[:, None] + q_offset
-    ki = torch.arange(k.shape[1], device=q.device)[None, :]
-    scores = torch.where((ki <= qi)[None, None, None], scores,
-                         torch.tensor(-1e30, dtype=torch.float32,
-                                      device=q.device))
+    if causal:
+        qi = torch.arange(Sq, device=q.device)[:, None] + q_offset
+        ki = torch.arange(k.shape[1], device=q.device)[None, :]
+        scores = torch.where((ki <= qi)[None, None, None], scores,
+                             torch.tensor(-1e30, dtype=torch.float32,
+                                          device=q.device))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(torch.float32))
     return out.reshape(B, Sq, H, dh).to(q.dtype)

@@ -252,11 +252,7 @@ class LM(torch.nn.Module):
         pred = logits[:, :-1].to(torch.float32)
         tgt = tokens[:, 1:]
         logz = torch.logsumexp(pred, dim=-1)
-        vocab_iota = torch.arange(pred.shape[-1], dtype=tgt.dtype,
-                                  device=tgt.device)
-        gold = torch.sum(torch.where(vocab_iota == tgt[..., None], pred, 0.0),
-                         dim=-1)
-        return torch.mean(logz - gold)
+        return torch.mean(logz - Lyr.pick(pred, tgt))
 
     # -------------------------------------------------------------- graph
     def build_graph(self, act_quant: bool = False) -> GraphBuilder:

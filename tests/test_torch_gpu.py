@@ -74,6 +74,17 @@ and int8 pages), with the rollback invariant after every eager round
 paged speculative (unquantized pages) equals contiguous; chunked tokens
 equal one-shot tokens on the card (whose decode replays the one-step
 window) and the CPU run's.
+
+The run loop and the paper's substrates (`test_fake_quant_kernels_at_cnn_
+shapes`, `test_kill_and_resume_*`, `test_substrate_*`): the fake-quant
+kernels at VGG7's f32 conv-weight and activation shapes (bitwise, one
+kernel a call); the smoke config's checkpointed loop killed and resumed
+on the card, bitwise the clean run; the reduced CNNs' and BERT's loss
+and gradients card vs CPU (TF32 off) and their joint QASSO update from
+shared gradients at `STEP_TOLERANCES`, d where Eq 17 is well-conditioned.
+Every profiler trace opens with 64 int16 fill kernels that no count
+includes (`_traced_kernels`): a trace now and then loses the session's
+first kernels.
 """
 import numpy as np
 import pytest
@@ -100,6 +111,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device for the repro_torch kernels")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False     # the CNNs' convolutions
     return torch.device("cuda")
 
 
@@ -136,6 +148,30 @@ def test_gemm_kernel_matches_plain(cuda, epilogue, M, K, N):
                                atol=1e-4 * want.abs().max().item())
 
 
+# fill kernels that open every trace: a trace on the H100 now and then
+# loses the session's first kernels, and these are the ones it loses; no
+# count includes them (an int16 fill: no wrapper under test launches one)
+TRACE_WARMUP = 64
+FILL_KERNEL = "FillFunctor<short>"
+
+
+def _traced_kernels(fn) -> list[str]:
+    """The device kernels of one call of `fn` under a torch.profiler trace
+    that opens with TRACE_WARMUP fill kernels, which are left out."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    cuda = torch.autograd.DeviceType.CUDA
+    fill = torch.zeros(1, dtype=torch.int16, device="cuda")
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(TRACE_WARMUP):
+            fill.fill_(1)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.events()
+            if e.device_type == cuda and FILL_KERNEL not in e.key]
+
+
 def _device_kernels(fn) -> list[str]:
     """The names of the device kernels one call of `fn` runs, from a
     torch.profiler trace of a call after a first one outside it. A trace
@@ -143,14 +179,8 @@ def _device_kernels(fn) -> list[str]:
     comes back empty on the H100) is taken again, up to eight times."""
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    cuda = torch.autograd.DeviceType.CUDA
     for _ in range(8):
-        with torch.profiler.profile(activities=acts) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.key for e in prof.events() if e.device_type == cuda]
+        names = _traced_kernels(fn)
         if names:
             break
     return names
@@ -1297,19 +1327,14 @@ def test_pruned_widths_are_one_gemm_kernel_per_call(cuda, K, N):
     run()
     torch.cuda.synchronize()
     want = len(calls) + copies
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     # a trace may lose device events on the H100 (an empty or a short
-    # trace), never add one: more kernels than expected fail at once, a
-    # short trace is taken again, up to eight times
+    # trace, the session's first kernels: the fill kernels that open it
+    # take that loss), never add one: more kernels than expected fail at
+    # once, a short trace is taken again, up to eight times
     for _ in range(8):
         before = TG.gemm.launches["copies"]
-        with torch.profiler.profile(activities=acts) as prof:
-            run()
-            torch.cuda.synchronize()
+        names = _traced_kernels(run)
         assert TG.gemm.launches["copies"] - before == copies
-        names = [ev.key for ev in prof.events()
-                 if ev.device_type == torch.autograd.DeviceType.CUDA]
         assert len(names) <= want, names
         if len(names) == want:
             break
@@ -1561,3 +1586,263 @@ def test_chunked_prefill_on_card_matches_one_shot_and_cpu(cuda, mode,
         for rid in runs[key]:
             np.testing.assert_array_equal(got[rid], runs[key][rid],
                                           err_msg=f"{key} request {rid}")
+
+
+# ------------------------------------------------ the run loop and the
+# paper's substrates (CNN, BERT)
+CNN_FQ_SHAPES = [(3, 3, 512, 512), (64, 32, 32, 128)]
+
+
+@pytest.mark.parametrize("t", [1.0, 0.85])
+@pytest.mark.parametrize("shape", CNN_FQ_SHAPES, ids=str)
+def test_fake_quant_kernels_at_cnn_shapes(cuda, shape, t):
+    """The fake-quant kernels at the CNN's shapes in f32: VGG7's largest
+    conv weight (HWIO) and its first activation site (NHWC, a ReLU's
+    output): forward and dx bitwise the plain versions', the three sums
+    within 1e-5 of the sum of their terms' magnitudes and bitwise on a
+    repeat, one kernel a call."""
+    gen = torch.Generator(device=cuda).manual_seed(len(shape))
+    x = torch.randn(shape, generator=gen, device=cuda) * shape[0] ** -0.5
+    if shape[0] == 64:
+        x = torch.relu(x)
+    g = torch.randn(shape, generator=gen, device=cuda) * 1e-3
+    qp = init_quant_params(q_m=x.abs().max() * 0.9, bits=8.0, t=t)
+    sc = (qp.d, qp.q_m, qp.t)
+    assert torch.equal(TFQ.fake_quant_fwd(x, *sc), ref.fake_quant_fwd_ref(
+        x, *sc))
+    got = TFQ.fake_quant_bwd(x, *sc, g)
+    want = ref.fake_quant_bwd_ref(x, *sc, g)
+    assert torch.equal(got[0], want[0])
+    for a, b, scale in zip(got[1:], want[1:], TFQ.sum_scales(x, g, *sc)):
+        assert abs(float(a) - float(b)) <= 1e-5 * scale
+    again = TFQ.fake_quant_bwd(x, *sc, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for fn in (lambda: TFQ.fake_quant_fwd(x, *sc),
+               lambda: TFQ.fake_quant_bwd(x, *sc, g)):
+        names = _device_kernels(fn)
+        assert len(names) == 1 and "fq_" in names[0], names
+
+
+def test_kill_and_resume_is_bitwise_on_card(cuda, tmp_path):
+    """The smoke config's checkpointed loop on the card: 10 steps, a
+    checkpoint every 5, a failure at 7; the final tree equals the
+    uninterrupted run's bit for bit, every tensor back on its device
+    (params and moments on the card, gamma and the data key on the
+    CPU)."""
+    from repro_torch.checkpoint.checkpoint import tree_flatten
+    from repro_torch.launch import train as T
+    kw = dict(smoke=True, batch=2, seq=16, verbose=False, device="cuda")
+    clean, _, _, want = T.train_loop("internlm2-1.8b", steps=10, **kw)
+    report = {}
+    killed, _, _, losses = T.train_loop(
+        "internlm2-1.8b", steps=10, ckpt_dir=str(tmp_path),
+        checkpoint_every=5, inject_failure_at=7, report=report, **kw)
+    assert losses == want[:7] + want[5:]
+    assert report["run_result"].restarts == 1
+    (la, sa), (lb, sb) = tree_flatten(clean), tree_flatten(killed)
+    assert sa == sb
+    for a, b in zip(la, lb):
+        if isinstance(a, torch.Tensor):
+            assert a.device == b.device and a.dtype == b.dtype
+            assert torch.equal(a, b)
+        else:
+            assert type(a) is type(b) and a == b
+    assert killed["params"]["embed"].is_cuda
+    assert not killed["qstate"].gamma.is_cuda and not killed["rng"].is_cuda
+
+
+def _substrate(name):
+    """(model, act_quant, bits, batch on the CPU) of a reduced substrate:
+    VGG7 and ResNet20 at `benchmarks/geta_experiments.py`'s reduced
+    widths on 8 images (vgg7-r-act with activation quantizers at 6
+    bits), the reduced BERT encoder on 8 x 64 tokens."""
+    from repro_torch.data.synthetic import image_batch, qa_batch
+    from repro_torch.models import bert, cnn
+    if name == "bert-r":
+        m = bert.BertEncoder(n_layers=2, d_model=64, n_heads=4, d_ff=256,
+                             vocab=512, max_seq=64)
+        return m, False, 8.0, qa_batch(0, 0, 8, 64, m.V)
+    spec = (cnn.CNNSpec("vgg7-r", "vgg", [16, 16, 32, 32, 64, 64],
+                        fc_dim=128) if name.startswith("vgg7")
+            else cnn.CNNSpec("resnet20-r", "resnet", [8, 16, 32],
+                             blocks_per_stage=2))
+    act = name == "vgg7-r-act"
+    return cnn.CNN(spec), act, 6.0 if act else 16.0, image_batch(0, 0, 8)
+
+
+class _Pinned(torch.autograd.Function):
+    """`value` forward; the identity's gradient to `x` backward."""
+
+    @staticmethod
+    def forward(ctx, x, value):
+        return value.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+@pytest.mark.parametrize("name", ["vgg7-r", "vgg7-r-act", "resnet20-r",
+                                  "bert-r"])
+def test_substrate_loss_and_grads_card_vs_cpu(cuda, name, monkeypatch):
+    """A substrate's loss and gradients with its weight quantizers (and
+    vgg7-r-act's activation quantizers), card (cuDNN convolutions, the
+    fake-quant kernels) against the CPU (the plain versions; TF32 off),
+    from one CPU-drawn state: the loss within 1e-5 relative, each param
+    gradient within 1e-4 of its max|g| (the BERT gradients that are zero
+    in exact arithmetic within 1e-6), every site's within 1e-5 of the
+    sum of its terms' magnitudes (an activation site's from its input
+    and cotangent); fake-quant launched once per site each way, no GEMM
+    kernel. With activation quantizers the CPU pass takes each batch
+    norm's output and each activation site's input as the card computed
+    them (each within 1e-4 of the CPU's max), gradients flowing to its
+    own: a convolution summed in another order flips round(x / d) of an
+    element near a half-integer, and the flipped activation moves every
+    later number (the loss by 2.7e-3, measured). Pinned at the sites
+    alone, the ReLU after a batch norm still flips where its input lies
+    within rounding of zero; at 6 bits such inputs come in clusters (a
+    convolution of 6-bit activations takes few values), and the
+    cotangents agreed within 1.2e-6 at relu4's site and parted by 1.9e-2
+    at relu3's, below relu4's ReLU (measured on the H100)."""
+    from repro_torch.launch import train as T
+    from repro_torch.models import cnn
+    m, act, bits, batch = _substrate(name)
+    p = m.init(torch.Generator().manual_seed(0))
+    q = m.init_qparams(p, bits_init=bits, act_quant=act)
+    seen, card_in, card_bn, cpu_bn = {}, {}, [], []
+    qa, bn = cnn._qa, cnn.batchnorm
+
+    def pin(h, x):
+        assert float((h.detach() - x).abs().max()) <= 1e-4 * float(
+            h.detach().abs().max())
+        return _Pinned.apply(h, x)
+
+    def pinning_qa(h, qparams, site):
+        if qparams is not None and site in qparams:
+            if h.is_cuda:
+                card_in[site] = h.detach().cpu()
+            else:
+                h = pin(h, card_in[site])
+                seen[site] = [card_in[site]]
+        out = qa(h, qparams, site)
+        if site in seen and not h.is_cuda:
+            out.register_hook(lambda g: seen[site].append(g))
+        return out
+
+    def pinning_bn(x, scale, bias, eps=1e-5):
+        y = bn(x, scale, bias, eps)
+        if y.is_cuda:
+            card_bn.append(y.detach().cpu())
+            return y
+        cpu_bn.append(y)
+        return pin(y, card_bn[len(cpu_bn) - 1])
+
+    if act:
+        monkeypatch.setattr(cnn, "_qa", pinning_qa)
+        monkeypatch.setattr(cnn, "batchnorm", pinning_bn)
+    before_fq, before_gemm = dict(TFQ.launches), dict(TG.gemm.launches)
+    out = {dev: T.loss_and_grads(
+        m, {k: v.to(dev) for k, v in p.items()},
+        {k: type(v)(*(t.to(dev) for t in (v.d, v.q_m, v.t)))
+         for k, v in q.items()}, {k: v.to(dev) for k, v in batch.items()})
+        for dev in ("cuda", "cpu")}
+    assert TFQ.launches[TFQ.FWD] - before_fq[TFQ.FWD] == len(q)
+    assert TFQ.launches[TFQ.BWD] - before_fq[TFQ.BWD] == len(q)
+    assert TG.gemm.launches == before_gemm
+    (lc, gxc, gqc), (lg, gxg, gqg) = out["cpu"], out["cuda"]
+    assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
+    zero = (".attn.bk", "qa_head.b", f"enc.{getattr(m, 'L', 0) - 1}.ln2.bias")
+    for k, want in gxc.items():
+        got = gxg[k].cpu()
+        atol = 1e-6 if k.endswith(zero) else 1e-4 * float(want.abs().max())
+        assert float((got - want).abs().max()) <= atol, k
+    assert sorted(seen) == sorted(k for k in q if k.endswith(".aq"))
+    assert len(seen) == (7 if act else 0)
+    assert len(cpu_bn) == len(card_bn) == (6 if act else 0)
+    for k, want in gqc.items():
+        scales = (_term_scales(*seen[k], q[k]) if k.endswith(".aq") else
+                  _term_scales(p[k[:-3]], gxc[k[:-3]], q[k]))
+        for f, scale in zip(("d", "q_m", "t"), scales):
+            a, b = float(getattr(gqg[k], f)), float(getattr(want, f))
+            assert abs(a - b) <= 1e-5 * scale, (k, f, a, b, scale)
+
+
+def _term_scales(w, g, qp):
+    """For each of a site's Eq 4-6 sums (dd, dq_m, dt), the sum of its
+    terms' magnitudes in f64, the scale two summation orders' difference
+    is held against (the sums cancel: VGG7-r's conv3 dt is 9e-5 of it).
+    `w` is the site's input and `g` its cotangent; a weight's cotangent
+    is its gradient: |w| <= q_m."""
+    w, g = w.double().abs(), g.double().abs()
+    d, q_m, t = (float(v) for v in (qp.d, qp.q_m, qp.t))
+    inside = w <= q_m
+    base = torch.where(inside, w.clamp_min(1e-12), torch.full_like(w, q_m))
+    v = w.clamp_max(q_m) ** t / d
+    return (float((g * (v.round() - v).abs()).sum()),
+            float((g * torch.where(inside, 0.0, t * q_m ** (t - 1))).sum()),
+            float((g * (base ** t * base.log()).abs()).sum()))
+
+
+def _cos_d(qasso, site, params, grads, redundant, qp) -> float:
+    """Eq 17's cos(theta_d) of a weight site on the CPU: the cosine of
+    the gradient with the masked rounding residuals."""
+    red = qasso._mask_tree(params, redundant)
+    stats = sum(qasso._site_stats_chunked(params[n], grads[n], red[n], qp.d,
+                                          qp.q_m, qp.t)
+                for n in site.quantized_params)
+    dot_res, n_g2, n_res2 = float(stats[1]), float(stats[2]), float(stats[4])
+    return dot_res / max((n_g2 * n_res2) ** 0.5, 1e-30)
+
+
+@pytest.mark.parametrize("name", ["vgg7-r-act", "bert-r"])
+def test_substrate_joint_update_card_vs_cpu(cuda, name):
+    """QASSO's joint update (step 0 of `train.JOINT_STEP0`; VGG7 with
+    activation quantizers) on the card against the CPU from one state and
+    one set of CPU gradients (activation quantizers make a CNN's own
+    gradients chaotic across summation orders: `tests/test_torch_cnn.py`)
+    at `train.STEP_TOLERANCES` with identical masks; the forget step's
+    fake-quant runs on the card. Eq 17's d divides by cos(theta_d), the
+    cosine of the gradient with the rounding residuals round(v) - v,
+    which the card computes from its own clip^t (torch.pow on the card);
+    at 16 bits v reaches 32767, so an ulp of the clip moves a residual by
+    ~1e-3. Where that cosine is below 1e-2 the two devices' d part (BERT:
+    by 0.45 relative at a site of |cos| 1.6e-4, measured): d is held at
+    the sites whose |cos(theta_d)| is at least 1e-2."""
+    import dataclasses
+    from repro_torch.launch import train as T
+    m, act_quant, _, batch = _substrate(name)
+    comp = dataclasses.replace(T.JOINT_STEP0, act_quant=act_quant)
+    _, qasso = T.build_geta(m, comp, lr=3e-4)
+    p = m.init(torch.Generator().manual_seed(0))
+    q = m.init_qparams(p, bits_init=16.0, act_quant=act_quant)
+    s = qasso.init(p, q)
+    loss, gx, gq = T.loss_and_grads(m, p, q, batch)
+    mv = lambda d: {k: v.cuda() for k, v in d.items()}
+    qv = lambda d: {k: type(v)(*(t.cuda() for t in (v.d, v.q_m, v.t)))
+                    for k, v in d.items()}
+    # the card's copy first: the update advances the moments in place
+    sg = s._replace(base=s.base._replace(m=mv(s.base.m), v=mv(s.base.v)),
+                    redundant=mv(s.redundant), keep_mask=mv(s.keep_mask))
+    card = (mv(p), qv(q), mv(gx), qv(gq), sg)
+    want = qasso.update(p, q, gx, gq, s)[:3] + ({"loss": loss},)
+    before = TFQ.launches[TFQ.FWD]
+    got = qasso.update(*card)[:3] + ({"loss": loss},)
+    assert TFQ.launches[TFQ.FWD] > before
+    diff = T.step_differences(want, got)
+    assert diff.pop("masks")
+    assert any(float(v.sum()) > 0 for v in got[2].redundant.values())
+    for k, v in diff.items():
+        if k != "d":
+            assert v <= T.STEP_TOLERANCES.get(k.removeprefix("act_"), 0), (
+                k, v)
+    red = want[2].redundant
+    held = 0
+    for site in qasso.weight_sites:
+        cos = _cos_d(qasso, site, p, gx, red, q[site.name])
+        if abs(cos) < 1e-2:
+            continue
+        held += 1
+        a, b = float(got[1][site.name].d), float(want[1][site.name].d)
+        assert abs(a - b) <= T.STEP_TOLERANCES["d"] * abs(b), (site.name, a,
+                                                                b, cos)
+    assert held > 0

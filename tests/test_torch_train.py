@@ -164,14 +164,19 @@ def test_lm_batch_is_a_function_of_seed_and_step():
     assert 0.1 < float(hit) < 0.45
 
 
-def test_cli_runs_on_cpu_and_needs_cuda_by_default(capsys):
+def test_cli_runs_on_cpu_and_needs_cuda_by_default(capsys, tmp_path):
     T.main(["--arch", ARCH, "--smoke", "--steps", "2", "--batch", "2",
             "--seq", "8", "--device", "cpu"])
     assert "trained 2 steps" in capsys.readouterr().out
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             T.main(["--arch", ARCH, "--smoke", "--steps", "1"])
-    for extra in (["--ckpt-dir", "x"], ["--devices", "2"], ["--fsdp"]):
+    # --ckpt-dir runs the checkpointed loop: steps // 4 = 1, a save a step
+    T.main(["--arch", ARCH, "--smoke", "--steps", "2", "--batch", "2",
+            "--seq", "8", "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+    assert "trained 2 steps" in capsys.readouterr().out
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_1", "step_2"]
+    for extra in (["--devices", "2"], ["--fsdp"]):
         with pytest.raises(NotImplementedError):
             T.main(["--arch", ARCH, "--steps", "1", "--device", "cpu",
                     *extra])
