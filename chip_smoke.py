@@ -49,6 +49,17 @@ Phases, each printing its own lines:
    SIMT variant (f32 x and weights) on fake_quant_rhs and no epilogue at
    M = 512 and 2048 over 2048->8192 and 8192->2048, and fake_quant_rhs at
    t = 0.85 at M = 2048 over 2048->8192 (rtol 1e-4, atol 1e-4 * max|y|).
+   Last, grok-1's shapes (phase 12's model): the GEMM at M = 4 on
+   6144->6144 and 6144->1024 (fake_quant_rhs, dequant) and on the head,
+   6144->131072 (dequant: served dense, the head is prequantized and
+   multiplied by torch.matmul), and at M = 512 on 6144->6144; decode
+   attention at B = 4, S = 576, KVh 8, g 6, dh 128; and the fake-quant
+   kernels on the bf16 expert stacks of 12a (2 x 8 x 6144 x 32768,
+   3.2e9 elements, past 2^31) and 12d (1 x 8 x 6144 x 32768) at the
+   16-bit init, held against the plain versions piece by piece (2^27
+   elements a piece: forward and dx bitwise, the sums within 1e-5 of
+   `sum_scales`, a second call bitwise); their plain_ms is the plain
+   version over the pieces.
    Every GEMM row names its variant: M <= 8 the small-M
    one, M > 8 the tensor-core one for bf16 x, the SIMT one for f32 x; a
    tensor-core row is also timed at both block heights (128 and 256 rows)
@@ -224,12 +235,39 @@ Phases, each printing its own lines:
    `construct_subnet` and `model_bops` on the trained state; prints
    sparsity, mean bits, rel_bops, step walls, images or tokens per
    second and peak memory.
-12. Two JSON lines: the kernel table, then the device line (last). A
+12. The MoE family at grok-1's published widths (d_model 6144, 48 heads
+   / 8 KV, d_head 128, 8 experts top-2, d_ff 32768, vocab 131072, bf16,
+   random weights from seed 0), depth cut to 2 of 64 layers; the
+   reckoned bytes (params, the engine's fake-quanted copy of the expert
+   stacks and the head, KV a token) are printed before anything is
+   built. 12a: phase 5's traffic through the engine in the dense
+   fake-quant and int8 modes over the contiguous and paged arenas, each
+   through graph windows and then eager steps (tokens bitwise equal);
+   paged tokens equal contiguous tokens; the expert stacks stay dense
+   with their fake-quant sites in int8 mode; a 32-token prompt's
+   full-capacity prefill against 32 eager decode steps (last logits
+   within 2^-5 of the range, the same argmax unless the top-2 gap is
+   within twice the difference); a traced 16-step window gives the step
+   wall, busy time, idle share and the library (cuBLAS) products' device
+   ms a step against their byte bound. 12b: pruned at sparsity 0.5 with
+   the expert floor (8 -> 4 experts, at least top_k): the slim plan's
+   experts, expert bytes exactly kept / 8 of the dense stacks, kv_bytes
+   at the surviving KV heads, graph tokens equal eager tokens. 12c: a
+   dense target with its s50 b8 MoE draft, k 4: graph rounds equal eager
+   rounds, the rollback invariant after every eager round, acceptance
+   and ms per round (at 1 layer if the reckoned peak passes 70 GB). 12d:
+   one `loss_and_grads` at 1 layer (widths full), batch 2 x 256, 16-bit
+   init: finite loss and gradients, each expert site's backward against
+   the plain version (dx bitwise, sums within 1e-5 of `sum_scales`), the
+   launches at `predicted_moe_grad_launches`. Prints peak memory; the
+   launch counts are zeroed before 12a and read after 12c.
+13. Two JSON lines: the kernel table, then the device line (last). A
    serving kernel's `launches` are the host counts of phases 5-6 (a
    graph's calls once, at capture), a pruned-shape GEMM row's those of
    phase 8, a verify-height row's those of phase 9 (the captures of its
    draft length's graphs, with `replayed_launches` the replays' kernels),
-   the fake-quant rows at phase 11's shapes those of phase 11;
+   the fake-quant rows at phase 11's shapes those of phase 11, the rows
+   at grok-1's shapes those of phase 12 at their shape;
    `traced_device_launches` are its device kernels in their traced
    drains (for a GEMM epilogue the small-M kernels, for decode attention
    the split kernels).
@@ -2739,6 +2777,671 @@ def phase_substrates(torch) -> tuple[dict, list]:
     return out, failures
 
 
+MOE_ARCH = "grok-1-314b"
+MOE_LAYERS = 2             # phase 12's depth cut: 2 of 64 layers, widths full
+MOE_TRAIN_LAYERS = 1       # 12d: 1 layer, batch 2 x 256, 16-bit init
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 2, 256
+MOE_PEAK = 70e9            # the phase's device-memory budget, bytes
+MOE_SPARSITY = 0.5         # 12b and the draft of 12c: 8 -> 4 experts
+MOE_PROMPT = 32            # 12a's prefill-vs-decode prompt
+MOE_TRACE_STEPS = 16       # 12a's traced decode window
+# phase 3's rows at grok-1's shapes: (M, K, N) of wq / wo, wk / wv and the
+# head at decode (M = 4 slots), and wq at a 512-token prefill
+# (the head runs a GEMM kernel only from codes: dense, it is prequantized
+# once and multiplied by torch.matmul), with their launches per decode step
+# (per 512-token prefill for M = 512) at MOE_LAYERS layers
+MOE_GEMMS = [(4, 6144, 6144, ("fake_quant_rhs", "dequant"), 2 * MOE_LAYERS),
+             (4, 6144, 1024, ("fake_quant_rhs", "dequant"), 2 * MOE_LAYERS),
+             (4, 6144, 131072, ("dequant",), 1),
+             (512, 6144, 6144, ("fake_quant_rhs", "dequant"), 2 * MOE_LAYERS)]
+MOE_DECODE = (SLOTS, DECODE_S, 8, 6, 128)      # B, S, KVh, g, dh
+# the expert stacks the fake-quant kernels take: phase 12a's engine
+# (2 layers, past 2^31 elements) and 12d's training pass (1 layer)
+MOE_STACKS = {"experts_l2": (2, 8, 6144, 32768),
+              "experts_l1": (1, 8, 6144, 32768)}
+PLAIN_CHUNK = 1 << 27      # elements per chunk of a plain version's pass
+
+
+def _moe_cfg(layers: int):
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(MOE_ARCH), n_layers=layers)
+
+
+def moe_reckoning(cfg) -> dict:
+    """Phase 12's bytes from the config alone (bf16 weights, f32 norms):
+    the params, the
+    expert stacks, the embed and the head, the engine's fake-quanted copy
+    of the stacks and the head (`Engine.__init__` splits the quantizers
+    once), and KV bytes per token."""
+    D, V, F, E = cfg.d_model, cfg.vocab_padded, cfg.d_ff, cfg.moe.n_experts
+    attn = 2 * D * cfg.q_dim + 2 * D * cfg.kv_dim
+    experts = 3 * E * D * F
+    L = cfg.n_layers
+    bf16 = 2 * V * D + L * (attn + experts + D * E)
+    norms = (2 * L + 1) * D                       # f32
+    return {"params": bf16 + norms, "attn_per_layer": attn,
+            "experts_per_layer": experts, "embed": V * D,
+            "param_bytes": 2 * bf16 + 4 * norms,
+            "expert_bytes": 2 * L * experts,
+            "fq_copy_bytes": 2 * (L * (experts + D * E) + V * D),
+            "kv_bytes_per_token": 2 * 2 * L * cfg.n_kv_heads * cfg.d_head}
+
+
+def _gemm_shape_tally(gc, tally):
+    """Wrap `gc.gemm` so that each CUDA call adds one to tally[(variant,
+    epilogue, K, N)]; returns the unwrapped function (restore it after)."""
+    real = gc.gemm
+
+    def tallied(x, w, epi, **kw):
+        out = real(x, w, epi, **kw)
+        if x.is_cuda:
+            key = (gc.variant(x.shape[0], x.dtype), epi.name, x.shape[-1],
+                   w.shape[-1])
+            tally[key] += 1
+        return out
+
+    tallied.launches = real.launches
+    gc.gemm = tallied
+    return real
+
+
+def _moe_gemm_rows(torch, timer, gen) -> tuple[list, dict, list]:
+    """Phase 3's GEMM and decode-attention rows at grok-1's shapes."""
+    import itertools
+    from repro_torch.kernels import gemm_core as gc
+    rows, report, failures = [], {}, []
+    for M, K, N, epis, _ in MOE_GEMMS:
+        x = torch.randn((M, K), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        for label, w, epi, dequantized in itertools.islice(
+                _gemm_cases(torch, K, N, gen), 2):
+            if label not in epis:
+                continue
+            row = _gemm_row(torch, timer, gc, label, x, w, epi,
+                            dequantized(), tag=" (grok-1)")
+            rows.append(row)
+            if not row["ok"]:
+                failures.append(row)
+            report[f"{_report_name(label)}.grok.M{M}.{K}x{N}"] = row
+        del x
+        torch.cuda.empty_cache()
+    B, S, KVh, g, dh = MOE_DECODE
+    pos = torch.tensor(DECODE_POS[:B], dtype=torch.int64, device="cuda")
+    row = _decode_check(torch, timer, gen, B, S, KVh, g, dh, pos)
+    rows.append(row)
+    if not row["ok"]:
+        failures.append(row)
+    report["decode_attn.grok"] = row
+    return rows, report, failures
+
+
+def _chunks(t, n: int = PLAIN_CHUNK):
+    flat = t.reshape(-1)
+    return [flat[i:i + n] for i in range(0, flat.numel(), n)]
+
+
+def _plain_fwd_chunked(torch, x, sc):
+    """The plain fake-quant forward over x in PLAIN_CHUNK pieces (the whole
+    tensor's f32 temporaries would not fit), into one output."""
+    from repro_torch.kernels import ref
+    y = torch.empty_like(x)
+    for yc, xc in zip(_chunks(y), _chunks(x)):
+        yc.copy_(ref.fake_quant_fwd_ref(xc, *sc))
+    return y
+
+
+def _plain_bwd_chunked(torch, x, sc, g):
+    """The plain fake-quant backward in PLAIN_CHUNK pieces: dx, and the
+    three sums as f64 sums of the pieces' f32 sums."""
+    from repro_torch.kernels import ref
+    dx = torch.empty_like(x)
+    sums = [0.0, 0.0, 0.0]
+    for dc, xc, gc_ in zip(_chunks(dx), _chunks(x), _chunks(g)):
+        d, *s = ref.fake_quant_bwd_ref(xc, *sc, gc_)
+        dc.copy_(d)
+        sums = [a + float(b) for a, b in zip(sums, s)]
+    return dx, sums
+
+
+def _fq_bwd_against_plain(torch, x, sc, g, got) -> dict:
+    """A fake-quant backward's result `got` on (x, g) against the plain
+    version, piece by piece: dx bitwise, each sum within 1e-5 of its
+    `sum_scales` bound (computed over 256-row blocks of the last axis)."""
+    from repro_torch.kernels import fake_quant as fq
+    from repro_torch.kernels import ref
+    dx_same, err, sums = True, 0.0, [0.0, 0.0, 0.0]
+    for dc, xc, gc_ in zip(_chunks(got[0]), _chunks(x), _chunks(g)):
+        d, *s = ref.fake_quant_bwd_ref(xc, *sc, gc_)
+        dx_same = dx_same and torch.equal(dc, d)
+        err = max(err, (dc.float() - d.float()).abs().max().item())
+        sums = [a + float(b) for a, b in zip(sums, s)]
+        del d
+    last = x.shape[-1]
+    scales = fq.sum_scales(x.reshape(-1, last), g.reshape(-1, last), *sc)
+    serr = [abs(float(a) - b) / max(s, 1e-30)
+            for a, b, s in zip(got[1:], sums, scales)]
+    return {"dx_bitwise": dx_same, "max_abs_err": err,
+            "sum_err_over_scale": serr, "ok": dx_same and max(serr) <= 1e-5}
+
+
+def _moe_fq_rows(torch, timer, gen) -> tuple[list, dict, list]:
+    """Phase 3's fake-quant rows on the expert stacks (bf16, the 16-bit
+    init of 12d, t = 1): the kernels against their plain versions piece by
+    piece (forward bitwise; backward dx bitwise, sums within 1e-5 of
+    `sum_scales`, a second call bitwise), times, bounds, kernels per
+    call."""
+    from repro_torch.core.quant import init_quant_params
+    from repro_torch.kernels import fake_quant as fq
+    rows, report, failures = [], {}, []
+    for label, shape in MOE_STACKS.items():
+        x = torch.randn(shape, generator=gen, device="cuda",
+                        dtype=torch.bfloat16).mul_(shape[-2] ** -0.5)
+        qp = init_quant_params(x, bits=16.0)
+        sc = (qp.d, qp.q_m, qp.t)
+        n = x.numel()
+        y = fq.fake_quant_fwd(x, *sc)
+        bitwise, err = True, 0.0
+        for xc, yc in zip(_chunks(x), _chunks(y)):
+            want = _plain_fwd_chunked(torch, xc, sc)
+            bitwise = bitwise and torch.equal(yc, want)
+            err = max(err, (yc.float() - want.float()).abs().max().item())
+            del want
+        del y
+        row = {"kernel": "fake_quant.fwd", "w": label, "shape": shape,
+               "t": 1.0, "numel": n, "past_2_31": n > 2 ** 31,
+               "max_abs_err": err, "bitwise": bitwise, "ok": bitwise,
+               "library_ms": None,
+               "ms": timer(lambda: fq.fake_quant_fwd(x, *sc)),
+               "plain_ms": timer(lambda: _plain_fwd_chunked(torch, x, sc))}
+        row["bound_ms"], row["bound_by"] = bound_ms(fq.fwd_bytes(x), 0)
+        _one_kernel(torch, row, lambda: fq.fake_quant_fwd(x, *sc))
+        g = torch.randn(shape, generator=gen, device="cuda",
+                        dtype=torch.bfloat16).mul_(1e-3)
+        got = fq.fake_quant_bwd(x, *sc, g)
+        again = fq.fake_quant_bwd(x, *sc, g)
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        brow = {"kernel": "fake_quant.bwd", "w": label, "shape": shape,
+                "t": 1.0, "numel": n, "past_2_31": n > 2 ** 31,
+                "repeat_bitwise": repeat, "library_ms": None,
+                "bwd_rows": fq.bwd_rows(n),
+                **_fq_bwd_against_plain(torch, x, sc, g, got)}
+        del got
+        brow["ok"] = brow["ok"] and repeat
+        brow["ms"] = timer(lambda: fq.fake_quant_bwd(x, *sc, g))
+        brow["plain_ms"] = timer(lambda: _plain_bwd_chunked(torch, x, sc, g))
+        brow["bound_ms"], brow["bound_by"] = bound_ms(fq.bwd_bytes(x, g), 0)
+        _one_kernel(torch, brow, lambda: fq.fake_quant_bwd(x, *sc, g))
+        for r in (row, brow):
+            print(f"[3 kernels] {r['kernel']:<29} {label} "
+                  f"{'x'.join(map(str, shape))} bf16 ({n} elements) t=1 "
+                  f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} (in "
+                  f"pieces of {PLAIN_CHUNK}) library_ms=none "
+                  f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})"
+                  + (f" bitwise={r['bitwise']}" if "bitwise" in r else
+                     f" dx_bitwise={r['dx_bitwise']} sums/scale="
+                     f"{max(r['sum_err_over_scale']):.1e} repeat_bitwise="
+                     f"{r['repeat_bitwise']} rows={r['bwd_rows']}")
+                  + f"{_per_call(r)} {'ok' if r['ok'] else 'FAIL'}")
+            rows.append(r)
+            if not r["ok"]:
+                failures.append(r)
+            report[f"{r['kernel']}.{label}"] = r
+        del x, g
+        torch.cuda.empty_cache()
+    return rows, report, failures
+
+
+def phase_moe_kernels(torch, timer) -> tuple[list, dict, list]:
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows, report, failures = _moe_gemm_rows(torch, timer, gen)
+    r2, rep2, f2 = _moe_fq_rows(torch, timer, gen)
+    report.update(rep2)
+    return rows + r2, report, failures + f2
+
+
+def _expert_ms(torch, events) -> float:
+    """Device ms of the library (cuBLAS) GEMM kernels among `events`: the
+    MoE's expert and router products (and, when the head is served dense,
+    its product); the port's own kernels excluded."""
+    from repro_torch.launch.profile_decode import _union_ms
+    ours = ("gemm_small_m", "gemm_tc", "gemm_general", "flash_decode",
+            "fq_")
+    lib = [e for e in events
+           if not any(o in e.name for o in ours)
+           and any(t in e.name.lower() for t in ("gemm", "xmma", "nvjet",
+                                                 "cutlass", "sm90_"))]
+    return _union_ms(lib)
+
+
+def _moe_window_trace(torch, eng, prompts) -> dict:
+    """Admit SLOTS requests of MOE_PROMPT tokens, then one window of
+    MOE_TRACE_STEPS decode steps (a graph replay) under a profiler trace:
+    per step the host wall, the device busy time (union of the kernels'
+    intervals), the idle share and the expert products' device ms."""
+    from repro_torch.launch.profile_decode import _union_ms
+    for p in prompts:
+        eng.submit(p[:MOE_PROMPT], MOE_TRACE_STEPS + 1)
+    eng._admit()
+    torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        warm = torch.zeros(1, device="cuda")
+        for _ in range(TRACE_WARMUP):
+            warm.fill_(1.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._window()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = sorted((e for e in prof.events() if e.device_type == cuda),
+                    key=lambda e: e.time_range.start)
+    # the window's kernels start after the fill kernels that open the
+    # trace (which the host synchronized before the window)
+    fills = [e.time_range.end for e in events[:TRACE_WARMUP]
+             if "fill" in e.name.lower()]
+    if fills:
+        events = [e for e in events if e.time_range.start >= max(fills)]
+    eng.run()
+    steps = MOE_TRACE_STEPS
+    busy = _union_ms(events) / steps
+    return {"wall_ms": wall / steps, "busy_ms": busy,
+            "idle_share": 1.0 - busy / (wall / steps),
+            "expert_ms": _expert_ms(torch, events) / steps,
+            "kernels_per_step": len(events) / steps}
+
+
+def _moe_serve(torch, lm, p, q, prompts, label, **kw) -> tuple:
+    """One engine at grok-1's widths over phase 5's traffic: warm-up (the
+    window graphs), a graph drain (the measurement), an eager drain of the
+    same requests (bitwise the graph drain's). Returns (engine, tokens,
+    stats, failures)."""
+    from repro_torch.launch.engine import Engine
+    eng = Engine(lm, p, q, max_slots=SLOTS,
+                 max_seq=max(PROMPT_LENS) + GEN, **kw)
+    for pr in prompts:
+        eng.submit(pr, GEN)
+    eng.warmup()
+    captured = _CAPTURES[0]
+    out = eng.run()
+    st = dict(eng.stats, **eng.throughput(), kv_bytes=eng.kv_bytes(),
+              kv_pool_bytes=eng.kv_pool_bytes(),
+              param_bytes=eng.param_bytes())
+    for pr in prompts:
+        eng.submit(pr, GEN)
+    eager = eng._drain(eng.step)
+    failures = []
+    st["graph_eq_eager"] = _same(out, eager)
+    if not st["graph_eq_eager"]:
+        failures.append(f"{label}: graph-window tokens differ from eager "
+                        f"steps")
+    if _CAPTURES[0] != captured:
+        failures.append(f"{label}: a CUDA graph was captured inside run()")
+    V = lm.cfg.vocab
+    if not (len(out) == len(prompts) and all(
+            len(t) == GEN and t.min() >= 0 and t.max() < V
+            for t in out.values())):
+        failures.append(f"{label}: outputs missing or out of range")
+    return eng, out, st, failures
+
+
+def _prefill_vs_decode(torch, eng, prompt) -> tuple[bool, str]:
+    """The full-capacity prefill's last logits of one prompt against as
+    many eager decode steps from an empty row (`_logits_held`)."""
+    lm = eng.lm
+    with torch.no_grad():
+        toks = torch.as_tensor(prompt[None], dtype=torch.int64,
+                               device="cuda")
+        row = lm.init_cache(1, toks.shape[1], dtype=torch.bfloat16,
+                            device="cuda")
+        want, _ = lm.prefill(eng._run_params, eng._run_qparams, row, toks,
+                             last_logit_only=True)
+        row = lm.init_cache(1, toks.shape[1], dtype=torch.bfloat16,
+                            device="cuda")
+        for i in range(toks.shape[1]):
+            got, _ = lm.decode_step(eng._run_params, eng._run_qparams, row,
+                                    toks[:, i:i + 1], i)
+    return _logits_held(torch, got[:, -1].float(), want[:, -1].float())
+
+
+def phase_moe(torch) -> tuple[dict, dict, list[str], dict]:
+    """Phase 12 (see the module docstring). Returns the launch counts of
+    its engines (12a-c), the GEMM launches by (variant, epilogue, K, N),
+    the failures and the stats printed."""
+    from collections import Counter
+    from repro_torch.core.subnet import prepare_serving, tree_bytes
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels import fake_quant as fq
+    from repro_torch.kernels import gemm_core as gc
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import Engine, synthetic_prompts
+    from repro_torch.launch.speculative import DraftModel
+    from repro_torch.launch.train import loss_and_grads
+    from repro_torch.models.transformer import LM
+    t_start = time.perf_counter()
+    failures, info = [], {}
+    cfg = _moe_cfg(MOE_LAYERS)
+    rk = moe_reckoning(cfg)
+    full = moe_reckoning(_moe_cfg(64))
+    resident = rk["param_bytes"] + rk["fq_copy_bytes"]
+    print(f"[12 moe] {MOE_ARCH} at its published widths (d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV, d_head "
+          f"{cfg.d_head}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, bf16), depth cut to "
+          f"{MOE_LAYERS} of 64 layers; reckoned: embed and head 2 x "
+          f"{rk['embed'] / 1e6:.1f}M params, {rk['attn_per_layer'] / 1e6:.1f}M "
+          f"attention and {rk['experts_per_layer'] / 1e9:.3f}e9 expert params "
+          f"a layer, {rk['params'] / 1e9:.2f}e9 params "
+          f"({rk['param_bytes'] / 1e9:.1f} GB; the 64-layer model "
+          f"{full['param_bytes'] / 1e9:.0f} GB), the engine's fake-quanted "
+          f"copy {rk['fq_copy_bytes'] / 1e9:.1f} GB, resident "
+          f"{resident / 1e9:.1f} GB, KV {rk['kv_bytes_per_token']} bytes a "
+          f"token")
+    prompts = synthetic_prompts(cfg, PROMPT_LENS, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device="cuda").manual_seed(0))
+    measured = tree_bytes(params)
+    if measured != rk["param_bytes"]:
+        failures.append(f"param bytes {measured} != reckoned "
+                        f"{rk['param_bytes']}")
+    ops.reset_launch_counts()
+    tally, fq_shapes = Counter(), Counter()
+    real = _gemm_shape_tally(gc, tally)
+    real_fwd = fq.fake_quant_fwd
+
+    def fwd_by_shape(x, d, q_m, t):
+        fq_shapes[("fwd", tuple(x.shape))] += 1
+        return real_fwd(x, d, q_m, t)
+
+    fq.fake_quant_fwd = fwd_by_shape
+    try:
+        # ---- 12a: the engine in two weight modes over both arenas
+        toks, traces = {}, {}
+        for mode in ("dense", "compressed"):
+            p, q, meta = prepare_serving(lm, params,
+                                         compressed=(mode == "compressed"))
+            if mode == "compressed":
+                dense_experts = all(
+                    f"blocks.0.moe.{w}" in p
+                    and f"blocks.0.moe.{w}.codes" not in p
+                    and f"blocks.0.moe.{w}.wq" in q
+                    for w in ("router", "we_gate", "we_up", "we_down"))
+                if not dense_experts or "head.codes" not in p:
+                    failures.append("int8 mode: expert stacks not dense "
+                                    "with their fake-quant sites, or the "
+                                    "head not in codes")
+                info["skipped_sites"] = meta["skipped_sites"]
+            for arena in ("contiguous", "paged"):
+                label = f"{mode}/{arena}"
+                kw = dict(paged=True, page_size=PAGE) if arena == "paged" \
+                    else {}
+                t0 = time.perf_counter()
+                eng, out, st, fails = _moe_serve(torch, lm, p, q, prompts,
+                                                 label, **kw)
+                failures += fails
+                extra = ""
+                if arena == "contiguous":
+                    toks[mode] = out
+                    traces[mode] = tr = _moe_window_trace(torch, eng,
+                                                          prompts[:SLOTS])
+                    # dense, the prequantized head is a library product too
+                    lib_bytes = rk["expert_bytes"] + (
+                        2 * rk["embed"] if mode == "dense" else 0)
+                    bound = 1e3 * lib_bytes / HBM_BYTES_PER_S
+                    tr["lib_bound_ms"] = bound
+                    extra = (f"; a traced {MOE_TRACE_STEPS}-step window: "
+                             f"step wall {tr['wall_ms']:.3f} ms, busy "
+                             f"{tr['busy_ms']:.3f} ms, idle share "
+                             f"{tr['idle_share']:.3f}, "
+                             f"{tr['kernels_per_step']:.0f} kernels a step, "
+                             f"library products (cuBLAS: experts, router"
+                             f"{', head' if mode == 'dense' else ''}) "
+                             f"{tr['expert_ms']:.3f} ms a step against their "
+                             f"byte bound {bound:.3f} ms "
+                             f"({lib_bytes / 1e9:.1f} GB at 3.35 TB/s)")
+                    if mode == "dense":
+                        ok, line = _prefill_vs_decode(
+                            torch, eng, prompts[PROMPT_LENS.index(32)])
+                        extra += (f"; {MOE_PROMPT}-token full-capacity "
+                                  f"prefill's last logits vs {MOE_PROMPT} "
+                                  f"eager decode steps: {line}")
+                        if not ok:
+                            failures.append("prefill vs decode: " + line)
+                else:
+                    same = _same(out, toks[mode])
+                    extra = (f"; tokens {'equal' if same else 'DIFFER FROM'}"
+                             f" the contiguous arena's")
+                    if not same:
+                        failures.append(f"{label}: paged tokens differ from "
+                                        f"contiguous tokens")
+                print(f"[12a moe engine] {label}: decode "
+                      f"{st['decode_tok_per_s']:.1f} tok/s "
+                      f"({st['decode_tokens']} tokens, "
+                      f"{st['decode_steps']} steps in "
+                      f"{st['decode_s']:.3f} s), prefill "
+                      f"{st['prefill_tok_per_s']:.1f} tok/s, param_bytes "
+                      f"{st['param_bytes']}, kv_bytes {st['kv_bytes']}, "
+                      f"graphs {sorted(eng.graphs)} in "
+                      f"{st['capture_s']:.2f} s, graph tokens "
+                      f"{'==' if st['graph_eq_eager'] else '!='} eager "
+                      f"step tokens, peak "
+                      f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB, "
+                      f"wall {time.perf_counter() - t0:.1f} s{extra}")
+                del eng
+                torch.cuda.empty_cache()
+            del p, q
+            torch.cuda.empty_cache()
+        info["traces"] = traces
+        agree = _agreement(toks["compressed"], toks["dense"])
+        print(f"[12a moe engine] int8 vs dense fake-quant tokens: {agree}")
+
+        # ---- 12b: pruned at sparsity 0.5 with the expert floor
+        slim = LM(cfg)
+        p, q, meta = prepare_serving(slim, params,
+                                     prune_sparsity=MOE_SPARSITY)
+        shp = slim.shapes[0]
+        kept = shp.n_experts
+        dense_exp = sum(tree_bytes({k: v}) for k, v in params.items()
+                        if ".moe.we_" in k)
+        sliced_exp = sum(tree_bytes({k: v}) for k, v in p.items()
+                         if ".moe.we_" in k)
+        eng, out, st, fails = _moe_serve(torch, slim, p, q, prompts,
+                                         "pruned")
+        failures += fails
+        full_kv = LM(cfg).init_cache(SLOTS, max(PROMPT_LENS) + GEN,
+                                     device="meta")
+        kv_want = tree_bytes(full_kv) * shp.n_kv_heads // cfg.n_kv_heads
+        ok = (cfg.moe.top_k <= kept < cfg.moe.n_experts
+              and sliced_exp * cfg.moe.n_experts == dense_exp * kept
+              and st["kv_bytes"] == kv_want)
+        if not ok:
+            failures.append(f"pruned: experts {kept}, expert bytes "
+                            f"{sliced_exp} of {dense_exp}, kv "
+                            f"{st['kv_bytes']} (want {kv_want})")
+        print(f"[12b moe pruned] sparsity {MOE_SPARSITY} with the expert "
+              f"floor (top_k {cfg.moe.top_k}): realized "
+              f"{meta['sparsity']:.3f}, experts {cfg.moe.n_experts} -> "
+              f"{kept}, KV heads {cfg.n_kv_heads} -> {shp.n_kv_heads}; "
+              f"expert bytes {sliced_exp} = {kept}/{cfg.moe.n_experts} of "
+              f"{dense_exp}; kv_bytes {st['kv_bytes']} (want {kv_want}); "
+              f"decode {st['decode_tok_per_s']:.1f} tok/s; graph tokens "
+              f"{'==' if st['graph_eq_eager'] else '!='} eager step tokens; "
+              f"peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB "
+              f"{'ok' if ok and not fails else 'FAIL'}")
+        del eng, p, q, slim
+        torch.cuda.empty_cache()
+
+        # ---- 12c: speculative, a dense target with its s50 b8 MoE draft
+        half = rk["expert_bytes"] // 2
+        spec_reckoned = resident + 2 * half + 5e9
+        spec_layers = MOE_LAYERS if spec_reckoned <= MOE_PEAK else 1
+        scfg, sparams, slm = cfg, params, lm
+        if spec_layers != MOE_LAYERS:
+            del params
+            torch.cuda.empty_cache()
+            scfg = _moe_cfg(spec_layers)
+            slm = LM(scfg)
+            sparams = slm.init(torch.Generator(device="cuda").manual_seed(0))
+        dlm = LM(scfg)
+        dp, dq, dmeta = prepare_serving(dlm, sparams, compressed=True,
+                                        packed=True, bits_init=8.0,
+                                        prune_sparsity=MOE_SPARSITY)
+        draft = DraftModel(lm=dlm, params=dp, qparams=dq, meta=dmeta)
+        tp, tq, _ = prepare_serving(slm, sparams)
+        spec = Engine(slm, tp, tq, draft=draft, draft_k=SPEC_K,
+                      max_slots=SLOTS, max_seq=max(PROMPT_LENS) + GEN)
+        for pr in prompts:
+            spec.submit(pr, GEN)
+        spec.warmup()
+        captured = _CAPTURES[0]
+        out = spec.run()
+        st = dict(spec.stats, **spec.throughput())
+        per_k = {k: round(1e3 * spec.spec_round_s[k] / n, 3)
+                 for k, n in sorted(spec.spec_rounds.items())}
+        for pr in prompts[:SLOTS]:
+            spec.submit(pr, SPEC_TRACE_GEN)
+        short = spec.run()
+        for pr in prompts[:SLOTS]:
+            spec.submit(pr, SPEC_TRACE_GEN)
+        held = True
+        while spec.pending:
+            spec.eager_step()
+            held = held and _never_drafted(torch, spec)
+        eager = spec._drain(spec.eager_step)
+        same = _same(short, eager)
+        ok = (same and held and _CAPTURES[0] == captured
+              and sorted(spec.graphs) == spec._spec_ks()
+              and len(out) == len(prompts))
+        if not ok:
+            failures.append("speculative: graph rounds differ from eager "
+                            "rounds, the rollback left rows, or a capture "
+                            "ran in a drain")
+        print(f"[12c moe speculative] dense target, s{100 * MOE_SPARSITY:.0f}"
+              f"/b8 MoE draft (experts {cfg.moe.n_experts} -> "
+              f"{dlm.shapes[0].n_experts}), k {SPEC_K}, "
+              f"{spec_layers} of 64 layers (reckoned peak "
+              f"{spec_reckoned / 1e9:.1f} GB against {MOE_PEAK / 1e9:.0f} "
+              f"GB{'' if spec_layers == MOE_LAYERS else ': depth cut'}): "
+              f"decode {st['decode_tok_per_s']:.1f} tok/s "
+              f"({st['decode_tokens']} committed tokens, {st['spec_steps']} "
+              f"rounds), acceptance {st['acceptance_rate']:.3f}, ms per "
+              f"round by k {per_k}; {SLOTS} requests x {SPEC_TRACE_GEN} "
+              f"tokens in graph rounds {'==' if same else '!='} eager "
+              f"rounds, rollback invariant after every eager round "
+              f"{'held' if held else 'BROKEN'}; vs the plain engine "
+              f"{_agreement(out, toks['dense']) if spec_layers == MOE_LAYERS else 'n/a (other depth)'}; "
+              f"peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB "
+              f"{'ok' if ok else 'FAIL'}")
+        info["spec"] = {"acceptance": st["acceptance_rate"], "ms_per_k": per_k,
+                        "layers": spec_layers}
+        del spec, draft, dp, dq, tp, tq, dlm
+        sparams = slm = params = lm = None
+        torch.cuda.empty_cache()
+    finally:
+        gc.gemm = real
+        fq.fake_quant_fwd = real_fwd
+    counts = ops.launch_counts()
+    peak_serve = torch.cuda.max_memory_allocated()
+
+    # ---- 12d: one loss-and-gradient pass at 1 layer, widths full
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = _moe_cfg(MOE_TRAIN_LAYERS)
+    tlm = LM(tcfg)
+    tparams = tlm.init(torch.Generator(device="cuda").manual_seed(0))
+    tq = tlm.init_qparams(tparams, bits_init=16.0)
+    batch = lm_batch(0, 0, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, tcfg.vocab,
+                     device="cuda")
+    L, E, D, F = (MOE_TRAIN_LAYERS, tcfg.moe.n_experts, tcfg.d_model,
+                  tcfg.d_ff)
+    stacks = {(L, E, D, F), (L, E, F, D)}       # we_gate / we_up, we_down
+    checked, by_shape, check_s = [], Counter(), [0.0]
+    real_bwd = fq.fake_quant_bwd
+
+    def fwd(x, d, q_m, t):
+        by_shape[("fwd", tuple(x.shape))] += 1
+        return real_fwd(x, d, q_m, t)
+
+    def bwd(x, d, q_m, t, g):
+        by_shape[("bwd", tuple(x.shape))] += 1
+        got = real_bwd(x, d, q_m, t, g)
+        if tuple(x.shape) in stacks:
+            torch.cuda.synchronize()
+            t_check = time.perf_counter()
+            checked.append(_fq_bwd_against_plain(torch, x, (d, q_m, t), g,
+                                                 got))
+            torch.cuda.synchronize()
+            check_s[0] += time.perf_counter() - t_check
+        return got
+
+    before = ops.launch_counts()
+    fq.fake_quant_fwd, fq.fake_quant_bwd = fwd, bwd
+    try:
+        t0 = time.perf_counter()
+        loss, gx, gq = loss_and_grads(tlm, tparams, tq, batch)
+        torch.cuda.synchronize()
+        # the pass's own time: the checks against the plain version (run
+        # inside its backward, where the cotangents live) excluded
+        wall = time.perf_counter() - t0 - check_s[0]
+    finally:
+        fq.fake_quant_fwd, fq.fake_quant_bwd = real_fwd, real_bwd
+    delta = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    want = predicted_moe_grad_launches(tlm)
+    finite = bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(g).all()) for g in gx.values()) and all(
+        bool(torch.isfinite(v).all()) for q_ in gq.values()
+        for v in (q_.d, q_.q_m, q_.t))
+    launches_ok = all(delta[k] == v for k, v in want.items())
+    sums_ok = len(checked) == 3 and all(c["ok"] for c in checked)
+    if not (finite and launches_ok and sums_ok):
+        failures.append(f"moe training pass: finite {finite}, launches "
+                        f"{ {k: delta[k] for k in want} } (want {want}), "
+                        f"expert sites held {[c['ok'] for c in checked]}")
+    print(f"[12d moe train] loss_and_grads at {MOE_TRAIN_LAYERS} of 64 layers "
+          f"(widths full), batch {MOE_TRAIN_BATCH} x {MOE_TRAIN_SEQ}, 16-bit "
+          f"init: loss {float(loss):.4f}, gradients finite {finite}, wall "
+          f"{wall:.2f} s, peak {torch.cuda.max_memory_allocated() / 1e9:.1f}"
+          f" GB; expert sites' backward vs the plain version (dx bitwise, "
+          f"sums/scale): "
+          + ", ".join(f"{c['dx_bitwise']}/{max(c['sum_err_over_scale']):.1e}"
+                      for c in checked)
+          + f"; launches {{{', '.join(f'{k}: {delta[k]}' for k in want)}}} "
+          f"(predicted {want}); fake-quant launches by shape "
+          f"{dict(by_shape)} {'ok' if finite and launches_ok and sums_ok else 'FAIL'}")
+    fq_shapes.update(by_shape)
+    info["fq_shapes"] = fq_shapes
+    info["train"] = {"wall_s": wall, "by_shape": {
+        f"{d} {'x'.join(map(str, s))}": n for (d, s), n in by_shape.items()},
+                     "peak_bytes": torch.cuda.max_memory_allocated()}
+    del tparams, tq, gx, gq, loss, tlm
+    torch.cuda.empty_cache()
+    info["peak_serve_bytes"] = peak_serve
+    print(f"[12 moe] peak device memory: serving {peak_serve / 1e9:.1f} GB "
+          f"(reckoned resident {resident / 1e9:.1f} GB), training "
+          f"{info['train']['peak_bytes'] / 1e9:.1f} GB; the phase took "
+          f"{time.perf_counter() - t_start:.1f} s")
+    return counts, dict(tally), failures, info
+
+
+def predicted_moe_grad_launches(lm) -> dict:
+    """Kernel launches of one MoE `loss_and_grads` pass: each routed
+    projection (P, stacked over the layers) runs the fake_quant_rhs GEMM
+    forward, again in the remat recompute, and for dx, and its dwq with
+    no epilogue, all on the tensor-core variant; every other weight site
+    (router, expert stacks, head) is fake-quantized once forward and once
+    backward, a routed one backward only."""
+    from repro_torch.core.subnet import _routed
+    names = lm.quant_weight_names()
+    routed = [n for n in names if n.startswith("blocks.") and _routed(n)]
+    P = lm.n_blocks * len(routed)
+    other = len(names) - len(routed)
+    passes = 2 + int(lm.cfg.remat)
+    return {"gemm_core.fake_quant_rhs": passes * P, "gemm_core.none": P,
+            "gemm_core.tc": (passes + 1) * P,
+            "fake_quant.bwd": P + other, "fake_quant.fwd": other}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -2774,6 +3477,9 @@ def main(argv=None) -> int:
                                                                    timer)
     rows += train_rows
     failures += train_failures
+    moe_rows, moe_report, moe_kfail = phase_moe_kernels(torch, timer)
+    rows += moe_rows
+    failures += moe_kfail
     del timer
     torch.cuda.empty_cache()
     failures = [f"{r['kernel']} {r}" for r in failures]
@@ -2808,6 +3514,10 @@ def main(argv=None) -> int:
     sub_counts, sub_fail = phase_substrates(torch)
     failures += sub_fail
     lap("11 substrates")
+    torch.cuda.empty_cache()
+    moe_counts, moe_gemms, moe_fail, moe_info = phase_moe(torch)
+    failures += moe_fail
+    lap("12 moe")
 
     if args.out:
         out = Path(args.out)
@@ -2825,6 +3535,12 @@ def main(argv=None) -> int:
              "spec_traced_kernels": spec_seen,
              "run_loop_launches": run_counts,
              "substrate_launches": sub_counts,
+             "moe_launches": moe_counts,
+             "moe_gemm_launches": {"/".join(map(str, k)): v
+                                   for k, v in moe_gemms.items()},
+             "moe": {k: v for k, v in moe_info.items() if k != "fq_shapes"},
+             "moe_fq_launches": {f"{d} {'x'.join(map(str, s))}": n for
+                                 (d, s), n in moe_info["fq_shapes"].items()},
              "trace_takes": _TRACE_TAKES,
              "spec_engines": {f"{t}/{d}": {
                  k: v for k, v in st.items()
@@ -2979,6 +3695,55 @@ def main(argv=None) -> int:
                 "shape": f"{label} {'x'.join(map(str, shape))} f32 t=1",
                 "at_t0.85": {k: t85[k] for k in (
                     "ms", "plain_ms", "max_abs_err", "kernels_per_call")},
+                "kernels_per_launch": row["kernels_per_call"]})
+    # grok-1's shapes (phase 3's rows), with phase 12's launches at each
+    # row's shape: the GEMMs' host counts in 12a-c by (variant, epilogue,
+    # K, N) (a graph's calls once, at capture), decode attention's over
+    # 12a-c, the fake-quant kernels' by input shape over 12a-d
+    from repro_torch.kernels import gemm_core as gc
+    for M, K, N, epis, per in MOE_GEMMS:
+        for label in epis:
+            base = _report_name(label)
+            row = moe_report[f"{base}.grok.M{M}.{K}x{N}"]
+            var = gc.variant(M, torch.bfloat16)
+            kernels.append({
+                "name": f"{base}.grok.M{M}.{K}x{N}", "route": "cuda",
+                "source": gemm[0], "replaces": gemm[1],
+                "launches": moe_gemms.get((var, label, K, N), 0),
+                ("launches_per_prefill" if M > SLOTS else
+                 "launches_per_decode_step"): per,
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "shape": f"M={M} K={K} N={N} ({MOE_ARCH})",
+                "variant": row["variant"],
+                **({"block_height_ms": row["heights"]} if "heights" in row
+                   else {"kernels_per_launch": row.get("kernels_per_call")})})
+    row = moe_report["decode_attn.grok"]
+    kernels.append({
+        "name": "decode_attn.grok", "route": "cuda", "source": attn[0],
+        "replaces": attn[1], "launches": moe_counts["decode_attn"],
+        "launches_per_decode_step": MOE_LAYERS,
+        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        "shape": f"B={row['B']} S={row['S']} KVh={row['KVh']} g={row['g']} "
+                 f"dh={row['dh']} R={row['R']} q bf16, pos int64 "
+                 f"({MOE_ARCH})",
+        "kernels_per_launch": row["kernels_per_call"]})
+    for base in ("fake_quant.fwd", "fake_quant.bwd"):
+        for label, shape in MOE_STACKS.items():
+            row = moe_report[f"{base}.{label}"]
+            kernels.append({
+                "name": f"{base}.{label}", "route": "cuda", "source": fq_src,
+                "replaces": train_src[base][1],
+                "launches": moe_info["fq_shapes"].get(
+                    (base.split(".")[1], shape), 0),
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": None,
+                "shape": f"{label} {'x'.join(map(str, shape))} bf16 t=1 "
+                         f"({row['numel']} elements)",
                 "kernels_per_launch": row["kernels_per_call"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

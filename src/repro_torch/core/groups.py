@@ -115,6 +115,34 @@ class PruningSpace:
                                            m, family.units)
                           for m in family.members], dim=1)
 
+    def group_sq_norms(self, params: dict, family: GroupFamily
+                       ) -> torch.Tensor:
+        """(units,) f32 squared L2 norm of each unit's slice over every
+        member: the squared row norms of `group_matrix`, reduced member by
+        member in chunks of at most 2^26 elements, so that no f32 copy of
+        a whole member is made (an expert stack at full width is 1.6e9
+        elements a layer)."""
+        out = None
+        for m in family.members:
+            arr = params[m.param]
+            dims = [d for d in range(arr.ndim) if d != m.axis]
+            sq = torch.zeros(arr.shape[m.axis], dtype=torch.float32,
+                             device=arr.device)
+            if not dims:
+                sq += torch.square(arr.to(torch.float32))
+            else:
+                split = max(dims, key=lambda d: arr.shape[d])
+                step = max(1, (1 << 26) * arr.shape[split] // arr.numel())
+                for c in torch.split(arr, step, dim=split):
+                    sq += torch.sum(torch.square(c.to(torch.float32)),
+                                    dim=dims)
+            if m.layout == "contiguous":
+                per = sq.reshape(family.units, -1).sum(1)
+            else:
+                per = sq.reshape(m.unit_size, family.units).sum(0)
+            out = per if out is None else out + per
+        return out
+
     def materialize(self, params: dict, masks: dict
                     ) -> tuple[dict, dict[str, np.ndarray]]:
         """construct_subnet(): physically slice away pruned units. Returns

@@ -150,11 +150,11 @@ def derive_slim_plan(lm, params: dict, kept_units: dict[str, np.ndarray],
                      sparsity: float = 0.0) -> SlimPlan:
     """The per-sublayer execution shapes of a sliced LM. The sliced
     tensors (`PruningSpace.materialize` output) set each width (surviving
-    KV-head groups x gqa_group heads, MLP hidden units), cross-checked
-    against `kept_units` wherever a family names the axis; the residual
-    width is pinned by the non-prunable embed and head and stays d_model.
-    The attention mixer and the MLP are the port's sublayers; the other
-    mixers and FFNs come with the other families."""
+    KV-head groups x gqa_group heads, MLP hidden units, experts),
+    cross-checked against `kept_units` wherever a family names the axis;
+    the residual width is pinned by the non-prunable embed and head and
+    stays d_model. The recurrent mixers and their FFNs come with their
+    families."""
     cfg = lm.cfg
 
     def dim(name: str) -> int:
@@ -163,25 +163,30 @@ def derive_slim_plan(lm, params: dict, kept_units: dict[str, np.ndarray],
     shapes = []
     for sub in lm.plan:
         pre = f"blocks.{sub.j}"
-        if sub.mixer != "attn" or sub.ffn != "mlp":
+        if sub.mixer != "attn" or sub.ffn not in ("mlp", "moe"):
             raise not_in_this_slice(
                 f"slim plans of {sub.mixer} / {sub.ffn} sublayers",
-                "ROADMAP Queue 1 item 12")
+                "ROADMAP Queue 1 item 12b (the recurrent mixers)")
         q_dim, kv_dim = dim(f"{pre}.attn.wq"), dim(f"{pre}.attn.wk")
         if q_dim % cfg.d_head or kv_dim % cfg.d_head:
             raise ValueError(
                 f"{pre}.attn: sliced q/kv widths {q_dim}/{kv_dim} are not "
                 f"multiples of d_head={cfg.d_head}: the kv-group family "
                 f"must remove whole heads")
-        kw = dict(n_heads=q_dim // cfg.d_head, n_kv_heads=kv_dim // cfg.d_head,
-                  d_ff=dim(f"{pre}.mlp.w_gate"))
+        kw = dict(n_heads=q_dim // cfg.d_head, n_kv_heads=kv_dim // cfg.d_head)
         _check_family(kept_units, f"{pre}.attn.kv_groups", kw["n_heads"],
                       cfg.gqa_group, "wq head count")
-        for fam in kept_units:
-            # the MLP hidden space is a generic dependency-analysis family:
-            # "space.<sid>.blocks.<j>.mlp.gate"
-            if fam.endswith(f".{pre}.mlp.gate"):
-                _check_family(kept_units, fam, kw["d_ff"], 1, "w_gate")
+        if sub.ffn == "moe":
+            kw["n_experts"] = dim(f"{pre}.moe.router")
+            _check_family(kept_units, f"{pre}.moe.experts", kw["n_experts"],
+                          1, "router")
+        else:
+            kw["d_ff"] = dim(f"{pre}.mlp.w_gate")
+            for fam in kept_units:
+                # the MLP hidden space is a generic dependency-analysis
+                # family: "space.<sid>.blocks.<j>.mlp.gate"
+                if fam.endswith(f".{pre}.mlp.gate"):
+                    _check_family(kept_units, fam, kw["d_ff"], 1, "w_gate")
         shapes.append(dataclasses.replace(LayerShapes.from_config(cfg), **kw))
     return SlimPlan(layer_shapes=shapes, kept_units=dict(kept_units),
                     sparsity=float(sparsity))
@@ -203,13 +208,14 @@ def magnitude_keep_masks(space, params: dict, sparsity: float, *,
     keep the top-(1-s) units by group L2 magnitude (f32, on the params'
     device), the serving-side stand-in for a trained QASSO mask. Ties
     break by unit index (a stable sort), so the same params always give
-    the same masks. Returns (units,) f32 masks on the params' device."""
+    the same masks. The scores reduce each member in chunks
+    (`PruningSpace.group_sq_norms`): a full-width expert family needs no
+    f32 copy of its stacks. Returns (units,) f32 masks on the params'
+    device."""
     min_keep = dict(min_keep or {})
     masks = {}
     for fam in space.prunable_families():
-        gm = space.group_matrix(params, fam)
-        score = torch.linalg.vector_norm(gm, dim=1).cpu().numpy()
-        del gm
+        score = torch.sqrt(space.group_sq_norms(params, fam)).cpu().numpy()
         floor = max(int(min_keep.get(fam.kind, 1)), 1)
         n_keep = int(np.clip(fam.units - round(sparsity * fam.units),
                              floor, fam.units))
@@ -274,6 +280,8 @@ def _routed(name: str) -> bool:
 def compress_lm(lm, params: dict, qparams: dict, *,
                 packed: bool = False) -> Subnet:
     """Quantize an LM's routed projection weights to int codes (keep-all).
+    A site the decode cannot run from codes (the MoE router and expert
+    stacks) stays dense and is listed in `meta["skipped_sites"]`.
 
     Each site stores its codes in the narrowest int container of its
     learned width; with `packed`, codes of sites at <= 8 bits bit-pack

@@ -87,11 +87,13 @@ def image_batch(seed: int, step: int, batch: int, hw: int = 32,
 
 def batch_for(cfg, seed: int, step: int, batch: int, seq: int,
               device="cpu", key=None) -> dict:
-    """Model-family-aware batch builder: the dense family's LM stream.
-    `key` optionally carries the checkpointed data key (`lm_batch`)."""
-    if cfg.family != "dense":
+    """Model-family-aware batch builder: the LM stream of the dense and
+    MoE families. `key` optionally carries the checkpointed data key
+    (`lm_batch`)."""
+    if cfg.family in ("audio", "vlm"):
         from repro_torch.models.layers import not_in_this_slice
-        raise not_in_this_slice(f"{cfg.family!r} batches",
-                                "ROADMAP Queue 1 item 12 (other families)")
+        raise not_in_this_slice(
+            f"{cfg.family!r} batches",
+            "ROADMAP Queue 1 item 12b (codebook embeddings, vision embeds)")
     return lm_batch(seed, step, batch, seq, cfg.vocab, device=device,
                     key=key)

@@ -542,7 +542,18 @@ int launch(const Src& src, const Plan& p, int unit, void* stream) {
   const int row_bytes = Rows::row_bytes(p.dh);
   const int pitch = (row_bytes + 15) / 16 * 16;
   const int smem = 2 * p.R * pitch + kWarps * p.g * p.dh * 4;
-  if (smem > 48 * 1024) {     // above 48 KB only after opting in
+  // a block may hold more than 48 KB of shared memory, static and dynamic
+  // together, only after opting in (g = 6, dh = 128: 44 KB dynamic beside
+  // the kernel's ~6 KB of static arrays)
+  static int static_bytes = -1;
+  if (static_bytes < 0) {
+    cudaFuncAttributes fa;
+    const int err = cudaFuncGetAttributes(&fa,
+                                          flash_decode_split<Rows, Src, G>);
+    if (err != 0) return err;
+    static_bytes = (int)fa.sharedSizeBytes;
+  }
+  if (smem + static_bytes > 48 * 1024) {
     const int err = cudaFuncSetAttribute(
         flash_decode_split<Rows, Src, G>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

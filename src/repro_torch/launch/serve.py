@@ -33,7 +33,10 @@ mid-prefill), `--paged` (without `--kv-bits`) asserts paged tokens equal
 contiguous tokens (stacking with `--speculative`), `--speculative`
 asserts speculative tokens equal the plain engine's, `--packed` asserts
 packed tokens equal int8 tokens, and `--pruned` alone asserts the pruned
-tokens equal the masked dense reference's; each stacks with `--pruned`.
+tokens equal the masked dense reference's (not for an MoE arch, whose
+masked model routes otherwise: a zeroed router column still takes softmax
+mass); each stacks with `--pruned`. `--arch grok-1-314b` and `--arch
+llama4-maverick-400b-a17b` serve the MoE family in every mode.
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --full --compressed
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --packed \
@@ -424,7 +427,12 @@ def main(argv=None):
                             bits_init=args.bits, max_slots=args.slots,
                             device=args.device, **prune)
         return
-    if args.pruned and args.smoke and not args.paged:
+    moe = get_arch(args.arch, smoke=args.smoke).moe is not None
+    if args.pruned and args.smoke and moe:
+        print(f"{args.arch}: no masked-reference check for a pruned MoE "
+              f"(a zeroed router column still takes softmax mass, so the "
+              f"masked model routes otherwise than the sliced one)")
+    if args.pruned and args.smoke and not args.paged and not moe:
         pruned_parity_check(args.arch, args.smoke, lens, args.gen,
                             sparsity=args.sparsity, quantized=args.quantized,
                             compressed=args.compressed, max_slots=args.slots,

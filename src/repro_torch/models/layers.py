@@ -1,6 +1,7 @@
-"""Layers of the dense GQA LM as plain functions over a flat param dict.
+"""Layers of the dense and MoE GQA LMs as plain functions over a flat
+param dict.
 
-Port of the dense subset of `repro.models.layers`. Conventions follow the
+Port of the attention, MLP and MoE layers of `repro.models.layers`. Conventions follow the
 JAX module: `params` is a flat dict[str, Tensor] under the JAX keys, a
 per-layer view `lp` indexes the stacked (L, ...) tensors, `qparams` maps
 quantizer sites (`<name>.wq`, `<site>.aq`) to `QuantParams`, activations
@@ -13,7 +14,10 @@ unpack-dequant for `<name>.packed{bits}`. The training forward is
 differentiable: the routed GEMMs and the fake-quant sites are autograd
 Functions over the kernels. Full-sequence attention (dense, or blockwise
 past `attn_block_threshold`), norms, rope and SiLU are plain PyTorch, as
-they were plain XLA in the JAX package.
+they were plain XLA in the JAX package; so are the MoE's router, dispatch
+and expert products (`moe_apply`), whose weights the LM fake-quants once
+per call (their component is not routed), while the shared expert is an
+MLP through `dense_proj`.
 """
 from __future__ import annotations
 
@@ -46,18 +50,20 @@ class LayerShapes:
     """Physical dims one sublayer executes at: the config's, or a pruned
     subnet's surviving widths (`core.subnet.derive_slim_plan`), which
     `LM.apply_slim_plan` installs. The residual width d_model and d_head
-    are never pruned."""
+    are never pruned; `n_experts` counts an MoE's surviving experts."""
     d_model: int
     n_heads: int = 0
     n_kv_heads: int = 0
     d_head: int = 0
     d_ff: int = 0
+    n_experts: int = 0
 
     @classmethod
     def from_config(cls, cfg: ModelConfig) -> "LayerShapes":
         return cls(d_model=cfg.d_model, n_heads=cfg.n_heads,
                    n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
-                   d_ff=cfg.d_ff)
+                   d_ff=cfg.d_ff,
+                   n_experts=cfg.moe.n_experts if cfg.moe else 0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -447,3 +453,89 @@ def mlp_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
     h = torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype) * u
     h = qa(h, qp, f"{prefix}.mlp_act.aq")
     return dense_proj(h, lp, qp, f"{prefix}.w_down")
+
+
+# -------------------------------------------------------------------- moe
+def init_moe(gen: torch.Generator, cfg: ModelConfig, prefix: str,
+             n_layers: int, dtype) -> dict:
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+    L = (n_layers,)
+    p = {f"{prefix}.router": _normal(gen, L + (D, E), dtype, D ** -0.5),
+         f"{prefix}.we_gate": _normal(gen, L + (E, D, F), dtype, D ** -0.5),
+         f"{prefix}.we_up": _normal(gen, L + (E, D, F), dtype, D ** -0.5),
+         f"{prefix}.we_down": _normal(gen, L + (E, F, D), dtype, F ** -0.5)}
+    if cfg.moe.shared_expert:
+        p.update(init_mlp(gen, cfg, f"{prefix}.shared", n_layers, dtype))
+    return p
+
+
+def one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """`jax.nn.one_hot`: a comparison against an arange, so an index
+    outside [0, n) (a token past its expert's capacity) gives a zero row
+    where `F.one_hot` would raise, and no host sync enters a CUDA graph."""
+    iota = torch.arange(n, dtype=idx.dtype, device=idx.device)
+    return (idx[..., None] == iota).to(dtype)
+
+
+def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """`jax.lax.top_k` over the last axis: the k largest values, and on a
+    tie the lower index first (a stable descending sort), which
+    `torch.topk` does not promise."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
+              prefix: str, full_capacity: bool = False,
+              shapes: Optional[LayerShapes] = None) -> torch.Tensor:
+    """Top-k token-choice MoE with GShard's grouped einsum dispatch, as the
+    reference computes it: one group per sequence with per-group capacity
+    C = max(int(cf * n * K / E), 4), or n * K with `full_capacity` (the
+    serving semantics of prefill and the chunked verify: no token is
+    dropped, as none is in one-token decode). f32 router softmax, top-k
+    with the lower expert first on ties, gates renormalised over the k
+    picks (floor 1e-9); each (token, k) takes its place in its expert's
+    queue from a cumsum over the token-major (n, K) order, and a place at
+    or past C drops it (zero gate, zero one-hot row). `dispatch` is built
+    in x's dtype, `combine` in f32 and cast to x's dtype before the last
+    product; SiLU runs in f32. The shared expert is an MLP through
+    `dense_proj` (its sites fuse into the GEMM epilogue)."""
+    B, S, D = x.shape
+    shapes = shapes or LayerShapes.from_config(cfg)
+    E, K = shapes.n_experts, cfg.moe.top_k
+    if E < K:
+        raise ValueError(f"{prefix}: {E} surviving experts < top_k={K} — "
+                         f"the expert family was pruned below the router's "
+                         f"top-k (keep at least top_k experts)")
+    G, n = B, S
+    xg = x.reshape(G, n, D)
+    logits = (xg @ qw(lp, qp, f"{prefix}.router")).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)                      # (G, n, E)
+    gate_vals, gate_idx = top_k(probs, K)                      # (G, n, K)
+    gate_vals = gate_vals / torch.clamp_min(
+        torch.sum(gate_vals, dim=-1, keepdim=True), 1e-9)
+    C = n * K if full_capacity \
+        else max(int(cfg.moe.capacity_factor * n * K / E), 4)
+
+    onehot = one_hot(gate_idx, E, torch.float32)               # (G, n, K, E)
+    # the place of each (token, k) in its expert's per-group queue
+    flat = onehot.reshape(G, n * K, E)
+    pos = torch.cumsum(flat, dim=1).reshape(G, n, K, E) - 1.0
+    pos = torch.sum(pos * onehot, dim=-1)                      # (G, n, K)
+    keep = (pos < C).to(torch.float32)
+    gate_vals = gate_vals * keep
+
+    posoh = one_hot(pos.to(torch.int32), C, x.dtype)           # (G, n, K, C)
+    dispatch = torch.einsum("gnke,gnkc->gnec", onehot.to(x.dtype), posoh)
+    combine = torch.einsum("gnke,gnkc,gnk->gnec", onehot,
+                           posoh.to(torch.float32), gate_vals)
+
+    xe = torch.einsum("gnec,gnd->gecd", dispatch, xg)          # (G, E, C, D)
+    g = torch.einsum("gecd,edf->gecf", xe, qw(lp, qp, f"{prefix}.we_gate"))
+    u = torch.einsum("gecd,edf->gecf", xe, qw(lp, qp, f"{prefix}.we_up"))
+    h = torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype) * u
+    ye = torch.einsum("gecf,efd->gecd", h, qw(lp, qp, f"{prefix}.we_down"))
+    y = torch.einsum("gnec,gecd->gnd", combine.to(x.dtype), ye)
+    if cfg.moe.shared_expert:
+        y = y + mlp_apply(lp, qp, cfg, x, prefix=f"{prefix}.shared")
+    return y.reshape(B, S, D)

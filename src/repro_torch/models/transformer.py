@@ -1,4 +1,5 @@
-"""The decoder LM of the dense family, port of `repro.models.transformer`.
+"""The decoder LM of the dense and MoE families, port of
+`repro.models.transformer`.
 
 `LM` is an `nn.Module` that holds the config and the layer plan; the
 weights stay a flat dict[str, Tensor] under the JAX keys (stacked (L, K, N)
@@ -12,9 +13,17 @@ the backward stacks each tensor's layer gradients in one node), and
 `prefill` / `decode_step` write the KV cache (the contiguous arena, or the
 paged pools) IN PLACE and return the same dict.
 
+The layer pattern repeats with a period (`layer_plan`: MoE every
+`moe.every` layers); params stack over n_blocks = n_layers / period per
+position-in-period, and each layer of the loop runs the period's
+sublayers in turn.
+
 Weight quantizers split as in JAX: sites on routed 2-D block projections
-fuse into the GEMM's fake-quant epilogue; the rest (the head) are
-fake-quanted once per call in `_prequantize`. `loss` is the training
+(attention, MLP, the MoE's shared expert) fuse into the GEMM's fake-quant
+epilogue; the rest (the MoE router and expert stacks, the head) are
+fake-quanted once per call in `_prequantize`. An MoE routes at capacity
+in the training forward and in one-token decode, and at full capacity in
+prefill and `verify_chunk`, as the reference does. `loss` is the training
 objective; with `cfg.remat` each layer of the training forward runs under
 `torch.utils.checkpoint` (non-reentrant), so the backward recomputes the
 layer instead of keeping its activations, with the same numbers.
@@ -23,6 +32,7 @@ layer instead of keeping its activations, with the same numbers.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -39,37 +49,70 @@ from repro_torch.models import layers as Lyr
 @dataclasses.dataclass(frozen=True)
 class SubLayer:
     j: int
-    mixer: str     # attn
-    ffn: str       # mlp
+    mixer: str     # attn | mamba | rwkv
+    ffn: str       # mlp | moe | chanmix | none
+
+
+def layer_plan(cfg: ModelConfig) -> tuple[list[SubLayer], int]:
+    """(per-period sublayer specs, n_blocks): the period is the lcm of
+    the hybrid interleave and `moe.every`; position j takes the MoE when
+    j % every == every - 1."""
+    if cfg.family == "ssm_rwkv":
+        return [SubLayer(0, "rwkv", "chanmix")], cfg.n_layers
+    period = 1
+    if cfg.family == "hybrid":
+        period = cfg.attn_every
+    if cfg.moe is not None:
+        period = period * cfg.moe.every // math.gcd(period, cfg.moe.every)
+    if cfg.n_layers % period:
+        raise ValueError(f"{cfg.name}: n_layers={cfg.n_layers} is not a "
+                         f"multiple of the layer period {period}")
+    plan = []
+    for j in range(period):
+        mixer = ("mamba" if cfg.family == "hybrid" and j % cfg.attn_every
+                 else "attn")
+        ffn = ("moe" if cfg.moe is not None
+               and j % cfg.moe.every == cfg.moe.every - 1 else "mlp")
+        plan.append(SubLayer(j, mixer, ffn))
+    return plan, cfg.n_layers // period
 
 
 # Which params receive weight-quant sites (per sublayer component).
 _QUANT_WEIGHTS = {
     "attn": ["wq", "wk", "wv", "wo"],
     "mlp": ["w_gate", "w_up", "w_down"],
+    "moe": ["router", "we_gate", "we_up", "we_down"],
 }
 # Activation-quant sites (per sublayer component).
-_ACT_SITES = {"attn": ["attn_out"], "mlp": ["mlp_act"]}
+_ACT_SITES = {"attn": ["attn_out"], "mlp": ["mlp_act"], "moe": []}
+# the families this slice runs; the rest raise naming the item that
+# brings them
+_PORTED_FAMILIES = ("dense", "moe")
+_LATER_FAMILIES = {
+    "ssm_rwkv": "ROADMAP Queue 1 item 12b (the recurrent mixers)",
+    "hybrid": "ROADMAP Queue 1 item 12b (the recurrent mixers)",
+    "audio": "ROADMAP Queue 1 item 12b (codebook embeddings)",
+    "vlm": "ROADMAP Queue 1 item 12b (vision embeds)",
+}
 
 
 class LM(torch.nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in _PORTED_FAMILIES:
             raise Lyr.not_in_this_slice(
                 f"the {cfg.family!r} family ({cfg.name})",
-                "ROADMAP Queue 1 item 12 (other families)")
+                _LATER_FAMILIES.get(cfg.family, "ROADMAP Queue 1 item 12b"))
         if cfg.window > 0:
             raise Lyr.not_in_this_slice(
                 f"sliding-window attention (window={cfg.window})",
-                "ROADMAP Queue 1 item 12 (other families)")
+                "ROADMAP Queue 1 item 12b (sliding windows)")
         self.cfg = cfg
-        self.plan = [SubLayer(0, "attn", "mlp")]
-        self.n_blocks = cfg.n_layers
+        self.plan, self.n_blocks = layer_plan(cfg)
         # the physical dims of each position-in-period, which prefill,
         # decode and the KV arenas read instead of the config's: a pruned
         # subnet's after `apply_slim_plan`
-        self.shapes = [Lyr.LayerShapes.from_config(cfg)]
+        self.shapes = [Lyr.LayerShapes.from_config(cfg) for _ in self.plan]
         self.slim_plan = None
         self._freqs: dict[torch.device, torch.Tensor] = {}
 
@@ -105,8 +148,9 @@ class LM(torch.nn.Module):
                     (self.n_blocks, D), dtype=torch.float32, device=dev)
             params.update(Lyr.init_attention(gen, cfg, f"{pre}.attn",
                                              self.n_blocks, dt))
-            params.update(Lyr.init_mlp(gen, cfg, f"{pre}.mlp",
-                                       self.n_blocks, dt))
+            init_ffn = Lyr.init_moe if sub.ffn == "moe" else Lyr.init_mlp
+            params.update(init_ffn(gen, cfg, f"{pre}.{sub.ffn}",
+                                   self.n_blocks, dt))
         return params
 
     # --------------------------------------------------------- quantization
@@ -115,7 +159,10 @@ class LM(torch.nn.Module):
         for sub in self.plan:
             pre = f"blocks.{sub.j}"
             names += [f"{pre}.attn.{w}" for w in _QUANT_WEIGHTS["attn"]]
-            names += [f"{pre}.mlp.{w}" for w in _QUANT_WEIGHTS["mlp"]]
+            names += [f"{pre}.{sub.ffn}.{w}" for w in _QUANT_WEIGHTS[sub.ffn]]
+            if sub.ffn == "moe" and self.cfg.moe.shared_expert:
+                names += [f"{pre}.moe.shared.{w}"
+                          for w in _QUANT_WEIGHTS["mlp"]]
         names.append("embed" if self.cfg.tie_embeddings else "head")
         return names
 
@@ -149,8 +196,9 @@ class LM(torch.nn.Module):
     def _prequantize(self, params: dict, qparams: Optional[dict]
                      ) -> tuple[dict, Optional[dict]]:
         """Split weight quantizers into sites fused into the GEMM epilogue
-        (routed block projections) and weights fake-quanted here (the
-        head). Returns (params, body qparams)."""
+        (routed block projections) and weights fake-quanted here (the MoE
+        router and expert stacks, the head). Returns (params, body
+        qparams)."""
         if qparams is None:
             return params, None
         out = dict(params)
@@ -188,8 +236,9 @@ class LM(torch.nn.Module):
         return views
 
     def _block(self, lp, qp_body, x, rope, caches=None, pos=None,
-               pages=None, i=0, chunked=False):
-        """One layer of the stack on the residual stream x."""
+               pages=None, i=0, chunked=False, full_capacity=False):
+        """One layer of the stack on the residual stream x; an MoE routes
+        at full capacity with `full_capacity` (prefill, verify_chunk)."""
         cfg = self.cfg
         for sub, shp in zip(self.plan, self.shapes):
             pre = f"blocks.{sub.j}"
@@ -208,11 +257,16 @@ class LM(torch.nn.Module):
                                     chunked=chunked)
             x = x + mix
             h2 = Lyr.rmsnorm(x, lp[f"{pre}.norm2"], cfg.norm_eps)
-            x = x + Lyr.mlp_apply(lp, qp_body, cfg, h2, prefix=f"{pre}.mlp")
+            if sub.ffn == "moe":
+                f = Lyr.moe_apply(lp, qp_body, cfg, h2, prefix=f"{pre}.moe",
+                                  full_capacity=full_capacity, shapes=shp)
+            else:
+                f = Lyr.mlp_apply(lp, qp_body, cfg, h2, prefix=f"{pre}.mlp")
+            x = x + f
         return x
 
     def _blocks(self, params, qp_body, x, rope, caches=None, pos=None,
-                pages=None, chunked=False):
+                pages=None, chunked=False, full_capacity=False):
         """Run the layer stack; with `caches`, each attention sublayer
         writes its K/V into the cache in place (into the shared page pools
         through `pages`, a `Lyr.PagedView`, when given; at rows pos + [0,
@@ -226,7 +280,7 @@ class LM(torch.nn.Module):
                                use_reentrant=False)
             else:
                 x = self._block(lp, qp_body, x, rope, caches, pos, pages, i,
-                                chunked)
+                                chunked, full_capacity)
         return x
 
     def forward(self, params: dict, qparams: Optional[dict],
@@ -257,8 +311,8 @@ class LM(torch.nn.Module):
     # -------------------------------------------------------------- graph
     def build_graph(self, act_quant: bool = False) -> GraphBuilder:
         """Trace graph + quant branches for QADG analysis: one vertex per
-        (position-in-period, component); families over KV-head groups and
-        MLP channels apply uniformly across the n_blocks stack."""
+        (position-in-period, component); families over KV-head groups, MLP
+        channels and experts apply uniformly across the n_blocks stack."""
         cfg = self.cfg
         gb = GraphBuilder()
         gb.input("in")
@@ -273,7 +327,8 @@ class LM(torch.nn.Module):
             resid = gb.add(f"{pre}.add1", [resid, mixer_v])
             gb.norm(f"{pre}.norm2", scale=f"{pre}.norm2", after=resid,
                     param_axis=1)
-            ffn_v = self._graph_mlp(gb, pre, act_quant)
+            ffn_v = (self._graph_moe(gb, pre) if sub.ffn == "moe"
+                     else self._graph_mlp(gb, pre, act_quant))
             resid = gb.add(f"{pre}.add2", [resid, ffn_v])
         gb.norm("final_norm", scale="final_norm", after=resid)
         tied = cfg.tie_embeddings
@@ -327,6 +382,30 @@ class LM(torch.nn.Module):
         if act_quant:
             gb.insert_act_quant(a, dn, f"{pre}.mlp.mlp_act.aq")
         return dn
+
+    def _graph_moe(self, gb: GraphBuilder, pre: str) -> str:
+        # one composite over the experts; the shared expert's projections
+        # read the sublayer's input and write the residual stream with it
+        cfg = self.cfg
+        members = [(f"{pre}.moe.router", 2, 1), (f"{pre}.moe.we_gate", 1, 1),
+                   (f"{pre}.moe.we_up", 1, 1), (f"{pre}.moe.we_down", 1, 1)]
+        spec = FamilySpec(name=f"{pre}.moe.experts", units=cfg.moe.n_experts,
+                          members=members, kind="expert")
+        in_m = [(f"{pre}.moe.router", 1), (f"{pre}.moe.we_gate", 2),
+                (f"{pre}.moe.we_up", 2)]
+        res_m = [(f"{pre}.moe.we_down", 3)]
+        if cfg.moe.shared_expert:
+            in_m += [(f"{pre}.moe.shared.w_gate", 1),
+                     (f"{pre}.moe.shared.w_up", 1)]
+            res_m += [(f"{pre}.moe.shared.w_down", 2)]
+        vid = gb.composite(
+            f"{pre}.moe", "moe", spec,
+            params={f"p{i}": m[0] for i, m in enumerate(members)},
+            in_members=in_m, resid_members=res_m, after=f"{pre}.norm2")
+        for w in _QUANT_WEIGHTS["moe"]:
+            gb.attach_weight_quant(vid, f"{pre}.moe.{w}.wq",
+                                   target_param=f"{pre}.moe.{w}")
+        return vid
 
     # ------------------------------------------------------------- serving
     def init_cache(self, batch: int, max_seq: int, dtype=torch.bfloat16,
@@ -395,7 +474,10 @@ class LM(torch.nn.Module):
         rope = Lyr.rope_tables(x.shape[1], cfg.d_head, cfg.rope_theta,
                                device=x.device)
         pos = torch.zeros((), dtype=torch.int64, device=x.device)
-        x = self._blocks(params, qp_body, x, rope, caches, pos)
+        # serving semantics: prompt tokens never compete for expert
+        # capacity, as one-token decode never overflows it
+        x = self._blocks(params, qp_body, x, rope, caches, pos,
+                         full_capacity=True)
         if last_logit_only:
             x = x[:, -1:]
         x = Lyr.rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -424,17 +506,15 @@ class LM(torch.nn.Module):
         captured in a CUDA graph.
 
         Attention mixers only: a recurrent state cannot be rolled back
-        when a draft is rejected (KV rows can be zeroed)."""
+        when a draft is rejected (KV rows can be zeroed). An MoE routes
+        the chunk at full capacity, as prefill does: a dropping verify
+        would part from the one-token decode steps it stands in for."""
         bad = sorted({sub.mixer for sub in self.plan if sub.mixer != "attn"})
         if bad:
             raise ValueError(
                 f"verify_chunk needs attention mixers everywhere (rollback "
                 f"zeroes KV rows); plan has {bad} layers whose recurrent "
                 f"state cannot be rolled back")
-        if any(sub.ffn == "moe" for sub in self.plan):
-            raise Lyr.not_in_this_slice(
-                "verify_chunk over MoE layers (full-capacity routing)",
-                "ROADMAP Queue 1 item 12 (other families)")
         cfg = self.cfg
         params, qp_body = self._prequantize(params, qparams)
         x = self._embed_tokens(params, tokens)
@@ -446,7 +526,7 @@ class LM(torch.nn.Module):
         ang = posf[..., None] * self._rope_freqs(x.device)[None, None, :]
         rope = (torch.cos(ang), torch.sin(ang))               # (B, T, dh/2)
         x = self._blocks(params, qp_body, x, rope, caches, pos,
-                         chunked=True)
+                         chunked=True, full_capacity=True)
         if last_logit_only:
             x = x[:, -1:]
         x = Lyr.rmsnorm(x, params["final_norm"], cfg.norm_eps)

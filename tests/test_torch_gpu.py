@@ -82,6 +82,14 @@ kernel a call); the smoke config's checkpointed loop killed and resumed
 on the card, bitwise the clean run; the reduced CNNs' and BERT's loss
 and gradients card vs CPU (TF32 off) and their joint QASSO update from
 shared gradients at `STEP_TOLERANCES`, d where Eq 17 is well-conditioned.
+
+The MoE family (`test_moe_*`, `test_fake_quant_past_2_31_*`): the grok-1
+and llama4 smoke engines (f32, dense and int8) emit the CPU run's tokens
+on the card; llama4's speculative engine with its MoE draft the plain
+engine's and the CPU run's; grok's smoke GETA step (momentum) card vs CPU
+at `STEP_TOLERANCES`, d where Eq 17 is well-conditioned; the fake-quant
+kernels on a bf16 tensor of more than 2^31 elements, piece by piece
+bitwise their plain versions.
 Every profiler trace opens with 64 int16 fill kernels that no count
 includes (`_traced_kernels`): a trace now and then loses the session's
 first kernels.
@@ -381,6 +389,35 @@ def test_decode_kernels_at_other_gqa_ratios_and_head_widths(cuda, kind, g,
     else:
         q, kp, vp, pos, table, kw = _paged(kind, gen, B=pos.numel(),
                                            seq_len=S, KVh=4, g=g, dh=dh,
+                                           pos=pos)
+        got = TDA.paged_decode_attn(q, kp, vp, pos, table, **kw)
+        plain = ref.paged_decode_attn_ref(q, kp, vp, pos, table, **kw)
+        mirror = ref.paged_decode_attn_split_ref(q, kp, vp, pos, table,
+                                                 rows_per_split=R, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got, mirror, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("g", [6, 8])
+@pytest.mark.parametrize("kind", ["contiguous", "bfloat16", "int8", "int4"])
+def test_decode_kernels_at_full_head_width_and_wide_groups(cuda, kind, g):
+    """grok-1's decode: KVh 8, g 6 (48 query heads), dh 128, and g 8 at
+    the same width: the split kernel's shared memory (its static arrays
+    beside 44-48 KB of dynamic rows and partials) passes 48 KB, which a
+    launch takes only after opting in."""
+    gen = torch.Generator(device=cuda).manual_seed(1000 + g)
+    S = 576
+    pos = _edge_pos(S, cuda)
+    if kind == "contiguous":
+        q, k, v = _contiguous(gen, pos.numel(), S, torch.bfloat16, KVh=8,
+                              g=g, dh=128)
+        got = TDA.decode_attn(q, k, v, pos)
+        plain = ref.decode_attn_ref(q, k, v, pos)
+        mirror = ref.decode_attn_split_ref(q, k, v, pos, R)
+    else:
+        q, kp, vp, pos, table, kw = _paged(kind, gen, B=pos.numel(),
+                                           seq_len=S, KVh=8, g=g, dh=128,
                                            pos=pos)
         got = TDA.paged_decode_attn(q, kp, vp, pos, table, **kw)
         plain = ref.paged_decode_attn_ref(q, kp, vp, pos, table, **kw)
@@ -1846,3 +1883,113 @@ def test_substrate_joint_update_card_vs_cpu(cuda, name):
         assert abs(a - b) <= T.STEP_TOLERANCES["d"] * abs(b), (site.name, a,
                                                                 b, cos)
     assert held > 0
+
+
+# ------------------------------------------------- the MoE family (grok, llama4)
+MOE_ARCHS = ["grok-1-314b", "llama4-maverick-400b-a17b"]
+
+
+@pytest.mark.parametrize("mode", ["dense", "compressed"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_engine_on_card_matches_cpu(cuda, arch, mode):
+    """The MoE smoke engines (f32) emit the same greedy tokens on the card
+    (the GEMM, decode-attention and fake-quant kernels; the expert
+    products in cuBLAS) as on the CPU, from the same weights."""
+    toks = serve_on_devices(arch, True, [6, 3, 9, 12], 8, ["cpu", "cuda"],
+                            max_slots=2, **WEIGHT_MODES[mode])
+    assert sorted(toks["cuda"]) == sorted(toks["cpu"])
+    for rid in toks["cpu"]:
+        np.testing.assert_array_equal(toks["cuda"][rid], toks["cpu"][rid],
+                                      err_msg=f"{arch} request {rid}")
+
+
+def test_moe_spec_on_card_matches_plain_and_cpu(cuda):
+    """llama4's smoke engine with its s50 b4 MoE draft, draft_k 4 (the
+    mirror of the reference's MoE-target identity test), on the card: the
+    plain engine's tokens on the card and its own CPU run's."""
+    arch = "llama4-maverick-400b-a17b"
+    kw = dict(speculative=True, draft_k=4, draft_sparsity=0.5,
+              draft_bits=4.0)
+    got = serve_on_devices(arch, True, [5, 3, 9, 12], 8, ["cuda", "cpu"],
+                           max_slots=2, **kw)
+    plain = serve_on_devices(arch, True, [5, 3, 9, 12], 8, ["cuda"],
+                             max_slots=2)
+    for want in (got["cpu"], plain["cuda"]):
+        assert sorted(got["cuda"]) == sorted(want)
+        for rid in want:
+            np.testing.assert_array_equal(got["cuda"][rid], want[rid],
+                                          err_msg=f"request {rid}")
+
+
+def test_moe_smoke_train_step_on_card_matches_cpu(cuda):
+    """grok's smoke GETA step (`train.JOINT_STEP0`, momentum, 16-bit init)
+    on the card against the CPU from one state, at `train.STEP_TOLERANCES`
+    with identical masks; Eq 17's d where it is well conditioned (|cos
+    theta_d| >= 1e-2, as `test_substrate_joint_update_card_vs_cpu` holds
+    it); a second card run repeats bit for bit."""
+    from repro_torch.launch import train as T
+    runs = T.step_on_devices("grok-1-314b", ["cpu", "cuda"])
+    diff = T.step_differences(runs["cpu"], runs["cuda"])
+    assert diff.pop("masks")
+    for k, tol in T.STEP_TOLERANCES.items():
+        if k != "d":
+            assert diff[k] <= tol, (k, diff[k], tol)
+    lm, p0, q0, _, qasso, s0 = T.init_geta("grok-1-314b", True,
+                                           comp=T.JOINT_STEP0, device="cpu")
+    tokens = torch.randint(0, lm.cfg.vocab, (2, 16),
+                           generator=torch.Generator().manual_seed(0))
+    _, gx, _ = T.loss_and_grads(lm, p0, q0, {"tokens": tokens})
+    red = runs["cpu"][2].redundant
+    held = 0
+    for site in qasso.weight_sites:
+        if abs(_cos_d(qasso, site, p0, gx, red, q0[site.name])) < 1e-2:
+            continue
+        held += 1
+        a = float(runs["cuda"][1][site.name].d)
+        b = float(runs["cpu"][1][site.name].d)
+        assert abs(a - b) <= T.STEP_TOLERANCES["d"] * abs(b), site.name
+    assert held > 0
+    again = T.step_on_devices("grok-1-314b", ["cuda"])["cuda"]
+    assert torch.equal(again[3]["loss"], runs["cuda"][3]["loss"])
+    assert all(torch.equal(again[0][k], runs["cuda"][0][k])
+               for k in again[0])
+
+
+def test_fake_quant_past_2_31_elements_matches_plain(cuda):
+    """The fake-quant kernels on one bf16 tensor of more than 2^31
+    elements (an odd count, as a full-width expert stack's 3.2e9 are past
+    the 32-bit range): the forward and dx bitwise their plain versions,
+    compared piece by piece, and the three sums within 1e-5 of
+    `sum_scales`; one kernel launch each."""
+    n = 2 ** 31 + 2 ** 20 + 7
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    x = torch.randn((n,), generator=gen, device=cuda,
+                    dtype=torch.bfloat16).mul_(0.02)
+    qp = init_quant_params(x, bits=8.0)
+    sc = (qp.d, qp.q_m, qp.t)
+    before = dict(TFQ.launches)
+    y = TFQ.fake_quant_fwd(x, *sc)
+    torch.cuda.synchronize()
+    assert TFQ.launches[TFQ.FWD] == before[TFQ.FWD] + 1
+    piece = 1 << 27
+    for i in range(0, n, piece):
+        assert torch.equal(y[i:i + piece],
+                           ref.fake_quant_fwd_ref(x[i:i + piece], *sc)), i
+    del y
+    g = torch.randn((n,), generator=gen, device=cuda,
+                    dtype=torch.bfloat16).mul_(1e-3)
+    dx, *sums = TFQ.fake_quant_bwd(x, *sc, g)
+    torch.cuda.synchronize()
+    assert TFQ.launches[TFQ.BWD] == before[TFQ.BWD] + 1
+    want = [0.0, 0.0, 0.0]
+    for i in range(0, n, piece):
+        d, *s = ref.fake_quant_bwd_ref(x[i:i + piece], *sc, g[i:i + piece])
+        assert torch.equal(dx[i:i + piece], d), i
+        want = [a + float(b) for a, b in zip(want, s)]
+    rows = n // 4096
+    scales = TFQ.sum_scales(x[:rows * 4096].view(rows, 4096),
+                            g[:rows * 4096].view(rows, 4096), *sc)
+    tail = TFQ.sum_scales(x[rows * 4096:].view(1, -1),
+                          g[rows * 4096:].view(1, -1), *sc)
+    for got, w, a, b in zip(sums, want, scales, tail):
+        assert abs(float(got) - w) <= 1e-5 * (a + b), (float(got), w)

@@ -13,10 +13,11 @@ greedy tokens must be equal, at sparsity 0.5 (the reference tests'
 width, d_ff 128 and one of two KV heads, all 16-byte rows) and at the
 ragged 0.3 (d_ff 179: rows of 716 bytes, stored padded to 720).
 
-The MoE and stateful-family slim tests (`test_pruned_decode_stateful_
-families`, `test_compress_lm_records_skipped_sites`,
-`test_moe_floor_keeps_top_k_experts`) wait for the other families (the
-port's LM takes the dense family only).
+The MoE slim tests (`test_compress_lm_records_skipped_sites`,
+`test_moe_floor_keeps_top_k_experts`) are mirrored in
+`tests/test_torch_moe_spec.py`; the stateful-family one
+(`test_pruned_decode_stateful_families`) waits for the recurrent mixers
+(ROADMAP Queue 1 item 12b).
 """
 import dataclasses
 
@@ -230,7 +231,7 @@ def test_slim_plan_shapes_and_kv_arena(models):
     sliced, plan = TS.prune_lm(slim, _tparams(np_params), sparsity=SPARSITY)
     _, jplan = JS.prune_lm(JLM(jlm.cfg), dict(jparams), sparsity=SPARSITY)
     shp = plan.layer_shapes[0]
-    # the port's LayerShapes holds the dense family's fields only
+    # the port's LayerShapes holds the attention, MLP and MoE fields only
     assert [dataclasses.asdict(s) for s in plan.layer_shapes] == [
         {f: getattr(s, f) for f in dataclasses.asdict(shp)}
         for s in jplan.layer_shapes]

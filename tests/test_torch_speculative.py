@@ -3,9 +3,10 @@ the token-identity matrix, `verify_chunk` and the rollback invariant.
 
 With `tests/test_torch_speculative_engine.py` (the engine's counters,
 gates, arenas and the checkpoint pair) it mirrors
-`tests/test_speculative.py` (all but its MoE-target test, whose family
-the port does not have yet; the gating test keeps its `draft_k` cases and
-reaches the window and recurrent gates by editing a built LM), the
+`tests/test_speculative.py` (all but its MoE-target test, which
+`tests/test_torch_moe_spec.py` mirrors; the gating test keeps its
+`draft_k` cases and reaches the window and recurrent gates by editing a
+built LM), the
 speculative cell of `tests/test_paged_kv.py` and the two speculative
 tests of `tests/test_engine.py`; the two files run on separate workers.
 

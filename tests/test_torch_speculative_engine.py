@@ -164,7 +164,9 @@ def test_window_raises_on_speculative_engine():
 def test_spec_rejects_bad_draft_k_and_unrollable_arenas():
     """draft_k outside [1, max_seq) is refused; so are ring arenas and
     recurrent mixers (the port's LM has neither yet: the gates are reached
-    by editing a built LM), and verify_chunk refuses recurrent mixers."""
+    by editing a built LM), and verify_chunk refuses recurrent mixers. An
+    MoE plan (grok-1's one position) verifies: its chunk, routed at full
+    capacity, gives the logits and KV rows of sequential decode steps."""
     draft = TSP.build_draft(ARCH, True, sparsity=0.5, bits=2.0)
     lm = TLM(get_arch(ARCH, smoke=True))
     params = lm.init(torch.Generator().manual_seed(0))
@@ -184,11 +186,21 @@ def test_spec_rejects_bad_draft_k_and_unrollable_arenas():
         recurrent.verify_chunk(params, None, None,
                                torch.zeros((1, 2), dtype=torch.int64),
                                torch.zeros((1,), dtype=torch.int64))
-    moe = TLM(get_arch(ARCH, smoke=True))
-    moe.plan = [SubLayer(0, "attn", "moe")]
-    with pytest.raises(NotImplementedError, match="item 12"):
-        moe.verify_chunk(params, None, None,
-                         torch.zeros((1, 2), dtype=torch.int64), 0)
+    moe = TLM(get_arch("grok-1-314b", smoke=True))
+    assert moe.plan == [SubLayer(0, "attn", "moe")]
+    mp = moe.init(torch.Generator().manual_seed(0))
+    toks = torch.randint(0, moe.cfg.vocab, (2, 7),
+                         generator=torch.Generator().manual_seed(1))
+    chunked = moe.init_cache(2, 16, dtype=torch.float32)
+    moe.prefill(mp, None, chunked, toks[:, :3])
+    stepped = {k: v.clone() for k, v in chunked.items()}
+    logits, _ = moe.verify_chunk(mp, None, chunked, toks[:, 3:], 3)
+    steps = [moe.decode_step(mp, None, stepped, toks[:, p:p + 1], p)[0]
+             for p in range(3, 7)]
+    torch.testing.assert_close(logits, torch.cat(steps, 1), rtol=0,
+                               atol=1e-4)
+    for k in chunked:
+        torch.testing.assert_close(chunked[k], stepped[k], rtol=0, atol=1e-5)
 
 
 def test_pow2_floor():
