@@ -8,7 +8,8 @@ Phases, each printing its own lines:
 
 1. Device: the card's name and power limit (nvidia-smi) and torch's name.
 2. Build: nvcc builds every kernel of the serving and training paths from
-   the sources.
+   the sources, one process per source (gemm_core.cu in six parts), all
+   started together.
 3. Kernels against their plain PyTorch versions on the card, at the
    full-width shapes of internlm2-1.8b's decode (M = 4, 8 slots) and
    prefill (M = 512): the GEMM core's fake_quant_rhs (bf16 weights),
@@ -59,7 +60,15 @@ Phases, each printing its own lines:
    16-bit init, held against the plain versions piece by piece (2^27
    elements a piece: forward and dx bitwise, the sums within 1e-5 of
    `sum_scales`, a second call bitwise); their plain_ms is the plain
-   version over the pieces.
+   version over the pieces. Then the recurrent mixers' shapes (phase
+   13's models, `REC_GEMMS`): rwkv6-3b's at decode (M = 4) on 2560->2560,
+   2560->8960, 8960->2560, 2560->64 and 64->2560 (f32 x: decay_w2 takes
+   the f32 tanh of the LoRA's first product) in fake_quant_rhs, dequant
+   and unpack_dequant b4, its head 2560->65536 in dequant and b4, and
+   2560->8960 at M = 512; jamba's 8192->16384, 16384->544, 512->16384 (x
+   a strided view, rows 544 apart, as `torch.split` leaves dt_low) and
+   16384->8192 at M = 4 and 512 in fake_quant_rhs and dequant; weights
+   stored as `prepare_serving` stores them.
    Every GEMM row names its variant: M <= 8 the small-M
    one, M > 8 the tensor-core one for bf16 x, the SIMT one for f32 x; a
    tensor-core row is also timed at both block heights (128 and 256 rows)
@@ -261,13 +270,57 @@ Phases, each printing its own lines:
    the plain version (dx bitwise, sums within 1e-5 of `sum_scales`), the
    launches at `predicted_moe_grad_launches`. Prints peak memory; the
    launch counts are zeroed before 12a and read after 12c.
-13. Two JSON lines: the kernel table, then the device line (last). A
+13. The recurrent mixers, random weights from seed 0, bf16, 4 slots,
+   phase 5's traffic at lengths the recurrent prefill takes (64, 128,
+   256, 512, 192, 320, 32 and 384 tokens, 64 generated each); the
+   reckoned bytes are printed before anything is built. 13a: rwkv6-3b
+   whole (32 layers, d_model 2560, 40 heads of 64, d_ff 8960, vocab
+   65536, decay LoRA 64) through the engine in the dense fake-quant, int8
+   and packed b4 modes over the contiguous arena, and dense also over the
+   paged one (without prefix sharing, which recurrent plans refuse), each
+   warmed up before its requests are queued (graphs only: a recurrent
+   prefill has nothing to set up) and drained through graph windows,
+   then eagerly (the 4 requests with the shortest prompts, 16 tokens
+   each: tokens bitwise the graph drain's); paged tokens equal contiguous
+   tokens; in the dense contiguous engine requests 4 and 7, admitted into
+   slots that served other requests, equal their solo drains, and a
+   64-token prompt's prefill against 64 eager decode steps: in bf16 by
+   `_logits_held` or, where that fails, within the prefill's own spread
+   when every embedding weight moves by one bf16 ulp (a random-weight
+   rwkv6 moves its logits by half their range then), and a 32-token
+   prompt on an f32 copy of the weights by `_logits_held`; the states'
+   largest relative gap printed; a traced 16-step window in
+   the dense and int8 modes (step wall, busy, idle share, the small-M
+   GEMMs' ms against their weights' byte bound, the glue kernels' count
+   and ms), decode and prefill tok/s, param and kv bytes, peak memory.
+   13b: rwkv6 pruned at sparsity 0.3 (40 -> 28 heads, d_ff 8960 ->
+   6272): the plan's widths, wkv leaves at 28 heads, kv_bytes exactly the
+   reckoned state, param bytes as the sliced widths predict, graph
+   tokens equal eager tokens. 13c: `train_loop` on rwkv6-3b at full width,
+   batch 4 x 512, 5 steps through every stage under
+   torch.use_deterministic_algorithms (the reckoned peak printed first;
+   past 70 GB the batch would be halved): phase 7's checks, the launches
+   at `predicted_train_launches` (decay_w2's GEMMs on the SIMT variant),
+   two runs of a joint step bitwise equal. 13d: jamba-1.5-large at its
+   published widths (d_model 8192, 64 / 8 heads, d_head 128, mamba
+   d_state 16, d_conv 4, expand 2, dt_rank 512, d_ff 24576, vocab 65536),
+   cut to one period of 8 of 72 layers (1 attention, 7 mamba; 4 MLP, 4
+   MoE) and to 4 of 16 experts (top-2): the dense and int8 engines as in
+   13a (dense also paged; the prefill check in bf16 only), a traced
+   dense window (the glue's ms beside the
+   GEMMs', the library products' ms against their byte bound), then int8
+   pruned at 0.3 (mamba Di 16384 -> 11469) over the contiguous arena. The
+   launch counts are zeroed before 13a and read after 13d, where every
+   kernel of the path must have launched; the GEMM launches are tallied
+   by (variant, epilogue, K, N) for the kernel line.
+14. Two JSON lines: the kernel table, then the device line (last). A
    serving kernel's `launches` are the host counts of phases 5-6 (a
    graph's calls once, at capture), a pruned-shape GEMM row's those of
    phase 8, a verify-height row's those of phase 9 (the captures of its
    draft length's graphs, with `replayed_launches` the replays' kernels),
    the fake-quant rows at phase 11's shapes those of phase 11, the rows
-   at grok-1's shapes those of phase 12 at their shape;
+   at grok-1's shapes those of phase 12 at their shape, the rows at the
+   recurrent shapes those of phase 13 at their shape;
    `traced_device_launches` are its device kernels in their traced
    drains (for a GEMM epilogue the small-M kernels, for decode attention
    the split kernels).
@@ -477,8 +530,10 @@ def phase_build() -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     build.load()
+    jobs = sum(len(build.PARTS.get(s.name, ((),))) for s in build._sources())
     print(f"[2 build] nvcc built {len(build._sources())} kernel sources "
-          f"(sm_90a) in {time.perf_counter() - t0:.2f} s")
+          f"(sm_90a) in {jobs} parallel processes in "
+          f"{time.perf_counter() - t0:.2f} s")
 
 
 def _gemm_cases(torch, K, N, gen):
@@ -533,9 +588,12 @@ def _gemm_row(torch, timer, gc, label, x, w, epi, w_lib, tag="") -> dict:
     del y, again, want
     row["ms"] = timer(call)
     row["plain_ms"] = timer(lambda: gc.plain(x, w, epi, torch.float32))
-    row["library_ms"] = timer(lambda: torch.matmul(x, w_lib))
+    # an f32 x (rwkv6's decay_w2 input) multiplies the decoded weight in f32
+    row["library_ms"] = timer(lambda: torch.matmul(x, w_lib.to(x.dtype)))
     row["bound_ms"], row["bound_by"] = bound_ms(
-        gc.bytes_moved(M, N, K, 2, w, 4, epi), gc.flops(M, N, K))
+        gc.bytes_moved(M, N, K, x.element_size(), w, 4, epi),
+        gc.flops(M, N, K), BF16_FLOP_PER_S if x.dtype == torch.bfloat16
+        else F32_FLOP_PER_S)
     if row["variant"] == "tc":
         row["heights"] = _height_ms(timer, gc, call, M, N)
     _one_kernel(torch, row, call)
@@ -2241,7 +2299,7 @@ COMP5 = dict(target_sparsity=0.3, warmup_steps=1, projection_periods=1,
 COLMASK = ("attn.wq", "attn.wk", "attn.wv", "mlp.w_gate", "mlp.w_up")
 
 
-def predicted_train_launches(lm, qasso, stages) -> dict:
+def predicted_train_launches(lm, qasso, stages, f32_inputs=()) -> dict:
     """Kernel launches of `train_loop` steps in `stages`: per step every
     routed projection (P of them) runs the fake_quant_rhs GEMM forward,
     again in the remat recompute, and for dx; its dwq runs with no
@@ -2249,16 +2307,28 @@ def predicted_train_launches(lm, qasso, stages) -> dict:
     the head, whose forward quantizes once per step; a joint step also
     fake-quantizes each weight site's stacked tensor once (Alg 2 line
     18). No call splits K (M >= 2048), and every GEMM takes the
-    tensor-core variant (bf16 x): `tc` counts them all, `simt` none."""
-    P = lm.n_blocks * sum(n.startswith("blocks.")
-                          for n in lm.quant_weight_names())
+    tensor-core variant (bf16 x): `tc` counts them all, `simt` none; but
+    the projections named by a suffix in `f32_inputs` take an f32 x, so
+    their GEMMs (all four) take the SIMT variant, counted under `simt`,
+    after a copy of each transposed operand (`copies`)."""
+    names = [n for n in lm.quant_weight_names() if n.startswith("blocks.")]
+    P = lm.n_blocks * len(names)
+    F = lm.n_blocks * sum(n.endswith(f32_inputs) for n in names) \
+        if f32_inputs else 0
     passes = 2 + int(lm.cfg.remat)
     n = len(stages)
-    return {"gemm_core.fake_quant_rhs": passes * P * n,
-            "gemm_core.none": P * n, "gemm_core.tc": (passes + 1) * P * n,
-            "fake_quant.bwd": (P + 1) * n,
-            "fake_quant.fwd": n + len(qasso.weight_sites) * sum(
-                s == 2 for s in stages)}
+    out = {"gemm_core.fake_quant_rhs": passes * P * n,
+           "gemm_core.none": P * n,
+           "gemm_core.tc": (passes + 1) * (P - F) * n,
+           "fake_quant.bwd": (P + 1) * n,
+           "fake_quant.fwd": n + len(qasso.weight_sites) * sum(
+               s == 2 for s in stages)}
+    if f32_inputs:
+        # the SIMT variant reads x and w row-major: dx's w.T and dwq's
+        # x.T are copied first
+        out["gemm_core.simt"] = (passes + 1) * F * n
+        out["gemm_core.copies"] = 2 * F * n
+    return out
 
 
 def predicted_colmask_launches(lm) -> dict:
@@ -3014,14 +3084,19 @@ def _expert_ms(torch, events) -> float:
     return _union_ms(lib)
 
 
-def _moe_window_trace(torch, eng, prompts) -> dict:
-    """Admit SLOTS requests of MOE_PROMPT tokens, then one window of
-    MOE_TRACE_STEPS decode steps (a graph replay) under a profiler trace:
-    per step the host wall, the device busy time (union of the kernels'
-    intervals), the idle share and the expert products' device ms."""
+def _moe_window_trace(torch, eng, prompts, prompt=MOE_PROMPT,
+                      steps=MOE_TRACE_STEPS) -> dict:
+    """Admit SLOTS requests of `prompt` tokens, then one window of `steps`
+    decode steps (a graph replay) under a profiler trace: per step the
+    host wall, the device busy time (union of the kernels' intervals), the
+    idle share, the library (cuBLAS) products' device ms (`expert_ms`:
+    the MoE's expert and router products, the dense head), the small-M
+    GEMM kernels' ms and the glue's (every kernel that is neither a GEMM
+    nor decode attention: the recurrent scans, norms, routing) ms and
+    kernel count."""
     from repro_torch.launch.profile_decode import _union_ms
     for p in prompts:
-        eng.submit(p[:MOE_PROMPT], MOE_TRACE_STEPS + 1)
+        eng.submit(p[:prompt], steps + 1)
     eng._admit()
     torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
@@ -3044,35 +3119,62 @@ def _moe_window_trace(torch, eng, prompts) -> dict:
     if fills:
         events = [e for e in events if e.time_range.start >= max(fills)]
     eng.run()
-    steps = MOE_TRACE_STEPS
     busy = _union_ms(events) / steps
+    small = [e for e in events if "gemm_small_m" in e.name]
+    lib_ms = _expert_ms(torch, events)
+    glue = [e for e in events if not any(
+        t in e.name.lower() for t in ("gemm", "xmma", "nvjet", "cutlass",
+                                      "sm90_", "flash_decode"))]
     return {"wall_ms": wall / steps, "busy_ms": busy,
             "idle_share": 1.0 - busy / (wall / steps),
-            "expert_ms": _expert_ms(torch, events) / steps,
+            "expert_ms": lib_ms / steps,
+            "small_m_ms": _union_ms(small) / steps,
+            "glue_ms": _union_ms(glue) / steps,
+            "glue_kernels": len(glue) / steps,
             "kernels_per_step": len(events) / steps}
 
 
-def _moe_serve(torch, lm, p, q, prompts, label, **kw) -> tuple:
-    """One engine at grok-1's widths over phase 5's traffic: warm-up (the
+def _moe_serve(torch, lm, p, q, prompts, label, eager_gen=None,
+               **kw) -> tuple:
+    """One engine at full width over phase 5's traffic: warm-up (the
     window graphs), a graph drain (the measurement), an eager drain of the
-    same requests (bitwise the graph drain's). Returns (engine, tokens,
-    stats, failures)."""
+    same requests (bitwise the graph drain's). With `eager_gen` (phase
+    13), the warm-up runs before the requests are queued (it captures the
+    graphs and prefills nothing: a recurrent prefill has no shape to set
+    up and costs ~0.3 ms a token of host time), and the eager drain
+    serves only the SLOTS requests with the shortest prompts,
+    `eager_gen` tokens each, held to the graph drain's first tokens of
+    those requests (a slot's row computes the same in any batch, which
+    the solo drains of `_solo` check). Returns (engine, tokens, stats,
+    failures)."""
     from repro_torch.launch.engine import Engine
     eng = Engine(lm, p, q, max_slots=SLOTS,
                  max_seq=max(PROMPT_LENS) + GEN, **kw)
+    if eager_gen is not None:
+        eng.warmup()
     for pr in prompts:
         eng.submit(pr, GEN)
-    eng.warmup()
+    if eager_gen is None:
+        eng.warmup()
     captured = _CAPTURES[0]
     out = eng.run()
     st = dict(eng.stats, **eng.throughput(), kv_bytes=eng.kv_bytes(),
               kv_pool_bytes=eng.kv_pool_bytes(),
               param_bytes=eng.param_bytes())
-    for pr in prompts:
-        eng.submit(pr, GEN)
+    if eager_gen is None:
+        for pr in prompts:
+            eng.submit(pr, GEN)
+        want = out
+    else:
+        short = sorted(sorted(range(len(prompts)),
+                              key=lambda i: len(prompts[i]))[:SLOTS])
+        for i in short:
+            eng.submit(prompts[i], eager_gen)
+        order = sorted(out)
+        want = {order[i]: out[order[i]][:eager_gen] for i in short}
     eager = eng._drain(eng.step)
     failures = []
-    st["graph_eq_eager"] = _same(out, eager)
+    st["graph_eq_eager"] = _same(want, eager)
     if not st["graph_eq_eager"]:
         failures.append(f"{label}: graph-window tokens differ from eager "
                         f"steps")
@@ -3442,6 +3544,624 @@ def predicted_moe_grad_launches(lm) -> dict:
             "fake_quant.bwd": P + other, "fake_quant.fwd": other}
 
 
+# ----------------------------------------------------------------- phase 13
+REC_ARCH = "rwkv6-3b"
+HYB_ARCH = "jamba-1.5-large-398b"
+# phase 5's traffic at lengths the recurrent prefill takes: a prompt past
+# one scan chunk (64) must be a multiple of it (phase 5's 96 and 200 are not)
+REC_PROMPT_LENS = [64, 128, 256, 512, 192, 320, 32, 384]
+REC_PROMPT = 64            # 13a/13d's prefill-vs-decode prompt
+REC_TRACE_STEPS = 16       # the traced decode window
+REC_SPARSITY = 0.3         # 13b: 40 -> 28 heads, cm_hidden 8960 -> 6272;
+                           # 13d: mamba Di 16384 -> 11469
+REC_PEAK = 70e9            # 13c's device-memory budget, bytes
+REC_EAGER_GEN = 16         # tokens of the eager drain held to the graph one
+HYB_LAYERS = 8             # 13d's depth cut: one period of 72 layers
+HYB_EXPERTS = 4            # 13d's expert cut: 4 of 16, top-2 kept
+REC_MODES = {"dense": {}, "compressed": dict(compressed=True),
+             "packed_b4": dict(packed=True, bits_init=4.0)}
+# phase 3's rows at the recurrent shapes: (model, M, K, N, epilogues, x
+# dtype, x a strided view). rwkv6 at decode (M = 4): the time-mix square
+# projections and cm_r, cm_k, cm_v, the decay LoRA (decay_w2 takes the
+# f32 tanh of decay_w1's product) and the head (served dense it is
+# prequantized and multiplied by torch.matmul: a GEMM kernel runs it only
+# from codes); cm_k at a 512-token prefill; jamba's in_proj_x / z,
+# x_proj, dt_proj (x the split's strided view, rows 544 apart) and
+# out_proj at decode and prefill
+_EP3 = ("fake_quant_rhs", "dequant", "unpack_dequant_b4")
+_EP2 = ("fake_quant_rhs", "dequant")
+REC_GEMMS = ([("rwkv6", 4, K, N, _EP3, "bf16", False)
+              for K, N in ((2560, 2560), (2560, 8960), (8960, 2560),
+                           (2560, 64))]
+             + [("rwkv6", 4, 64, 2560, _EP3, "f32", False),
+                ("rwkv6", 4, 2560, 65536, _EP3[1:], "bf16", False),
+                ("rwkv6", 512, 2560, 8960, _EP3, "bf16", False)]
+             + [("jamba", M, K, N, _EP2, "bf16", K == 512)
+                for M in (4, 512)
+                for K, N in ((8192, 16384), (16384, 544), (512, 16384),
+                             (16384, 8192))])
+
+
+def _rec_gemm_name(model, M, K, N, label) -> str:
+    return f"{_report_name(label)}.{model}.M{M}.{K}x{N}"
+
+
+def phase_rec_kernels(torch, timer) -> tuple[list, dict, list]:
+    """Phase 3's GEMM rows at the recurrent mixers' shapes (REC_GEMMS),
+    each weight stored as `prepare_serving` stores it."""
+    from repro_torch.kernels import gemm_core as gc
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows, report, failures = [], {}, []
+    for model, M, K, N, epis, xdt, strided in REC_GEMMS:
+        if strided:
+            x = torch.randn((M, 544), generator=gen, device="cuda",
+                            dtype=torch.bfloat16)[:, :K]
+        else:
+            x = torch.randn((M, K), generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            if xdt == "f32":
+                x = torch.tanh(x.float())
+        for label, w, epi, dequantized in _gemm_cases(torch, K, N, gen):
+            if label not in epis:
+                continue
+            row = _gemm_row(torch, timer, gc, label, x, gc.aligned_rows(w),
+                            epi, dequantized(),
+                            tag=f" ({model}, x {xdt}"
+                                f"{', strided' if strided else ''})")
+            rows.append(row)
+            if not row["ok"]:
+                failures.append(row)
+            report[_rec_gemm_name(model, M, K, N, label)] = row
+        del x
+        torch.cuda.empty_cache()
+    return rows, report, failures
+
+
+def rwkv_reckoning(cfg, heads: int | None = None,
+                   cm_hidden: int | None = None) -> dict:
+    """rwkv6's params and bytes from the config alone, at `heads` time-mix
+    heads and `cm_hidden` channel-mix units (the config's by default): bf16
+    weights and mixes, f32 decay offsets, bonus, ln_x and norms; the
+    decode state a slot holds (WKV f32, two f32 token shifts a layer)."""
+    D, V, L, R = cfg.d_model, cfg.vocab_padded, cfg.n_layers, \
+        cfg.rwkv.decay_lora
+    dh = cfg.rwkv.head_size
+    H = heads or D // dh
+    F = cm_hidden or cfg.d_ff
+    Dh = H * dh
+    bf16 = 7 * D + 4 * D * Dh + Dh * D + D * R + R * Dh + 2 * D * F + D * D
+    f32 = 4 * Dh + 2 * D
+    return {"layer": bf16 + f32, "params": L * (bf16 + f32) + 2 * V * D + D,
+            "param_bytes": 2 * (L * bf16 + 2 * V * D) + 4 * (L * f32 + D),
+            "embed": V * D, "heads": H, "cm_hidden": F,
+            "state_bytes_per_slot": L * (4 * H * dh * dh + 2 * 4 * D)}
+
+
+def _hyb_cfg(layers: int = HYB_LAYERS, experts: int = HYB_EXPERTS):
+    from repro_torch.configs import get_arch
+    cfg = get_arch(HYB_ARCH)
+    return dataclasses.replace(cfg, n_layers=layers, moe=dataclasses.replace(
+        cfg.moe, n_experts=experts))
+
+
+def hybrid_reckoning(cfg) -> dict:
+    """jamba's params and bytes from the config alone (bf16 weights, f32
+    A_log, D and norms) over its layer plan; the engine's fake-quanted
+    copy of the expert stacks and the head; mamba state a layer a slot."""
+    from repro_torch.models.transformer import layer_plan
+    D, V, F, E = cfg.d_model, cfg.vocab_padded, cfg.d_ff, cfg.moe.n_experts
+    mc = cfg.mamba
+    Di, N, K = mc.expand * D, mc.d_state, mc.d_conv
+    dtr = mc.dt_rank or D // 16
+    plan, nb = layer_plan(cfg)
+    attn = 2 * D * cfg.q_dim + 2 * D * cfg.kv_dim
+    mamba = 2 * D * Di + K * Di + Di * (dtr + 2 * N) + dtr * Di + Di \
+        + Di * D
+    mamba_f32 = Di * N + Di
+    experts = 3 * E * D * F + D * E
+    mlp = 3 * D * F
+    bf16 = f32 = 0
+    for sub in plan:
+        bf16 += attn if sub.mixer == "attn" else mamba
+        f32 += (0 if sub.mixer == "attn" else mamba_f32) + 2 * D
+        bf16 += experts if sub.ffn == "moe" else mlp
+    bf16, f32 = nb * bf16 + 2 * V * D, nb * f32 + D
+    n_moe = nb * sum(s.ffn == "moe" for s in plan)
+    n_mamba = nb * sum(s.mixer == "mamba" for s in plan)
+    n_attn = nb * sum(s.mixer == "attn" for s in plan)
+    return {"params": bf16 + f32, "param_bytes": 2 * bf16 + 4 * f32,
+            "expert_bytes": 2 * n_moe * 3 * E * D * F,
+            "fq_copy_bytes": 2 * (n_moe * experts + V * D),
+            "mamba_layers": n_mamba, "attn_layers": n_attn,
+            "mamba_state_per_layer_slot": 4 * Di * N + 2 * (K - 1) * Di}
+
+
+def _prefill_and_steps(torch, lm, params, qparams, toks, dtype):
+    """(prefill's last logits, its cache, the last of as many eager decode
+    steps' logits, their cache), both from empty rows in `dtype`."""
+    with torch.no_grad():
+        pre = lm.init_cache(1, toks.shape[1], dtype=dtype, device="cuda")
+        want, _ = lm.prefill(params, qparams, pre, toks,
+                             last_logit_only=True)
+        seq = lm.init_cache(1, toks.shape[1], dtype=dtype, device="cuda")
+        for i in range(toks.shape[1]):
+            got, _ = lm.decode_step(params, qparams, seq, toks[:, i:i + 1],
+                                    i)
+    return want[0, -1].float(), pre, got[0, -1].float(), seq
+
+
+def _state_gap(pre: dict, seq: dict) -> float:
+    """The recurrent state leaves' largest gap relative to their max."""
+    return max(((seq[k].float() - pre[k].float()).abs().max()
+                / pre[k].float().abs().max().clamp_min(1e-30)).item()
+               for k in pre if not (k.endswith(".k") or k.endswith(".v")))
+
+
+def _rec_prefill_vs_decode(torch, eng, prompt, f32=None
+                           ) -> tuple[bool, str]:
+    """The one-shot prefill of one prompt against as many eager decode
+    steps from an empty row, in bf16: the last logits by `_logits_held`,
+    or, where that fails, within the prefill's own spread when every
+    embedding weight moves by one bf16 ulp (a random-weight rwkv6 is that
+    sensitive: see PERF.md). `f32`, a second (shorter) prompt, is held the
+    same way on an f32 copy of the served weights, where `_logits_held`
+    must hold. The state leaves' largest relative gap is printed."""
+    lm, p, q = eng.lm, eng._run_params, eng._run_qparams
+    toks = torch.as_tensor(prompt[None], dtype=torch.int64, device="cuda")
+    want, pre, got, seq = _prefill_and_steps(torch, lm, p, q, toks,
+                                             torch.bfloat16)
+    ok, line = _logits_held(torch, got[None], want[None])
+    gap = _state_gap(pre, seq)
+    del pre, seq
+    e = p["embed"].cpu()
+    up = torch.rand(e.shape, generator=torch.Generator().manual_seed(23)) \
+        < 0.5
+    moved = torch.nextafter(e, torch.where(up, torch.inf, -torch.inf).to(
+        e.dtype)).to("cuda")
+    with torch.no_grad():
+        wit, _ = lm.prefill(dict(p, embed=moved), q,
+                            lm.init_cache(1, toks.shape[1],
+                                          dtype=torch.bfloat16,
+                                          device="cuda"),
+                            toks, last_logit_only=True)
+    del moved, up
+    diff = (got - want).abs().max().item()
+    spread = (wit[0, -1].float() - want).abs().max().item()
+    held = ok or diff <= spread
+    line += (f"; states' largest relative gap {gap:.2e}; the prefill's own "
+             f"spread under one ulp on every embedding weight {spread:.4f} "
+             f"({spread / max(want.abs().max().item(), 1e-30):.2e}): "
+             f"{'held' if held else 'NOT held'}")
+    if f32 is not None:
+        p32 = {k: v.float() if v.is_floating_point() else v
+               for k, v in p.items()}
+        t32 = torch.as_tensor(f32[None], dtype=torch.int64, device="cuda")
+        want, pre, got, seq = _prefill_and_steps(torch, lm, p32, q, t32,
+                                                 torch.float32)
+        ok32, l32 = _logits_held(torch, got[None], want[None])
+        line += (f"; f32 copy of the weights, a {t32.shape[1]}-token "
+                 f"prompt: {l32}, states' largest relative gap "
+                 f"{_state_gap(pre, seq):.2e}")
+        held = held and ok32
+        del p32, pre, seq
+    return held, line
+
+
+def _solo(eng, out: dict, prompts, which) -> bool:
+    """Requests `which` (indices into `prompts`, each admitted into a slot
+    that served another request first) drained again alone: their tokens
+    equal those of the batch drain `out`."""
+    got = {}
+    for i in which:
+        eng.submit(prompts[i], GEN)
+        got[i] = next(iter(eng.run().values()))
+    order = sorted(out)
+    return all(np.array_equal(got[i], out[order[i]]) for i in which)
+
+
+def _routed_gemm_bytes(lm, params: dict) -> int:
+    """Bytes of the served weights the small-M GEMMs read each decode
+    step: every routed block projection's weight, codes or packed words,
+    and the head when it is served from codes (dense, the head is a
+    library product)."""
+    from repro_torch.core.subnet import _routed
+    from repro_torch.models.layers import PACKED_PARAM_BITS
+    total = 0
+    for name in lm.quant_weight_names():
+        if not _routed(name):
+            continue
+        for key in ([name] if name.startswith("blocks.") else []) + [
+                name + ".codes"] + [f"{name}.packed{b}"
+                                    for b in PACKED_PARAM_BITS]:
+            if key in params:
+                total += params[key].numel() * params[key].element_size()
+    return total
+
+
+def _rec_engines(torch, lm, params, prompts, label, modes, failures,
+                 info, trace_modes=(), f32_check=False):
+    """Serve `prompts` from `lm` in each weight mode of `modes` over the
+    contiguous arena, and the dense mode also over the paged one (without
+    prefix sharing), each through graph windows then eager steps
+    (`_moe_serve`: tokens bitwise equal, the eager drain REC_EAGER_GEN
+    tokens of SLOTS requests); paged tokens equal contiguous tokens; in
+    the dense contiguous engine, requests 4 and 7 (admitted into slots
+    that served others) equal their solo drains, and its prefill against
+    sequential decode (`f32_check`: also a 32-token prompt on an f32
+    copy); a traced window per mode of `trace_modes`. Returns per-mode
+    contiguous stats."""
+    from repro_torch.core.subnet import prepare_serving
+    stats = {}
+    for mode in modes:
+        p, q, meta = prepare_serving(lm, params, **REC_MODES[mode])
+        toks = None
+        for arena in ("contiguous", "paged") if mode == "dense" \
+                else ("contiguous",):
+            tag = f"{label} {mode}/{arena}"
+            kw = (dict(paged=True, page_size=PAGE, prefix_sharing=False)
+                  if arena == "paged" else {})
+            t0 = time.perf_counter()
+            eng, out, st, fails = _moe_serve(torch, lm, p, q, prompts, tag,
+                                             eager_gen=REC_EAGER_GEN, **kw)
+            failures += fails
+            extra = ""
+            if mode == "dense" and arena == "contiguous":
+                solo = _solo(eng, out, prompts, (4, 7))
+                extra += (f"; re-admitted requests 4, 7 "
+                          f"{'equal' if solo else 'DIFFER FROM'} their solo "
+                          f"drains")
+                if not solo:
+                    failures.append(f"{tag}: a re-admitted slot's tokens "
+                                    f"differ from its solo drain")
+            if arena == "contiguous":
+                toks = out
+                st["routed_gemm_bytes"] = _routed_gemm_bytes(lm, p)
+                stats[mode] = st
+                if mode in trace_modes:
+                    tr = _moe_window_trace(torch, eng, prompts[:SLOTS],
+                                           REC_PROMPT, REC_TRACE_STEPS)
+                    st["trace"] = tr
+                    gb = st["routed_gemm_bytes"]
+                    tr["small_m_bound_ms"] = 1e3 * gb / HBM_BYTES_PER_S
+                    extra += (
+                        f"; a traced {REC_TRACE_STEPS}-step window: step "
+                        f"wall {tr['wall_ms']:.3f} ms, busy "
+                        f"{tr['busy_ms']:.3f} ms, idle share "
+                        f"{tr['idle_share']:.3f}, {tr['kernels_per_step']:.0f}"
+                        f" kernels a step; small-M GEMMs "
+                        f"{tr['small_m_ms']:.3f} ms a step against their "
+                        f"weights' byte bound {tr['small_m_bound_ms']:.3f} "
+                        f"ms ({gb / 1e9:.2f} GB at 3.35 TB/s); library "
+                        f"products {tr['expert_ms']:.3f} ms; glue "
+                        f"{tr['glue_kernels']:.0f} kernels "
+                        f"{tr['glue_ms']:.3f} ms a step")
+                if mode == "dense":
+                    ok, line = _rec_prefill_vs_decode(
+                        torch, eng, prompts[REC_PROMPT_LENS.index(
+                            REC_PROMPT)],
+                        f32=prompts[REC_PROMPT_LENS.index(32)]
+                        if f32_check else None)
+                    extra += (f"; {REC_PROMPT}-token prefill vs "
+                              f"{REC_PROMPT} eager decode steps: {line}")
+                    if not ok:
+                        failures.append(f"{tag}: prefill vs decode: {line}")
+            else:
+                same = _same(out, toks)
+                extra += (f"; tokens {'equal' if same else 'DIFFER FROM'} "
+                          f"the contiguous arena's")
+                if not same:
+                    failures.append(f"{tag}: paged tokens differ from "
+                                    f"contiguous tokens")
+            print(f"[13 recurrent] {tag}: decode "
+                  f"{st['decode_tok_per_s']:.1f} tok/s "
+                  f"({st['decode_tokens']} tokens, {st['decode_steps']} "
+                  f"steps in {st['decode_s']:.3f} s), prefill "
+                  f"{st['prefill_tok_per_s']:.1f} tok/s "
+                  f"({st['prefill_tokens']} tokens in "
+                  f"{st['prefill_s']:.3f} s), param_bytes "
+                  f"{st['param_bytes']}, kv_bytes {st['kv_bytes']}, graphs "
+                  f"{sorted(eng.graphs)} in {st['capture_s']:.2f} s, graph "
+                  f"tokens {'==' if st['graph_eq_eager'] else '!='} eager "
+                  f"step tokens, peak "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB, wall "
+                  f"{time.perf_counter() - t0:.1f} s{extra}")
+            del eng
+            torch.cuda.empty_cache()
+        del p, q
+        torch.cuda.empty_cache()
+    info[label] = {m: {k: v for k, v in st.items()
+                       if isinstance(v, (int, float, dict))}
+                   for m, st in stats.items()}
+    return stats
+
+
+def _rec_train(torch, failures) -> dict:
+    """13c: `train_loop` on rwkv6-3b at full width, 5 steps through every
+    stage under torch.use_deterministic_algorithms, then two runs of a
+    joint step from one state (bitwise)."""
+    from repro_torch.configs import CompressionConfig, get_arch
+    from repro_torch.core.quant import bit_width
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as T
+    from repro_torch.models.transformer import LM
+
+    def check(ok, what):
+        if not ok:
+            failures.append(f"13c {what}")
+        return "ok" if ok else "FAIL"
+
+    cfg = get_arch(REC_ARCH)
+    rk = rwkv_reckoning(cfg)
+    batch, seq = TRAIN_BATCH, TRAIN_SEQ
+    n = rk["params"]
+    # params and gradients in bf16 (f32 leaves 4 bytes), AdamW's two f32
+    # moments, the update's f32 temporaries (a step and a new value per
+    # leaf), and one layer's recompute with its WKV chunk (states and
+    # k v^T terms of 64 tokens, f32) and the f32 logits
+    act = (batch * seq * cfg.d_model * 2 * cfg.n_layers
+           + 3 * 64 * batch * cfg.d_model * cfg.rwkv.head_size * 4
+           + 3 * batch * seq * cfg.vocab_padded * 4)
+    reckoned = 2 * rk["param_bytes"] + 16 * n + act
+    cut = ""
+    if reckoned > REC_PEAK:
+        batch //= 2
+        cut = f" (reckoned peak past {REC_PEAK / 1e9:.0f} GB: batch halved)"
+    print(f"[13c rwkv6 train] reckoned peak {reckoned / 1e9:.1f} GB: params "
+          f"{rk['param_bytes'] / 1e9:.2f} GB, gradients as much, AdamW "
+          f"moments {8 * n / 1e9:.1f} GB, the update's f32 temporaries as "
+          f"much, activations and one layer's recompute "
+          f"{act / 1e9:.1f} GB; batch {batch} x {seq}{cut}")
+    torch.use_deterministic_algorithms(True)
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.launch_counts()
+    hist = []
+    t0 = time.perf_counter()
+    state, qadg, qasso, losses = T.train_loop(
+        REC_ARCH, False, 5, batch, seq, seed=0,
+        comp=CompressionConfig(**COMP5), verbose=False, device="cuda",
+        history=hist)
+    wall = time.perf_counter() - t0
+    counts = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    peak = torch.cuda.max_memory_allocated()
+    lm = LM(cfg)
+    tokens = batch * seq
+    for i, h in enumerate(hist):
+        print(f"[13c rwkv6 train] step {i} stage {h['stage']} loss "
+              f"{h['loss']:.4f} bits [{h['bits_min']:.2f}, "
+              f"{h['bits_max']:.2f}] sparsity {h['sparsity_hard']:.4f} wall "
+              f"{h['wall_s']:.3f} s {tokens / h['wall_s']:.1f} tok/s")
+    stages = [h["stage"] for h in hist]
+    keep = state["qstate"].keep_mask
+    n_pruned = sum(int(torch.sum(v < 0.5)) for v in keep.values())
+    b_l, b_u = qasso.cfg.bit_lower, qasso.cfg.bit_upper_final
+    bits = [float(bit_width(q.d, q.q_m, q.t))
+            for q in state["qparams"].values()]
+    elem_keep = qasso._keep_elem_tree(state["params"], keep)
+    nonzero = sum(int(torch.count_nonzero(
+        p * (1.0 - elem_keep[k]).to(p.dtype)))
+        for k, p in state["params"].items())
+    print(f"[13c rwkv6 train] {REC_ARCH} full width bf16 ({cfg.n_layers} "
+          f"layers, {n / 1e9:.2f}e9 params), batch {batch}x{seq}, 5 steps in "
+          f"{wall:.2f} s, stages {stages} "
+          f"{check(stages == [0, 1, 2, 2, 3], 'stage order')}, losses "
+          f"finite {check(all(math.isfinite(x) for x in losses), 'loss')}, "
+          f"pruned units {n_pruned} of {qasso.total_units} (k_units "
+          f"{qasso.k_units}) {check(n_pruned == qasso.k_units, 'sparsity')}"
+          f", nonzero pruned elements {nonzero} "
+          f"{check(nonzero == 0, 'pruned units zero')}, bits "
+          f"[{min(bits):.3f}, {max(bits):.3f}] in [{b_l}, {b_u}] "
+          f"{check(b_l - 1e-3 <= min(bits) and max(bits) <= b_u + 1e-3, 'bits')}"
+          f", peak memory {peak / 1e9:.1f} GB (reckoned "
+          f"{reckoned / 1e9:.1f}) {check(peak <= REC_PEAK, 'peak memory')}")
+    want = predicted_train_launches(lm, qasso, stages,
+                                    f32_inputs=("rwkv.decay_w2",))
+    got = {k: counts[k] for k in want}
+    others = {k: v for k, v in counts.items() if v and k not in want}
+    print(f"[13c rwkv6 train] launches {got} predicted {want} "
+          f"{check(got == want and not others, 'train launch counts')}"
+          + (f" unexpected {others}" if others else "")
+          + " (decay_w2 takes the f32 tanh of the LoRA's first product: "
+            "its GEMMs on the SIMT variant, every other on tensor cores)")
+    del state, elem_keep
+    torch.cuda.empty_cache()
+    runs = []
+    for _ in range(2):
+        lm2, p, q, _, qa, s = T.init_geta(REC_ARCH, False, seed=0,
+                                          device="cuda", comp=T.JOINT_STEP0)
+        b = T.batch_for(lm2.cfg, 0, 0, batch, seq, device="cuda")
+        p, q, s, m = T.make_geta_train_step(lm2, qa)(p, q, s, b)
+        runs.append((p, q, s.redundant, s.keep_mask, m["loss"]))
+        del s, b
+        torch.cuda.empty_cache()
+    (p0, q0, r0, k0, l0), (p1, q1, r1, k1, l1) = runs
+    same = (all(_bitwise(torch, p0[k], p1[k]) for k in p0)
+            and all(_bitwise(torch, getattr(q0[k], f), getattr(q1[k], f))
+                    for k in q0 for f in ("d", "q_m", "t"))
+            and all(_bitwise(torch, r0[k], r1[k])
+                    and _bitwise(torch, k0[k], k1[k]) for k in r0)
+            and _bitwise(torch, l0, l1))
+    print(f"[13c rwkv6 train] two runs of a joint step 0 from one state: "
+          f"params, quantizers, masks and loss "
+          f"{'bitwise equal' if same else 'DIFFER'} "
+          f"{check(same, 'train step reproducible')}")
+    del runs, p0, p1, q0, q1
+    torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
+    return {"wall_s": wall, "steps": [h["wall_s"] for h in hist],
+            "tok_per_s": [tokens / h["wall_s"] for h in hist],
+            "peak_bytes": peak, "reckoned_peak_bytes": reckoned,
+            "batch": batch, "launches": got}
+
+
+def phase_recurrent(torch) -> tuple[dict, dict, list[str], dict]:
+    """Phase 13 (see the module docstring). Returns the launch counts of
+    13a-d (zeroed before, read after), the GEMM launches by (variant,
+    epilogue, K, N), the failures and the stats printed."""
+    from collections import Counter
+    from repro_torch.configs import get_arch
+    from repro_torch.core.subnet import prepare_serving, tree_bytes
+    from repro_torch.kernels import gemm_core as gc
+    from repro_torch.kernels import ops
+    from repro_torch.launch.engine import synthetic_prompts
+    from repro_torch.models.transformer import LM
+    t_start = time.perf_counter()
+    failures, info = [], {}
+    cfg = get_arch(REC_ARCH)
+    rk = rwkv_reckoning(cfg)
+    print(f"[13 recurrent] {REC_ARCH} whole (d_model {cfg.d_model}, "
+          f"{cfg.n_layers} layers, {rk['heads']} heads of "
+          f"{cfg.rwkv.head_size}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, decay "
+          f"LoRA {cfg.rwkv.decay_lora}, bf16, no cut); reckoned: "
+          f"{rk['layer'] / 1e6:.2f}M params a layer, embed and head 2 x "
+          f"{rk['embed'] / 1e6:.1f}M, {rk['params'] / 1e9:.3f}e9 params "
+          f"({rk['param_bytes'] / 1e9:.2f} GB), decode state "
+          f"{rk['state_bytes_per_slot'] / 1e6:.2f} MB a slot at any length")
+    prompts = synthetic_prompts(cfg, REC_PROMPT_LENS, seed=0)
+    ops.reset_launch_counts()
+    tally = Counter()
+    real = _gemm_shape_tally(gc, tally)
+    try:
+        # ---- 13a: rwkv6-3b whole, every weight mode over both arenas
+        torch.cuda.reset_peak_memory_stats()
+        lm = LM(cfg)
+        params = lm.init(torch.Generator(device="cuda").manual_seed(0))
+        measured = tree_bytes(params)
+        if measured != rk["param_bytes"]:
+            failures.append(f"rwkv6 param bytes {measured} != reckoned "
+                            f"{rk['param_bytes']}")
+        _rec_engines(torch, lm, params, prompts, "13a rwkv6",
+                     ("dense", "compressed", "packed_b4"), failures, info,
+                     trace_modes=("dense", "compressed"), f32_check=True)
+
+        # ---- 13b: pruned at sparsity 0.3
+        slim = LM(cfg)
+        p, q, meta = prepare_serving(slim, params,
+                                     prune_sparsity=REC_SPARSITY)
+        shp = slim.shapes[0]
+        want = rwkv_reckoning(cfg, shp.rwkv_heads, shp.cm_hidden)
+        eng, out, st, fails = _moe_serve(torch, slim, p, q, prompts,
+                                         "13b rwkv6 pruned",
+                                         eager_gen=REC_EAGER_GEN)
+        failures += fails
+        kv_want = SLOTS * want["state_bytes_per_slot"]
+        wkv = tuple(eng.caches["blocks.0.wkv"].shape)
+        ok = (shp.rwkv_heads == 28 and shp.cm_hidden == 6272
+              and wkv[2] == 28 and st["kv_bytes"] == kv_want
+              and meta["param_bytes"] == want["param_bytes"])
+        if not ok:
+            failures.append(f"13b pruned: heads {shp.rwkv_heads}, cm_hidden "
+                            f"{shp.cm_hidden}, wkv {wkv}, kv "
+                            f"{st['kv_bytes']} (want {kv_want}), params "
+                            f"{meta['param_bytes']} (want "
+                            f"{want['param_bytes']})")
+        print(f"[13b rwkv6 pruned] sparsity {REC_SPARSITY}: realized "
+              f"{meta['sparsity']:.3f}, heads {rk['heads']} -> "
+              f"{shp.rwkv_heads}, cm_hidden {cfg.d_ff} -> {shp.cm_hidden}; "
+              f"wkv leaves {wkv}; kv_bytes {st['kv_bytes']} (reckoned "
+              f"{kv_want}); param_bytes {meta['param_bytes']} (the sliced "
+              f"widths predict {want['param_bytes']}; unpruned "
+              f"{rk['param_bytes']}); decode "
+              f"{st['decode_tok_per_s']:.1f} tok/s, prefill "
+              f"{st['prefill_tok_per_s']:.1f} tok/s; graph tokens "
+              f"{'==' if st['graph_eq_eager'] else '!='} eager step tokens "
+              f"{'ok' if ok and not fails else 'FAIL'}")
+        info["13b"] = {"kv_bytes": st["kv_bytes"],
+                       "param_bytes": meta["param_bytes"],
+                       "decode_tok_per_s": st["decode_tok_per_s"]}
+        del eng, p, q, slim, params, lm
+        torch.cuda.empty_cache()
+
+        # ---- 13c: GETA training at full width
+        info["13c"] = _rec_train(torch, failures)
+        torch.cuda.empty_cache()
+
+        # ---- 13d: jamba at its published widths, one period, 4 experts
+        hcfg = _hyb_cfg()
+        hk = hybrid_reckoning(hcfg)
+        resident = hk["param_bytes"] + hk["fq_copy_bytes"]
+        full = get_arch(HYB_ARCH)
+        print(f"[13d jamba] {HYB_ARCH} at its published widths (d_model "
+              f"{hcfg.d_model}, {hcfg.n_heads} heads / {hcfg.n_kv_heads} KV, "
+              f"d_head {hcfg.d_head}, mamba d_state {hcfg.mamba.d_state} "
+              f"d_conv {hcfg.mamba.d_conv} expand {hcfg.mamba.expand} "
+              f"dt_rank {hcfg.mamba.dt_rank}, d_ff {hcfg.d_ff}, vocab "
+              f"{hcfg.vocab}, bf16); cuts: depth {full.n_layers} -> "
+              f"{HYB_LAYERS} layers (one period: {hk['attn_layers']} "
+              f"attention, {hk['mamba_layers']} mamba; 4 MLP, 4 MoE), "
+              f"experts {full.moe.n_experts} -> {HYB_EXPERTS} (top-"
+              f"{hcfg.moe.top_k} kept); reckoned {hk['params'] / 1e9:.2f}e9 "
+              f"params ({hk['param_bytes'] / 1e9:.1f} GB), the engine's "
+              f"fake-quanted experts and head "
+              f"{hk['fq_copy_bytes'] / 1e9:.1f} GB, resident "
+              f"{resident / 1e9:.1f} GB, mamba state "
+              f"{hk['mamba_state_per_layer_slot'] / 1e6:.2f} MB a layer a "
+              f"slot")
+        hprompts = synthetic_prompts(hcfg, REC_PROMPT_LENS, seed=0)
+        torch.cuda.reset_peak_memory_stats()
+        hlm = LM(hcfg)
+        hparams = hlm.init(torch.Generator(device="cuda").manual_seed(0))
+        measured = tree_bytes(hparams)
+        if measured != hk["param_bytes"]:
+            failures.append(f"jamba param bytes {measured} != reckoned "
+                            f"{hk['param_bytes']}")
+        hst = _rec_engines(torch, hlm, hparams, hprompts, "13d jamba",
+                           ("dense", "compressed"), failures, info,
+                           trace_modes=("dense",))
+        tr = hst["dense"].get("trace")
+        if tr is not None:
+            lib = hk["expert_bytes"] + 2 * hcfg.vocab_padded * hcfg.d_model
+            print(f"[13d jamba] dense traced window: mamba and the rest of "
+                  f"the glue {tr['glue_ms']:.3f} ms a step "
+                  f"({tr['glue_kernels']:.0f} kernels) beside the small-M "
+                  f"GEMMs' {tr['small_m_ms']:.3f} ms (bound "
+                  f"{tr['small_m_bound_ms']:.3f} ms); library products "
+                  f"(experts, router, head) {tr['expert_ms']:.3f} ms a step "
+                  f"against their byte bound "
+                  f"{1e3 * lib / HBM_BYTES_PER_S:.3f} ms ({lib / 1e9:.1f} GB "
+                  f"at 3.35 TB/s)")
+        # int8 pruned at 0.3 over the contiguous arena: the full params go
+        # once the sliced ones exist
+        slim = LM(hcfg)
+        p, q, meta = prepare_serving(slim, hparams, compressed=True,
+                                     prune_sparsity=REC_SPARSITY)
+        del hparams
+        torch.cuda.empty_cache()
+        shp = slim.shapes[1]
+        eng, out, st, fails = _moe_serve(torch, slim, p, q, hprompts,
+                                         "13d jamba pruned",
+                                         eager_gen=REC_EAGER_GEN)
+        failures += fails
+        ok = shp.mamba_inner == 11469 and not fails
+        if shp.mamba_inner != 11469:
+            failures.append(f"13d pruned: mamba Di {shp.mamba_inner}")
+        print(f"[13d jamba pruned] int8 at sparsity {REC_SPARSITY}: realized "
+              f"{meta['sparsity']:.3f}, mamba Di {hcfg.mamba.expand * hcfg.d_model}"
+              f" -> {shp.mamba_inner}, experts {HYB_EXPERTS} -> "
+              f"{shp.n_experts}, KV heads {hcfg.n_kv_heads} -> "
+              f"{slim.shapes[0].n_kv_heads}; param_bytes "
+              f"{meta['param_bytes']}, kv_bytes {st['kv_bytes']}; decode "
+              f"{st['decode_tok_per_s']:.1f} tok/s; graph tokens "
+              f"{'==' if st['graph_eq_eager'] else '!='} eager step tokens, "
+              f"peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB "
+              f"{'ok' if ok else 'FAIL'}")
+        del eng, p, q, slim, hlm
+        torch.cuda.empty_cache()
+    finally:
+        gc.gemm = real
+    counts = ops.launch_counts()
+    need = ("gemm_core.fake_quant_rhs", "gemm_core.dequant",
+            "gemm_core.unpack_dequant", "gemm_core.none", "gemm_core.small_m",
+            "gemm_core.tc", "gemm_core.simt", "decode_attn",
+            "paged_decode_attn.bf16", "fake_quant.fwd", "fake_quant.bwd")
+    idle = [k for k in need if not counts.get(k)]
+    if idle:
+        failures.append(f"phase 13 never launched {idle}")
+    print(f"[13 recurrent] launches {_nonzero(counts)}; every kernel of the "
+          f"path launched {'ok' if not idle else 'FAIL: ' + str(idle)}; the "
+          f"phase took {time.perf_counter() - t_start:.1f} s")
+    return counts, dict(tally), failures, info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -3480,6 +4200,9 @@ def main(argv=None) -> int:
     moe_rows, moe_report, moe_kfail = phase_moe_kernels(torch, timer)
     rows += moe_rows
     failures += moe_kfail
+    rec_rows, rec_report, rec_kfail = phase_rec_kernels(torch, timer)
+    rows += rec_rows
+    failures += rec_kfail
     del timer
     torch.cuda.empty_cache()
     failures = [f"{r['kernel']} {r}" for r in failures]
@@ -3518,6 +4241,10 @@ def main(argv=None) -> int:
     moe_counts, moe_gemms, moe_fail, moe_info = phase_moe(torch)
     failures += moe_fail
     lap("12 moe")
+    torch.cuda.empty_cache()
+    rec_counts, rec_gemms, rec_fail, rec_info = phase_recurrent(torch)
+    failures += rec_fail
+    lap("13 recurrent")
 
     if args.out:
         out = Path(args.out)
@@ -3541,6 +4268,10 @@ def main(argv=None) -> int:
              "moe": {k: v for k, v in moe_info.items() if k != "fq_shapes"},
              "moe_fq_launches": {f"{d} {'x'.join(map(str, s))}": n for
                                  (d, s), n in moe_info["fq_shapes"].items()},
+             "recurrent_launches": rec_counts,
+             "recurrent_gemm_launches": {"/".join(map(str, k)): v
+                                         for k, v in rec_gemms.items()},
+             "recurrent": rec_info,
              "trace_takes": _TRACE_TAKES,
              "spec_engines": {f"{t}/{d}": {
                  k: v for k, v in st.items()
@@ -3745,6 +4476,31 @@ def main(argv=None) -> int:
                 "shape": f"{label} {'x'.join(map(str, shape))} bf16 t=1 "
                          f"({row['numel']} elements)",
                 "kernels_per_launch": row["kernels_per_call"]})
+    # the recurrent mixers' shapes (phase 3's rows), with phase 13's
+    # launches at each row's (variant, epilogue, K, N): the host counts of
+    # 13a-d (a graph's calls once, at capture)
+    for model, M, K, N, epis, xdt, strided in REC_GEMMS:
+        for label in epis:
+            name = _rec_gemm_name(model, M, K, N, label)
+            row = rec_report[name]
+            epi = _report_name(label).split(".")[1]
+            var = gc.variant(M, torch.bfloat16 if xdt == "bf16"
+                             else torch.float32)
+            kernels.append({
+                "name": name, "route": "cuda", "source": gemm[0],
+                "replaces": gemm[1],
+                "launches": rec_gemms.get((var, epi, K, N), 0),
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "shape": f"M={M} K={K} N={N} x {xdt}"
+                         + (" (a strided view, rows 544 apart)" if strided
+                            else "")
+                         + (" bits=4" if "unpack" in label else "")
+                         + f" ({REC_ARCH if model == 'rwkv6' else HYB_ARCH})",
+                "variant": row["variant"],
+                **({"block_height_ms": row["heights"]} if "heights" in row
+                   else {"kernels_per_launch": row.get("kernels_per_call")})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -22,7 +22,10 @@ pass; the report adds the acceptance rate. `--chunked-prefill C`
 prefills each prompt C rows at a time between decode steps; the report
 adds the chunks and the decode steps that ran mid-prefill. The modes the
 port does not have yet (`--tp`, `--devices`) raise NotImplementedError
-naming the ROADMAP item that brings them.
+naming the ROADMAP item that brings them. `--arch rwkv6-3b` and `--arch
+jamba-1.5-large-398b` serve the recurrent mixers; their paged arena runs
+without prefix sharing (a prefix hit would skip the prefill that sets a
+slot's recurrent state), which the example turns off and prints.
 
 Runs on CUDA by default; `--device cpu` runs the kernels' plain PyTorch
 versions and decodes its windows eagerly:
@@ -45,8 +48,10 @@ versions and decodes its windows eagerly:
 """
 import argparse
 
+from repro_torch.configs import get_arch
 from repro_torch.launch.engine import build_engine, synthetic_prompts
 from repro_torch.models.layers import not_in_this_slice
+from repro_torch.models.transformer import layer_plan, recurrent_mixers
 
 
 def main(argv=None):
@@ -120,6 +125,11 @@ def main(argv=None):
     if len(gens) != len(lens):
         raise SystemExit("--gens must match --prompt-lens")
 
+    recurrent = recurrent_mixers(layer_plan(get_arch(args.arch,
+                                                     smoke=True))[0])
+    if args.paged and recurrent:
+        print(f"{args.arch}: paged arena without prefix sharing ({recurrent} "
+              f"mixers keep a per-slot state only a prefill sets)")
     eng, lm = build_engine(args.arch, smoke=True, quantized=args.quant,
                            compressed=args.compressed, packed=args.packed,
                            bits_init=args.bits, max_slots=args.slots,
@@ -132,7 +142,8 @@ def main(argv=None):
                            draft_k=args.draft_k,
                            draft_sparsity=args.draft_sparsity,
                            draft_bits=args.draft_bits, tp=args.tp,
-                           prefill_chunk=args.chunked_prefill)
+                           prefill_chunk=args.chunked_prefill,
+                           prefix_sharing=not (args.paged and recurrent))
     prompts = synthetic_prompts(lm.cfg, lens)
     if args.hot_prompt:
         prompts = [prompts[0][:n].copy() for n in lens]

@@ -40,7 +40,7 @@ from repro_torch.core.quant import (QuantParams, bit_width, pack_codes,
                                     packed_storage_bits, quantize_int)
 from repro_torch.kernels.gemm_core import aligned_rows
 from repro_torch.models.layers import (PACKED_PARAM_BITS, ROUTED_COMPONENTS,
-                                       LayerShapes, not_in_this_slice)
+                                       LayerShapes)
 
 
 def tree_bytes(tree: dict) -> int:
@@ -150,11 +150,11 @@ def derive_slim_plan(lm, params: dict, kept_units: dict[str, np.ndarray],
                      sparsity: float = 0.0) -> SlimPlan:
     """The per-sublayer execution shapes of a sliced LM. The sliced
     tensors (`PruningSpace.materialize` output) set each width (surviving
-    KV-head groups x gqa_group heads, MLP hidden units, experts),
+    KV-head groups x gqa_group heads, MLP hidden units, experts, mamba
+    inner channels, rwkv6 heads and channel-mix hidden units),
     cross-checked against `kept_units` wherever a family names the axis;
     the residual width is pinned by the non-prunable embed and head and
-    stays d_model. The recurrent mixers and their FFNs come with their
-    families."""
+    stays d_model."""
     cfg = lm.cfg
 
     def dim(name: str) -> int:
@@ -163,30 +163,46 @@ def derive_slim_plan(lm, params: dict, kept_units: dict[str, np.ndarray],
     shapes = []
     for sub in lm.plan:
         pre = f"blocks.{sub.j}"
-        if sub.mixer != "attn" or sub.ffn not in ("mlp", "moe"):
-            raise not_in_this_slice(
-                f"slim plans of {sub.mixer} / {sub.ffn} sublayers",
-                "ROADMAP Queue 1 item 12b (the recurrent mixers)")
-        q_dim, kv_dim = dim(f"{pre}.attn.wq"), dim(f"{pre}.attn.wk")
-        if q_dim % cfg.d_head or kv_dim % cfg.d_head:
-            raise ValueError(
-                f"{pre}.attn: sliced q/kv widths {q_dim}/{kv_dim} are not "
-                f"multiples of d_head={cfg.d_head}: the kv-group family "
-                f"must remove whole heads")
-        kw = dict(n_heads=q_dim // cfg.d_head, n_kv_heads=kv_dim // cfg.d_head)
-        _check_family(kept_units, f"{pre}.attn.kv_groups", kw["n_heads"],
-                      cfg.gqa_group, "wq head count")
+        kw: dict[str, int] = {}
+        if sub.mixer == "attn":
+            q_dim, kv_dim = dim(f"{pre}.attn.wq"), dim(f"{pre}.attn.wk")
+            if q_dim % cfg.d_head or kv_dim % cfg.d_head:
+                raise ValueError(
+                    f"{pre}.attn: sliced q/kv widths {q_dim}/{kv_dim} are "
+                    f"not multiples of d_head={cfg.d_head}: the kv-group "
+                    f"family must remove whole heads")
+            kw.update(n_heads=q_dim // cfg.d_head,
+                      n_kv_heads=kv_dim // cfg.d_head)
+            _check_family(kept_units, f"{pre}.attn.kv_groups",
+                          kw["n_heads"], cfg.gqa_group, "wq head count")
+        elif sub.mixer == "mamba":
+            kw.update(mamba_inner=dim(f"{pre}.mamba.in_proj_x"))
+            _check_family(kept_units, f"{pre}.mamba.channels",
+                          kw["mamba_inner"], 1, "in_proj_x")
+        else:
+            hw = dim(f"{pre}.rwkv.wr")
+            if hw % cfg.rwkv.head_size:
+                raise ValueError(
+                    f"{pre}.rwkv: sliced width {hw} is not a multiple of "
+                    f"head_size={cfg.rwkv.head_size}")
+            kw.update(rwkv_heads=hw // cfg.rwkv.head_size)
+            _check_family(kept_units, f"{pre}.rwkv.heads",
+                          kw["rwkv_heads"], 1, "wr head count")
         if sub.ffn == "moe":
             kw["n_experts"] = dim(f"{pre}.moe.router")
             _check_family(kept_units, f"{pre}.moe.experts", kw["n_experts"],
                           1, "router")
-        else:
+        elif sub.ffn == "mlp":
             kw["d_ff"] = dim(f"{pre}.mlp.w_gate")
             for fam in kept_units:
                 # the MLP hidden space is a generic dependency-analysis
                 # family: "space.<sid>.blocks.<j>.mlp.gate"
                 if fam.endswith(f".{pre}.mlp.gate"):
                     _check_family(kept_units, fam, kw["d_ff"], 1, "w_gate")
+        elif sub.ffn == "chanmix":
+            kw["cm_hidden"] = dim(f"{pre}.rwkv.cm_k")
+            _check_family(kept_units, f"{pre}.rwkv.cm_hidden",
+                          kw["cm_hidden"], 1, "cm_k")
         shapes.append(dataclasses.replace(LayerShapes.from_config(cfg), **kw))
     return SlimPlan(layer_shapes=shapes, kept_units=dict(kept_units),
                     sparsity=float(sparsity))

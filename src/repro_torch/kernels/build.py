@@ -1,8 +1,9 @@
 """Build the CUDA kernels once with nvcc and load them through ctypes.
 
 Every `csrc/*.cu` compiles to an object in its own nvcc process, all
-started together, and the objects link into one shared library with a
-plain C interface:
+started together (`csrc/gemm_core.cu`, the longest, in the six parts of
+`PARTS`, one process each), and the objects link into one shared library
+with a plain C interface:
 
     <repo>/build/repro_torch/<hash of the sources>/libkernels.so
 
@@ -29,6 +30,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
+# sources compiled in parts, one nvcc process a part: each part's flags
+# select its share of the file's kernels (see the file's "Build" note)
+PARTS = {"gemm_core.cu": tuple((f"-DREPRO_GEMM_PART={p}",)
+                               for p in range(6))}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -74,7 +79,7 @@ def _sources() -> list[Path]:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + repr(PARTS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -84,16 +89,17 @@ def source_hash() -> str:
 def _compile(nvcc: str, out_dir: Path) -> Path:
     objs, procs = [], []
     for src in _sources():
-        obj = out_dir / (src.stem + ".o")
-        objs.append(obj)
-        procs.append((src, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        for i, flags in enumerate(PARTS.get(src.name, ((),))):
+            obj = out_dir / f"{src.stem}.{i}.o"
+            objs.append(obj)
+            procs.append((f"{src.name} {' '.join(flags)}", subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *flags, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     errors = []
-    for src, proc in procs:
+    for what, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            errors.append(f"{src.name}:\n{log}")
+            errors.append(f"{what}:\n{log}")
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
     tmp = out_dir / f"libkernels.{os.getpid()}.so"

@@ -117,6 +117,20 @@
 // needs 16-byte rows and zero-fills past N and K; the wrapper copies an
 // operand whose rows TMA cannot take (counted), and odd N stores column
 // by column.
+//
+// Build: the library build (`kernels/build.py`) compiles this file in six
+// parts at once, each with its own REPRO_GEMM_PART, so that no one nvcc
+// process instantiates every kernel: part 0 both entry points and the
+// small-M and SIMT kernels of bf16 weights, part 5 those of f32 weights,
+// part 4 those of int codes and packed words (`gm_share`), parts 1-3 the
+// tensor-core kernels of bf16 weights, of f32 weights, and of int codes
+// and packed words (`tc_share`). Compiled without the macro, the file
+// holds everything.
+
+#ifndef REPRO_GEMM_PART
+#define REPRO_GEMM_PART -1
+#endif
+#define REPRO_PART(n) (REPRO_GEMM_PART < 0 || REPRO_GEMM_PART == (n))
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -1504,22 +1518,38 @@ cudaError_t tc_layouts(const TcCall& c) {
   }
 }
 
-cudaError_t tc_by_epilogue(int epi, int w_dtype, int bits, const TcCall& c) {
-  if (epi == EPI_NONE || epi == EPI_COL_MASK) {
-    if (w_dtype == DT_BF16) return tc_layouts<TC_DIRECT, __nv_bfloat16, 0>(c);
-    if (w_dtype == DT_F32) return tc_layouts<TC_VALUE, float, 0>(c);
-  } else if (epi == EPI_FAKE_QUANT || epi == EPI_FQ_MASK) {
-    if (w_dtype == DT_BF16) return tc_layouts<TC_FQ, __nv_bfloat16, 0>(c);
-    if (w_dtype == DT_F32) return tc_layouts<TC_FQ, float, 0>(c);
-  } else if (epi == EPI_DEQUANT) {
-    if (w_dtype == DT_I8) return tc_layouts<TC_VALUE, int8_t, 0>(c);
-    if (w_dtype == DT_I16) return tc_layouts<TC_VALUE, int16_t, 0>(c);
-    if (w_dtype == DT_I32) return tc_layouts<TC_VALUE, int32_t, 0>(c);
-  } else if (epi == EPI_UNPACK && w_dtype == DT_I32) {
-    if (bits == 2) return tc_layouts<TC_UNPACK, int32_t, 2>(c);
-    if (bits == 3) return tc_layouts<TC_UNPACK, int32_t, 3>(c);
-    if (bits == 4) return tc_layouts<TC_UNPACK, int32_t, 4>(c);
-    if (bits == 8) return tc_layouts<TC_UNPACK, int32_t, 8>(c);
+// The share of the tensor-core kernels a call takes (one build part
+// each): 1 bf16 weights, 2 f32 weights (both under none, col_mask,
+// fake_quant_rhs and fq_col_mask), 3 int codes and packed words; 0 none.
+int tc_share_of(int epi, int w_dtype) {
+  if (epi == EPI_DEQUANT || epi == EPI_UNPACK) return 3;
+  if (w_dtype == DT_BF16) return 1;
+  if (w_dtype == DT_F32) return 2;
+  return 0;
+}
+
+template <int SHARE>
+cudaError_t tc_share(int epi, int w_dtype, int bits, const TcCall& c) {
+  if constexpr (SHARE == 1 || SHARE == 2) {
+    using WT = std::conditional_t<SHARE == 1, __nv_bfloat16, float>;
+    constexpr int kPlain = SHARE == 1 ? TC_DIRECT : TC_VALUE;
+    if (w_dtype != (SHARE == 1 ? DT_BF16 : DT_F32))
+      return cudaErrorInvalidValue;
+    if (epi == EPI_NONE || epi == EPI_COL_MASK)
+      return tc_layouts<kPlain, WT, 0>(c);
+    if (epi == EPI_FAKE_QUANT || epi == EPI_FQ_MASK)
+      return tc_layouts<TC_FQ, WT, 0>(c);
+  } else {
+    if (epi == EPI_DEQUANT) {
+      if (w_dtype == DT_I8) return tc_layouts<TC_VALUE, int8_t, 0>(c);
+      if (w_dtype == DT_I16) return tc_layouts<TC_VALUE, int16_t, 0>(c);
+      if (w_dtype == DT_I32) return tc_layouts<TC_VALUE, int32_t, 0>(c);
+    } else if (epi == EPI_UNPACK && w_dtype == DT_I32) {
+      if (bits == 2) return tc_layouts<TC_UNPACK, int32_t, 2>(c);
+      if (bits == 3) return tc_layouts<TC_UNPACK, int32_t, 3>(c);
+      if (bits == 4) return tc_layouts<TC_UNPACK, int32_t, 4>(c);
+      if (bits == 8) return tc_layouts<TC_UNPACK, int32_t, 8>(c);
+    }
   }
   return cudaErrorInvalidValue;
 }
@@ -1568,35 +1598,98 @@ cudaError_t launch(const GemmCall& c) {
   return cudaGetLastError();
 }
 
-cudaError_t by_epilogue(int epi, int w_dtype, int bits, const GemmCall& c) {
+// The share of the small-M and SIMT kernels a build part instantiates:
+// 0 bf16 weights, 5 f32 weights, 4 int codes and packed words
+template <int SHARE>
+cudaError_t gm_share(int epi, int w_dtype, int bits, const GemmCall& c) {
 #define L(E, W, B) launch<E, W, B>(c)
-  if (epi == EPI_FAKE_QUANT) {
-    if (w_dtype == DT_F32) return L(EPI_FAKE_QUANT, float, 0);
-    if (w_dtype == DT_BF16) return L(EPI_FAKE_QUANT, __nv_bfloat16, 0);
-  } else if (epi == EPI_DEQUANT) {
-    if (w_dtype == DT_I8) return L(EPI_DEQUANT, int8_t, 0);
-    if (w_dtype == DT_I16) return L(EPI_DEQUANT, int16_t, 0);
-    if (w_dtype == DT_I32) return L(EPI_DEQUANT, int32_t, 0);
-  } else if (epi == EPI_NONE) {
-    if (w_dtype == DT_F32) return L(EPI_NONE, float, 0);
-    if (w_dtype == DT_BF16) return L(EPI_NONE, __nv_bfloat16, 0);
-  } else if (epi == EPI_COL_MASK) {
-    if (w_dtype == DT_F32) return L(EPI_COL_MASK, float, 0);
-    if (w_dtype == DT_BF16) return L(EPI_COL_MASK, __nv_bfloat16, 0);
-  } else if (epi == EPI_FQ_MASK) {
-    if (w_dtype == DT_F32) return L(EPI_FQ_MASK, float, 0);
-    if (w_dtype == DT_BF16) return L(EPI_FQ_MASK, __nv_bfloat16, 0);
-  } else if (epi == EPI_UNPACK && w_dtype == DT_I32) {
-    if (bits == 2) return L(EPI_UNPACK, int32_t, 2);
-    if (bits == 3) return L(EPI_UNPACK, int32_t, 3);
-    if (bits == 4) return L(EPI_UNPACK, int32_t, 4);
-    if (bits == 8) return L(EPI_UNPACK, int32_t, 8);
+  if constexpr (SHARE == 0 || SHARE == 5) {
+    using WT = std::conditional_t<SHARE == 0, __nv_bfloat16, float>;
+    if (w_dtype != (SHARE == 0 ? DT_BF16 : DT_F32))
+      return cudaErrorInvalidValue;
+    if (epi == EPI_FAKE_QUANT) return L(EPI_FAKE_QUANT, WT, 0);
+    if (epi == EPI_NONE) return L(EPI_NONE, WT, 0);
+    if (epi == EPI_COL_MASK) return L(EPI_COL_MASK, WT, 0);
+    if (epi == EPI_FQ_MASK) return L(EPI_FQ_MASK, WT, 0);
+  } else {
+    if (epi == EPI_DEQUANT) {
+      if (w_dtype == DT_I8) return L(EPI_DEQUANT, int8_t, 0);
+      if (w_dtype == DT_I16) return L(EPI_DEQUANT, int16_t, 0);
+      if (w_dtype == DT_I32) return L(EPI_DEQUANT, int32_t, 0);
+    } else if (epi == EPI_UNPACK && w_dtype == DT_I32) {
+      if (bits == 2) return L(EPI_UNPACK, int32_t, 2);
+      if (bits == 3) return L(EPI_UNPACK, int32_t, 3);
+      if (bits == 4) return L(EPI_UNPACK, int32_t, 4);
+      if (bits == 8) return L(EPI_UNPACK, int32_t, 8);
+    }
   }
 #undef L
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
+
+// The tensor-core entry points' arguments (see repro_gemm_tc)
+#define REPRO_TC_ARGS                                                       \
+  const void *x, long long lda, int x_transposed, const void *w,            \
+      int w_dtype, long long ldb, int w_transposed, int epi, int bits,      \
+      const float *scale, int scale_stride, const float *fq_d,              \
+      const float *fq_qm, const float *fq_t, void *out, int out_dtype,      \
+      int M, int N, int K, int bm, void *stream
+#define REPRO_TC_PASS                                                       \
+  x, lda, x_transposed, w, w_dtype, ldb, w_transposed, epi, bits, scale,    \
+      scale_stride, fq_d, fq_qm, fq_t, out, out_dtype, M, N, K, bm, stream
+
+// One share of the tensor-core kernels (`tc_share`), in its build part;
+// repro_gemm_tc calls the share a call takes.
+#define REPRO_TC_SHARE(S)                                                   \
+  extern "C" int repro_gemm_tc_share##S(REPRO_TC_ARGS) {                    \
+    const TcCall c{x, lda, x_transposed != 0, w, ldb, w_transposed == 0,    \
+                   EpiArgs{scale, scale_stride, fq_d, fq_qm, fq_t}, out,    \
+                   out_dtype == DT_BF16, M, N, K, bm,                       \
+                   static_cast<cudaStream_t>(stream)};                      \
+    return tc_share<S>(epi, w_dtype, bits, c);                              \
+  }
+#if REPRO_PART(1)
+REPRO_TC_SHARE(1)
+#endif
+#if REPRO_PART(2)
+REPRO_TC_SHARE(2)
+#endif
+#if REPRO_PART(3)
+REPRO_TC_SHARE(3)
+#endif
+
+// The small-M / SIMT shares of f32 weights and of int codes and packed
+// words (`gm_share`), which repro_gemm calls once it has checked the call
+#define REPRO_GEMM_ARGS                                                     \
+  const void *x, int x_dtype, long long lda, const void *w, int w_dtype,    \
+      long long ldw, int epi, int bits, const float *scale,                 \
+      int scale_stride, const float *fq_d, const float *fq_qm,              \
+      const float *fq_t, void *out, int out_dtype, int M, int N, int K,     \
+      int cluster, int k_slice, void *stream
+#define REPRO_GEMM_CALL                                                     \
+  GemmCall{x, x_dtype == DT_BF16, lda, w, ldw,                              \
+           EpiArgs{scale, scale_stride, fq_d, fq_qm, fq_t}, out,            \
+           out_dtype == DT_BF16, M, N, K, cluster, k_slice,                 \
+           static_cast<cudaStream_t>(stream)}
+#if REPRO_PART(4)
+extern "C" int repro_gemm_share4(REPRO_GEMM_ARGS) {
+  return gm_share<4>(epi, w_dtype, bits, REPRO_GEMM_CALL);
+}
+#endif
+#if REPRO_PART(5)
+extern "C" int repro_gemm_share5(REPRO_GEMM_ARGS) {
+  return gm_share<5>(epi, w_dtype, bits, REPRO_GEMM_CALL);
+}
+#endif
+
+#if REPRO_PART(0)
+extern "C" int repro_gemm_share4(REPRO_GEMM_ARGS);
+extern "C" int repro_gemm_share5(REPRO_GEMM_ARGS);
+extern "C" int repro_gemm_tc_share1(REPRO_TC_ARGS);
+extern "C" int repro_gemm_tc_share2(REPRO_TC_ARGS);
+extern "C" int repro_gemm_tc_share3(REPRO_TC_ARGS);
 
 // Returns the cudaError_t of the launch (0 on success). Pointers are device
 // pointers; x is (M, K) with rows lda elements apart (f32 or bf16; f32 only
@@ -1630,11 +1723,15 @@ extern "C" int repro_gemm(const void* x, int x_dtype, long long lda,
                     reinterpret_cast<uintptr_t>(w) % (4 * w_size) == 0;
   if (!dt_ok || !plan_ok || !w_ok || M < 1 || N < 1 || K < 1 || lda < K)
     return cudaErrorInvalidValue;
-  const GemmCall c{x, x_dtype == DT_BF16, lda, w, ldw,
-                   EpiArgs{scale, scale_stride, fq_d, fq_qm, fq_t}, out,
-                   out_dtype == DT_BF16, M, N, K, cluster, k_slice,
-                   static_cast<cudaStream_t>(stream)};
-  return by_epilogue(epi, w_dtype, bits, c);
+  if (epi == EPI_DEQUANT || epi == EPI_UNPACK)
+    return repro_gemm_share4(x, x_dtype, lda, w, w_dtype, ldw, epi, bits,
+                             scale, scale_stride, fq_d, fq_qm, fq_t, out,
+                             out_dtype, M, N, K, cluster, k_slice, stream);
+  if (w_dtype == DT_F32)
+    return repro_gemm_share5(x, x_dtype, lda, w, w_dtype, ldw, epi, bits,
+                             scale, scale_stride, fq_d, fq_qm, fq_t, out,
+                             out_dtype, M, N, K, cluster, k_slice, stream);
+  return gm_share<0>(epi, w_dtype, bits, REPRO_GEMM_CALL);
 }
 
 // The tensor-core variant, for M > 8 and bf16 x. x is (M, K) with rows lda
@@ -1648,18 +1745,14 @@ extern "C" int repro_gemm(const void* x, int x_dtype, long long lda,
 // workspace. Returns the cudaError_t of the launch;
 // cudaErrorInvalidValue for a combination it does not take or a tensor map
 // the driver refuses.
-extern "C" int repro_gemm_tc(const void* x, long long lda, int x_transposed,
-                             const void* w, int w_dtype, long long ldb,
-                             int w_transposed, int epi, int bits,
-                             const float* scale, int scale_stride,
-                             const float* fq_d, const float* fq_qm,
-                             const float* fq_t, void* out, int out_dtype,
-                             int M, int N, int K, int bm, void* stream) {
+extern "C" int repro_gemm_tc(REPRO_TC_ARGS) {
   if (out_dtype != DT_F32 && out_dtype != DT_BF16)
     return cudaErrorInvalidValue;
-  const TcCall c{x, lda, x_transposed != 0, w, ldb, w_transposed == 0,
-                 EpiArgs{scale, scale_stride, fq_d, fq_qm, fq_t}, out,
-                 out_dtype == DT_BF16, M, N, K, bm,
-                 static_cast<cudaStream_t>(stream)};
-  return tc_by_epilogue(epi, w_dtype, bits, c);
+  switch (tc_share_of(epi, w_dtype)) {
+    case 1: return repro_gemm_tc_share1(REPRO_TC_PASS);
+    case 2: return repro_gemm_tc_share2(REPRO_TC_PASS);
+    case 3: return repro_gemm_tc_share3(REPRO_TC_PASS);
+  }
+  return cudaErrorInvalidValue;
 }
+#endif

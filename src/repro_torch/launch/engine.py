@@ -17,6 +17,15 @@ and chunked-prefill modes, without tensor parallelism.
   whole pages of it into the pools.
 - Slots decode together in one batched step at per-slot positions; each
   step writes every slot's K/V row in place.
+- A plan with recurrent mixers (rwkv6, mamba in jamba's hybrid plan)
+  keeps each slot's state in per-slot leaves beside the K/V
+  (`_kv_split`): contiguous in both arenas (the page pools hold K/V only),
+  overwritten with the prefilled row's state at admission, so a re-admitted
+  slot starts from its own prompt's state however long its idle decode
+  drifted. Paged prefix sharing is refused for such plans (a hit skips
+  the prefill that sets the state), and `submit` refuses a prompt the
+  recurrent prefill cannot take (longer than a scan chunk and not a
+  multiple of it).
 - A pruned engine (`build_engine(pruned=True)` or `keep_masks=`) serves
   the physically sliced subnet: `prepare_serving` slices the weights and
   installs the SlimPlan on the LM, so every GEMM runs at the surviving
@@ -75,7 +84,7 @@ from repro_torch.launch.scheduler import (ChunkedPrefillScheduler,
 from repro_torch.launch.speculative import (DraftModel, build_draft,
                                             make_spec_step, pow2_floor)
 from repro_torch.models.layers import PagedView, dtype_of, not_in_this_slice
-from repro_torch.models.transformer import LM
+from repro_torch.models.transformer import LM, recurrent_mixers
 
 
 def resolve_device(device=None) -> torch.device:
@@ -111,6 +120,16 @@ _FULL_ATTENTION_WHY = {
 }
 
 
+def _kv_split(caches: dict) -> tuple[list[str], list[str]]:
+    """Partition an arena's keys into attention K/V leaves (page pools
+    under the paged arena) and recurrent-state leaves (per slot); the K/V
+    leaves' `_scale` planes go with neither."""
+    kv = sorted(k for k in caches if k.endswith(".k") or k.endswith(".v"))
+    state = sorted(k for k in caches
+                   if k not in kv and not k.endswith("_scale"))
+    return kv, state
+
+
 def _require_full_attention(lm: LM, mode: str) -> None:
     """Refuse `mode` (a key of _FULL_ATTENTION_WHY) on a sliding-window
     config or a plan with non-attention mixers."""
@@ -118,7 +137,7 @@ def _require_full_attention(lm: LM, mode: str) -> None:
     if lm.cfg.window > 0:
         raise ValueError(f"{mode} needs full (window == 0) KV arenas: "
                          f"{window_why}")
-    bad = sorted({s.mixer for s in lm.plan if s.mixer != "attn"})
+    bad = recurrent_mixers(lm.plan)
     if bad:
         raise ValueError(f"{mode} needs attention mixers everywhere ("
                          + mixer_why.format(bad=bad))
@@ -172,6 +191,13 @@ class Engine:
         if kv_bits is not None and not self.paged:
             raise ValueError("kv_bits quantizes the paged page store; pass "
                              "paged=True")
+        if self.paged and prefix_sharing and recurrent_mixers(lm.plan):
+            raise ValueError(
+                f"paged prefix sharing cannot serve a plan with "
+                f"{recurrent_mixers(lm.plan)} mixers: a prefix hit skips the "
+                f"prefill that sets the slot's recurrent state, so the slot "
+                f"would decode from its previous occupant's state; pass "
+                f"prefix_sharing=False")
         if self.paged:
             self.Lp = paging.pages_for_rows(max_seq, self.page_size)
             if n_pages is None:
@@ -251,7 +277,8 @@ class Engine:
         if self.paged:
             return lm.init_paged_cache(self.n_pages, self.page_size,
                                        dtype=self.dtype, kv_bits=self.kv_bits,
-                                       device=self.device)
+                                       device=self.device,
+                                       batch=self.max_slots)
         return lm.init_cache(self.max_slots, self.max_seq, dtype=self.dtype,
                              device=self.device)
 
@@ -260,6 +287,8 @@ class Engine:
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
+        # before anything is admitted: the recurrent prefill's chunk rule
+        self.lm.check_prompt_length(int(prompt.size))
         # the prompt fills rows [0, S), the first token comes out of the
         # prefill, and the last of the N-1 decode steps writes row S+N-2
         if prompt.size + max_new_tokens - 1 > self.max_seq:
@@ -380,6 +409,13 @@ class Engine:
         return [self.caches] + ([self.dcaches] if self.draft is not None
                                 else [])
 
+    @staticmethod
+    def _page_leaves(arena: dict) -> list[torch.Tensor]:
+        """The leaves of a paged arena indexed by page id: the K/V pools
+        and their scale planes (not the per-slot recurrent state)."""
+        state = _kv_split(arena)[1]
+        return [c for k, c in arena.items() if k not in state]
+
     def _flush_dirty(self) -> None:
         """Zero released pages on the device (in every arena's pools) and
         return them to the free list (the allocator's zero-before-reuse
@@ -389,23 +425,30 @@ class Engine:
             return
         ids = torch.as_tensor(dirty, dtype=torch.int64, device=self.device)
         for arena in self._arenas():
-            for c in arena.values():
+            for c in self._page_leaves(arena):
                 c[:, ids] = 0
         self.alloc.mark_zeroed(dirty)
 
     def _copy_page(self, src: int, dst: int) -> None:
         for arena in self._arenas():
-            for c in arena.values():
+            for c in self._page_leaves(arena):
                 c[:, dst] = c[:, src]
 
-    def _insert_pages(self, pools: dict, row: dict, pages: list[int]) -> None:
+    def _insert_pages(self, pools: dict, row: dict, pages: list[int],
+                      slot: int) -> None:
         """Scatter a prefilled (1, Lp * P) cache's first len(pages) pages
         into `pools`: whole pages, so the prefill's zero tail keeps the
-        page remainders zero; encoded when the pools hold codes."""
+        page remainders zero; encoded when the pools hold codes. The row's
+        recurrent state goes to the slot's own state row (`slot` < 0: a
+        request that holds no slot)."""
         P, npp = self.page_size, len(pages)
         phys = torch.as_tensor(pages, dtype=torch.int64, device=self.device)
-        for key, r in row.items():
-            r = r[:, 0, :npp * P]                      # (nb, npp*P, KVh, dh)
+        kv, state = _kv_split(row)
+        if slot >= 0:
+            for key in state:
+                pools[key][:, slot:slot + 1].copy_(row[key])
+        for key in kv:
+            r = row[key][:, 0, :npp * P]               # (nb, npp*P, KVh, dh)
             blocks = r.reshape((r.shape[0], npp, P) + r.shape[2:])
             pool = pools[key]
             if self.kv_bits is not None:
@@ -481,11 +524,11 @@ class Engine:
                 row = self._fresh_row()
                 first = self._prefill(row, req.prompt)
             npp = paging.pages_for_rows(S, P)
-            self._insert_pages(self.caches, row, pages[:npp])
+            self._insert_pages(self.caches, row, pages[:npp], slot)
             if self.draft is not None:
                 drow = self._fresh_row(self.draft.lm)
                 self._prefill_draft(drow, req.prompt)
-                self._insert_pages(self.dcaches, drow, pages[:npp])
+                self._insert_pages(self.dcaches, drow, pages[:npp], slot)
             if cache is not None:
                 # register the prompt for sharing (best effort): the cache
                 # takes its own refcount on the full pages and a pristine
@@ -774,9 +817,8 @@ class Engine:
         phys = (self._static["table"][:, r // P].to(torch.int64) * P
                 + r % P)                                     # (B, max_seq)
         views = {}
-        for key, pool in pools.items():
-            if key.endswith("_scale"):
-                continue
+        for key in _kv_split(pools)[0]:
+            pool = pools[key]
             flat = pool.view(pool.shape[0], -1, *pool.shape[3:])
             rows = flat[:, phys]
             if self.kv_bits is not None:
@@ -893,8 +935,8 @@ class Engine:
         `warmed_window_ks()`, or, speculative, one round per draft length,
         or, chunked, the one-step window. Slot state and live cache rows
         stay untouched: contiguous arenas are decoded as scratch copies,
-        paged ones through a table of trash pages, and a capture runs
-        nothing."""
+        paged ones through a table of trash pages (their per-slot
+        recurrent state as scratch copies), and a capture runs nothing."""
         lm, dev = self.lm, self.device
         st = self._static
         st["tok"].zero_()
@@ -907,8 +949,12 @@ class Engine:
         stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
         if stream is not None:
             stream.wait_stream(torch.cuda.current_stream(dev))
-        scratch = (lambda arena: arena) if self.paged else \
-            (lambda arena: {k: torch.zeros_like(c) for k, c in arena.items()})
+        def scratch(arena):
+            # paged: the K/V pools themselves (the trash table writes
+            # nowhere live), the per-slot recurrent state a scratch copy
+            state = _kv_split(arena)[1]
+            return {k: c if self.paged and k not in state
+                    else torch.zeros_like(c) for k, c in arena.items()}
         with (torch.cuda.stream(stream) if stream is not None
               else contextlib.nullcontext()):
             if self.draft is not None:
@@ -1093,12 +1139,15 @@ class Engine:
     def kv_bytes(self) -> int:
         """KV bytes the engine is using, the draft's arena included: the
         whole contiguous arenas, or, paged, the allocated pages (live and
-        reserved) pro-rated over the pools, plus the page table."""
+        reserved) pro-rated over the pools, the per-slot recurrent state
+        whole, plus the page table."""
         if not self.paged:
             return sum(tree_bytes(a) for a in self._arenas())
         n_alloc = self.alloc.n_live + paging.N_RESERVED
+        pages = {id(c) for a in self._arenas() for c in self._page_leaves(a)}
         return self.page_table.nbytes + sum(
             c.numel() * c.element_size() // self.n_pages * n_alloc
+            if id(c) in pages else c.numel() * c.element_size()
             for a in self._arenas() for c in a.values())
 
     def kv_pool_bytes(self) -> int:
@@ -1307,7 +1356,8 @@ def serve_on_devices(arch: str, smoke: bool, prompt_lens: list[int],
                      seed: int = 0, speculative: bool = False,
                      draft_k: int = 4, draft_sparsity: float = 0.5,
                      draft_bits: float = 2.0,
-                     prefill_chunk: Optional[int] = None, **mode
+                     prefill_chunk: Optional[int] = None,
+                     arena: Optional[dict] = None, **mode
                      ) -> dict[str, dict[int, np.ndarray]]:
     """Greedy tokens of one model served on each of `devices`, keyed by
     device. The weights are drawn once from the CPU generator seeded by
@@ -1315,7 +1365,8 @@ def serve_on_devices(arch: str, smoke: bool, prompt_lens: list[int],
     different numbers from one seed), so the runs differ only in where
     the kernels, or their plain versions, run. `mode` goes to
     `prepare_serving`; `speculative` attaches `build_draft`'s draft of the
-    same params, `prefill_chunk` a chunked scheduler."""
+    same params, `prefill_chunk` a chunked scheduler, and `arena` goes
+    to the Engine (the paged arena's keywords)."""
     lm = LM(get_arch(arch, smoke=smoke))
     base = lm.init(torch.Generator().manual_seed(seed))
     prompts = synthetic_prompts(lm.cfg, prompt_lens, seed)
@@ -1328,7 +1379,8 @@ def serve_on_devices(arch: str, smoke: bool, prompt_lens: list[int],
         params, qparams, _ = prepare_serving(lm, on_dev, **mode)
         eng = Engine(lm, params, qparams, max_slots=max_slots,
                      max_seq=max(prompt_lens) + gen, draft=draft,
-                     draft_k=draft_k, scheduler=_scheduler(prefill_chunk))
+                     draft_k=draft_k, scheduler=_scheduler(prefill_chunk),
+                     **(arena or {}))
         for p in prompts:
             eng.submit(p, gen)
         eng.warmup()

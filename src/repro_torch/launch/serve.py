@@ -36,7 +36,12 @@ packed tokens equal int8 tokens, and `--pruned` alone asserts the pruned
 tokens equal the masked dense reference's (not for an MoE arch, whose
 masked model routes otherwise: a zeroed router column still takes softmax
 mass); each stacks with `--pruned`. `--arch grok-1-314b` and `--arch
-llama4-maverick-400b-a17b` serve the MoE family in every mode.
+llama4-maverick-400b-a17b` serve the MoE family in every mode;
+`--arch rwkv6-3b` and `--arch jamba-1.5-large-398b` the recurrent mixers
+in every weight mode, both arenas and pruned (their paged arena runs
+without prefix sharing, which the CLI prints: a prefix hit would skip the
+prefill that sets a slot's recurrent state; speculative decoding and
+chunked prefill refuse them).
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --full --compressed
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --packed \
@@ -65,7 +70,7 @@ from repro_torch.launch.engine import (_sync, build_masked_reference_engine,
                                        engine_serve, resolve_device,
                                        synthetic_prompts)
 from repro_torch.models.layers import dtype_of
-from repro_torch.models.transformer import LM
+from repro_torch.models.transformer import LM, layer_plan, recurrent_mixers
 
 
 def make_serve_step(lm: LM):
@@ -209,6 +214,7 @@ def paged_parity_check(arch: str, smoke: bool, prompt_lens: list[int],
                        bits_init: float = 8.0, speculative: bool = False,
                        draft_k: int = 4, draft_sparsity: float = 0.5,
                        draft_bits: float = 2.0, page_size: int = 16,
+                       prefix_sharing: bool = True,
                        max_slots: int, seed: int = 0, verbose: bool = True,
                        device=None) -> dict:
     """Assert the paged engine's decode is token-identical to the
@@ -230,7 +236,8 @@ def paged_parity_check(arch: str, smoke: bool, prompt_lens: list[int],
     want = engine_serve(arch, smoke, prompt_lens, gen, verbose=False,
                         **common)
     got = engine_serve(arch, smoke, prompt_lens, gen, verbose=verbose,
-                       paged=True, page_size=page_size, **common)
+                       paged=True, page_size=page_size,
+                       prefix_sharing=prefix_sharing, **common)
     _assert_same(got, want, "paged decode diverged from the contiguous "
                             "arena")
     mode = "packed" if packed else "compressed" if compressed else "dense"
@@ -387,6 +394,8 @@ def main(argv=None):
                          "PyTorch versions of the kernels)")
     args = ap.parse_args(argv)
     prune = dict(pruned=args.pruned, sparsity=args.sparsity)
+    cfg = get_arch(args.arch, smoke=args.smoke)
+    recurrent = recurrent_mixers(layer_plan(cfg)[0])
     if args.static:
         serve_loop(args.arch, args.smoke, args.batch, args.prompt_len,
                    args.gen, quantized=args.quantized,
@@ -397,6 +406,13 @@ def main(argv=None):
     # --kv-bits quantizes the paged page store: asking for it asks for
     # the paged arena
     args.paged = args.paged or args.kv_bits is not None
+    arena = {}
+    if args.paged and recurrent:
+        # a prefix hit would skip the prefill that sets a slot's state
+        arena["prefix_sharing"] = False
+        print(f"{args.arch}: paged arena without prefix sharing (the plan "
+              f"has {recurrent} mixers, whose per-slot state only a "
+              f"prefill sets)")
     # `--draft-sparsity 50` and `--draft-sparsity 0.5` mean the same
     draft_sparsity = (args.draft_sparsity / 100.0
                       if args.draft_sparsity > 1.0 else args.draft_sparsity)
@@ -415,7 +431,8 @@ def main(argv=None):
         paged_parity_check(args.arch, args.smoke, lens, args.gen,
                            speculative=args.speculative,
                            page_size=args.page_size, max_slots=args.slots,
-                           device=args.device, **weights, **spec, **prune)
+                           device=args.device, **arena, **weights, **spec,
+                           **prune)
         return
     if args.speculative and args.smoke:
         speculative_parity_check(args.arch, args.smoke, lens, args.gen,
@@ -427,7 +444,7 @@ def main(argv=None):
                             bits_init=args.bits, max_slots=args.slots,
                             device=args.device, **prune)
         return
-    moe = get_arch(args.arch, smoke=args.smoke).moe is not None
+    moe = cfg.moe is not None
     if args.pruned and args.smoke and moe:
         print(f"{args.arch}: no masked-reference check for a pruned MoE "
               f"(a zeroed router column still takes softmax mass, so the "
@@ -442,7 +459,7 @@ def main(argv=None):
                  max_slots=args.slots, device=args.device, paged=args.paged,
                  page_size=args.page_size, kv_bits=args.kv_bits,
                  speculative=args.speculative,
-                 prefill_chunk=args.chunked_prefill, **weights,
+                 prefill_chunk=args.chunked_prefill, **arena, **weights,
                  **(spec if args.speculative else {}), **prune)
 
 

@@ -1,7 +1,7 @@
-"""Layers of the dense and MoE GQA LMs as plain functions over a flat
-param dict.
+"""Layers of the decoder LMs as plain functions over a flat param dict.
 
-Port of the attention, MLP and MoE layers of `repro.models.layers`. Conventions follow the
+Port of the attention, MLP, MoE and recurrent (mamba, rwkv6) layers of
+`repro.models.layers`. Conventions follow the
 JAX module: `params` is a flat dict[str, Tensor] under the JAX keys, a
 per-layer view `lp` indexes the stacked (L, ...) tensors, `qparams` maps
 quantizer sites (`<name>.wq`, `<site>.aq`) to `QuantParams`, activations
@@ -18,6 +18,20 @@ they were plain XLA in the JAX package; so are the MoE's router, dispatch
 and expert products (`moe_apply`), whose weights the LM fake-quants once
 per call (their component is not routed), while the shared expert is an
 MLP through `dense_proj`.
+
+The recurrent mixers keep the reference's arithmetic: the WKV recurrence
+(`_wkv_scan`) and mamba's selective scan (`_mamba_chunk_scan`) are plain
+PyTorch, as they are plain XLA `lax.scan`s there (no Pallas kernel was
+written for either), while every projection goes through `dense_proj`.
+Both scans run per chunk of `chunk` tokens, each chunk under
+`torch.utils.checkpoint` when a gradient is taken (the reference's
+`jax.checkpoint`), so the backward keeps one state per chunk. Inside a
+chunk the per-token transition terms are formed for the whole chunk at
+once and only the state update runs token by token (one fused
+multiply-add a token); mamba's in-chunk `associative_scan` becomes that
+sequential recurrence, the same function rounded otherwise. A prompt
+longer than a chunk must be a multiple of it (the reference's rule, which
+it asserts): both scans raise `ValueError` naming S and the chunk.
 """
 from __future__ import annotations
 
@@ -26,6 +40,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -50,20 +65,30 @@ class LayerShapes:
     """Physical dims one sublayer executes at: the config's, or a pruned
     subnet's surviving widths (`core.subnet.derive_slim_plan`), which
     `LM.apply_slim_plan` installs. The residual width d_model and d_head
-    are never pruned; `n_experts` counts an MoE's surviving experts."""
+    are never pruned; `n_experts` counts an MoE's surviving experts,
+    `mamba_inner` mamba's inner channels, `rwkv_heads` the time-mix heads
+    and `cm_hidden` the channel-mix hidden units."""
     d_model: int
     n_heads: int = 0
     n_kv_heads: int = 0
     d_head: int = 0
     d_ff: int = 0
     n_experts: int = 0
+    mamba_inner: int = 0
+    rwkv_heads: int = 0
+    cm_hidden: int = 0
 
     @classmethod
     def from_config(cls, cfg: ModelConfig) -> "LayerShapes":
         return cls(d_model=cfg.d_model, n_heads=cfg.n_heads,
                    n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
                    d_ff=cfg.d_ff,
-                   n_experts=cfg.moe.n_experts if cfg.moe else 0)
+                   n_experts=cfg.moe.n_experts if cfg.moe else 0,
+                   mamba_inner=(cfg.mamba.expand * cfg.d_model
+                                if cfg.mamba else 0),
+                   rwkv_heads=(cfg.d_model // cfg.rwkv.head_size
+                               if cfg.rwkv else 0),
+                   cm_hidden=cfg.d_ff)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,7 +149,8 @@ def dense_proj(x: torch.Tensor, lp: dict, qp: Optional[dict], name: str, *,
       `<name>.colmask` riding the param dict) -> fq_masked_matmul_op
     - dense weight with a site               -> fq_matmul_op
     - dense weight with a mask only          -> masked_matmul_op
-    - dense weight, neither                  -> x @ w (torch.matmul)
+    - dense weight, neither                  -> x @ w (torch.matmul; an
+      f32 x on a bf16 weight multiplies in f32, as JAX promotes it)
     """
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
@@ -147,6 +173,9 @@ def dense_proj(x: torch.Tensor, lp: dict, qp: Optional[dict], name: str, *,
             w = fake_quant(w, qpw.d, qpw.q_m, qpw.t)
         if mask is not None:
             w = w * mask.to(w.dtype)[None, :]
+        if x.dtype != w.dtype:
+            dt = torch.promote_types(x.dtype, w.dtype)
+            return x.to(dt) @ w.to(dt)
         return x @ w
     if qpw is not None and mask is not None:
         y = Kops.fq_masked_matmul_op(x2, w, mask, qpw.d, qpw.q_m, qpw.t)
@@ -164,6 +193,19 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * scale.to(torch.float32)).to(x.dtype)
+
+
+def groupnorm_heads(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    n_heads: int, eps: float = 1e-5) -> torch.Tensor:
+    """Per-head groupnorm (RWKV's ln_x) over x (..., H*dh) in f32, with the
+    biased variance `jnp.var` takes: the mean of the squared deviations."""
+    shp = x.shape
+    x32 = x.to(torch.float32).reshape(*shp[:-1], n_heads, -1)
+    xc = x32 - torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xc), dim=-1, keepdim=True)
+    y = (xc * torch.rsqrt(var + eps)).reshape(shp)
+    return (y * scale.to(torch.float32)
+            + bias.to(torch.float32)).to(x.dtype)
 
 
 # ------------------------------------------------------------------- rope
@@ -539,3 +581,268 @@ def moe_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
     if cfg.moe.shared_expert:
         y = y + mlp_apply(lp, qp, cfg, x, prefix=f"{prefix}.shared")
     return y.reshape(B, S, D)
+
+
+# ------------------------------------------------------------- recurrence
+def scan_chunk(S: int, chunk: int) -> int:
+    """The chunk a scan over S tokens runs with: min(chunk, S), which must
+    divide S (the reference's rule). Raises ValueError otherwise."""
+    C = min(chunk, S)
+    if S < 1 or S % C:
+        raise ValueError(
+            f"a recurrent scan over S={S} tokens runs in chunks of "
+            f"{chunk}: a sequence longer than one chunk must be a multiple "
+            f"of it (S={S} is not)")
+    return C
+
+
+def _chunked_scan(step, h, seqs, C: int):
+    """Run `step(h, *chunk_of_each_seq) -> (h, out)` over the chunks of
+    `seqs` (each (S, ...) time-major), under a non-reentrant checkpoint per
+    chunk when a gradient is taken. Returns (h, outs concatenated)."""
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (h, *seqs))
+    outs = []
+    for c in range(0, seqs[0].shape[0], C):
+        args = (h, *(t[c:c + C] for t in seqs))
+        h, out = (checkpoint(step, *args, use_reentrant=False) if remat
+                  else step(*args))
+        outs.append(out)
+    return h, outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+
+
+def _stacked(ts: list) -> torch.Tensor:
+    """torch.stack(ts), a view when there is one (a decode step's)."""
+    return ts[0][None] if len(ts) == 1 else torch.stack(ts)
+
+
+def _token_shift(x: torch.Tensor, last: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
+    """xs[t] = x[t-1]; xs[0] = last (or 0)."""
+    B, S, D = x.shape
+    head = (torch.zeros((B, 1, D), dtype=x.dtype, device=x.device)
+            if last is None else last[:, None].to(x.dtype))
+    if S == 1:
+        return head
+    return torch.cat([head, x[:, :-1]], dim=1)
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.softplus`: logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+# ------------------------------------------------------------------ mamba
+def init_mamba(gen: torch.Generator, cfg: ModelConfig, prefix: str,
+               n_layers: int, dtype) -> dict:
+    """The reference's mamba params with `in_proj` split into
+    `in_proj_x` / `in_proj_z` (as `LM.init` splits it there)."""
+    D, mc = cfg.d_model, cfg.mamba
+    Di, N = mc.expand * D, mc.d_state
+    dtr = mc.dt_rank or D // 16
+    L = (n_layers,)
+    dev = gen.device
+    a_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32,
+                                   device=dev))
+    return {
+        f"{prefix}.in_proj_x": _normal(gen, L + (D, Di), dtype, D ** -0.5),
+        f"{prefix}.in_proj_z": _normal(gen, L + (D, Di), dtype, D ** -0.5),
+        f"{prefix}.conv_w": _normal(gen, L + (mc.d_conv, Di), dtype, 0.1),
+        f"{prefix}.x_proj": _normal(gen, L + (Di, dtr + 2 * N), dtype,
+                                    Di ** -0.5),
+        f"{prefix}.dt_proj": _normal(gen, L + (dtr, Di), dtype, dtr ** -0.5),
+        f"{prefix}.dt_bias": torch.zeros(L + (Di,), dtype=dtype, device=dev),
+        f"{prefix}.A_log": a_log.expand(L + (Di, N)).contiguous(),
+        f"{prefix}.D": torch.ones(L + (Di,), dtype=torch.float32, device=dev),
+        f"{prefix}.out_proj": _normal(gen, L + (Di, D), dtype, Di ** -0.5)}
+
+
+def _mamba_chunk_scan(xc, dt, Bc, Cc, A, D_vec, h0, chunk: int = 64):
+    """Chunked diagonal selective scan:
+    h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) B_t ; y_t = <h_t, C_t>
+    + D * x_t. xc (B, S, Di) activations; dt (B, S, Di) f32; Bc / Cc
+    (B, S, N); A (Di, N) f32; D_vec (Di,) f32; h0 (B, Di, N) f32. The
+    (B, C, Di, N) transition terms are formed per chunk only. Returns
+    (y (B, S, Di) f32, h_last)."""
+    B, S, Di = xc.shape
+    C = scan_chunk(S, chunk)
+    f32 = torch.float32
+
+    def chunk_step(h, xcc, dtc, bcc, ccc):       # (C, B, ...) each
+        x32 = xcc.to(f32)
+        dA = torch.exp(dtc[..., None] * A)                  # (C, B, Di, N)
+        dBx = (dtc * x32)[..., None] * bcc.to(f32)[:, :, None, :]
+        hs = []
+        for a_t, b_t in zip(dA.unbind(0), dBx.unbind(0)):
+            h = torch.addcmul(b_t, a_t, h)
+            hs.append(h)
+        y = torch.einsum("cbdn,cbn->cbd", _stacked(hs), ccc.to(f32))
+        return h, y + D_vec * x32
+
+    h_last, ys = _chunked_scan(
+        chunk_step, h0, [t.transpose(0, 1) for t in (xc, dt, Bc, Cc)], C)
+    return ys.transpose(0, 1), h_last
+
+
+def mamba_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
+                prefix: str, state: Optional[tuple] = None,
+                shapes: Optional[LayerShapes] = None):
+    """Selective SSM block; state = (h (B, Di, N) f32, conv (B, K-1, Di))
+    for decode, None for a full sequence from zero state. Di comes from
+    `shapes`. The depthwise conv sums its K taps in f32 term by term, in
+    the reference's order. Returns (out, new_state)."""
+    B, S, D = x.shape
+    mc = cfg.mamba
+    shapes = shapes or LayerShapes.from_config(cfg)
+    Di, N, Kc = shapes.mamba_inner, mc.d_state, mc.d_conv
+    f32 = torch.float32
+    xi = dense_proj(x, lp, qp, f"{prefix}.in_proj_x")      # (B, S, Di)
+    z = dense_proj(x, lp, qp, f"{prefix}.in_proj_z")
+    conv_w = lp[f"{prefix}.conv_w"].to(f32)                  # (K, Di)
+    if state is None:
+        pad = torch.zeros((B, Kc - 1, Di), dtype=xi.dtype, device=x.device)
+        xpad = torch.cat([pad, xi], dim=1)
+        new_conv = xpad[:, -(Kc - 1):] if Kc > 1 else pad
+    else:
+        conv_prev = state[1]
+        xpad = torch.cat([conv_prev.to(xi.dtype), xi], dim=1)
+        new_conv = xpad[:, -(Kc - 1):] if Kc > 1 else conv_prev
+    xc = sum(xpad[:, i:i + S].to(f32) * conv_w[i] for i in range(Kc))
+    xc = F.silu(xc).to(x.dtype)
+    proj = dense_proj(xc, lp, qp, f"{prefix}.x_proj")
+    dtr = mc.dt_rank or D // 16
+    dt_low, Bc, Cc = torch.split(proj, [dtr, N, N], dim=-1)
+    dt = _softplus(dense_proj(dt_low, lp, qp, f"{prefix}.dt_proj").to(f32)
+                   + lp[f"{prefix}.dt_bias"].to(f32))       # (B, S, Di)
+    A = -torch.exp(lp[f"{prefix}.A_log"].to(f32))            # (Di, N)
+    h0 = (torch.zeros((B, Di, N), dtype=f32, device=x.device)
+          if state is None else state[0])
+    y, h_last = _mamba_chunk_scan(xc, dt, Bc, Cc, A,
+                                  lp[f"{prefix}.D"].to(f32), h0,
+                                  chunk=mc.chunk)
+    y = (y * F.silu(z.to(f32))).to(x.dtype)
+    y = qa(y, qp, f"{prefix}.mamba_out.aq")
+    out = dense_proj(y, lp, qp, f"{prefix}.out_proj")
+    return out, (h_last, new_conv)
+
+
+# ------------------------------------------------------------------ rwkv6
+def init_rwkv(gen: torch.Generator, cfg: ModelConfig, prefix: str,
+              n_layers: int, dtype) -> dict:
+    """RWKV6 time-mix and channel-mix params under one prefix, as the
+    reference's `init_rwkv` keys them."""
+    D, Fh = cfg.d_model, cfg.d_ff
+    R = cfg.rwkv.decay_lora
+    L = (n_layers,)
+    dev = gen.device
+    std = D ** -0.5
+
+    def uniform(shape):
+        return torch.rand(shape, generator=gen, dtype=dtype, device=dev)
+
+    def full(value):
+        return torch.full(L + (D,), value, dtype=torch.float32, device=dev)
+
+    return {
+        f"{prefix}.mu": uniform(L + (5, D)),
+        f"{prefix}.wr": _normal(gen, L + (D, D), dtype, std),
+        f"{prefix}.wk": _normal(gen, L + (D, D), dtype, std),
+        f"{prefix}.wv": _normal(gen, L + (D, D), dtype, std),
+        f"{prefix}.wg": _normal(gen, L + (D, D), dtype, std),
+        f"{prefix}.wo": _normal(gen, L + (D, D), dtype, std),
+        f"{prefix}.decay_w1": _normal(gen, L + (D, R), dtype, std),
+        f"{prefix}.decay_w2": _normal(gen, L + (R, D), dtype, R ** -0.5),
+        f"{prefix}.decay_w0": full(-1.0),
+        f"{prefix}.u": full(0.0),
+        f"{prefix}.lnx_scale": full(1.0),
+        f"{prefix}.lnx_bias": full(0.0),
+        f"{prefix}.cm_mu": uniform(L + (2, D)),
+        f"{prefix}.cm_k": _normal(gen, L + (D, Fh), dtype, std),
+        f"{prefix}.cm_v": _normal(gen, L + (Fh, D), dtype, Fh ** -0.5),
+        f"{prefix}.cm_r": _normal(gen, L + (D, D), dtype, std)}
+
+
+def _mixes(x: torch.Tensor, xs: torch.Tensor, mu: torch.Tensor
+           ) -> torch.Tensor:
+    """RWKV's token-shift mixes, all rows of mu (n, D) at once: (x32 +
+    (xs - x) * mu[i]) in f32, cast to x's dtype; (n, B, S, D). The same
+    products and sums as one mix at a time, in fewer kernels."""
+    f32 = torch.float32
+    dx = (xs - x).to(f32)
+    return (x.to(f32) + dx * mu.to(f32)[:, None, None, :]).to(x.dtype)
+
+
+def _wkv_scan(r, k, v, w, u, s0, chunk: int = 64):
+    """The WKV recurrence, chunked: y_t = r_t @ (S_t + u * k_t^T v_t);
+    S_{t+1} = diag(w_t) S_t + k_t^T v_t. r, k, v, w (B, S, H, dh); u
+    (H, dh); s0 (B, H, dh, dh) f32. Returns (y (B, S, H, dh) f32, s_last)."""
+    C = scan_chunk(r.shape[1], chunk)
+    uu = u[None, None, :, :, None]
+
+    def chunk_fn(s, rc, kc, vc, wc):             # (C, B, H, dh) each
+        kv = kc[..., :, None] * vc[..., None, :]            # (C,B,H,dh,dh)
+        states = []
+        for w_t, kv_t in zip(wc.unbind(0), kv.unbind(0)):
+            states.append(s)
+            s = torch.addcmul(kv_t, w_t[..., None], s)
+        y = torch.einsum("cbhk,cbhkv->cbhv", rc,
+                         _stacked(states) + uu * kv)
+        return s, y
+
+    s_last, ys = _chunked_scan(
+        chunk_fn, s0,
+        [t.transpose(0, 1).to(torch.float32) for t in (r, k, v, w)], C)
+    return ys.transpose(0, 1), s_last
+
+
+def rwkv_timemix_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
+                       prefix: str, state: Optional[tuple] = None,
+                       shapes: Optional[LayerShapes] = None):
+    """RWKV6 (Finch) time-mix with data-dependent decay. state =
+    (shift_last (B, D) f32, wkv (B, H, dh, dh) f32), None for a full
+    sequence from zero state; H comes from `shapes`. The mixes, the decay
+    chain and the gate run in f32, each mix cast to x's dtype before its
+    projection. Returns (out, new_state)."""
+    B, S, D = x.shape
+    rc = cfg.rwkv
+    dh = rc.head_size
+    shapes = shapes or LayerShapes.from_config(cfg)
+    H = shapes.rwkv_heads
+    f32 = torch.float32
+    xs = _token_shift(x, state[0] if state is not None else None)
+    mixed = _mixes(x, xs, lp[f"{prefix}.mu"])                # (5, B, S, D)
+    r = dense_proj(mixed[0], lp, qp, f"{prefix}.wr").reshape(B, S, H, dh)
+    k = dense_proj(mixed[1], lp, qp, f"{prefix}.wk").reshape(B, S, H, dh)
+    v = dense_proj(mixed[2], lp, qp, f"{prefix}.wv").reshape(B, S, H, dh)
+    g = F.silu(dense_proj(mixed[3], lp, qp, f"{prefix}.wg").to(f32))
+    dd = torch.tanh(dense_proj(mixed[4], lp, qp, f"{prefix}.decay_w1")
+                    .to(f32))
+    dd = dense_proj(dd, lp, qp, f"{prefix}.decay_w2").to(f32)
+    logw = -torch.exp(torch.clamp(
+        lp[f"{prefix}.decay_w0"].to(f32) + dd, -8.0, 4.0))
+    w = torch.exp(logw).reshape(B, S, H, dh)
+    u = lp[f"{prefix}.u"].to(f32).reshape(H, dh)
+    s0 = (torch.zeros((B, H, dh, dh), dtype=f32, device=x.device)
+          if state is None else state[1])
+    y, s_last = _wkv_scan(r, k, v, w, u, s0, chunk=rc.chunk)
+    y = groupnorm_heads(y.reshape(B, S, H * dh).to(x.dtype),
+                        lp[f"{prefix}.lnx_scale"], lp[f"{prefix}.lnx_bias"],
+                        H, cfg.norm_eps)
+    y = (y.to(f32) * g).to(x.dtype)
+    y = qa(y, qp, f"{prefix}.tm_out.aq")
+    out = dense_proj(y, lp, qp, f"{prefix}.wo")
+    return out, (x[:, -1].to(f32), s_last)
+
+
+def rwkv_chanmix_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
+                       prefix: str, state: Optional[torch.Tensor] = None):
+    """RWKV channel-mix FFN; state = shift_last (B, D) f32. Returns
+    (out, new_state)."""
+    f32 = torch.float32
+    xk, xr = _mixes(x, _token_shift(x, state), lp[f"{prefix}.cm_mu"])
+    k = torch.square(torch.relu(dense_proj(xk, lp, qp, f"{prefix}.cm_k")
+                                .to(f32))).to(x.dtype)
+    k = qa(k, qp, f"{prefix}.cm_act.aq")
+    val = dense_proj(k, lp, qp, f"{prefix}.cm_v")
+    r = torch.sigmoid(dense_proj(xr, lp, qp, f"{prefix}.cm_r").to(f32))
+    return (val.to(f32) * r).to(x.dtype), x[:, -1].to(f32)

@@ -1,5 +1,5 @@
-"""The decoder LM of the dense and MoE families, port of
-`repro.models.transformer`.
+"""The decoder LM of the dense, MoE, RWKV6 and hybrid (attention + mamba)
+families, port of `repro.models.transformer`.
 
 `LM` is an `nn.Module` that holds the config and the layer plan; the
 weights stay a flat dict[str, Tensor] under the JAX keys (stacked (L, K, N)
@@ -16,7 +16,16 @@ paged pools) IN PLACE and return the same dict.
 The layer pattern repeats with a period (`layer_plan`: MoE every
 `moe.every` layers); params stack over n_blocks = n_layers / period per
 position-in-period, and each layer of the loop runs the period's
-sublayers in turn.
+sublayers in turn: a mixer (attention, mamba or rwkv6 time-mix), then an
+FFN (MLP, MoE, rwkv6 channel-mix, or none).
+
+The recurrent mixers keep their decode state in the cache dict beside the
+K/V leaves (`init_cache`: `<pre>.h` / `<pre>.conv` for mamba,
+`<pre>.tm_shift` / `<pre>.wkv` / `<pre>.cm_shift` for rwkv6), one row per
+slot, constant in length. `prefill` runs each mixer from zero state and
+writes the state S sequential decode steps would leave; `decode_step`
+reads and advances it. Both write the states IN PLACE (`copy_`), so a
+CUDA graph captured over the arena replays against the same addresses.
 
 Weight quantizers split as in JAX: sites on routed 2-D block projections
 (attention, MLP, the MoE's shared expert) fuse into the GEMM's fake-quant
@@ -53,6 +62,11 @@ class SubLayer:
     ffn: str       # mlp | moe | chanmix | none
 
 
+def recurrent_mixers(plan: list[SubLayer]) -> list[str]:
+    """The recurrent mixers (mamba, rwkv) of a layer plan, sorted."""
+    return sorted({s.mixer for s in plan if s.mixer != "attn"})
+
+
 def layer_plan(cfg: ModelConfig) -> tuple[list[SubLayer], int]:
     """(per-period sublayer specs, n_blocks): the period is the lcm of
     the hybrid interleave and `moe.every`; position j takes the MoE when
@@ -82,15 +96,18 @@ _QUANT_WEIGHTS = {
     "attn": ["wq", "wk", "wv", "wo"],
     "mlp": ["w_gate", "w_up", "w_down"],
     "moe": ["router", "we_gate", "we_up", "we_down"],
+    "mamba": ["in_proj_x", "in_proj_z", "x_proj", "dt_proj", "out_proj"],
+    "rwkv": ["wr", "wk", "wv", "wg", "wo", "decay_w1", "decay_w2"],
+    "chanmix": ["cm_k", "cm_v", "cm_r"],
 }
 # Activation-quant sites (per sublayer component).
-_ACT_SITES = {"attn": ["attn_out"], "mlp": ["mlp_act"], "moe": []}
+_ACT_SITES = {"attn": ["attn_out"], "mlp": ["mlp_act"], "moe": [],
+              "mamba": ["mamba_out"], "rwkv": ["tm_out"],
+              "chanmix": ["cm_act"]}
 # the families this slice runs; the rest raise naming the item that
 # brings them
-_PORTED_FAMILIES = ("dense", "moe")
+_PORTED_FAMILIES = ("dense", "moe", "ssm_rwkv", "hybrid")
 _LATER_FAMILIES = {
-    "ssm_rwkv": "ROADMAP Queue 1 item 12b (the recurrent mixers)",
-    "hybrid": "ROADMAP Queue 1 item 12b (the recurrent mixers)",
     "audio": "ROADMAP Queue 1 item 12b (codebook embeddings)",
     "vlm": "ROADMAP Queue 1 item 12b (vision embeds)",
 }
@@ -141,25 +158,38 @@ class LM(torch.nn.Module):
             params["head"] = Lyr._normal(gen, (D, Vp), dt, D ** -0.5)
         params["final_norm"] = torch.ones((D,), dtype=torch.float32,
                                           device=dev)
+        init_mixer = {"attn": Lyr.init_attention, "mamba": Lyr.init_mamba,
+                      "rwkv": Lyr.init_rwkv}
         for sub in self.plan:
             pre = f"blocks.{sub.j}"
-            for norm in ("norm1", "norm2"):
+            norms = ("norm1",) if sub.ffn == "none" else ("norm1", "norm2")
+            for norm in norms:
                 params[f"{pre}.{norm}"] = torch.ones(
                     (self.n_blocks, D), dtype=torch.float32, device=dev)
-            params.update(Lyr.init_attention(gen, cfg, f"{pre}.attn",
-                                             self.n_blocks, dt))
-            init_ffn = Lyr.init_moe if sub.ffn == "moe" else Lyr.init_mlp
-            params.update(init_ffn(gen, cfg, f"{pre}.{sub.ffn}",
-                                   self.n_blocks, dt))
+            params.update(init_mixer[sub.mixer](
+                gen, cfg, f"{pre}.{sub.mixer}", self.n_blocks, dt))
+            if sub.ffn in ("mlp", "moe"):
+                init_ffn = Lyr.init_moe if sub.ffn == "moe" else Lyr.init_mlp
+                params.update(init_ffn(gen, cfg, f"{pre}.{sub.ffn}",
+                                       self.n_blocks, dt))
         return params
 
     # --------------------------------------------------------- quantization
+    @staticmethod
+    def _ffn_prefix(sub: SubLayer) -> str:
+        """The param prefix of a sublayer's FFN: the channel-mix's params
+        live under its time-mix's `rwkv` prefix, as in the reference."""
+        return "rwkv" if sub.ffn == "chanmix" else sub.ffn
+
     def quant_weight_names(self) -> list[str]:
         names = []
         for sub in self.plan:
             pre = f"blocks.{sub.j}"
-            names += [f"{pre}.attn.{w}" for w in _QUANT_WEIGHTS["attn"]]
-            names += [f"{pre}.{sub.ffn}.{w}" for w in _QUANT_WEIGHTS[sub.ffn]]
+            names += [f"{pre}.{sub.mixer}.{w}"
+                      for w in _QUANT_WEIGHTS[sub.mixer]]
+            if sub.ffn != "none":
+                names += [f"{pre}.{self._ffn_prefix(sub)}.{w}"
+                          for w in _QUANT_WEIGHTS[sub.ffn]]
             if sub.ffn == "moe" and self.cfg.moe.shared_expert:
                 names += [f"{pre}.moe.shared.{w}"
                           for w in _QUANT_WEIGHTS["mlp"]]
@@ -172,8 +202,23 @@ class LM(torch.nn.Module):
             pre = f"blocks.{sub.j}"
             names += [f"{pre}.{sub.mixer}.{s}.aq"
                       for s in _ACT_SITES[sub.mixer]]
-            names += [f"{pre}.{sub.ffn}.{s}.aq" for s in _ACT_SITES[sub.ffn]]
+            if sub.ffn != "none":
+                names += [f"{pre}.{self._ffn_prefix(sub)}.{s}.aq"
+                          for s in _ACT_SITES[sub.ffn]]
         return names
+
+    def check_prompt_length(self, S: int) -> None:
+        """Raise ValueError if the recurrent prefill cannot take an S-token
+        prompt: a scan over more than one chunk needs a multiple of it
+        (`layers.scan_chunk`, the reference's rule)."""
+        cfg = self.cfg
+        for mixer in recurrent_mixers(self.plan):
+            chunk = cfg.rwkv.chunk if mixer == "rwkv" else cfg.mamba.chunk
+            try:
+                Lyr.scan_chunk(S, chunk)
+            except ValueError as e:
+                raise ValueError(f"{cfg.name}: the {mixer} prefill cannot "
+                                 f"take this prompt: {e}") from None
 
     def init_qparams(self, params: dict, bits_init: float = 8.0,
                      act_quant: bool = False) -> dict[str, QuantParams]:
@@ -235,14 +280,15 @@ class LM(torch.nn.Module):
                     views[i][k] = vi
         return views
 
-    def _block(self, lp, qp_body, x, rope, caches=None, pos=None,
-               pages=None, i=0, chunked=False, full_capacity=False):
-        """One layer of the stack on the residual stream x; an MoE routes
-        at full capacity with `full_capacity` (prefill, verify_chunk)."""
+    def _mixer(self, sub, shp, lp, qp_body, h, rope, caches, pos, pages,
+               i, chunked, prefill):
+        """The sublayer's mixer on its normed input h. With `caches`, an
+        attention mixer writes its K/V rows in place; a recurrent one runs
+        from zero state (`prefill`) or from the slot's state (decode) and
+        copies its new state into the cache leaves in place."""
         cfg = self.cfg
-        for sub, shp in zip(self.plan, self.shapes):
-            pre = f"blocks.{sub.j}"
-            h = Lyr.rmsnorm(x, lp[f"{pre}.norm1"], cfg.norm_eps)
+        pre = f"blocks.{sub.j}"
+        if sub.mixer == "attn":
             cache = None
             if caches is not None:
                 cache = (caches[f"{pre}.k"][i], caches[f"{pre}.v"][i], pos)
@@ -255,23 +301,68 @@ class LM(torch.nn.Module):
                                     prefix=f"{pre}.attn", cache=cache,
                                     shapes=shp, pages=pages,
                                     chunked=chunked)
-            x = x + mix
+            return mix
+        keys = ((f"{pre}.h", f"{pre}.conv") if sub.mixer == "mamba"
+                else (f"{pre}.tm_shift", f"{pre}.wkv"))
+        state = None
+        if caches is not None and not prefill:
+            state = tuple(caches[k][i] for k in keys)
+        apply = (Lyr.mamba_apply if sub.mixer == "mamba"
+                 else Lyr.rwkv_timemix_apply)
+        mix, new = apply(lp, qp_body, cfg, h, prefix=f"{pre}.{sub.mixer}",
+                         state=state, shapes=shp)
+        if caches is not None:
+            for k, t in zip(keys, new):
+                caches[k][i].copy_(t)
+        return mix
+
+    def _ffn(self, sub, shp, lp, qp_body, h2, caches, i, prefill,
+             full_capacity):
+        cfg = self.cfg
+        pre = f"blocks.{sub.j}"
+        if sub.ffn == "moe":
+            return Lyr.moe_apply(lp, qp_body, cfg, h2, prefix=f"{pre}.moe",
+                                 full_capacity=full_capacity, shapes=shp)
+        if sub.ffn == "mlp":
+            return Lyr.mlp_apply(lp, qp_body, cfg, h2, prefix=f"{pre}.mlp")
+        key = f"{pre}.cm_shift"
+        state = None
+        if caches is not None and not prefill:
+            state = caches[key][i]
+        f, new = Lyr.rwkv_chanmix_apply(lp, qp_body, cfg, h2,
+                                        prefix=f"{pre}.rwkv", state=state)
+        if caches is not None:
+            caches[key][i].copy_(new)
+        return f
+
+    def _block(self, lp, qp_body, x, rope, caches=None, pos=None,
+               pages=None, i=0, chunked=False, full_capacity=False,
+               prefill=False):
+        """One layer of the stack on the residual stream x; an MoE routes
+        at full capacity with `full_capacity` (prefill, verify_chunk);
+        `prefill` runs the recurrent mixers from zero state."""
+        cfg = self.cfg
+        for sub, shp in zip(self.plan, self.shapes):
+            pre = f"blocks.{sub.j}"
+            h = Lyr.rmsnorm(x, lp[f"{pre}.norm1"], cfg.norm_eps)
+            x = x + self._mixer(sub, shp, lp, qp_body, h, rope, caches, pos,
+                                pages, i, chunked, prefill)
+            if sub.ffn == "none":
+                continue
             h2 = Lyr.rmsnorm(x, lp[f"{pre}.norm2"], cfg.norm_eps)
-            if sub.ffn == "moe":
-                f = Lyr.moe_apply(lp, qp_body, cfg, h2, prefix=f"{pre}.moe",
-                                  full_capacity=full_capacity, shapes=shp)
-            else:
-                f = Lyr.mlp_apply(lp, qp_body, cfg, h2, prefix=f"{pre}.mlp")
-            x = x + f
+            x = x + self._ffn(sub, shp, lp, qp_body, h2, caches, i, prefill,
+                              full_capacity)
         return x
 
     def _blocks(self, params, qp_body, x, rope, caches=None, pos=None,
-                pages=None, chunked=False, full_capacity=False):
+                pages=None, chunked=False, full_capacity=False,
+                prefill=False):
         """Run the layer stack; with `caches`, each attention sublayer
         writes its K/V into the cache in place (into the shared page pools
         through `pages`, a `Lyr.PagedView`, when given; at rows pos + [0,
-        S) with `chunked`). A training forward (grad enabled, no cache)
-        under `cfg.remat` checkpoints each layer."""
+        S) with `chunked`) and each recurrent sublayer its new state. A
+        training forward (grad enabled, no cache) under `cfg.remat`
+        checkpoints each layer."""
         remat = (self.cfg.remat and caches is None
                  and torch.is_grad_enabled())
         for i, lp in enumerate(self._layer_views(params)):
@@ -280,7 +371,7 @@ class LM(torch.nn.Module):
                                use_reentrant=False)
             else:
                 x = self._block(lp, qp_body, x, rope, caches, pos, pages, i,
-                                chunked, full_capacity)
+                                chunked, full_capacity, prefill)
         return x
 
     def forward(self, params: dict, qparams: Optional[dict],
@@ -323,11 +414,16 @@ class LM(torch.nn.Module):
             pre = f"blocks.{sub.j}"
             gb.norm(f"{pre}.norm1", scale=f"{pre}.norm1", after=resid,
                     param_axis=1)
-            mixer_v = self._graph_attn(gb, pre)
+            mixer_v = {"attn": self._graph_attn, "mamba": self._graph_mamba,
+                       "rwkv": self._graph_rwkv}[sub.mixer](gb, pre)
             resid = gb.add(f"{pre}.add1", [resid, mixer_v])
+            if sub.ffn == "none":
+                continue
             gb.norm(f"{pre}.norm2", scale=f"{pre}.norm2", after=resid,
                     param_axis=1)
             ffn_v = (self._graph_moe(gb, pre) if sub.ffn == "moe"
+                     else self._graph_chanmix(gb, pre)
+                     if sub.ffn == "chanmix"
                      else self._graph_mlp(gb, pre, act_quant))
             resid = gb.add(f"{pre}.add2", [resid, ffn_v])
         gb.norm("final_norm", scale="final_norm", after=resid)
@@ -360,6 +456,65 @@ class LM(torch.nn.Module):
         for w in _QUANT_WEIGHTS["attn"]:
             gb.attach_weight_quant(vid, f"{pre}.attn.{w}.wq",
                                    target_param=f"{pre}.attn.{w}")
+        return vid
+
+    def _graph_mamba(self, gb: GraphBuilder, pre: str) -> str:
+        # the inner channels are the removable unit (a "state" family)
+        cfg = self.cfg
+        m = f"{pre}.mamba"
+        members = [(f"{m}.in_proj_x", 2, 1), (f"{m}.in_proj_z", 2, 1),
+                   (f"{m}.conv_w", 2, 1), (f"{m}.x_proj", 1, 1),
+                   (f"{m}.dt_proj", 2, 1), (f"{m}.dt_bias", 1, 1),
+                   (f"{m}.A_log", 1, 1), (f"{m}.D", 1, 1),
+                   (f"{m}.out_proj", 1, 1)]
+        spec = FamilySpec(name=f"{m}.channels",
+                          units=cfg.mamba.expand * cfg.d_model,
+                          members=members, kind="state")
+        vid = gb.composite(
+            m, "mamba", spec,
+            params={f"p{i}": mm[0] for i, mm in enumerate(members)},
+            in_members=[(f"{m}.in_proj_x", 1), (f"{m}.in_proj_z", 1)],
+            resid_members=[(f"{m}.out_proj", 2)], after=f"{pre}.norm1")
+        for w in _QUANT_WEIGHTS["mamba"]:
+            gb.attach_weight_quant(vid, f"{m}.{w}.wq", target_param=f"{m}.{w}")
+        return vid
+
+    def _graph_rwkv(self, gb: GraphBuilder, pre: str) -> str:
+        # time-mix: heads are the removable unit
+        cfg = self.cfg
+        dh = cfg.rwkv.head_size
+        r = f"{pre}.rwkv"
+        members = [(f"{r}.wr", 2, dh), (f"{r}.wk", 2, dh), (f"{r}.wv", 2, dh),
+                   (f"{r}.wg", 2, dh), (f"{r}.wo", 1, dh),
+                   (f"{r}.decay_w2", 2, dh), (f"{r}.decay_w0", 1, dh),
+                   (f"{r}.u", 1, dh), (f"{r}.lnx_scale", 1, dh),
+                   (f"{r}.lnx_bias", 1, dh)]
+        spec = FamilySpec(name=f"{r}.heads", units=cfg.d_model // dh,
+                          members=members, kind="head_group")
+        vid = gb.composite(
+            r, "rwkv_timemix", spec,
+            params={f"p{i}": mm[0] for i, mm in enumerate(members)},
+            in_members=[(f"{r}.wr", 1), (f"{r}.wk", 1), (f"{r}.wv", 1),
+                        (f"{r}.wg", 1), (f"{r}.decay_w1", 1)],
+            resid_members=[(f"{r}.wo", 2)], after=f"{pre}.norm1")
+        for w in _QUANT_WEIGHTS["rwkv"]:
+            gb.attach_weight_quant(vid, f"{r}.{w}.wq", target_param=f"{r}.{w}")
+        return vid
+
+    def _graph_chanmix(self, gb: GraphBuilder, pre: str) -> str:
+        # channel-mix: the hidden channels are the removable unit
+        r = f"{pre}.rwkv"
+        members = [(f"{r}.cm_k", 2, 1), (f"{r}.cm_v", 1, 1)]
+        spec = FamilySpec(name=f"{r}.cm_hidden", units=self.cfg.d_ff,
+                          members=members, kind="channel")
+        vid = gb.composite(
+            f"{r}.cm", "rwkv_chanmix", spec,
+            params={f"p{i}": mm[0] for i, mm in enumerate(members)},
+            in_members=[(f"{r}.cm_k", 1), (f"{r}.cm_r", 1)],
+            resid_members=[(f"{r}.cm_v", 2), (f"{r}.cm_r", 2)],
+            after=f"{pre}.norm2")
+        for w in _QUANT_WEIGHTS["chanmix"]:
+            gb.attach_weight_quant(vid, f"{r}.{w}.wq", target_param=f"{r}.{w}")
         return vid
 
     def _graph_mlp(self, gb: GraphBuilder, pre: str, act_quant: bool) -> str:
@@ -408,13 +563,34 @@ class LM(torch.nn.Module):
         return vid
 
     # ------------------------------------------------------------- serving
+    def _state_leaves(self, sub, shp, batch: int, dtype, device) -> dict:
+        """A recurrent sublayer's decode state for `batch` slots, at the
+        sublayer's widths: mamba's h (f32) and conv (in `dtype`), rwkv6's
+        token shifts and WKV state (f32)."""
+        cfg, nb, pre = self.cfg, self.n_blocks, f"blocks.{sub.j}"
+        z = lambda shape, dt: torch.zeros((nb, batch) + shape, dtype=dt,
+                                          device=device)
+        if sub.mixer == "mamba":
+            Di = shp.mamba_inner
+            return {f"{pre}.h": z((Di, cfg.mamba.d_state), torch.float32),
+                    f"{pre}.conv": z((cfg.mamba.d_conv - 1, Di), dtype)}
+        dh = cfg.rwkv.head_size
+        return {f"{pre}.tm_shift": z((shp.d_model,), torch.float32),
+                f"{pre}.wkv": z((shp.rwkv_heads, dh, dh), torch.float32),
+                f"{pre}.cm_shift": z((shp.d_model,), torch.float32)}
+
     def init_cache(self, batch: int, max_seq: int, dtype=torch.bfloat16,
                    device=None) -> dict:
-        """The decode KV arena: (n_blocks, batch, max_seq, KVh, dh) per
-        attention K and V."""
+        """The decode arena: (n_blocks, batch, max_seq, KVh, dh) per
+        attention K and V, and each recurrent sublayer's state leaves
+        (`_state_leaves`), all at the sublayers' (possibly sliced) widths."""
         caches = {}
         for sub, shp in zip(self.plan, self.shapes):
             pre = f"blocks.{sub.j}"
+            if sub.mixer != "attn":
+                caches.update(self._state_leaves(sub, shp, batch, dtype,
+                                                 device))
+                continue
             shape = (self.n_blocks, batch, max_seq, shp.n_kv_heads,
                      shp.d_head)
             caches[f"{pre}.k"] = torch.zeros(shape, dtype=dtype,
@@ -425,7 +601,7 @@ class LM(torch.nn.Module):
 
     def init_paged_cache(self, n_pages: int, page_size: int,
                          dtype=torch.bfloat16, kv_bits: Optional[int] = None,
-                         device=None) -> dict:
+                         device=None, batch: Optional[int] = None) -> dict:
         """The paged decode arena: attention K and V become pools of
         (n_blocks, n_pages, page_size, KVh, dh) pages shared by every slot
         and addressed through per-slot page tables (`Lyr.PagedView`), so
@@ -433,16 +609,29 @@ class LM(torch.nn.Module):
         With `kv_bits` (8 or 4) the pools hold int8 codes (nibble pairs of
         width dh // 2 at 4 bits) plus per-row f32 scale pools
         `<pre>.k_scale` / `<pre>.v_scale` (n_blocks, n_pages, page_size,
-        KVh), decoded by the kernel when it reads them."""
+        KVh), decoded by the kernel when it reads them. A recurrent
+        sublayer's state is constant per slot and stays contiguous, one
+        row per slot: `batch` (the slot count) sizes those leaves and is
+        required when the plan has recurrent mixers."""
         if self.cfg.window > 0:
             raise ValueError("paged KV arena needs full (non-ring) caches; "
                              f"window={self.cfg.window}")
         if kv_bits is not None and kv_bits not in KV_STORAGE_BITS:
             raise ValueError(f"kv_bits must be in {KV_STORAGE_BITS}, "
                              f"got {kv_bits}")
+        if recurrent_mixers(self.plan) and batch is None:
+            raise ValueError(
+                f"init_paged_cache: the plan has "
+                f"{recurrent_mixers(self.plan)} "
+                f"mixers, whose per-slot state needs batch= (the slot "
+                f"count)")
         caches = {}
         for sub, shp in zip(self.plan, self.shapes):
             pre = f"blocks.{sub.j}"
+            if sub.mixer != "attn":
+                caches.update(self._state_leaves(sub, shp, batch, dtype,
+                                                 device))
+                continue
             KVh, dh = shp.n_kv_heads, shp.d_head
             rows = (self.n_blocks, n_pages, page_size, KVh)
             if kv_bits is None:
@@ -465,7 +654,10 @@ class LM(torch.nn.Module):
                 tokens: torch.Tensor, last_logit_only: bool = False):
         """One-shot prefill: a full-sequence pass that writes K/V rows
         [0, S) of `caches` in place (the rows must be zeroed beyond the
-        prompt, as a fresh cache is). Returns (logits, caches);
+        prompt, as a fresh cache is) and each recurrent sublayer's state
+        as S sequential decode steps from zero state would leave it. A
+        prompt longer than a scan chunk must be a multiple of it
+        (`check_prompt_length`). Returns (logits, caches);
         `last_logit_only` projects only the final position through the
         head."""
         cfg = self.cfg
@@ -477,7 +669,7 @@ class LM(torch.nn.Module):
         # serving semantics: prompt tokens never compete for expert
         # capacity, as one-token decode never overflows it
         x = self._blocks(params, qp_body, x, rope, caches, pos,
-                         full_capacity=True)
+                         full_capacity=True, prefill=True)
         if last_logit_only:
             x = x[:, -1:]
         x = Lyr.rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -509,7 +701,7 @@ class LM(torch.nn.Module):
         when a draft is rejected (KV rows can be zeroed). An MoE routes
         the chunk at full capacity, as prefill does: a dropping verify
         would part from the one-token decode steps it stands in for."""
-        bad = sorted({sub.mixer for sub in self.plan if sub.mixer != "attn"})
+        bad = recurrent_mixers(self.plan)
         if bad:
             raise ValueError(
                 f"verify_chunk needs attention mixers everywhere (rollback "
@@ -539,7 +731,9 @@ class LM(torch.nn.Module):
         of per-slot absolute positions. Writes each slot's K/V row at its
         position in place: into the contiguous arena of `init_cache`, or,
         with `pages`, into the page pools of `init_paged_cache` through
-        its page table. Returns (logits (B, 1, V), caches)."""
+        its page table. The recurrent sublayers read each slot's state and
+        write the next one in place (paged or not: their state is per
+        slot). Returns (logits (B, 1, V), caches)."""
         cfg = self.cfg
         params, qp_body = self._prequantize(params, qparams)
         x = self._embed_tokens(params, token)

@@ -198,7 +198,7 @@ def test_later_modes_raise_naming_their_slice(kw):
 
 def test_other_families_raise():
     with pytest.raises(NotImplementedError, match="family"):
-        TLM(get_arch("rwkv6-3b", smoke=True))
+        TLM(get_arch("musicgen-large", smoke=True))
 
 
 # ------------------------------------------------------- decode windows

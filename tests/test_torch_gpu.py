@@ -90,6 +90,16 @@ engine's and the CPU run's; grok's smoke GETA step (momentum) card vs CPU
 at `STEP_TOLERANCES`, d where Eq 17 is well-conditioned; the fake-quant
 kernels on a bf16 tensor of more than 2^31 elements, piece by piece
 bitwise their plain versions.
+
+The recurrent mixers (`test_recurrent_*`): the rwkv6 and jamba smoke
+engines (f32, dense and int8, contiguous and paged without prefix
+sharing, a slot re-admitted after another occupant) emit the CPU run's
+tokens on the card; rwkv6's smoke GETA step card vs CPU at
+`STEP_TOLERANCES`, d where Eq 17 is well-conditioned, bitwise on a
+repeat; the small-M and tensor-core GEMMs at the mixers' shapes (K = 8,
+64, 512 with x a strided view, 11469; N = 8, 64, 544), and f32 x on bf16
+weights (rwkv6's decay LoRA), within the GEMM's bound of the plain
+version.
 Every profiler trace opens with 64 int16 fill kernels that no count
 includes (`_traced_kernels`): a trace now and then loses the session's
 first kernels.
@@ -1993,3 +2003,119 @@ def test_fake_quant_past_2_31_elements_matches_plain(cuda):
                           g[rows * 4096:].view(1, -1), *sc)
     for got, w, a, b in zip(sums, want, scales, tail):
         assert abs(float(got) - w) <= 1e-5 * (a + b), (float(got), w)
+
+
+# ------------------------------- the recurrent mixers (rwkv6, jamba's mamba)
+RECURRENT_ARCHS = ["rwkv6-3b", "jamba-1.5-large-398b"]
+
+
+@pytest.mark.parametrize("arena", ["contiguous", "paged"])
+@pytest.mark.parametrize("mode", ["dense", "compressed"])
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_recurrent_engine_on_card_matches_cpu(cuda, arch, mode, arena):
+    """The recurrent smoke engines (f32, dense and int8) emit the same
+    greedy tokens on the card (the GEMM kernels under the plain recurrent
+    scans; jamba's decode attention) as on the CPU, from the same weights,
+    over both arenas (paged without prefix sharing), with a slot
+    re-admitted after another occupant (5 requests on 2 slots)."""
+    kw = (dict(paged=True, page_size=4, prefix_sharing=False)
+          if arena == "paged" else None)
+    toks = serve_on_devices(arch, True, [6, 3, 9, 12, 6], 8,
+                            ["cpu", "cuda"], max_slots=2, arena=kw,
+                            **WEIGHT_MODES[mode])
+    assert sorted(toks["cuda"]) == sorted(toks["cpu"])
+    for rid in toks["cpu"]:
+        np.testing.assert_array_equal(toks["cuda"][rid], toks["cpu"][rid],
+                                      err_msg=f"{arch} request {rid}")
+
+
+def test_recurrent_smoke_train_step_on_card_matches_cpu(cuda):
+    """rwkv6's smoke GETA step (`train.JOINT_STEP0`, AdamW, 16-bit init:
+    the chunk-checkpointed WKV scan in the backward) on the card against
+    the CPU from one state, at `train.STEP_TOLERANCES` with identical
+    masks; Eq 17's d where it is well conditioned (|cos theta_d| >=
+    1e-2); a second card run repeats bit for bit."""
+    from repro_torch.launch import train as T
+    arch = "rwkv6-3b"
+    runs = T.step_on_devices(arch, ["cpu", "cuda"])
+    diff = T.step_differences(runs["cpu"], runs["cuda"])
+    assert diff.pop("masks")
+    for k, tol in T.STEP_TOLERANCES.items():
+        if k != "d":
+            assert diff[k] <= tol, (k, diff[k], tol)
+    lm, p0, q0, _, qasso, s0 = T.init_geta(arch, True, comp=T.JOINT_STEP0,
+                                           device="cpu")
+    tokens = torch.randint(0, lm.cfg.vocab, (2, 16),
+                           generator=torch.Generator().manual_seed(0))
+    _, gx, _ = T.loss_and_grads(lm, p0, q0, {"tokens": tokens})
+    red = runs["cpu"][2].redundant
+    held = 0
+    for site in qasso.weight_sites:
+        if abs(_cos_d(qasso, site, p0, gx, red, q0[site.name])) < 1e-2:
+            continue
+        held += 1
+        a = float(runs["cuda"][1][site.name].d)
+        b = float(runs["cpu"][1][site.name].d)
+        assert abs(a - b) <= T.STEP_TOLERANCES["d"] * abs(b), site.name
+    assert held > 0
+    again = T.step_on_devices(arch, ["cuda"])["cuda"]
+    assert torch.equal(again[3]["loss"], runs["cuda"][3]["loss"])
+    assert all(torch.equal(again[0][k], runs["cuda"][0][k])
+               for k in again[0])
+
+
+# (K, N) of the recurrent mixers' projections the GEMM had not met: the
+# smoke decay LoRA / dt_rank (K = 8, N = 8), rwkv6's decay_w1 (N = 64) and
+# decay_w2 (K = 64), jamba's x_proj (N = 544), dt_proj (K = 512, x a view
+# with rows 544 apart) and, pruned at 0.3, x_proj and out_proj at K = 11469
+RECURRENT_GEMMS = [(8, 8), (2560, 64), (64, 2560), (16384, 544),
+                   (512, 16384), (11469, 544), (11469, 8192)]
+
+
+@pytest.mark.parametrize("K,N", RECURRENT_GEMMS, ids=str)
+@pytest.mark.parametrize("M", [4, 512])
+@pytest.mark.parametrize("epilogue", ["fake_quant_rhs", "dequant",
+                                      "unpack_b4"])
+def test_recurrent_gemm_shapes_match_plain(cuda, epilogue, M, K, N):
+    """The small-M (M = 4) and tensor-core (M = 512, bf16 x) variants at
+    the recurrent mixers' shapes, weights stored as `prepare_serving`
+    stores them (rows padded to 16 bytes): within the GEMM's bound of the
+    plain version, a second call bitwise. dt_proj's x is the strided
+    view `torch.split` leaves (rows dt_rank + 2 d_state apart)."""
+    gen = torch.Generator(device=cuda).manual_seed(K + N + M)
+    w, epi = _weights(epilogue, K, N, gen)
+    w = TG.aligned_rows(w)
+    if K == 512:
+        proj = torch.randn((M, 544), generator=gen, device=cuda)
+        x = proj.to(torch.bfloat16)[:, :K]
+        assert x.stride() == (544, 1)
+    else:
+        x = torch.randn((M, K), generator=gen, device=cuda).to(
+            torch.bfloat16)
+    y = TG.gemm(x, w, epi, out_dtype=torch.float32)
+    again = TG.gemm(x, w, epi, out_dtype=torch.float32)
+    want = TG.plain(x, w, epi, torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again)
+    torch.testing.assert_close(y, want, rtol=1e-4,
+                               atol=1e-4 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("M", [4, 512])
+@pytest.mark.parametrize("K,N", [(64, 2560), (8, 8)], ids=str)
+def test_recurrent_f32_x_on_bf16_weights_matches_plain(cuda, K, N, M):
+    """rwkv6's decay_w2 takes the f32 tanh of the LoRA's first product on
+    bf16 weights (f32 output): the small-M and SIMT variants with f32 x
+    and bf16 w, fake-quant and plain, within the GEMM's bound."""
+    gen = torch.Generator(device=cuda).manual_seed(K * N + M)
+    w = (torch.randn((K, N), generator=gen, device=cuda) * K ** -0.5).to(
+        torch.bfloat16)
+    qp = init_quant_params(w.float(), bits=8.0)
+    x = torch.tanh(torch.randn((M, K), generator=gen, device=cuda))
+    for epi in (TG.fake_quant_rhs(qp.d, qp.q_m, qp.t), TG.none()):
+        y = TG.gemm(x, TG.aligned_rows(w), epi)
+        want = TG.plain(x, w, epi, torch.float32)
+        torch.cuda.synchronize()
+        assert y.dtype == torch.float32
+        torch.testing.assert_close(y, want, rtol=1e-4,
+                                   atol=1e-4 * want.abs().max().item())

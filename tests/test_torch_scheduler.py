@@ -9,8 +9,9 @@ the same weights (the JAX package's PRNGKey(0) init of the smoke config,
 f32, crossed as numpy) and prompts, over the plain, packed, paged and
 speculative engines. Decode steps run while a prompt is mid-prefill, the
 counters equal the JAX engine's, and `warmup()` and the drain run only
-chunk lengths of `chunk_buckets(chunk)`. The window and recurrent gates
-are reached by editing a built LM (the port's LM has neither yet). The
+chunk lengths of `chunk_buckets(chunk)`. The window gate is reached by
+editing a built LM (the port's LM has no window yet), the recurrent gate
+on rwkv6's and jamba's real configs. The
 JAX side runs once per module (`_jax`).
 """
 import dataclasses
@@ -29,7 +30,6 @@ from repro_torch.configs import get_arch
 from repro_torch.launch import engine as TE
 from repro_torch.launch import scheduler as TSC
 from repro_torch.models.transformer import LM as TLM
-from repro_torch.models.transformer import SubLayer
 
 ARCH = "internlm2-1.8b"
 COUNTERS = ("decode_steps", "decode_tokens", "prefills", "prefill_tokens",
@@ -302,10 +302,11 @@ def test_chunked_refuses_windowed_and_stateful_archs():
     wlm.cfg = dataclasses.replace(wlm.cfg, window=8)
     with pytest.raises(ValueError, match="window"):
         TE.Engine(wlm, params, None, max_seq=16, scheduler=sched)
-    rlm = TLM(get_arch(ARCH, smoke=True))
-    rlm.plan = [SubLayer(0, "mamba", "mlp")]
-    with pytest.raises(ValueError, match="attention mixers"):
-        TE.Engine(rlm, params, None, max_seq=16, scheduler=sched)
+    for arch in ("rwkv6-3b", "jamba-1.5-large-398b"):
+        rlm = TLM(get_arch(arch, smoke=True))
+        rparams = rlm.init(torch.Generator().manual_seed(0))
+        with pytest.raises(ValueError, match="attention mixers"):
+            TE.Engine(rlm, rparams, None, max_seq=16, scheduler=sched)
 
 
 def test_pending_tracks_staging():

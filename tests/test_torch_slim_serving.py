@@ -16,8 +16,8 @@ ragged 0.3 (d_ff 179: rows of 716 bytes, stored padded to 720).
 The MoE slim tests (`test_compress_lm_records_skipped_sites`,
 `test_moe_floor_keeps_top_k_experts`) are mirrored in
 `tests/test_torch_moe_spec.py`; the stateful-family one
-(`test_pruned_decode_stateful_families`) waits for the recurrent mixers
-(ROADMAP Queue 1 item 12b).
+(`test_pruned_decode_stateful_families`) in
+`tests/test_torch_recurrent_serving.py`.
 """
 import dataclasses
 

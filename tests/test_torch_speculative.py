@@ -5,8 +5,8 @@ With `tests/test_torch_speculative_engine.py` (the engine's counters,
 gates, arenas and the checkpoint pair) it mirrors
 `tests/test_speculative.py` (all but its MoE-target test, which
 `tests/test_torch_moe_spec.py` mirrors; the gating test keeps its
-`draft_k` cases and reaches the window and recurrent gates by editing a
-built LM), the
+`draft_k` cases, reaches the window gate by editing a built LM and the
+recurrent gate on rwkv6's and jamba's real configs), the
 speculative cell of `tests/test_paged_kv.py` and the two speculative
 tests of `tests/test_engine.py`; the two files run on separate workers.
 

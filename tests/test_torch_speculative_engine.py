@@ -162,9 +162,10 @@ def test_window_raises_on_speculative_engine():
 
 
 def test_spec_rejects_bad_draft_k_and_unrollable_arenas():
-    """draft_k outside [1, max_seq) is refused; so are ring arenas and
-    recurrent mixers (the port's LM has neither yet: the gates are reached
-    by editing a built LM), and verify_chunk refuses recurrent mixers. An
+    """draft_k outside [1, max_seq) is refused; so are ring arenas (the
+    port's LM has none yet: the gate is reached by editing a built LM)
+    and recurrent mixers (rwkv6's and jamba's real configs), and
+    verify_chunk refuses recurrent mixers. An
     MoE plan (grok-1's one position) verifies: its chunk, routed at full
     capacity, gives the logits and KV rows of sequential decode steps."""
     draft = TSP.build_draft(ARCH, True, sparsity=0.5, bits=2.0)
@@ -178,14 +179,15 @@ def test_spec_rejects_bad_draft_k_and_unrollable_arenas():
     windowed.cfg = dataclasses.replace(windowed.cfg, window=8)
     with pytest.raises(ValueError, match="window"):
         TE.Engine(windowed, params, None, max_seq=16, draft=draft)
-    recurrent = TLM(get_arch(ARCH, smoke=True))
-    recurrent.plan = [SubLayer(0, "mamba", "mlp")]
-    with pytest.raises(ValueError, match="attention mixers"):
-        TE.Engine(recurrent, params, None, max_seq=16, draft=draft)
-    with pytest.raises(ValueError, match="rolled back"):
-        recurrent.verify_chunk(params, None, None,
-                               torch.zeros((1, 2), dtype=torch.int64),
-                               torch.zeros((1,), dtype=torch.int64))
+    for arch in ("rwkv6-3b", "jamba-1.5-large-398b"):
+        recurrent = TLM(get_arch(arch, smoke=True))
+        rparams = recurrent.init(torch.Generator().manual_seed(0))
+        with pytest.raises(ValueError, match="attention mixers"):
+            TE.Engine(recurrent, rparams, None, max_seq=16, draft=draft)
+        with pytest.raises(ValueError, match="rolled back"):
+            recurrent.verify_chunk(rparams, None, None,
+                                   torch.zeros((1, 2), dtype=torch.int64),
+                                   torch.zeros((1,), dtype=torch.int64))
     moe = TLM(get_arch("grok-1-314b", smoke=True))
     assert moe.plan == [SubLayer(0, "attn", "moe")]
     mp = moe.init(torch.Generator().manual_seed(0))
