@@ -68,7 +68,15 @@ Phases, each printing its own lines:
    2560->8960 at M = 512; jamba's 8192->16384, 16384->544, 512->16384 (x
    a strided view, rows 544 apart, as `torch.split` leaves dt_low) and
    16384->8192 at M = 4 and 512 in fake_quant_rhs and dequant; weights
-   stored as `prepare_serving` stores them.
+   stored as `prepare_serving` stores them. Then phase 14's shapes
+   (`FRONT_GEMMS`, `FRONT_DECODE`): internvl2-26b's 6144->16384,
+   16384->6144 and head 6144->92672 at M = 4 in fake_quant_rhs and
+   dequant, and 6144->16384 at its prefill height M = 2 x (1024 + 512) on
+   the tensor-core variant; decode attention at musicgen's MHA (B 4, S
+   576, KVh 32, g 1, dh 64: half of each warp's lanes hold a column) and
+   on a 256-row ring at positions 300, 255, 1000 and 256 (past its end:
+   the kernel attends over min(pos + 1, S) rows, the whole ring once it
+   has wrapped).
    Every GEMM row names its variant: M <= 8 the small-M
    one, M > 8 the tensor-core one for bf16 x, the SIMT one for f32 x; a
    tensor-core row is also timed at both block heights (128 and 256 rows)
@@ -313,14 +321,58 @@ Phases, each printing its own lines:
    launch counts are zeroed before 13a and read after 13d, where every
    kernel of the path must have launched; the GEMM launches are tallied
    by (variant, epilogue, K, N) for the kernel line.
-14. Two JSON lines: the kernel table, then the device line (last). A
+14. The last LM families at published widths, bf16, random weights from
+   seed 0; the reckoned bytes, peak and predicted times are printed
+   before each sub-phase. 14a: musicgen-large whole (48 layers, d_model
+   2048, 32 MHA heads of 64, d_ff 8192, 4 codebooks of vocab 2048; 3.26e9
+   params, 6.5 GB, no cut) through `serve_loop` (the static loop, which
+   codebook archs serve through) at batch 4, 64 prompt frames and 64
+   generated, in the dense fake-quant, int8 and packed b4 modes, and int8
+   at the 4-bit init, whose frames the packed ones must equal; a 32-frame
+   one-shot prefill against 32 sequential decode steps (`_logits_held`,
+   per codebook); one int8 decode step under a profiler trace: exactly 7
+   small-M GEMM kernels a layer plus the head's, and a split and a
+   combine decode-attention kernel a layer; `construct_subnet` at
+   magnitude masks of sparsity 0.3, then `serve_loop` pruned (int8) at
+   that sparsity, whose param_bytes must equal the bytes the sliced widths
+   predict (`lm_reckoning`), with its frames/s. 14b: `train_loop` on
+   musicgen-large, 4 x 512 frames, 5 steps through every stage, at whole
+   depth while the reckoned peak stays within 72 GB (else the deepest cut
+   that fits, printed): stages, exactly k_units pruned, finite losses,
+   the launches at `predicted_train_launches`, step wall, frames/s and
+   peak. 14c: internvl2-26b at its published widths (d_model 6144, 48 / 8
+   heads of 128, d_ff 16384, vocab 92553 padded to 92672, 1024 patches)
+   cut to 8 of 48 layers: `prefill(vision_embeds=)` of 2 x (1024 patches
+   + 512 text) (the GEMMs at M = 3072 on tensor cores), 32 decode steps,
+   the last logits against `forward` over all 1568 positions
+   (`_logits_held`); `serve_loop` text-only (prompt_len 1088: 64 text
+   tokens, as the reference slices them) dense and int8; one GETA step
+   (joint stage) at 2 of 48 layers on a 2 x (1024 + 512) batch, every
+   gradient finite, peak printed. 14d: internlm2-1.8b whole with the JAX
+   package's `window` field set to 256 (no config of the repo sets one):
+   the engine on 4 slots, prompts of 32-256 tokens each generating until
+   it has decoded past row 255 of its ring, through graph windows, then
+   eager `step()` (tokens equal), kv_bytes exactly 4 slots x 256 rows;
+   the longest request's last decode logits, past the wrap, against the
+   windowed `forward` over its whole sequence (`_logits_held`); the paged
+   arena, speculative decoding, chunked prefill and a 300-token prompt
+   each refused with a ValueError. The launch counts are zeroed before
+   14a and read after 14d, where every kernel of the path must have
+   launched; the GEMM launches are tallied by (variant, epilogue, K, N).
+   Then, on the smoke configs in f32 with one CPU-drawn model: musicgen's
+   `serve_loop` frames, the window-8 engine's tokens past the wrap and
+   internvl2's vision prefill + decode tokens on the card equal the CPU
+   run of the plain versions.
+15. Two JSON lines: the kernel table, then the device line (last). A
    serving kernel's `launches` are the host counts of phases 5-6 (a
    graph's calls once, at capture), a pruned-shape GEMM row's those of
    phase 8, a verify-height row's those of phase 9 (the captures of its
    draft length's graphs, with `replayed_launches` the replays' kernels),
    the fake-quant rows at phase 11's shapes those of phase 11, the rows
    at grok-1's shapes those of phase 12 at their shape, the rows at the
-   recurrent shapes those of phase 13 at their shape;
+   recurrent shapes those of phase 13 at their shape, the rows at phase
+   14's shapes those of phase 14 (decode attention's: 14a's at musicgen's
+   shape, 14d's on the ring);
    `traced_device_launches` are its device kernels in their traced
    drains (for a GEMM epilogue the small-M kernels, for decode attention
    the split kernels).
@@ -4162,6 +4214,670 @@ def phase_recurrent(torch) -> tuple[dict, dict, list[str], dict]:
     return counts, dict(tally), failures, info
 
 
+# ----------------------------------------------------------------- phase 14
+AUDIO_ARCH = "musicgen-large"
+VLM_ARCH = "internvl2-26b"
+AUDIO_PROMPT, AUDIO_GEN = 64, 64   # 14a's serve_loop: frames in, frames out
+AUDIO_PREFILL = 32                 # 14a's prefill-vs-decode prompt (frames)
+AUDIO_SPARSITY = 0.3               # 14a's pruned subnet
+# 14a's serve_loop modes: packed b4 is held to int8 at the same 4-bit init
+AUDIO_MODES = {"dense": {}, "int8": dict(compressed=True),
+               "packed_b4": dict(packed=True, bits_init=4.0),
+               "int8_b4": dict(compressed=True, bits_init=4.0)}
+TRAIN_PEAK = 72e9                  # 14b's reckoned-peak budget for whole depth
+VLM_LAYERS = 8                     # 14c's depth cut: 8 of 48 layers
+VLM_TEXT = 512                     # 14c: text tokens after the 1024 patches
+VLM_DECODE = 32                    # 14c: decode steps after the prefill
+VLM_SERVE_TEXT = 64                # 14c's serve_loop: prompt_len 1024 + 64
+VLM_TRAIN_LAYERS = 2               # 14c's GETA step: 2 of 48 layers
+WINDOW = 256                       # 14d: internlm2-1.8b's sliding window
+WINDOW_LENS = [32, 64, 128, 256, 96, 200, 160, 240]
+# every request decodes past row 255 of its ring: n + gen >= WINDOW + 2
+WINDOW_GENS = [max(128, WINDOW + 2 - n) for n in WINDOW_LENS]
+WINDOW_LONG = 300                  # 14d: a prompt longer than the window
+# phase 3's rows at the new shapes: internvl2's MLP projections and head at
+# decode (M = 4) and w_gate / w_up at its prefill height (2 x 1536 tokens)
+FRONT_GEMMS = [(4, 6144, 16384, _EP2), (4, 16384, 6144, _EP2),
+               (4, 6144, 92672, _EP2),
+               (2 * (1024 + VLM_TEXT), 6144, 16384, ("fake_quant_rhs",))]
+# and decode attention at musicgen's MHA (KVh 32, g 1, dh 64) and on a
+# windowed ring of 256 rows at positions past its end
+FRONT_DECODE = {"musicgen": (SLOTS, DECODE_S, 32, 1, 64, DECODE_POS[:SLOTS]),
+                "ring": (SLOTS, WINDOW, 8, 2, 128, [300, 255, 1000, 256])}
+# predictions written before the first card run of phase 14 (PERF.md §6)
+PREDICTED = {"14a_step_ms": 45.0, "14a_frames_per_s": 90.0,
+             "14b_step_s": 2.0, "14c_prefill_s": 0.2, "14c_step_ms": 10.0,
+             "14d_tok_per_s": 600.0, "phase_s": 160.0}
+
+
+def _front_gemm_name(M, K, N, label) -> str:
+    return f"{_report_name(label)}.internvl2.M{M}.{K}x{N}"
+
+
+def phase_frontend_kernels(torch, timer) -> tuple[list, dict, list]:
+    """Phase 3's rows at phase 14's new shapes (FRONT_GEMMS, weights
+    stored as `prepare_serving` stores them; FRONT_DECODE)."""
+    import itertools
+    from repro_torch.kernels import gemm_core as gc
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    rows, report, failures = [], {}, []
+    for M, K, N, epis in FRONT_GEMMS:
+        x = torch.randn((M, K), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        for label, w, epi, dequantized in itertools.islice(
+                _gemm_cases(torch, K, N, gen), 2):
+            if label not in epis:
+                continue
+            row = _gemm_row(torch, timer, gc, label, x, gc.aligned_rows(w),
+                            epi, dequantized(), tag=" (internvl2)")
+            rows.append(row)
+            if not row["ok"]:
+                failures.append(row)
+            report[_front_gemm_name(M, K, N, label)] = row
+        del x
+        torch.cuda.empty_cache()
+    for name, (B, S, KVh, g, dh, pos) in FRONT_DECODE.items():
+        pos = torch.tensor(pos, dtype=torch.int64, device="cuda")
+        row = _decode_check(torch, timer, gen, B, S, KVh, g, dh, pos)
+        rows.append(row)
+        if not row["ok"]:
+            failures.append(row)
+        report[f"decode_attn.{name}"] = row
+    return rows, report, failures
+
+
+def lm_reckoning(cfg, kv_heads: int | None = None,
+                 d_ff: int | None = None) -> dict:
+    """A dense-family LM's params and bytes from the config alone, at
+    `kv_heads` KV-head groups and `d_ff` MLP units (the config's by
+    default): bf16 weights, f32 norms, the embedding (C, Vp, D) and head
+    (D, C * Vp) with C codebooks (C = 1 without); served as int8 codes
+    (`compress_lm` at 8 bits: a byte an element and one f32 scale a layer
+    for every projection, one for the head; the embedding stays bf16);
+    bf16 K/V bytes a token a slot."""
+    D, dh, L = cfg.d_model, cfg.d_head, cfg.n_layers
+    V = max(cfg.num_codebooks, 1) * cfg.vocab_padded
+    KVh = kv_heads or cfg.n_kv_heads
+    F = d_ff or cfg.d_ff
+    Q, KV = KVh * cfg.gqa_group * dh, KVh * dh
+    shapes = [(D, Q), (D, KV), (D, KV), (Q, D), (D, F), (D, F), (F, D)]
+    layer = sum(k * n for k, n in shapes)
+    norms = (2 * L + 1) * D
+    return {"layer": layer, "params": L * layer + 2 * V * D + norms,
+            "param_bytes": 2 * (L * layer + 2 * V * D) + 4 * norms,
+            "int8_bytes": (L * (layer + 4 * len(shapes)) + V * D + 4
+                           + 2 * V * D + 4 * norms),
+            "kv_bytes_per_token": 2 * 2 * L * KV, "heads": KVh * cfg.gqa_group,
+            "kv_heads": KVh, "d_ff": F}
+
+
+class _CpuDrawnInit:
+    """While active, `LM.init` draws from the CPU generator at the given
+    generator's seed and moves the params to its device: the CPU and CUDA
+    generators give different numbers from one seed, and the card-vs-CPU
+    checks must serve one model."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models.transformer import LM
+        self.real = real = LM.init
+
+        def init(lm, gen):
+            drawn = real(lm, torch.Generator().manual_seed(
+                gen.initial_seed()))
+            return {k: v.to(gen.device) for k, v in drawn.items()}
+
+        LM.init = init
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models.transformer import LM
+        LM.init = self.real
+
+
+def _traced_kernel_counts(torch, fn, matches) -> dict[str, int]:
+    """Per name fragment in `matches`, the device kernels one call of `fn`
+    runs, from one torch.profiler trace opened by TRACE_WARMUP int16 fill
+    kernels, which are left out (as the card tests trace: a trace now and
+    then loses the session's first kernels). A trace in which none of
+    those fills shows is taken again, up to eight times."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    cuda = torch.autograd.DeviceType.CUDA
+    fill, marker = "FillFunctor<short>", torch.zeros(1, dtype=torch.int16,
+                                                     device="cuda")
+    names = []
+    for _ in range(8):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(TRACE_WARMUP):
+                marker.fill_(1)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        keys = [e.key for e in prof.events() if e.device_type == cuda]
+        if any(fill in k for k in keys):
+            names = [k for k in keys if fill not in k]
+            break
+    return {m: sum(m in n for n in names) for m in matches}
+
+
+def _audio_serving(torch, failures, info) -> None:
+    """14a: musicgen-large whole through `serve_loop` (see the module
+    docstring)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.subnet import (construct_subnet, prepare_serving,
+                                         resolve_keep_masks, tree_bytes)
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_serve_step, serve_loop
+    from repro_torch.models.transformer import LM
+    cfg = get_arch(AUDIO_ARCH)
+    rk = lm_reckoning(cfg)
+    C, Vp = cfg.num_codebooks, cfg.vocab_padded
+    weights = rk["param_bytes"] - 4 * (2 * cfg.n_layers + 1) * cfg.d_model \
+        - 2 * C * Vp * cfg.d_model
+    print(f"[14a musicgen] {AUDIO_ARCH} whole ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} MHA heads of {cfg.d_head}, "
+          f"d_ff {cfg.d_ff}, {C} codebooks of vocab {cfg.vocab}, bf16, no "
+          f"cut); reckoned {rk['params'] / 1e9:.3f}e9 params "
+          f"({rk['param_bytes'] / 1e9:.2f} GB; int8 served "
+          f"{rk['int8_bytes'] / 1e9:.2f} GB), KV "
+          f"{rk['kv_bytes_per_token'] / 1e3:.0f} KB a frame a slot; the "
+          f"block projections and head {weights / 1e9:.2f} GB: a decode step's "
+          f"byte bound {1e3 * weights / HBM_BYTES_PER_S:.2f} ms; predicted "
+          f"~{PREDICTED['14a_step_ms']:.0f} ms an eager step (host-bound), "
+          f"~{PREDICTED['14a_frames_per_s']:.0f} frames/s at batch {SLOTS}")
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device="cuda").manual_seed(0))
+    measured = tree_bytes(params)
+    if measured != rk["param_bytes"]:
+        failures.append(f"14a param bytes {measured} != reckoned "
+                        f"{rk['param_bytes']}")
+    # one-shot prefill against sequential decode, per codebook (int8)
+    p, q, _ = prepare_serving(lm, params, compressed=True)
+    toks = batch_for(cfg, 0, 0, 1, AUDIO_PREFILL, device="cuda")["tokens"]
+    want, _, got, _ = _prefill_and_steps(torch, lm, p, q, toks,
+                                         torch.bfloat16)
+    ok, line = _logits_held(torch, got, want)
+    if not ok:
+        failures.append(f"14a prefill vs decode: {line}")
+    print(f"[14a musicgen] int8: a {AUDIO_PREFILL}-frame one-shot prefill's "
+          f"last ({C}, {Vp}) logits against {AUDIO_PREFILL} decode steps, "
+          f"per codebook: {line} {'ok' if ok else 'FAIL'}")
+    # one traced decode step: 7 small-M GEMMs a layer and the head's, a
+    # split and a combine decode-attention kernel a layer
+    step = make_serve_step(lm)
+    cache = lm.init_cache(SLOTS, 8, dtype=torch.bfloat16, device="cuda")
+    frame = toks[:1, :1].expand(SLOTS, 1, C).contiguous()
+    with torch.no_grad():
+        step(p, q, cache, frame, 0)
+        seen = _traced_kernel_counts(
+            torch, lambda: step(p, q, cache, frame, 1),
+            ("gemm_small_m", "flash_decode_split", "flash_decode_combine"))
+    want_n = {"gemm_small_m": 7 * cfg.n_layers + 1,
+              "flash_decode_split": cfg.n_layers,
+              "flash_decode_combine": cfg.n_layers}
+    ok = seen == want_n
+    if not ok:
+        failures.append(f"14a traced decode step {seen} != {want_n}")
+    print(f"[14a musicgen] int8 decode step traced: {seen}, predicted "
+          f"{want_n} {'ok' if ok else 'FAIL'}")
+    del p, q, cache
+    torch.cuda.empty_cache()
+    # the pruned subnet through construct_subnet (magnitude masks)
+    t0 = time.perf_counter()
+    qadg, masks = resolve_keep_masks(lm, params, AUDIO_SPARSITY)
+    sub = construct_subnet(qadg, params, lm.init_qparams(params), masks)
+    kv_kept = sub.params["blocks.0.attn.wk"].shape[-1] // cfg.d_head
+    f_kept = sub.params["blocks.0.mlp.w_gate"].shape[-1]
+    codes = sum(v.numel() * v.element_size()
+                for v in sub.int_weights.values())
+    m = sub.meta
+    print(f"[14a musicgen] construct_subnet at sparsity {AUDIO_SPARSITY} in "
+          f"{time.perf_counter() - t0:.2f} s: realized {m['sparsity']:.4f}, "
+          f"heads {cfg.n_heads} -> {kv_kept}, d_ff {cfg.d_ff} -> {f_kept}, "
+          f"{m['n_sites']} sites at mean {m['mean_bits']:.2f} bits, codes "
+          f"{codes} B")
+    pruned_rk = lm_reckoning(cfg, kv_heads=kv_kept, d_ff=f_kept)
+    del sub, masks, qadg, params, lm
+    torch.cuda.empty_cache()
+    # serve_loop in every mode, then pruned (int8 on the sliced widths)
+    prompts = batch_for(cfg, 0, 0, SLOTS, AUDIO_PROMPT)["tokens"]
+    out, stats = {}, {}
+    modes = dict(AUDIO_MODES, pruned_int8=dict(
+        compressed=True, pruned=True, sparsity=AUDIO_SPARSITY))
+    for mode, kw in modes.items():
+        st = {}
+        before = ops.launch_counts()["decode_attn"]
+        out[mode] = serve_loop(AUDIO_ARCH, False, SLOTS, AUDIO_PROMPT,
+                               AUDIO_GEN, prompts=prompts, verbose=False,
+                               stats=st, device="cuda", **kw)
+        st["decode_attn"] = ops.launch_counts()["decode_attn"] - before
+        stats[mode] = st
+        t = out[mode]
+        fine = (t.shape == (SLOTS, AUDIO_GEN, C) and t.min() >= 0
+                and t.max() < cfg.vocab_padded)
+        if not fine:
+            failures.append(f"14a {mode}: frames {t.shape} out of range")
+        print(f"[14a musicgen] serve_loop {mode}: {SLOTS} x "
+              f"{AUDIO_PROMPT} prompt frames, {AUDIO_GEN} generated "
+              f"{t.shape}, {st['tok_per_s']:.1f} frames/s "
+              f"({st['tok_per_s'] * C:.1f} tokens/s), param_bytes "
+              f"{st['param_bytes']}, decode_attn launches "
+              f"{st['decode_attn']} {'ok' if fine else 'FAIL'}")
+        torch.cuda.empty_cache()
+    same = np.array_equal(out["packed_b4"], out["int8_b4"])
+    if not same:
+        failures.append("14a packed b4 frames != int8 frames at 4-bit init")
+    bytes_ok = (stats["int8"]["param_bytes"] == rk["int8_bytes"]
+                and stats["pruned_int8"]["param_bytes"]
+                == pruned_rk["int8_bytes"])
+    if not bytes_ok:
+        failures.append(f"14a int8 param bytes {stats['int8']['param_bytes']}"
+                        f" / pruned {stats['pruned_int8']['param_bytes']} "
+                        f"!= reckoned {rk['int8_bytes']} / "
+                        f"{pruned_rk['int8_bytes']}")
+    print(f"[14a musicgen] packed b4 frames "
+          f"{'==' if same else '!='} int8 frames at the same 4-bit init; "
+          f"int8 param_bytes {stats['int8']['param_bytes']} (reckoned "
+          f"{rk['int8_bytes']}), pruned {stats['pruned_int8']['param_bytes']}"
+          f" (reckoned at the sliced widths {pruned_rk['int8_bytes']}) "
+          f"{'ok' if same and bytes_ok else 'FAIL'}")
+    info["14a"] = {k: {f: st[f] for f in ("tok_per_s", "param_bytes",
+                                          "decode_attn")}
+                   for k, st in stats.items()}
+    info["14a"]["pruned_widths"] = {"heads": kv_kept, "d_ff": f_kept}
+
+
+def _audio_train(torch, failures, info) -> None:
+    """14b: one GETA step per stage on musicgen-large (`train_loop`)."""
+    from repro_torch.configs import CompressionConfig, get_arch
+    from repro_torch.launch import train as T
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import LM
+    cfg = get_arch(AUDIO_ARCH)
+    rk = lm_reckoning(cfg)
+    n = rk["params"]
+    batch, seq = TRAIN_BATCH, TRAIN_SEQ
+    # params and gradients in bf16 (norms f32), AdamW's two f32 moments,
+    # the update's f32 temporaries, the remat's residual stream and one
+    # layer's recompute (f32 scores) and the f32 logits of C codebooks
+    act = (batch * seq * cfg.d_model * 2 * cfg.n_layers
+           + 3 * batch * cfg.n_heads * seq * seq * 4
+           + 3 * batch * seq * cfg.num_codebooks * cfg.vocab_padded * 4)
+    reckoned = 2 * rk["param_bytes"] + 16 * n + act
+    layers = cfg.n_layers
+    while layers > 1 and reckoned > TRAIN_PEAK:
+        layers -= 1
+        cut = lm_reckoning(dataclasses.replace(cfg, n_layers=layers))
+        reckoned = (2 * cut["param_bytes"] + 16 * cut["params"]
+                    + act * layers // cfg.n_layers)
+    print(f"[14b musicgen train] reckoned peak {reckoned / 1e9:.1f} GB "
+          f"(params {rk['param_bytes'] / 1e9:.2f} GB, gradients as much, "
+          f"AdamW moments {8 * n / 1e9:.1f} GB, the update's f32 "
+          f"temporaries as much, activations {act / 1e9:.2f} GB): "
+          + (f"whole depth, {layers} layers" if layers == cfg.n_layers else
+             f"depth cut to {layers} of {cfg.n_layers} layers")
+          + f"; batch {batch} x {seq} frames; predicted "
+            f"~{PREDICTED['14b_step_s']:.1f} s a step")
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.launch_counts()
+    hist = []
+    t0 = time.perf_counter()
+    state, qadg, qasso, losses = T.train_loop(
+        AUDIO_ARCH, False, 5, batch, seq, seed=0,
+        comp=CompressionConfig(**COMP5), verbose=False, device="cuda",
+        history=hist, layers=(None if layers == cfg.n_layers else layers))
+    wall = time.perf_counter() - t0
+    counts = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    peak = torch.cuda.max_memory_allocated()
+    stages = [h["stage"] for h in hist]
+    frames = batch * seq
+    for i, h in enumerate(hist):
+        print(f"[14b musicgen train] step {i} stage {h['stage']} loss "
+              f"{h['loss']:.4f} sparsity {h['sparsity_hard']:.4f} wall "
+              f"{h['wall_s']:.3f} s {frames / h['wall_s']:.1f} frames/s")
+    keep = state["qstate"].keep_mask
+    n_pruned = sum(int(torch.sum(v < 0.5)) for v in keep.values())
+    lm = LM(dataclasses.replace(cfg, n_layers=layers))
+    want = predicted_train_launches(lm, qasso, stages)
+    got = {k: counts[k] for k in want}
+    others = {k: v for k, v in counts.items() if v and k not in want}
+    ok = (stages == [0, 1, 2, 2, 3]
+          and all(math.isfinite(x) for x in losses)
+          and n_pruned == qasso.k_units and got == want and not others
+          and peak <= 80e9)
+    if not ok:
+        failures.append(f"14b train: stages {stages}, losses {losses}, "
+                        f"pruned {n_pruned} of k_units {qasso.k_units}, "
+                        f"launches {got} != {want} ({others})")
+    print(f"[14b musicgen train] {layers} layers, 5 steps in {wall:.2f} s, "
+          f"stages {stages}, pruned units {n_pruned} (k_units "
+          f"{qasso.k_units}), peak {peak / 1e9:.1f} GB (reckoned "
+          f"{reckoned / 1e9:.1f}); launches {got} predicted {want}"
+          + (f" unexpected {others}" if others else "")
+          + f" {'ok' if ok else 'FAIL'}")
+    info["14b"] = {"layers": layers, "wall_s": wall,
+                   "steps": [h["wall_s"] for h in hist],
+                   "frames_per_s": [frames / h["wall_s"] for h in hist],
+                   "peak_bytes": peak, "reckoned_peak_bytes": reckoned}
+    del state, qadg, qasso
+
+
+def _vision(torch, failures, info) -> None:
+    """14c: internvl2-26b at its published widths, cut to VLM_LAYERS."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.subnet import prepare_serving, tree_bytes
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.launch import train as T
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.models.transformer import LM
+    full = get_arch(VLM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=VLM_LAYERS)
+    rk = lm_reckoning(cfg)
+    P = cfg.vision_patches
+    S = P + VLM_TEXT
+    print(f"[14c internvl2] {VLM_ARCH} at its published widths (d_model "
+          f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
+          f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab} padded to "
+          f"{cfg.vocab_padded}, {P} patches, bf16); cut: depth "
+          f"{full.n_layers} -> {VLM_LAYERS} layers; reckoned "
+          f"{rk['params'] / 1e9:.2f}e9 params ({rk['param_bytes'] / 1e9:.2f} "
+          f"GB; whole {lm_reckoning(full)['params'] / 1e9:.1f}e9); prefill "
+          f"2 x ({P} + {VLM_TEXT}) tokens: the GEMMs at M = {2 * S}, "
+          f"~{2 * 2 * S * VLM_LAYERS * rk['layer'] / 1e12:.1f} TFLOP, "
+          f"predicted ~{PREDICTED['14c_prefill_s']:.1f} s; a decode step "
+          f"predicted ~{PREDICTED['14c_step_ms']:.0f} ms")
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device="cuda").manual_seed(0))
+    measured = tree_bytes(params)
+    if measured != rk["param_bytes"]:
+        failures.append(f"14c param bytes {measured} != reckoned "
+                        f"{rk['param_bytes']}")
+    p, q, _ = prepare_serving(lm, params)
+    del params
+    b = batch_for(cfg, 0, 0, 2, S + VLM_DECODE, device="cuda")
+    toks, vis = b["tokens"], b["vision_embeds"]
+    with torch.no_grad():
+        cache = lm.init_cache(2, S + VLM_DECODE, dtype=torch.bfloat16,
+                              device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, _ = lm.prefill(p, q, cache, toks[:, :VLM_TEXT],
+                           vision_embeds=vis, last_logit_only=True)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i in range(VLM_DECODE):
+            lg, _ = lm.decode_step(p, q, cache,
+                                   toks[:, VLM_TEXT + i:VLM_TEXT + i + 1],
+                                   S + i)
+        torch.cuda.synchronize()
+        t_dec = (time.perf_counter() - t0) / VLM_DECODE
+        whole = lm.forward(p, q, toks, vis)[:, -1]
+    ok, line = _logits_held(torch, lg[:, -1].float(), whole.float())
+    if not ok:
+        failures.append(f"14c vision prefill + decode vs forward: {line}")
+    print(f"[14c internvl2] prefill(vision_embeds=) of 2 x ({P} patches + "
+          f"{VLM_TEXT} text) in {t_pre:.3f} s "
+          f"({2 * S / t_pre:.0f} tok/s), then {VLM_DECODE} decode steps "
+          f"({1e3 * t_dec:.2f} ms a step): the last logits against "
+          f"`forward` over the {S + VLM_DECODE} positions: {line} "
+          f"{'ok' if ok else 'FAIL'}")
+    del p, q, cache, whole, lg
+    torch.cuda.empty_cache()
+    stats = {}
+    for mode, kw in (("dense", {}), ("int8", dict(compressed=True))):
+        st = {}
+        t = serve_loop(VLM_ARCH, False, SLOTS, P + VLM_SERVE_TEXT, 32,
+                       verbose=False, stats=st, device="cuda",
+                       layers=VLM_LAYERS, **kw)
+        fine = (t.shape == (SLOTS, 32) and t.min() >= 0
+                and t.max() < cfg.vocab_padded)
+        if not fine:
+            failures.append(f"14c serve_loop {mode}: {t.shape}")
+        stats[mode] = {"tok_per_s": st["tok_per_s"],
+                       "param_bytes": st["param_bytes"]}
+        print(f"[14c internvl2] serve_loop {mode} (text only: prompt_len "
+              f"{P + VLM_SERVE_TEXT} leaves {VLM_SERVE_TEXT} text tokens, "
+              f"as the reference slices them), {SLOTS} x 32 tokens: "
+              f"{st['tok_per_s']:.1f} tok/s, param_bytes "
+              f"{st['param_bytes']} {'ok' if fine else 'FAIL'}")
+        torch.cuda.empty_cache()
+    # one GETA step at VLM_TRAIN_LAYERS layers on a 2 x (1024 + 512) batch
+    torch.cuda.reset_peak_memory_stats()
+    tlm, tp, tq, _, qasso, ts = T.init_geta(
+        VLM_ARCH, False, seed=0, device="cuda", comp=T.JOINT_STEP0,
+        layers=VLM_TRAIN_LAYERS)
+    tb = batch_for(tlm.cfg, 0, 0, 2, S, device="cuda")
+    t0 = time.perf_counter()
+    loss, gx, gq = T.loss_and_grads(tlm, tp, tq, tb)
+    finite = (math.isfinite(float(loss))
+              and all(bool(torch.isfinite(g).all()) for g in gx.values())
+              and all(math.isfinite(float(getattr(g, f)))
+                      for g in gq.values() for f in ("d", "q_m", "t")))
+    tp, tq, ts, met = qasso.update(tp, tq, gx, gq, ts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if not finite:
+        failures.append("14c GETA step: a gradient is not finite")
+    print(f"[14c internvl2 train] one GETA step (joint stage {met['stage']})"
+          f" at {VLM_TRAIN_LAYERS} of {full.n_layers} layers on 2 x ({P} + "
+          f"{VLM_TEXT}): loss {float(loss):.4f}, {len(gx)} parameter and "
+          f"{len(gq)} quantizer gradients finite "
+          f"{'ok' if finite else 'FAIL'}, {wall:.2f} s, peak "
+          f"{peak / 1e9:.1f} GB")
+    info["14c"] = {"prefill_s": t_pre, "decode_step_ms": 1e3 * t_dec,
+                   "serve": stats, "train_wall_s": wall, "train_peak": peak}
+    del tp, tq, ts, gx, gq, tb
+    torch.cuda.empty_cache()
+
+
+def _window(torch, failures, info) -> None:
+    """14d: internlm2-1.8b whole with window = WINDOW, through the engine."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.subnet import prepare_serving
+    from repro_torch.launch.engine import Engine, synthetic_prompts
+    from repro_torch.launch.scheduler import ChunkedPrefillScheduler
+    from repro_torch.launch.speculative import DraftModel
+    from repro_torch.models.transformer import LM
+    cfg = dataclasses.replace(get_arch(ARCH), window=WINDOW)
+    rk = lm_reckoning(cfg)
+    max_seq = max(n + g for n, g in zip(WINDOW_LENS, WINDOW_GENS))
+    kv_want = SLOTS * WINDOW * rk["kv_bytes_per_token"]
+    print(f"[14d window] {ARCH} whole with window = {WINDOW} (the JAX "
+          f"package's `window` field set on the published config: no config "
+          f"of the repo sets one); {SLOTS} slots, prompts {WINDOW_LENS} "
+          f"generating {WINDOW_GENS} (every request decodes past row "
+          f"{WINDOW - 1}); reckoned ring arena {kv_want} B against "
+          f"{SLOTS * max_seq * rk['kv_bytes_per_token']} B for max_seq "
+          f"{max_seq} unwindowed; predicted "
+          f"~{PREDICTED['14d_tok_per_s']:.0f} tok/s (phase 5's dense step)")
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device="cuda").manual_seed(0))
+    p, q, _ = prepare_serving(lm, params)
+    del params
+    prompts = synthetic_prompts(cfg, WINDOW_LENS, seed=0)
+    eng = Engine(lm, p, q, max_slots=SLOTS, max_seq=max_seq)
+    for pr, g in zip(prompts, WINDOW_GENS):
+        eng.submit(pr, g)
+    eng.warmup()
+    captured = _CAPTURES[0]
+    out = eng.run()
+    st = dict(eng.stats, **eng.throughput())
+    for pr, g in zip(prompts, WINDOW_GENS):
+        eng.submit(pr, g)
+    eager = eng._drain(eng.step)
+    ok = (_same(out, eager) and _CAPTURES[0] == captured
+          and eng.kv_bytes() == kv_want
+          and all(len(out[r]) == g for r, g in zip(sorted(out), WINDOW_GENS)))
+    if not ok:
+        failures.append(f"14d engine: graph == eager {_same(out, eager)}, "
+                        f"kv_bytes {eng.kv_bytes()} (want {kv_want})")
+    print(f"[14d window] engine: {len(out)} requests, decode "
+          f"{st['decode_tok_per_s']:.1f} tok/s, prefill "
+          f"{st['prefill_tok_per_s']:.1f} tok/s, replays "
+          f"{dict(eng.replays)}; graph-window tokens "
+          f"{'==' if _same(out, eager) else '!='} eager step tokens; "
+          f"kv_bytes {eng.kv_bytes()} (reckoned {kv_want}) "
+          f"{'ok' if ok else 'FAIL'}")
+    # the last decode logits of the longest request, past the wrap,
+    # against the windowed forward over its whole sequence
+    i = int(np.argmax([n + g for n, g in zip(WINDOW_LENS, WINDOW_GENS)]))
+    rid = sorted(out)[i]
+    seq = np.concatenate([prompts[i], out[rid][:-1]])
+    n = len(prompts[i])
+    with torch.no_grad():
+        t = torch.as_tensor(seq[None], dtype=torch.int64, device="cuda")
+        row = lm.init_cache(1, len(seq), dtype=torch.bfloat16, device="cuda")
+        lm.prefill(eng._run_params, eng._run_qparams, row, t[:, :n],
+                   last_logit_only=True)
+        for j in range(n, len(seq)):
+            got, _ = lm.decode_step(eng._run_params, eng._run_qparams, row,
+                                    t[:, j:j + 1], j)
+        want = lm.forward(eng._run_params, eng._run_qparams, t)[:, -1]
+    held, line = _logits_held(torch, got[:, -1].float(), want.float())
+    if not held:
+        failures.append(f"14d decode past the wrap vs forward: {line}")
+    print(f"[14d window] request {i} ({n} + {len(seq) - n} tokens, its ring "
+          f"of {row['blocks.0.k'].shape[2]} rows wrapped "
+          f"{(len(seq) - 1) // WINDOW} time(s)): the last decode step's "
+          f"logits against the windowed `forward` over all "
+          f"{len(seq)} tokens: {line} {'ok' if held else 'FAIL'}")
+    del row, t, got, want
+    # the refusals
+    refused = {}
+    attempts = {
+        "paged": lambda: Engine(lm, p, q, max_slots=SLOTS, max_seq=max_seq,
+                                paged=True),
+        "speculative": lambda: Engine(lm, p, q, max_slots=SLOTS,
+                                      max_seq=max_seq,
+                                      draft=DraftModel(lm, p, q, {})),
+        "chunked": lambda: Engine(lm, p, q, max_slots=SLOTS, max_seq=max_seq,
+                                  scheduler=ChunkedPrefillScheduler(chunk=128)),
+        f"{WINDOW_LONG}-token prompt": lambda: eng.submit(
+            np.zeros(WINDOW_LONG, np.int32), 4)}
+    for what, attempt in attempts.items():
+        try:
+            attempt()
+            refused[what] = "accepted"
+        except ValueError as e:
+            refused[what] = str(e)[:60]
+    ok = all(v != "accepted" for v in refused.values()) and not eng.queue
+    if not ok:
+        failures.append(f"14d refusals {refused}")
+    print(f"[14d window] refused with ValueError: {refused} "
+          f"{'ok' if ok else 'FAIL'}")
+    info["14d"] = {"decode_tok_per_s": st["decode_tok_per_s"],
+                   "prefill_tok_per_s": st["prefill_tok_per_s"],
+                   "kv_bytes": eng.kv_bytes()}
+    del eng, p, q
+    torch.cuda.empty_cache()
+
+
+def _frontends_card_vs_cpu(torch, failures) -> None:
+    """The three features on their smoke configs (f32): the card's tokens
+    against the CPU run of the plain versions, one model (CPU-drawn)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.subnet import prepare_serving
+    from repro_torch.data.synthetic import vlm_batch
+    from repro_torch.launch.engine import Engine
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.models.transformer import LM
+    results = {}
+    frames = np.random.default_rng(3).integers(0, 128, (2, 6, 4))
+    with _CpuDrawnInit():
+        results["musicgen serve_loop"] = [serve_loop(
+            AUDIO_ARCH, True, 2, 6, 8, prompts=frames, verbose=False,
+            device=dev) for dev in ("cuda", "cpu")]
+    wcfg = dataclasses.replace(get_arch(ARCH, smoke=True), window=8)
+    prompts = [np.random.default_rng(i).integers(0, 512, n).astype(np.int32)
+               for i, n in enumerate((5, 8, 3, 7))]
+    runs = []
+    for dev in ("cuda", "cpu"):
+        lm = LM(wcfg)
+        base = lm.init(torch.Generator().manual_seed(0))
+        p, q, _ = prepare_serving(lm, {k: v.to(dev) for k, v in base.items()})
+        eng = Engine(lm, p, q, max_slots=2, max_seq=32)
+        for pr, g in zip(prompts, (12, 9, 17, 10)):
+            eng.submit(pr, g)
+        eng.warmup()
+        out = eng.run()
+        runs.append(np.concatenate([out[r] for r in sorted(out)]))
+    results["windowed engine"] = runs
+    vcfg = get_arch(VLM_ARCH, smoke=True)
+    b = vlm_batch(0, 0, 2, 6, vcfg.vocab, vcfg.vision_patches, vcfg.d_model,
+                  dtype=torch.float32)
+    runs = []
+    for dev in ("cuda", "cpu"):
+        lm = LM(vcfg)
+        params = {k: v.to(dev) for k, v in lm.init(
+            torch.Generator().manual_seed(0)).items()}
+        cache = lm.init_cache(2, 24, dtype=torch.float32, device=dev)
+        with torch.no_grad():
+            lg, _ = lm.prefill(params, None, cache, b["tokens"].to(dev),
+                               vision_embeds=b["vision_embeds"].to(dev),
+                               last_logit_only=True)
+            tok = torch.argmax(lg[:, -1], -1)[:, None]
+            toks = [tok]
+            for i in range(8):
+                lg, _ = lm.decode_step(params, None, cache, tok,
+                                       vcfg.vision_patches + 6 + i)
+                tok = torch.argmax(lg[:, -1], -1)[:, None]
+                toks.append(tok)
+        runs.append(torch.cat(toks, 1).cpu().numpy())
+    results["internvl2 vision prefill + decode"] = runs
+    for what, (card, cpu) in results.items():
+        same = np.array_equal(card, cpu)
+        if not same:
+            failures.append(f"14 card vs CPU: {what}")
+        print(f"[14 frontends] smoke (f32) {what}: card tokens "
+              f"{card.shape} {'==' if same else '!='} the CPU run's "
+              f"{'ok' if same else 'FAIL'}")
+
+
+def phase_frontends(torch) -> tuple[dict, dict, list[str], dict]:
+    """Phase 14 (see the module docstring). Returns the launch counts of
+    14a-d (zeroed before, read after), the GEMM launches by (variant,
+    epilogue, K, N), the failures and the stats printed."""
+    from collections import Counter
+    from repro_torch.kernels import gemm_core as gc
+    from repro_torch.kernels import ops
+    t_start = time.perf_counter()
+    failures, info = [], {}
+    ops.reset_launch_counts()
+    tally = Counter()
+    real = _gemm_shape_tally(gc, tally)
+    try:
+        for label, sub in (("14a", _audio_serving), ("14b", _audio_train),
+                           ("14c", _vision), ("14d", _window)):
+            t0 = time.perf_counter()
+            before = ops.launch_counts()["decode_attn"]
+            sub(torch, failures, info)
+            info.setdefault(label, {})["decode_attn"] = \
+                ops.launch_counts()["decode_attn"] - before
+            print(f"[{label}] sub-phase seconds "
+                  f"{time.perf_counter() - t0:.1f}")
+            torch.cuda.empty_cache()
+        counts = ops.launch_counts()
+        _frontends_card_vs_cpu(torch, failures)
+    finally:
+        gc.gemm = real
+    need = ("gemm_core.fake_quant_rhs", "gemm_core.dequant",
+            "gemm_core.unpack_dequant", "gemm_core.none", "gemm_core.small_m",
+            "gemm_core.tc", "decode_attn", "fake_quant.fwd",
+            "fake_quant.bwd")
+    idle = [k for k in need if not counts.get(k)]
+    if idle:
+        failures.append(f"phase 14 never launched {idle}")
+    print(f"[14 frontends] launches {_nonzero(counts)}; every kernel of the "
+          f"path launched {'ok' if not idle else 'FAIL: ' + str(idle)}; the "
+          f"phase took {time.perf_counter() - t_start:.1f} s (predicted "
+          f"~{PREDICTED['phase_s']:.0f})")
+    return counts, dict(tally), failures, info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -4203,6 +4919,10 @@ def main(argv=None) -> int:
     rec_rows, rec_report, rec_kfail = phase_rec_kernels(torch, timer)
     rows += rec_rows
     failures += rec_kfail
+    front_rows, front_report, front_kfail = phase_frontend_kernels(torch,
+                                                                   timer)
+    rows += front_rows
+    failures += front_kfail
     del timer
     torch.cuda.empty_cache()
     failures = [f"{r['kernel']} {r}" for r in failures]
@@ -4245,6 +4965,10 @@ def main(argv=None) -> int:
     rec_counts, rec_gemms, rec_fail, rec_info = phase_recurrent(torch)
     failures += rec_fail
     lap("13 recurrent")
+    torch.cuda.empty_cache()
+    front_counts, front_gemms, front_fail, front_info = phase_frontends(torch)
+    failures += front_fail
+    lap("14 frontends")
 
     if args.out:
         out = Path(args.out)
@@ -4272,6 +4996,10 @@ def main(argv=None) -> int:
              "recurrent_gemm_launches": {"/".join(map(str, k)): v
                                          for k, v in rec_gemms.items()},
              "recurrent": rec_info,
+             "frontend_launches": front_counts,
+             "frontend_gemm_launches": {"/".join(map(str, k)): v
+                                        for k, v in front_gemms.items()},
+             "frontends": front_info,
              "trace_takes": _TRACE_TAKES,
              "spec_engines": {f"{t}/{d}": {
                  k: v for k, v in st.items()
@@ -4501,6 +5229,42 @@ def main(argv=None) -> int:
                 "variant": row["variant"],
                 **({"block_height_ms": row["heights"]} if "heights" in row
                    else {"kernels_per_launch": row.get("kernels_per_call")})})
+    # phase 14's shapes (phase 3's rows), with phase 14's launches at each
+    # row's (variant, epilogue, K, N) over 14a-d (host counts: a graph's
+    # calls once, at capture), and decode attention's in 14a (musicgen's
+    # shape) and 14d (the ring)
+    for M, K, N, epis in FRONT_GEMMS:
+        for label in epis:
+            name = _front_gemm_name(M, K, N, label)
+            row = front_report[name]
+            epi = _report_name(label).split(".")[1]
+            var = gc.variant(M, torch.bfloat16)
+            kernels.append({
+                "name": name, "route": "cuda", "source": gemm[0],
+                "replaces": gemm[1],
+                "launches": front_gemms.get((var, epi, K, N), 0),
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "shape": f"M={M} K={K} N={N} ({VLM_ARCH})",
+                "variant": row["variant"],
+                **({"block_height_ms": row["heights"]} if "heights" in row
+                   else {"kernels_per_launch": row.get("kernels_per_call")})})
+    for shape_of, sub in (("musicgen", "14a"), ("ring", "14d")):
+        row = front_report[f"decode_attn.{shape_of}"]
+        what = (AUDIO_ARCH if shape_of == "musicgen"
+                else f"a {WINDOW}-row ring past its end")
+        kernels.append({
+            "name": f"decode_attn.{shape_of}", "route": "cuda",
+            "source": attn[0], "replaces": attn[1],
+            "launches": front_info[sub]["decode_attn"],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": f"B={row['B']} S={row['S']} KVh={row['KVh']} "
+                     f"g={row['g']} dh={row['dh']} R={row['R']} q bf16, pos "
+                     f"int64 ({what})",
+            "kernels_per_launch": row["kernels_per_call"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

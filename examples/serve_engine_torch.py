@@ -25,7 +25,11 @@ port does not have yet (`--tp`, `--devices`) raise NotImplementedError
 naming the ROADMAP item that brings them. `--arch rwkv6-3b` and `--arch
 jamba-1.5-large-398b` serve the recurrent mixers; their paged arena runs
 without prefix sharing (a prefix hit would skip the prefill that sets a
-slot's recurrent state), which the example turns off and prints.
+slot's recurrent state), which the example turns off and prints. Codebook
+and VLM archs (`--arch musicgen-large`, `--arch internvl2-26b`) exit with
+the engine's refusal: they serve through the static loop
+(`python -m repro_torch.launch.serve --arch musicgen-large --smoke
+--device cpu`).
 
 Runs on CUDA by default; `--device cpu` runs the kernels' plain PyTorch
 versions and decodes its windows eagerly:
@@ -49,7 +53,8 @@ versions and decodes its windows eagerly:
 import argparse
 
 from repro_torch.configs import get_arch
-from repro_torch.launch.engine import build_engine, synthetic_prompts
+from repro_torch.launch.engine import (PLAIN_TOKENS_ONLY, build_engine,
+                                       synthetic_prompts)
 from repro_torch.models.layers import not_in_this_slice
 from repro_torch.models.transformer import layer_plan, recurrent_mixers
 
@@ -125,8 +130,10 @@ def main(argv=None):
     if len(gens) != len(lens):
         raise SystemExit("--gens must match --prompt-lens")
 
-    recurrent = recurrent_mixers(layer_plan(get_arch(args.arch,
-                                                     smoke=True))[0])
+    cfg = get_arch(args.arch, smoke=True)
+    if cfg.num_codebooks or cfg.vision_patches:
+        raise SystemExit(f"{args.arch}: {PLAIN_TOKENS_ONLY}")
+    recurrent = recurrent_mixers(layer_plan(cfg)[0])
     if args.paged and recurrent:
         print(f"{args.arch}: paged arena without prefix sharing ({recurrent} "
               f"mixers keep a per-slot state only a prefill sets)")

@@ -3,9 +3,11 @@
 Every batch is a function of (seed, step): the same processes as the JAX
 package (an LM stream with token t+1 correlated with token t, a QA span
 task with planted markers, class-conditional images), drawn from a
-`torch.Generator` seeded from (seed, step). The two frameworks' generators
-give different numbers from one seed, so the parity tests hand the JAX
-package's batches across as numpy instead.
+`torch.Generator` seeded from (seed, step), and the two stub modality
+frontends: frames of codebook tokens for the audio family and patch
+embeddings for the vision-language family (`batch_for`). The two
+frameworks' generators give different numbers from one seed, so the
+parity tests hand the JAX package's batches across as numpy instead.
 
 The train loop checkpoints the next step's data key, `step_key(seed,
 step)`: a 0-d int64 tensor holding the generator's seed. A batch drawn
@@ -19,6 +21,7 @@ import torch
 QA_SEED_OFFSET = 7919
 IMAGE_SEED_OFFSET = 104729
 IMAGE_MEANS_SEED = 12345
+VISION_SEED_OFFSET = 31337
 
 
 def _seed_of(seed: int, step: int) -> int:
@@ -38,15 +41,16 @@ def _generator(seed: int, step: int, device, key=None) -> torch.Generator:
 
 
 def lm_batch(seed: int, step: int, batch: int, seq: int, vocab: int,
-             device="cpu", key=None) -> dict:
-    """{"tokens": (batch, seq) int64} with P(next = 31 * prev + 7 mod V)
-    = 0.7, drawn on `device`. `key`, when given, replaces the (seed, step)
-    derivation (`step_key`)."""
+             n_codebooks: int = 0, device="cpu", key=None) -> dict:
+    """{"tokens": (batch, seq) int64, or (batch, seq, n_codebooks) frames}
+    with P(next = 31 * prev + 7 mod V) = 0.7 along the sequence, drawn on
+    `device`. `key`, when given, replaces the (seed, step) derivation
+    (`step_key`)."""
     gen = _generator(seed, step, device, key)
-    base = torch.randint(0, vocab, (batch, seq), generator=gen,
-                         device=device)
+    shape = (batch, seq, n_codebooks) if n_codebooks else (batch, seq)
+    base = torch.randint(0, vocab, shape, generator=gen, device=device)
     shifted = torch.roll(base, 1, dims=1)
-    mix = torch.rand((batch, seq), generator=gen, device=device) < 0.7
+    mix = torch.rand(shape, generator=gen, device=device) < 0.7
     tokens = torch.where(mix, (shifted * 31 + 7) % vocab, base)
     return {"tokens": tokens}
 
@@ -85,15 +89,37 @@ def image_batch(seed: int, step: int, batch: int, hw: int = 32,
     return {"images": means[labels] + noise, "labels": labels}
 
 
+def vlm_batch(seed: int, step: int, batch: int, seq: int, vocab: int,
+              patches: int, d_model: int, dtype=torch.bfloat16,
+              device="cpu", key=None) -> dict:
+    """`lm_batch`'s (batch, seq) text and "vision_embeds": (batch,
+    patches, d_model) N(0, 0.02^2) patch embeddings in `dtype`, from their
+    own generator seeded from (seed + VISION_SEED_OFFSET, step) (`key`
+    steers the text only, as in the reference)."""
+    out = lm_batch(seed, step, batch, seq, vocab, device=device, key=key)
+    gen = _generator(seed + VISION_SEED_OFFSET, step, device)
+    out["vision_embeds"] = (torch.randn((batch, patches, d_model),
+                                        generator=gen, device=device)
+                            * 0.02).to(dtype)
+    return out
+
+
 def batch_for(cfg, seed: int, step: int, batch: int, seq: int,
               device="cpu", key=None) -> dict:
-    """Model-family-aware batch builder: the LM stream of the dense and
-    MoE families. `key` optionally carries the checkpointed data key
+    """Model-family-aware batch builder (the stub modality frontends):
+    codebook frames (batch, seq, C) for the audio family, `vlm_batch`
+    with seq - vision_patches text tokens for the vlm family, the LM
+    stream otherwise. `key` optionally carries the checkpointed data key
     (`lm_batch`)."""
-    if cfg.family in ("audio", "vlm"):
-        from repro_torch.models.layers import not_in_this_slice
-        raise not_in_this_slice(
-            f"{cfg.family!r} batches",
-            "ROADMAP Queue 1 item 12b (codebook embeddings, vision embeds)")
+    if cfg.family == "audio":
+        return lm_batch(seed, step, batch, seq, cfg.vocab,
+                        n_codebooks=cfg.num_codebooks, device=device,
+                        key=key)
+    if cfg.family == "vlm":
+        return vlm_batch(seed, step, batch, seq - cfg.vision_patches,
+                         cfg.vocab, cfg.vision_patches, cfg.d_model,
+                         dtype=(torch.bfloat16 if cfg.dtype == "bfloat16"
+                                else torch.float32),
+                         device=device, key=key)
     return lm_batch(seed, step, batch, seq, cfg.vocab, device=device,
                     key=key)

@@ -26,6 +26,14 @@ and chunked-prefill modes, without tensor parallelism.
   the prefill that sets the state), and `submit` refuses a prompt the
   recurrent prefill cannot take (longer than a scan chunk and not a
   multiple of it).
+- A sliding-window config (`cfg.window > 0`) serves from the contiguous
+  arena as a ring of min(max_seq, window) rows a slot (decode writes row
+  pos % ring), through graph windows as any other; the paged arena,
+  speculative decoding and chunked prefill refuse it, and `submit`
+  refuses a prompt longer than the window (the one-shot prefill writes
+  the prompt into the ring at once). Codebook and vision-language archs
+  are refused at construction, as the reference refuses them: they serve
+  through the static loop (`launch.serve.serve_loop`).
 - A pruned engine (`build_engine(pruned=True)` or `keep_masks=`) serves
   the physically sliced subnet: `prepare_serving` slices the weights and
   installs the SlimPlan on the LM, so every GEMM runs at the surviving
@@ -120,6 +128,12 @@ _FULL_ATTENTION_WHY = {
 }
 
 
+# the refusal of codebook and VLM archs (the reference's message)
+PLAIN_TOKENS_ONLY = ("the engine serves plain token LMs; codebook and VLM "
+                     "prompts need a modality frontend — use the static "
+                     "loop (serve.py --static / serve_loop) for these archs")
+
+
 def _kv_split(caches: dict) -> tuple[list[str], list[str]]:
     """Partition an arena's keys into attention K/V leaves (page pools
     under the paged arena) and recurrent-state leaves (per slot); the K/V
@@ -175,6 +189,8 @@ class Engine:
                  n_pages: Optional[int] = None, prefix_sharing: bool = True,
                  scheduler=None):
         cfg = lm.cfg
+        if cfg.num_codebooks or cfg.vision_patches:
+            raise ValueError(PLAIN_TOKENS_ONLY)
         self.lm = lm
         self.max_slots = max_slots
         self.max_seq = max_seq
@@ -287,8 +303,15 @@ class Engine:
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
-        # before anything is admitted: the recurrent prefill's chunk rule
+        # before anything is admitted: the recurrent prefill's chunk rule,
+        # and a sliding window's ring, which the one-shot prefill must fit
         self.lm.check_prompt_length(int(prompt.size))
+        window = self.lm.cfg.window
+        if window > 0 and prompt.size > window:
+            raise ValueError(
+                f"prompt of {prompt.size} tokens is longer than the sliding "
+                f"window ({window}): the one-shot prefill writes the whole "
+                f"prompt into the window's ring of KV rows at once")
         # the prompt fills rows [0, S), the first token comes out of the
         # prefill, and the last of the N-1 decode steps writes row S+N-2
         if prompt.size + max_new_tokens - 1 > self.max_seq:

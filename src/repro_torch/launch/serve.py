@@ -41,7 +41,11 @@ llama4-maverick-400b-a17b` serve the MoE family in every mode;
 in every weight mode, both arenas and pruned (their paged arena runs
 without prefix sharing, which the CLI prints: a prefix hit would skip the
 prefill that sets a slot's recurrent state; speculative decoding and
-chunked prefill refuse them).
+chunked prefill refuse them). Codebook (`--arch musicgen-large`) and
+vision-language (`--arch internvl2-26b`) archs serve through the static
+loop in every weight mode and pruned: without `--static` the CLI switches
+to it and says so, as the reference does (the engine takes plain token
+prompts only).
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --full --compressed
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --packed \
@@ -58,6 +62,7 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -75,7 +80,8 @@ from repro_torch.models.transformer import LM, layer_plan, recurrent_mixers
 
 def make_serve_step(lm: LM):
     """One greedy decode step of a fixed batch: (params, qparams, caches,
-    token (B, 1), pos) -> (next token (B, 1), caches)."""
+    token (B, 1[, C]), pos) -> (next token (B, 1[, C]), caches); with
+    codebooks the argmax is taken per codebook."""
     def serve_step(params, qparams, caches, token, pos):
         logits, caches = lm.decode_step(params, qparams, caches, token, pos)
         return torch.argmax(logits[:, -1], dim=-1)[:, None], caches
@@ -89,19 +95,26 @@ def serve_loop(arch: str, smoke: bool, batch: int, prompt_len: int,
                pruned: bool = False, sparsity: float = 0.5,
                bits_init: float = 8.0, verbose: bool = True,
                stats: dict | None = None, prompts=None,
-               device=None) -> np.ndarray:
+               device=None, layers: int | None = None) -> np.ndarray:
     """Static lockstep reference, port of `repro.launch.serve.serve_loop`:
     decode `gen` tokens after a sequential per-token prefill; returns the
-    (batch, gen) int32 token matrix. The weights are `build_engine`'s at
-    the same seed (the torch RNG on `device`), so the engine is held to
-    this loop on the same model. `stats` receives decode-only timing (the
-    prefill has run every kernel once). `prompts` overrides the synthetic
-    (batch, prompt_len) prompt matrix and sets the length. `pruned`
+    (batch, gen) int32 token matrix ((batch, gen, C) frames with
+    codebooks). The weights are `build_engine`'s at the same seed (the
+    torch RNG on `device`), so the engine is held to this loop on the same
+    model. `stats` receives decode-only timing (the prefill has run every
+    kernel once) and the served `param_bytes`. `prompts` overrides the
+    synthetic (batch, prompt_len[, C]) prompt matrix and sets the length;
+    a vlm's synthetic prompts are the prompt_len - vision_patches text
+    tokens of its batch, served without the patches, as the reference
+    serves them. `pruned`
     decodes the sliced subnet at magnitude masks of `sparsity` (its KV
-    arena at the surviving heads). Runs on CUDA unless `device` says
-    otherwise."""
+    arena at the surviving heads). `layers` cuts the depth to that many
+    layers (every width stays the config's). Runs on CUDA unless `device`
+    says otherwise."""
     dev = resolve_device(device)
     cfg = get_arch(arch, smoke=smoke)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     lm = LM(cfg)
     params = lm.init(torch.Generator(device=dev).manual_seed(seed))
     params, qparams, meta = prepare_serving(
@@ -112,9 +125,11 @@ def serve_loop(arch: str, smoke: bool, batch: int, prompt_len: int,
         print(compression_report(arch, meta))
     if prompts is None:
         prompts = batch_for(cfg, seed, 0, batch, prompt_len)["tokens"]
+        if cfg.family == "vlm":
+            prompts = prompts[:, :prompt_len]
     prompt = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
                              device=dev)
-    batch, prompt_len = prompt.shape
+    batch, prompt_len = prompt.shape[:2]
     caches = lm.init_cache(batch, prompt_len + gen, dtype=dtype_of(cfg),
                            device=dev)
     step = make_serve_step(lm)
@@ -132,7 +147,8 @@ def serve_loop(arch: str, smoke: bool, batch: int, prompt_len: int,
     toks = batch * (gen - 1)
     if stats is not None:
         stats.update(decode_s=dt_s, tokens=toks,
-                     tok_per_s=toks / max(dt_s, 1e-9))
+                     tok_per_s=toks / max(dt_s, 1e-9),
+                     param_bytes=meta["param_bytes"])
     if verbose:
         mode = "compressed" if (compressed or packed) else "dense"
         if packed:
@@ -396,6 +412,12 @@ def main(argv=None):
     prune = dict(pruned=args.pruned, sparsity=args.sparsity)
     cfg = get_arch(args.arch, smoke=args.smoke)
     recurrent = recurrent_mixers(layer_plan(cfg)[0])
+    if not args.static and (cfg.num_codebooks or cfg.vision_patches):
+        # the engine serves plain token prompts; the reference serves
+        # these archs through the lockstep loop
+        print(f"{args.arch}: codebook/VLM prompts need a modality frontend "
+              f"-- serving through the static loop")
+        args.static = True
     if args.static:
         serve_loop(args.arch, args.smoke, args.batch, args.prompt_len,
                    args.gen, quantized=args.quantized,

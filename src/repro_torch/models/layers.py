@@ -13,11 +13,12 @@ for dense weights with a quantizer, dequant for `<name>.codes`,
 unpack-dequant for `<name>.packed{bits}`. The training forward is
 differentiable: the routed GEMMs and the fake-quant sites are autograd
 Functions over the kernels. Full-sequence attention (dense, or blockwise
-past `attn_block_threshold`), norms, rope and SiLU are plain PyTorch, as
-they were plain XLA in the JAX package; so are the MoE's router, dispatch
-and expert products (`moe_apply`), whose weights the LM fake-quants once
-per call (their component is not routed), while the shared expert is an
-MLP through `dense_proj`.
+past `attn_block_threshold`; masked to the last `cfg.window` keys when
+the config sets a sliding window), norms, rope and SiLU are plain
+PyTorch, as they were plain XLA in the JAX package; so are the MoE's
+router, dispatch and expert products (`moe_apply`), whose weights the LM
+fake-quants once per call (their component is not routed), while the
+shared expert is an MLP through `dense_proj`.
 
 The recurrent mixers keep the reference's arithmetic: the WKV recurrence
 (`_wkv_scan`) and mamba's selective scan (`_mamba_chunk_scan`) are plain
@@ -237,11 +238,24 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 
 
 # -------------------------------------------------------------- attention
-def attention_dense(q, k, v, *, q_offset: int = 0,
+def _causal_mask(sq: int, sk: int, q_off: int, window: int,
+                 device=None) -> torch.Tensor:
+    """(sq, sk) bool: query i (at absolute position i + q_off) sees key j
+    when j <= i + q_off and, with a sliding window, j > i + q_off -
+    window."""
+    qi = torch.arange(sq, device=device)[:, None] + q_off
+    ki = torch.arange(sk, device=device)[None, :]
+    m = ki <= qi
+    if window > 0:
+        m = m & (ki > qi - window)
+    return m
+
+
+def attention_dense(q, k, v, *, window: int = 0, q_offset: int = 0,
                     causal: bool = True) -> torch.Tensor:
     """Full materialized attention, causal unless `causal=False` (the
-    BERT encoder). q: (B, Sq, H, dh); k/v: (B, Sk, KV, dh), GQA by
-    reshape."""
+    BERT encoder), within a sliding window of `window` keys when > 0.
+    q: (B, Sq, H, dh); k/v: (B, Sk, KV, dh), GQA by reshape."""
     B, Sq, H, dh = q.shape
     KV = k.shape[2]
     g = H // KV
@@ -249,9 +263,8 @@ def attention_dense(q, k, v, *, q_offset: int = 0,
     scores = torch.einsum("bqkgd,bskd->bkgqs", qh.to(torch.float32),
                           k.to(torch.float32)) / math.sqrt(dh)
     if causal:
-        qi = torch.arange(Sq, device=q.device)[:, None] + q_offset
-        ki = torch.arange(k.shape[1], device=q.device)[None, :]
-        scores = torch.where((ki <= qi)[None, None, None], scores,
+        mask = _causal_mask(Sq, k.shape[1], q_offset, window, q.device)
+        scores = torch.where(mask[None, None, None], scores,
                              torch.tensor(-1e30, dtype=torch.float32,
                                           device=q.device))
     probs = torch.softmax(scores, dim=-1)
@@ -260,14 +273,15 @@ def attention_dense(q, k, v, *, q_offset: int = 0,
 
 
 def _attend_q_block(q_i: torch.Tensor, k_blocks: torch.Tensor,
-                    v_blocks: torch.Tensor) -> torch.Tensor:
+                    v_blocks: torch.Tensor, window: int) -> torch.Tensor:
     """One query block of `attention_blockwise`: an online softmax over the
-    KV blocks at or before it, the last of them the diagonal one. q_i:
-    (B, blk, KV, g, dh); k/v_blocks: (B, n, blk, KV, dh). Returns
-    (B, blk, KV, g, dh) f32."""
+    KV blocks it attends to, the last of them the diagonal one. q_i:
+    (B, blk, KV, g, dh); k/v_blocks: (B, n, blk, KV, dh). A block is
+    masked where the causal rule or the window bites (the diagonal, and
+    with a window the blocks it reaches into). Returns (B, blk, KV, g, dh)
+    f32."""
     B, blk, KV, g, dh = q_i.shape
     qf = q_i.to(torch.float32)
-    diag = torch.ones((blk, blk), dtype=torch.bool, device=q_i.device).tril()
     m = torch.full((B, KV, g, blk), -1e30, dtype=torch.float32,
                    device=q_i.device)
     l = torch.zeros_like(m)
@@ -277,8 +291,10 @@ def _attend_q_block(q_i: torch.Tensor, k_blocks: torch.Tensor,
     for j in range(n):
         s = torch.einsum("bqkgd,bskd->bkgqs", qf,
                          k_blocks[:, j].to(torch.float32)) / math.sqrt(dh)
-        if j == n - 1:
-            s = s.masked_fill(~diag, -1e30)
+        if j == n - 1 or window > 0:
+            mask = _causal_mask(blk, blk, (n - 1 - j) * blk, window,
+                                q_i.device)
+            s = s.masked_fill(~mask, -1e30)
         m_new = torch.maximum(m, torch.amax(s, dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -290,16 +306,32 @@ def _attend_q_block(q_i: torch.Tensor, k_blocks: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4)
 
 
-def attention_blockwise(q, k, v, *, block: int = 1024) -> torch.Tensor:
+def first_kv_block(i: int, block: int, window: int) -> int:
+    """The first KV block that query block i of `attention_blockwise`
+    attends to: 0, or with a window the block holding the earliest key in
+    the window of the block's first query (every block before it is
+    masked for every query of block i)."""
+    if window <= 0:
+        return 0
+    return max(0, (i * block - window + 1) // block)
+
+
+def attention_blockwise(q, k, v, *, block: int = 1024,
+                        window: int = 0) -> torch.Tensor:
     """Flash-style causal attention that never materializes S x S: a loop
     over query blocks, each an online softmax (running max, denominator
     and accumulator) over KV blocks, with `attention_dense`'s -1e30 mask
-    and a max(l, 1e-30) guard. Shapes as `attention_dense`; S a multiple
-    of `block`.
+    (and its sliding window) and a max(l, 1e-30) guard. Shapes as
+    `attention_dense`; S a multiple of `block`.
 
-    The reference also scans the KV blocks after the query block; they
-    are fully masked and leave (m, l, acc) exactly as they were, so they
-    are skipped here. With grad enabled each query block runs under
+    The reference scans every KV block for every query block. Those after
+    the query block are fully masked and leave (m, l, acc) as they were,
+    so they are skipped here. So are those wholly before a window
+    (`first_kv_block`): there every score of a row is -1e30, so the row
+    keeps m = -1e30 and gathers l and acc from exp(0) = 1 weights, which
+    the first block holding a key of the row's window multiplies by
+    corr = exp(-1e30 - m) = 0; the result is bitwise the full scan's.
+    With grad enabled each query block runs under
     `torch.utils.checkpoint` (non-reentrant), the reference's
     `jax.checkpoint`: the backward recomputes a block's scores instead of
     keeping every score tile of the layer."""
@@ -317,22 +349,24 @@ def attention_blockwise(q, k, v, *, block: int = 1024) -> torch.Tensor:
         t.requires_grad for t in (q, k, v))
     outs = []
     for i in range(nb):
-        args = (qb[:, i], kb[:, :i + 1], vb[:, :i + 1])
+        j0 = first_kv_block(i, block, window)
+        args = (qb[:, i], kb[:, j0:i + 1], vb[:, j0:i + 1], window)
         outs.append(checkpoint(_attend_q_block, *args, use_reentrant=False)
                     if remat else _attend_q_block(*args))
     return torch.stack(outs, dim=1).reshape(B, S, H, dh).to(q.dtype)
 
 
-def attention(q, k, v, cfg: ModelConfig, *, q_offset: int = 0
-              ) -> torch.Tensor:
+def attention(q, k, v, cfg: ModelConfig, *, window: int = 0,
+              q_offset: int = 0) -> torch.Tensor:
     """Blockwise for a long self-attention (S > `attn_block_threshold`, a
     multiple of `attn_block_size`, Sq == Sk), dense otherwise: the
     reference's dispatch."""
     S = q.shape[1]
     if S > cfg.attn_block_threshold and S % cfg.attn_block_size == 0 \
             and q.shape[1] == k.shape[1]:
-        return attention_blockwise(q, k, v, block=cfg.attn_block_size)
-    return attention_dense(q, k, v, q_offset=q_offset)
+        return attention_blockwise(q, k, v, block=cfg.attn_block_size,
+                                   window=window)
+    return attention_dense(q, k, v, window=window, q_offset=q_offset)
 
 
 def _normal(gen: torch.Generator, shape, dtype, std: float) -> torch.Tensor:
@@ -372,7 +406,12 @@ def attn_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
     goes to its slot's physical row in the shared pools and the
     page-indirect kernel attends through the page table) and the
     contiguous decode (cache and S == 1: the token's K/V go to row `pos`
-    of each slot and the flash-decode kernel attends over the arena).
+    of each slot, or row pos % ring of a sliding-window layer's ring of
+    min(max_seq, window) rows, and the flash-decode kernel attends over
+    the min(pos + 1, rows) rows written, which is the window once the ring
+    has wrapped). The window is `cfg.window`: the full sequence masks
+    keys outside it, the one-shot prefill needs the prompt to fit the
+    ring, and the chunked scoring and the paged arena refuse it.
     cache is (k_cache, v_cache, pos) with k/v (B, S_max, KVh, dh) views of
     the stacked arena, or, paged, (k_pool, v_pool, pos, k_scale, v_scale)
     with (n_pages, P, KVh, dh*) pools and (n_pages, P, KVh) scales (None
@@ -394,14 +433,15 @@ def attn_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
     k = apply_rope(k.reshape(B, S, KVh, dh), *rope)
     v = v.reshape(B, S, KVh, dh)
 
+    window = cfg.window
     new_cache = None
     if cache is not None and chunked:
         # full arenas only: a ring write would overwrite rows that a
         # rejected draft could never roll back
-        if cfg.window > 0:
+        if window > 0:
             raise ValueError(
                 f"{prefix}: chunked cache scoring needs a full (non-ring) "
-                f"arena; window={cfg.window} layers overwrite rows on wrap")
+                f"arena; window={window} layers overwrite rows on wrap")
         ck, cv, pos = cache
         pos = torch.as_tensor(pos, dtype=torch.int64,
                               device=x.device).reshape(-1).expand(B)
@@ -428,11 +468,21 @@ def attn_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
         new_cache = (ck, cv, pos + S)
     elif cache is not None and S > 1:
         ck, cv, pos = cache
+        # a ring wraps token by token; the one-shot write keeps positions
+        # only while the prompt fits it (the reference asserts this)
+        if window > 0 and S > ck.shape[1]:
+            raise ValueError(
+                f"{prefix}: a one-shot prefill of {S} tokens does not fit "
+                f"the {ck.shape[1]}-row ring of window={window}")
         ck[:, :S] = k.to(ck.dtype)
         cv[:, :S] = v.to(cv.dtype)
-        out = attention(q, k, v, cfg)
+        out = attention(q, k, v, cfg, window=window)
         new_cache = (ck, cv, pos + S)
     elif cache is not None and pages is not None:
+        if window > 0:
+            raise ValueError(
+                f"{prefix}: the paged arena needs full (non-ring) caches; "
+                f"window={window} layers ring-wrap rows")
         ck, cv, pos, ksc, vsc = cache
         P = pages.page_size
         n_rows = ck.shape[0] * P
@@ -462,9 +512,11 @@ def attn_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
         ck, cv, pos = cache
         pos = torch.as_tensor(pos, dtype=torch.int64,
                               device=x.device).reshape(-1).expand(B)
-        # an idle slot may sit past the arena's end: clamp its write the
-        # way the JAX reference's dynamic_update_slice does
-        rows = torch.clamp(pos, max=ck.shape[1] - 1)
+        # a ring writes at pos % rows; in a full arena an idle slot may
+        # sit past the end: clamp its write the way the JAX reference's
+        # dynamic_update_slice does
+        rows = (torch.remainder(pos, ck.shape[1]) if window > 0
+                else torch.clamp(pos, max=ck.shape[1] - 1))
         slots = torch.arange(B, device=x.device)
         ck[slots, rows] = k[:, 0].to(ck.dtype)
         cv[slots, rows] = v[:, 0].to(cv.dtype)
@@ -473,7 +525,7 @@ def attn_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
         out = out.reshape(B, 1, H, dh).to(x.dtype)
         new_cache = (ck, cv, pos + 1)
     else:
-        out = attention(q, k, v, cfg, q_offset=q_offset)
+        out = attention(q, k, v, cfg, window=window, q_offset=q_offset)
     out = qa(out.reshape(B, S, H * dh), qp, f"{prefix}.attn_out.aq")
     return dense_proj(out, lp, qp, f"{prefix}.wo"), new_cache
 

@@ -1,5 +1,6 @@
-"""The decoder LM of the dense, MoE, RWKV6 and hybrid (attention + mamba)
-families, port of `repro.models.transformer`.
+"""The decoder LM of every assigned family (dense, MoE, RWKV6, hybrid
+attention + mamba, audio over codebooks, vision-language), port of
+`repro.models.transformer`.
 
 `LM` is an `nn.Module` that holds the config and the layer plan; the
 weights stay a flat dict[str, Tensor] under the JAX keys (stacked (L, K, N)
@@ -37,6 +38,16 @@ objective; with `cfg.remat` each layer of the training forward runs under
 `torch.utils.checkpoint` (non-reentrant), so the backward recomputes the
 layer instead of keeping its activations, with the same numbers.
 `build_graph` describes the model to QADG (`core.qadg`).
+
+The audio family (musicgen) reads frames of `num_codebooks` tokens: the
+embedding is (C, Vp, D), a frame's input the sum of its C codebook rows,
+and the untied head (D, C * Vp) gives (..., C, Vp) logits, one
+distribution per codebook. The vision-language family (internvl2)
+prepends `vision_embeds` (B, P, D), the stub frontend's patch embeddings,
+to the text in `forward` and `prefill`; the loss skips the P patch
+positions. A sliding window (`cfg.window > 0`) masks attention to the
+last `window` keys and shrinks the decode arena to a ring of
+min(max_seq, window) rows (`layers.attn_apply`).
 """
 from __future__ import annotations
 
@@ -104,26 +115,11 @@ _QUANT_WEIGHTS = {
 _ACT_SITES = {"attn": ["attn_out"], "mlp": ["mlp_act"], "moe": [],
               "mamba": ["mamba_out"], "rwkv": ["tm_out"],
               "chanmix": ["cm_act"]}
-# the families this slice runs; the rest raise naming the item that
-# brings them
-_PORTED_FAMILIES = ("dense", "moe", "ssm_rwkv", "hybrid")
-_LATER_FAMILIES = {
-    "audio": "ROADMAP Queue 1 item 12b (codebook embeddings)",
-    "vlm": "ROADMAP Queue 1 item 12b (vision embeds)",
-}
 
 
 class LM(torch.nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.family not in _PORTED_FAMILIES:
-            raise Lyr.not_in_this_slice(
-                f"the {cfg.family!r} family ({cfg.name})",
-                _LATER_FAMILIES.get(cfg.family, "ROADMAP Queue 1 item 12b"))
-        if cfg.window > 0:
-            raise Lyr.not_in_this_slice(
-                f"sliding-window attention (window={cfg.window})",
-                "ROADMAP Queue 1 item 12b (sliding windows)")
         self.cfg = cfg
         self.plan, self.n_blocks = layer_plan(cfg)
         # the physical dims of each position-in-period, which prefill,
@@ -152,10 +148,13 @@ class LM(torch.nn.Module):
         cfg = self.cfg
         dt = Lyr.dtype_of(cfg)
         dev = gen.device
-        D, Vp = cfg.d_model, cfg.vocab_padded
-        params = {"embed": Lyr._normal(gen, (Vp, D), dt, 0.02)}
-        if not cfg.tie_embeddings:
-            params["head"] = Lyr._normal(gen, (D, Vp), dt, D ** -0.5)
+        D, Vp, C = cfg.d_model, cfg.vocab_padded, cfg.num_codebooks
+        # codebooks: C embeddings and an untied head over C vocabularies
+        params = {"embed": Lyr._normal(gen, (C, Vp, D) if C else (Vp, D),
+                                       dt, 0.02)}
+        if not self._tied:
+            params["head"] = Lyr._normal(gen, (D, max(C, 1) * Vp), dt,
+                                         D ** -0.5)
         params["final_norm"] = torch.ones((D,), dtype=torch.float32,
                                           device=dev)
         init_mixer = {"attn": Lyr.init_attention, "mamba": Lyr.init_mamba,
@@ -193,8 +192,13 @@ class LM(torch.nn.Module):
             if sub.ffn == "moe" and self.cfg.moe.shared_expert:
                 names += [f"{pre}.moe.shared.{w}"
                           for w in _QUANT_WEIGHTS["mlp"]]
-        names.append("embed" if self.cfg.tie_embeddings else "head")
+        names.append("embed" if self._tied else "head")
         return names
+
+    @property
+    def _tied(self) -> bool:
+        """The head is the embedding's transpose (never with codebooks)."""
+        return self.cfg.tie_embeddings and not self.cfg.num_codebooks
 
     def act_site_names(self) -> list[str]:
         names = []
@@ -261,15 +265,37 @@ class LM(torch.nn.Module):
     # -------------------------------------------------------------- forward
     def _embed_tokens(self, params: dict, tokens: torch.Tensor
                       ) -> torch.Tensor:
+        """tokens (B, S) -> (B, S, D); with codebooks (B, S, C) -> the sum
+        of the C codebooks' rows, added in codebook order as the
+        reference sums them."""
         # F.embedding's backward sums rows without atomics on the card;
         # indexing (`embed[tokens]`) would backprop through index_put_
         # with accumulation
-        return F.embedding(tokens, params["embed"])
+        emb = params["embed"]
+        if not self.cfg.num_codebooks:
+            return F.embedding(tokens, emb)
+        x = F.embedding(tokens[..., 0], emb[0])
+        for c in range(1, self.cfg.num_codebooks):
+            x = x + F.embedding(tokens[..., c], emb[c])
+        return x
 
     def _head(self, params: dict, h: torch.Tensor) -> torch.Tensor:
-        if self.cfg.tie_embeddings:
+        """Logits (B, S, Vp), or (B, S, C, Vp) with codebooks."""
+        if self._tied:
             return h @ params["embed"].T
-        return Lyr.dense_proj(h, params, None, "head")
+        logits = Lyr.dense_proj(h, params, None, "head")
+        if self.cfg.num_codebooks:
+            logits = logits.reshape(*logits.shape[:2],
+                                    self.cfg.num_codebooks,
+                                    self.cfg.vocab_padded)
+        return logits
+
+    def _with_patches(self, x: torch.Tensor, vision_embeds) -> torch.Tensor:
+        """The vlm family's patch embeddings (B, P, D) prepended to the
+        text, in x's dtype."""
+        if self.cfg.vision_patches and vision_embeds is not None:
+            x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
+        return x
 
     def _layer_views(self, params: dict) -> list[dict]:
         """Each layer's view of the stacked block params (no copies)."""
@@ -375,11 +401,14 @@ class LM(torch.nn.Module):
         return x
 
     def forward(self, params: dict, qparams: Optional[dict],
-                tokens: torch.Tensor) -> torch.Tensor:
-        """tokens: (B, S). Returns logits (B, S, vocab_padded)."""
+                tokens: torch.Tensor, vision_embeds=None) -> torch.Tensor:
+        """tokens: (B, S[, C]); vision_embeds: (B, P, D) for the vlm
+        family. Returns logits (B, P + S, vocab_padded), (B, S, C,
+        vocab_padded) with codebooks."""
         cfg = self.cfg
         params, qp_body = self._prequantize(params, qparams)
-        x = self._embed_tokens(params, tokens)
+        x = self._with_patches(self._embed_tokens(params, tokens),
+                               vision_embeds)
         rope = Lyr.rope_tables(x.shape[1], cfg.d_head, cfg.rope_theta,
                                device=x.device)
         x = self._blocks(params, qp_body, x, rope)
@@ -391,9 +420,14 @@ class LM(torch.nn.Module):
              ) -> torch.Tensor:
         """Next-token cross-entropy: f32 logsumexp, and the gold logit by
         a masked reduction over the vocab (no gather), as the JAX
-        package computes it."""
+        package computes it; over the text positions of a vlm batch (its
+        "vision_embeds" go through `forward`) and per codebook of an audio
+        one (targets (B, S - 1, C))."""
         tokens = batch["tokens"]
-        logits = self.forward(params, qparams, tokens)
+        logits = self.forward(params, qparams, tokens,
+                              vision_embeds=batch.get("vision_embeds"))
+        if self.cfg.vision_patches:
+            logits = logits[:, self.cfg.vision_patches:]
         pred = logits[:, :-1].to(torch.float32)
         tgt = tokens[:, 1:]
         logz = torch.logsumexp(pred, dim=-1)
@@ -408,7 +442,8 @@ class LM(torch.nn.Module):
         gb = GraphBuilder()
         gb.input("in")
         gb.embedding("embed", "embed", out_dim=cfg.d_model,
-                     non_prunable=True, after="in", out_axis=1)
+                     non_prunable=True, after="in",
+                     out_axis=(2 if cfg.num_codebooks else 1))
         resid = "embed"
         for sub in self.plan:
             pre = f"blocks.{sub.j}"
@@ -427,9 +462,10 @@ class LM(torch.nn.Module):
                      else self._graph_mlp(gb, pre, act_quant))
             resid = gb.add(f"{pre}.add2", [resid, ffn_v])
         gb.norm("final_norm", scale="final_norm", after=resid)
-        tied = cfg.tie_embeddings
+        tied = self._tied
         head_param = "embed" if tied else "head"
-        gb.linear("head", head_param, out_dim=cfg.vocab_padded,
+        gb.linear("head", head_param,
+                  out_dim=cfg.vocab_padded * max(cfg.num_codebooks, 1),
                   non_prunable=True, in_axis=(1 if tied else 0),
                   out_axis=(0 if tied else 1), after="final_norm")
         gb.attach_weight_quant("head", f"{head_param}.wq",
@@ -581,9 +617,12 @@ class LM(torch.nn.Module):
 
     def init_cache(self, batch: int, max_seq: int, dtype=torch.bfloat16,
                    device=None) -> dict:
-        """The decode arena: (n_blocks, batch, max_seq, KVh, dh) per
-        attention K and V, and each recurrent sublayer's state leaves
+        """The decode arena: (n_blocks, batch, rows, KVh, dh) per attention
+        K and V, rows = max_seq, or min(max_seq, window) for a
+        sliding-window ring, and each recurrent sublayer's state leaves
         (`_state_leaves`), all at the sublayers' (possibly sliced) widths."""
+        window = self.cfg.window
+        rows = min(max_seq, window) if window > 0 else max_seq
         caches = {}
         for sub, shp in zip(self.plan, self.shapes):
             pre = f"blocks.{sub.j}"
@@ -591,8 +630,7 @@ class LM(torch.nn.Module):
                 caches.update(self._state_leaves(sub, shp, batch, dtype,
                                                  device))
                 continue
-            shape = (self.n_blocks, batch, max_seq, shp.n_kv_heads,
-                     shp.d_head)
+            shape = (self.n_blocks, batch, rows, shp.n_kv_heads, shp.d_head)
             caches[f"{pre}.k"] = torch.zeros(shape, dtype=dtype,
                                              device=device)
             caches[f"{pre}.v"] = torch.zeros(shape, dtype=dtype,
@@ -651,18 +689,22 @@ class LM(torch.nn.Module):
         return caches
 
     def prefill(self, params: dict, qparams: Optional[dict], caches: dict,
-                tokens: torch.Tensor, last_logit_only: bool = False):
+                tokens: torch.Tensor, vision_embeds=None,
+                last_logit_only: bool = False):
         """One-shot prefill: a full-sequence pass that writes K/V rows
         [0, S) of `caches` in place (the rows must be zeroed beyond the
         prompt, as a fresh cache is) and each recurrent sublayer's state
         as S sequential decode steps from zero state would leave it. A
         prompt longer than a scan chunk must be a multiple of it
-        (`check_prompt_length`). Returns (logits, caches);
-        `last_logit_only` projects only the final position through the
-        head."""
+        (`check_prompt_length`); on a sliding-window config it must fit
+        the ring. tokens: (B, S[, C]); a vlm's `vision_embeds` (B, P, D)
+        are prefilled before the text (S counts them). Returns (logits,
+        caches); `last_logit_only` projects only the final position
+        through the head."""
         cfg = self.cfg
         params, qp_body = self._prequantize(params, qparams)
-        x = self._embed_tokens(params, tokens)
+        x = self._with_patches(self._embed_tokens(params, tokens),
+                               vision_embeds)
         rope = Lyr.rope_tables(x.shape[1], cfg.d_head, cfg.rope_theta,
                                device=x.device)
         pos = torch.zeros((), dtype=torch.int64, device=x.device)
@@ -708,6 +750,8 @@ class LM(torch.nn.Module):
                 f"zeroes KV rows); plan has {bad} layers whose recurrent "
                 f"state cannot be rolled back")
         cfg = self.cfg
+        if cfg.num_codebooks:
+            raise ValueError("verify_chunk serves plain token LMs")
         params, qp_body = self._prequantize(params, qparams)
         x = self._embed_tokens(params, tokens)
         B, T = x.shape[0], x.shape[1]
@@ -727,13 +771,13 @@ class LM(torch.nn.Module):
     def decode_step(self, params: dict, qparams: Optional[dict],
                     caches: dict, token: torch.Tensor, pos,
                     pages: Optional[Lyr.PagedView] = None):
-        """One-token decode. token: (B, 1); pos: an int or a (B,) tensor
+        """One-token decode. token: (B, 1[, C]); pos: an int or a (B,) tensor
         of per-slot absolute positions. Writes each slot's K/V row at its
         position in place: into the contiguous arena of `init_cache`, or,
         with `pages`, into the page pools of `init_paged_cache` through
         its page table. The recurrent sublayers read each slot's state and
         write the next one in place (paged or not: their state is per
-        slot). Returns (logits (B, 1, V), caches)."""
+        slot). Returns (logits (B, 1, V) or (B, 1, C, V), caches)."""
         cfg = self.cfg
         params, qp_body = self._prequantize(params, qparams)
         x = self._embed_tokens(params, token)

@@ -197,8 +197,14 @@ def test_later_modes_raise_naming_their_slice(kw):
 
 
 def test_other_families_raise():
-    with pytest.raises(NotImplementedError, match="family"):
-        TLM(get_arch("musicgen-large", smoke=True))
+    """The engine serves plain token LMs: codebook and VLM archs raise the
+    reference's ValueError at construction (they serve through the static
+    loop)."""
+    for arch in ("musicgen-large", "internvl2-26b"):
+        lm = TLM(get_arch(arch, smoke=True))
+        params = lm.init(torch.Generator().manual_seed(0))
+        with pytest.raises(ValueError, match="plain token LMs"):
+            TE.Engine(lm, params, None)
 
 
 # ------------------------------------------------------- decode windows
@@ -518,3 +524,9 @@ def test_example_serves_on_cpu(argv, capsys):
 def test_example_later_modes_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         _example().main(argv + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["musicgen-large", "internvl2-26b"])
+def test_example_refuses_codebook_and_vlm_archs(arch):
+    with pytest.raises(SystemExit, match="plain token LMs"):
+        _example().main(["--arch", arch, "--device", "cpu"])

@@ -100,6 +100,15 @@ repeat; the small-M and tensor-core GEMMs at the mixers' shapes (K = 8,
 64, 512 with x a strided view, 11469; N = 8, 64, 544), and f32 x on bf16
 weights (rwkv6's decay LoRA), within the GEMM's bound of the plain
 version.
+
+The last LM families (`test_frontend_*`, `test_codebook_*`,
+`test_vision_*`, `test_window_engine_*`): decode attention at musicgen's
+MHA (KVh 32, g 1, dh 64) and on a 256-row ring at positions past its end
+against the plain version and the split mirror (a wrapped ring bitwise
+the full ring); musicgen's smoke `serve_loop` frames, internvl2's vision
+prefill + decode tokens and the window-8 engine's tokens past the wrap
+(graph windows and eager `step()`) on the card equal to the CPU run's
+(f32, one CPU-drawn model).
 Every profiler trace opens with 64 int16 fill kernels that no count
 includes (`_traced_kernels`): a trace now and then loses the session's
 first kernels.
@@ -2119,3 +2128,137 @@ def test_recurrent_f32_x_on_bf16_weights_matches_plain(cuda, K, N, M):
         assert y.dtype == torch.float32
         torch.testing.assert_close(y, want, rtol=1e-4,
                                    atol=1e-4 * want.abs().max().item())
+
+
+# ------------------------------------------- codebooks, vision, windows
+def _cpu_drawn(lm, device, seed=0):
+    """`lm`'s params drawn from the CPU generator (the CPU and CUDA
+    generators give different numbers from one seed), on `device`."""
+    return {k: v.to(device) for k, v in lm.init(
+        torch.Generator().manual_seed(seed)).items()}
+
+
+@pytest.mark.parametrize("kind", ["musicgen", "ring"])
+def test_frontend_decode_attn_shapes_match_plain_and_split_mirror(cuda,
+                                                                  kind):
+    """musicgen's decode (MHA: KVh 32, g 1, dh 64, where only half of a
+    warp's lanes hold a column of a row) over S = 576 at the split edges,
+    and a sliding window's 256-row ring at positions past its end (pos
+    300, 1000, 256 and 255: the kernel attends over min(pos + 1, S) rows,
+    the whole ring once it has wrapped)."""
+    gen = torch.Generator(device=cuda).manual_seed(64)
+    if kind == "musicgen":
+        S, KVh, g, dh = 576, 32, 1, 64
+        pos = _edge_pos(S, cuda)
+    else:
+        S, KVh, g, dh = 256, 8, 2, 128
+        pos = torch.tensor([300, 255, 1000, 256], dtype=torch.int64,
+                           device=cuda)
+    q, k, v = _contiguous(gen, pos.numel(), S, torch.bfloat16, KVh=KVh,
+                          g=g, dh=dh)
+    got = TDA.decode_attn(q, k, v, pos)
+    plain = ref.decode_attn_ref(q, k, v, pos)
+    mirror = ref.decode_attn_split_ref(q, k, v, pos, R)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got, mirror, rtol=1e-5, atol=1e-5)
+    if kind == "ring":      # a wrapped ring is the full ring
+        full = torch.full_like(pos, S - 1)
+        assert torch.equal(got[[0, 2, 3]], TDA.decode_attn(
+            q, k, v, full)[[0, 2, 3]])
+
+
+def test_codebook_serve_loop_on_card_matches_cpu(cuda, monkeypatch):
+    """musicgen's smoke config (f32) through the static loop, dense and
+    int8: the card's frames equal the CPU run's."""
+    from repro_torch.launch import serve as TSV
+    from repro_torch.models.transformer import LM
+    init = LM.init
+    monkeypatch.setattr(LM, "init", lambda self, g: {
+        k: v.to(g.device) for k, v in init(
+            self, torch.Generator().manual_seed(0)).items()})
+    prompts = np.random.default_rng(3).integers(0, 128, (2, 6, 4))
+    for kw in ({}, dict(compressed=True)):
+        got = TSV.serve_loop("musicgen-large", True, 2, 6, 8,
+                             prompts=prompts, verbose=False, device="cuda",
+                             **kw)
+        want = TSV.serve_loop("musicgen-large", True, 2, 6, 8,
+                              prompts=prompts, verbose=False, device="cpu",
+                              **kw)
+        assert got.shape == (2, 8, 4)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_vision_prefill_and_decode_on_card_match_cpu(cuda):
+    """internvl2's smoke config (f32): 8 patches and 6 text tokens
+    prefilled, then 8 greedy decode steps; the card's tokens equal the
+    CPU run's, and the prefill's last logits agree within 1e-4 of their
+    range."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import vlm_batch
+    from repro_torch.models.transformer import LM
+    lm = LM(get_arch("internvl2-26b", smoke=True))
+    cfg = lm.cfg
+    b = vlm_batch(0, 0, 2, 6, cfg.vocab, cfg.vision_patches, cfg.d_model,
+                  dtype=torch.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = _cpu_drawn(lm, dev)
+        cache = lm.init_cache(2, 24, dtype=torch.float32, device=dev)
+        lg, _ = lm.prefill(params, None, cache, b["tokens"].to(dev),
+                           vision_embeds=b["vision_embeds"].to(dev),
+                           last_logit_only=True)
+        first = lg[:, -1].cpu()
+        tok = torch.argmax(lg[:, -1], -1)[:, None]
+        toks = [tok]
+        for i in range(8):
+            lg, _ = lm.decode_step(params, None, cache, tok,
+                                   cfg.vision_patches + 6 + i)
+            tok = torch.argmax(lg[:, -1], -1)[:, None]
+            toks.append(tok)
+        out[dev] = (first, torch.cat(toks, 1).cpu())
+    span = float(out["cpu"][0].max() - out["cpu"][0].min())
+    assert float((out["cuda"][0] - out["cpu"][0]).abs().max()) <= 1e-4 * span
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+
+
+def _windowed_engine(device, window=8):
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import LM
+    lm = LM(dataclasses.replace(get_arch("internlm2-1.8b", smoke=True),
+                                window=window))
+    params, qparams, _ = prepare_serving(lm, _cpu_drawn(lm, device))
+    return Engine(lm, params, qparams, max_slots=2, max_seq=32)
+
+
+def test_window_engine_on_card_matches_cpu_and_eager_steps(cuda,
+                                                           monkeypatch):
+    """The windowed smoke engine (window 8, f32, dense fake-quant): six
+    requests on two slots, every one decoding past its ring's wrap. Graph
+    windows emit the tokens of eager `step()` on the card and of the CPU
+    run; every window length is captured once, in `warmup()`."""
+    captures = _captures(monkeypatch)
+    prompts = [np.random.default_rng(i).integers(0, 512, n).astype(np.int32)
+               for i, n in enumerate((5, 8, 3, 7, 2, 6))]
+    gens = (12, 9, 17, 5, 14, 10)
+    runs = {}
+    for name, dev in (("graph", "cuda"), ("eager", "cuda"), ("cpu", "cpu")):
+        eng = _windowed_engine(dev)
+        assert eng.caches["blocks.0.k"].shape[2] == 8
+        for p, g in zip(prompts, gens):
+            eng.submit(p, g)
+        if name == "eager":
+            runs[name] = eng._drain(eng.step)
+        else:
+            eng.warmup()
+            runs[name] = eng.run()
+        if name == "graph":
+            assert len(captures) == len(eng.warmed_window_ks())
+            assert eng.replays
+    for rid in range(len(prompts)):
+        assert len(runs["graph"][rid]) == gens[rid]
+        for other in ("eager", "cpu"):
+            np.testing.assert_array_equal(runs["graph"][rid],
+                                          runs[other][rid],
+                                          err_msg=f"{other} {rid}")

@@ -23,7 +23,10 @@ seeds, and each reference result is computed once per module (`_jax`).
   against ~0.1 for the other weights); they are held below 1e-6 of the
   layer's largest gradient instead.
 - Mirrors of `test_arch_smoke.py`'s decode smoke test and its decode-vs-forward parity (capacity factor 8, so the
-  forward drops no token), and of `test_qadg.py`'s all-families check.
+  forward drops no token), and of `test_qadg.py`'s all-families check;
+  the decode smoke test and the all-families check also take the audio
+  and vlm archs (`FRONTEND_ARCHS`), whose cases of the reference's tests
+  they mirror.
 """
 import dataclasses
 
@@ -49,6 +52,9 @@ from repro_torch.models import layers as TL
 from repro_torch.models.transformer import LM, layer_plan
 
 ARCHS = ["grok-1-314b", "llama4-maverick-400b-a17b"]
+# the modality-frontend archs, whose cases of the reference's all-family
+# smoke tests are mirrored here beside the MoE ones
+FRONTEND_ARCHS = ["musicgen-large", "internvl2-26b"]
 PRE = "blocks.0.moe"
 
 _JAX: dict = {}
@@ -314,16 +320,17 @@ def test_qadg_identical_to_jax(arch, smoke, act_quant):
 
 
 # -------------------------------------------- mirrors of test_arch_smoke.py
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + FRONTEND_ARCHS)
 def test_smoke_decode_step(arch):
     cfg = get_arch(arch, smoke=True)
     lm = LM(cfg)
     params = lm.init(torch.Generator().manual_seed(0))
     caches = lm.init_cache(2, 32, dtype=torch.float32)
     shapes = {k: v.shape for k, v in caches.items()}
+    tok_shape = (2, 1, cfg.num_codebooks) if cfg.num_codebooks else (2, 1)
     logits, caches2 = lm.decode_step(params, None, caches,
-                                     torch.zeros((2, 1), dtype=torch.int64),
-                                     0)
+                                     torch.zeros(tok_shape,
+                                                 dtype=torch.int64), 0)
     assert logits.shape[0] == 2 and torch.isfinite(logits).all()
     assert {k: v.shape for k, v in caches2.items()} == shapes
 
@@ -350,7 +357,7 @@ def test_decode_matches_forward(arch):
                                rtol=2e-3, atol=2e-3)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + FRONTEND_ARCHS)
 def test_lm_graph_families_valid(arch):
     """`test_qadg.py::test_lm_graph_all_families_valid` for the MoE archs
     on the port's own params."""
@@ -363,16 +370,16 @@ def test_lm_graph_families_valid(arch):
 
 
 def test_batch_for_serves_the_moe_family():
+    """`batch_for` gives the MoE family the LM stream, and dispatches the
+    audio family to codebook frames and the vlm family to `vlm_batch`
+    (text of seq - vision_patches tokens and the patch embeddings)."""
     cfg = get_arch("grok-1-314b", smoke=True)
     b = batch_for(cfg, 3, 1, 2, 8)
     assert torch.equal(b["tokens"], lm_batch(3, 1, 2, 8, cfg.vocab)["tokens"])
-    for arch in ("musicgen-large", "internvl2-26b"):
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            batch_for(get_arch(arch, smoke=True), 0, 0, 1, 4)
-
-
-def test_later_families_raise_naming_their_item():
-    for arch, what in (("musicgen-large", "codebook"),
-                       ("internvl2-26b", "vision")):
-        with pytest.raises(NotImplementedError, match=what):
-            LM(get_arch(arch, smoke=True))
+    audio = get_arch("musicgen-large", smoke=True)
+    assert torch.equal(batch_for(audio, 3, 1, 2, 8)["tokens"], lm_batch(
+        3, 1, 2, 8, audio.vocab, n_codebooks=audio.num_codebooks)["tokens"])
+    vlm = get_arch("internvl2-26b", smoke=True)
+    v = batch_for(vlm, 3, 1, 2, 12)
+    assert sorted(v) == ["tokens", "vision_embeds"]
+    assert v["tokens"].shape == (2, 12 - vlm.vision_patches)

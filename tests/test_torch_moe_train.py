@@ -14,7 +14,7 @@ cross to the port as numpy (helpers shared with `tests/test_torch_moe.py`).
 - llama4's published two-position plan (`moe.every = 2`: a dense MLP,
   then the MoE) on the smoke widths: loss and gradients.
 - A mirror of `test_arch_smoke.py::test_smoke_forward_and_train_step` for
-  the two archs.
+  the two archs, and for the audio and vlm archs (`FRONTEND_ARCHS`).
 """
 import dataclasses
 
@@ -36,8 +36,8 @@ from repro_torch.convert import (geta_state_from_numpy, params_from_numpy,
 from repro_torch.data.synthetic import batch_for
 from repro_torch.launch import train as T
 from repro_torch.models.transformer import LM
-from test_torch_moe import (ARCHS, _jax, _jmodel, _np, _q_np,  # noqa: F401
-                            one_torch_thread)
+from test_torch_moe import (ARCHS, FRONTEND_ARCHS, _jax,  # noqa: F401
+                            _jmodel, _np, _q_np, one_torch_thread)
 
 
 def _jgrads(arch):
@@ -172,7 +172,7 @@ def _d_witness(arch, comp):
     return _jax(("witness", arch, repr(comp)), run)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + FRONTEND_ARCHS)
 def test_smoke_forward_and_train_step(arch):
     comp = T.CompressionConfig(
         target_sparsity=0.4, bit_lower=4, bit_upper=16, act_quant=False,
@@ -184,8 +184,10 @@ def test_smoke_forward_and_train_step(arch):
     params = lm.init(torch.Generator().manual_seed(0))
     qparams = lm.init_qparams(params, bits_init=16.0)
     batch = batch_for(cfg, seed=0, step=0, batch=2, seq=16)
-    logits = lm.forward(params, qparams, batch["tokens"])
-    assert logits.shape == (2, 16, cfg.vocab_padded)
+    logits = lm.forward(params, qparams, batch["tokens"],
+                        batch.get("vision_embeds"))
+    codebooks = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+    assert logits.shape == (2, 16) + codebooks + (cfg.vocab_padded,)
     assert torch.isfinite(logits).all()
     base_opt = get_overrides(arch).get("base_optimizer", "adamw")
     qadg, qasso = T.build_geta(lm, comp, lr=1e-3, base_optimizer=base_opt)

@@ -9,9 +9,9 @@ the same weights (the JAX package's PRNGKey(0) init of the smoke config,
 f32, crossed as numpy) and prompts, over the plain, packed, paged and
 speculative engines. Decode steps run while a prompt is mid-prefill, the
 counters equal the JAX engine's, and `warmup()` and the drain run only
-chunk lengths of `chunk_buckets(chunk)`. The window gate is reached by
-editing a built LM (the port's LM has no window yet), the recurrent gate
-on rwkv6's and jamba's real configs. The
+chunk lengths of `chunk_buckets(chunk)`. The window gate is reached on
+a sliding-window config, the recurrent gate on rwkv6's and jamba's real
+configs. The
 JAX side runs once per module (`_jax`).
 """
 import dataclasses
@@ -298,8 +298,7 @@ def test_chunked_refuses_windowed_and_stateful_archs():
     sched = TSC.ChunkedPrefillScheduler(chunk=4)
     params = TLM(get_arch(ARCH, smoke=True)).init(
         torch.Generator().manual_seed(0))
-    wlm = TLM(get_arch(ARCH, smoke=True))
-    wlm.cfg = dataclasses.replace(wlm.cfg, window=8)
+    wlm = TLM(dataclasses.replace(get_arch(ARCH, smoke=True), window=8))
     with pytest.raises(ValueError, match="window"):
         TE.Engine(wlm, params, None, max_seq=16, scheduler=sched)
     for arch in ("rwkv6-3b", "jamba-1.5-large-398b"):

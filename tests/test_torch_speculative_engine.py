@@ -162,10 +162,9 @@ def test_window_raises_on_speculative_engine():
 
 
 def test_spec_rejects_bad_draft_k_and_unrollable_arenas():
-    """draft_k outside [1, max_seq) is refused; so are ring arenas (the
-    port's LM has none yet: the gate is reached by editing a built LM)
-    and recurrent mixers (rwkv6's and jamba's real configs), and
-    verify_chunk refuses recurrent mixers. An
+    """draft_k outside [1, max_seq) is refused; so are ring arenas (a
+    sliding-window config) and recurrent mixers (rwkv6's and jamba's
+    real configs), and verify_chunk refuses recurrent mixers. An
     MoE plan (grok-1's one position) verifies: its chunk, routed at full
     capacity, gives the logits and KV rows of sequential decode steps."""
     draft = TSP.build_draft(ARCH, True, sparsity=0.5, bits=2.0)
@@ -175,8 +174,7 @@ def test_spec_rejects_bad_draft_k_and_unrollable_arenas():
         with pytest.raises(ValueError, match="draft_k"):
             TE.Engine(lm, params, None, max_seq=16, draft=draft,
                       draft_k=bad_k)
-    windowed = TLM(get_arch(ARCH, smoke=True))
-    windowed.cfg = dataclasses.replace(windowed.cfg, window=8)
+    windowed = TLM(dataclasses.replace(get_arch(ARCH, smoke=True), window=8))
     with pytest.raises(ValueError, match="window"):
         TE.Engine(windowed, params, None, max_seq=16, draft=draft)
     for arch in ("rwkv6-3b", "jamba-1.5-large-398b"):
