@@ -282,8 +282,9 @@ Phases, each printing its own lines:
    phase 5's traffic at lengths the recurrent prefill takes (64, 128,
    256, 512, 192, 320, 32 and 384 tokens, 64 generated each); the
    reckoned bytes are printed before anything is built. 13a: rwkv6-3b
-   whole (32 layers, d_model 2560, 40 heads of 64, d_ff 8960, vocab
-   65536, decay LoRA 64) through the engine in the dense fake-quant, int8
+   at its published widths (d_model 2560, 40 heads of 64, d_ff 8960,
+   vocab 65536, decay LoRA 64) cut to 8 of 32 layers (`REC_LAYERS`: the
+   script's time limit) through the engine in the dense fake-quant, int8
    and packed b4 modes over the contiguous arena, and dense also over the
    paged one (without prefix sharing, which recurrent plans refuse), each
    warmed up before its requests are queued (graphs only: a recurrent
@@ -304,8 +305,8 @@ Phases, each printing its own lines:
    13b: rwkv6 pruned at sparsity 0.3 (40 -> 28 heads, d_ff 8960 ->
    6272): the plan's widths, wkv leaves at 28 heads, kv_bytes exactly the
    reckoned state, param bytes as the sliced widths predict, graph
-   tokens equal eager tokens. 13c: `train_loop` on rwkv6-3b at full width,
-   batch 4 x 512, 5 steps through every stage under
+   tokens equal eager tokens. 13c: `train_loop` on rwkv6-3b at full width
+   and 8 layers, batch 4 x 512, 5 steps through every stage under
    torch.use_deterministic_algorithms (the reckoned peak printed first;
    past 70 GB the batch would be halved): phase 7's checks, the launches
    at `predicted_train_launches` (decay_w2's GEMMs on the SIMT variant),
@@ -363,7 +364,40 @@ Phases, each printing its own lines:
    `serve_loop` frames, the window-8 engine's tokens past the wrap and
    internvl2's vision prefill + decode tokens on the card equal the CPU
    run of the plain versions.
-15. Two JSON lines: the kernel table, then the device line (last). A
+15. Tensor parallelism and the sharded GETA step, on 4 rank processes
+   that share the card (a `launch.mesh.RankPool`, started after phase 2
+   built the library: gloo with every collective staged through host
+   memory, since NCCL refuses two ranks on one device), at tp 2 and 4.
+   Phase 3 adds a row for every local call a rank of 15b's engines
+   makes (`TP_GEMMS`: each projection's column or K tile at tp 2 and 4,
+   at M = 4 and 512, in fake_quant_rhs and dequant; the head's vocab tile
+   from codes; decode attention, contiguous and on bf16 pages, on a
+   rank's 8 / tp KV heads), each held against its plain version and
+   timed there; 15b fails if a rank launched a GEMM at a (variant,
+   epilogue, K, N) that has no such row.
+   15a: on the ranks, `tp_gemm` at the full decode shapes (w_gate in
+   fake_quant_rhs and dequant, the head in dequant) and `tp_decode_attn`
+   bitwise the 1-rank call on every rank (each column tile plans its K
+   split as the full-width call), and w_down split on K with its partials
+   summed in rank order within 1e-4 of max|y|. 15b: internlm2-1.8b at its
+   published width (bf16, seed 0, every rank drawing the same weights) on
+   4 slots, phases 5-6's 8 requests, in the dense fake-quant and int8
+   modes over both arenas at tp 2 and 4 (8 engines), `TP_GEN` tokens a
+   request (cut from phases 5-6's 64: ROADMAP item 14b): every rank's
+   tokens equal; the
+   first decode step's logits against a 1-rank engine's (`_logits_held`,
+   contiguous), token agreement against phase 5's 1-rank tokens printed;
+   a rank's KV pool exactly 1/tp, per-rank param bytes, decode tok/s and
+   step ms beside the transport and the decode mode (eager: a gloo
+   collective cannot be captured); then the smoke config (f32) at tp 4
+   on the card against the CPU run's tokens. 15c: internlm2-1.8b at full
+   width cut to phase 10's 4 layers, batch 4 x 512, 3 steps (warm-up,
+   projection, a joint step that partitions), on 2 ranks in DP and FSDP:
+   losses, params, quantizers and masks (digests) bitwise the 1-rank
+   step's with grad_slices=2, the reckoned memory, step walls and peak a
+   rank printed. The ranks' launch counts are zeroed before each drive
+   and read after; every kernel of the path must have launched.
+16. Two JSON lines: the kernel table, then the device line (last). A
    serving kernel's `launches` are the host counts of phases 5-6 (a
    graph's calls once, at capture), a pruned-shape GEMM row's those of
    phase 8, a verify-height row's those of phase 9 (the captures of its
@@ -372,7 +406,9 @@ Phases, each printing its own lines:
    at grok-1's shapes those of phase 12 at their shape, the rows at the
    recurrent shapes those of phase 13 at their shape, the rows at phase
    14's shapes those of phase 14 (decode attention's: 14a's at musicgen's
-   shape, 14d's on the ring);
+   shape, 14d's on the ring), the rows at a tp rank's local shapes those
+   of 15b's engines at the row's (variant, epilogue, K, N), or its tp and
+   arena for decode attention, summed over the ranks;
    `traced_device_launches` are its device kernels in their traced
    drains (for a GEMM epilogue the small-M kernels, for decode attention
    the split kernels).
@@ -847,7 +883,7 @@ def _paged_check(torch, timer, gen, B, S, KVh, g, dh, storage, pos) -> dict:
     from repro_torch.core.quant import kv_quant_encode
     from repro_torch.kernels import decode_attn as da
     from repro_torch.kernels import ref
-    Lp = S // PAGE
+    Lp = -(-S // PAGE)
     n_pages = 2 + B * Lp
     table = (torch.randperm(n_pages - 2, generator=gen, device="cuda")
              + 2).reshape(B, Lp).to(torch.int32)
@@ -3598,6 +3634,7 @@ def predicted_moe_grad_launches(lm) -> dict:
 
 # ----------------------------------------------------------------- phase 13
 REC_ARCH = "rwkv6-3b"
+REC_LAYERS = 8             # 13a-c's depth cut: 8 of 32 layers, widths full
 HYB_ARCH = "jamba-1.5-large-398b"
 # phase 5's traffic at lengths the recurrent prefill takes: a prompt past
 # one scan chunk (64) must be a multiple of it (phase 5's 96 and 200 are not)
@@ -3687,6 +3724,11 @@ def rwkv_reckoning(cfg, heads: int | None = None,
             "param_bytes": 2 * (L * bf16 + 2 * V * D) + 4 * (L * f32 + D),
             "embed": V * D, "heads": H, "cm_hidden": F,
             "state_bytes_per_slot": L * (4 * H * dh * dh + 2 * 4 * D)}
+
+
+def _rec_cfg():
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(REC_ARCH), n_layers=REC_LAYERS)
 
 
 def _hyb_cfg(layers: int = HYB_LAYERS, experts: int = HYB_EXPERTS):
@@ -3928,10 +3970,11 @@ def _rec_engines(torch, lm, params, prompts, label, modes, failures,
 
 
 def _rec_train(torch, failures) -> dict:
-    """13c: `train_loop` on rwkv6-3b at full width, 5 steps through every
-    stage under torch.use_deterministic_algorithms, then two runs of a
-    joint step from one state (bitwise)."""
-    from repro_torch.configs import CompressionConfig, get_arch
+    """13c: `train_loop` on rwkv6-3b at full width and REC_LAYERS
+    layers, 5 steps through every stage under
+    torch.use_deterministic_algorithms, then two runs of a joint step from
+    one state (bitwise)."""
+    from repro_torch.configs import CompressionConfig
     from repro_torch.core.quant import bit_width
     from repro_torch.kernels import ops
     from repro_torch.launch import train as T
@@ -3942,7 +3985,7 @@ def _rec_train(torch, failures) -> dict:
             failures.append(f"13c {what}")
         return "ok" if ok else "FAIL"
 
-    cfg = get_arch(REC_ARCH)
+    cfg = _rec_cfg()
     rk = rwkv_reckoning(cfg)
     batch, seq = TRAIN_BATCH, TRAIN_SEQ
     n = rk["params"]
@@ -3971,7 +4014,7 @@ def _rec_train(torch, failures) -> dict:
     state, qadg, qasso, losses = T.train_loop(
         REC_ARCH, False, 5, batch, seq, seed=0,
         comp=CompressionConfig(**COMP5), verbose=False, device="cuda",
-        history=hist)
+        history=hist, layers=REC_LAYERS)
     wall = time.perf_counter() - t0
     counts = {k: v - before[k] for k, v in ops.launch_counts().items()}
     peak = torch.cuda.max_memory_allocated()
@@ -3993,7 +4036,7 @@ def _rec_train(torch, failures) -> dict:
         p * (1.0 - elem_keep[k]).to(p.dtype)))
         for k, p in state["params"].items())
     print(f"[13c rwkv6 train] {REC_ARCH} full width bf16 ({cfg.n_layers} "
-          f"layers, {n / 1e9:.2f}e9 params), batch {batch}x{seq}, 5 steps in "
+          f"of 32 layers, {n / 1e9:.2f}e9 params), batch {batch}x{seq}, 5 steps in "
           f"{wall:.2f} s, stages {stages} "
           f"{check(stages == [0, 1, 2, 2, 3], 'stage order')}, losses "
           f"finite {check(all(math.isfinite(x) for x in losses), 'loss')}, "
@@ -4019,7 +4062,8 @@ def _rec_train(torch, failures) -> dict:
     runs = []
     for _ in range(2):
         lm2, p, q, _, qa, s = T.init_geta(REC_ARCH, False, seed=0,
-                                          device="cuda", comp=T.JOINT_STEP0)
+                                          device="cuda", comp=T.JOINT_STEP0,
+                                          layers=REC_LAYERS)
         b = T.batch_for(lm2.cfg, 0, 0, batch, seq, device="cuda")
         p, q, s, m = T.make_geta_train_step(lm2, qa)(p, q, s, b)
         runs.append((p, q, s.redundant, s.keep_mask, m["loss"]))
@@ -4058,12 +4102,14 @@ def phase_recurrent(torch) -> tuple[dict, dict, list[str], dict]:
     from repro_torch.models.transformer import LM
     t_start = time.perf_counter()
     failures, info = [], {}
-    cfg = get_arch(REC_ARCH)
+    cfg = _rec_cfg()
     rk = rwkv_reckoning(cfg)
-    print(f"[13 recurrent] {REC_ARCH} whole (d_model {cfg.d_model}, "
-          f"{cfg.n_layers} layers, {rk['heads']} heads of "
+    print(f"[13 recurrent] {REC_ARCH} at its published widths (d_model "
+          f"{cfg.d_model}, {rk['heads']} heads of "
           f"{cfg.rwkv.head_size}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, decay "
-          f"LoRA {cfg.rwkv.decay_lora}, bf16, no cut); reckoned: "
+          f"LoRA {cfg.rwkv.decay_lora}, bf16), depth cut to "
+          f"{cfg.n_layers} of {get_arch(REC_ARCH).n_layers} layers; "
+          f"reckoned: "
           f"{rk['layer'] / 1e6:.2f}M params a layer, embed and head 2 x "
           f"{rk['embed'] / 1e6:.1f}M, {rk['params'] / 1e9:.3f}e9 params "
           f"({rk['param_bytes'] / 1e9:.2f} GB), decode state "
@@ -4073,7 +4119,7 @@ def phase_recurrent(torch) -> tuple[dict, dict, list[str], dict]:
     tally = Counter()
     real = _gemm_shape_tally(gc, tally)
     try:
-        # ---- 13a: rwkv6-3b whole, every weight mode over both arenas
+        # ---- 13a: rwkv6-3b at REC_LAYERS, every weight mode, both arenas
         torch.cuda.reset_peak_memory_stats()
         lm = LM(cfg)
         params = lm.init(torch.Generator(device="cuda").manual_seed(0))
@@ -4123,7 +4169,7 @@ def phase_recurrent(torch) -> tuple[dict, dict, list[str], dict]:
         del eng, p, q, slim, params, lm
         torch.cuda.empty_cache()
 
-        # ---- 13c: GETA training at full width
+        # ---- 13c: GETA training at full width, REC_LAYERS deep
         info["13c"] = _rec_train(torch, failures)
         torch.cuda.empty_cache()
 
@@ -4878,6 +4924,555 @@ def phase_frontends(torch) -> tuple[dict, dict, list[str], dict]:
     return counts, dict(tally), failures, info
 
 
+# ------------------------------------------------------------- phase 15
+# tensor-parallel serving and the sharded GETA step; the ranks are
+# processes sharing the card (gloo with host-staged collectives), started
+# once for the phase, after phase 2 built the kernel library
+TP_SIZES = (2, 4)
+TP_WORLD = 4
+TP_MODES = {"dense": {}, "compressed": dict(compressed=True)}
+# 15b's engines as (tp, mode, paged): both modes over both arenas at tp 4
+# and 2, each decoding TP_GEN tokens a request: a collective staged
+# through the host between processes that share the card costs
+# milliseconds (PERF.md §7), so phases 5-6's 64 tokens a request took
+# phase 15 to ~490 s (ROADMAP item 14b names the cut)
+TP_ENGINES = [(tp, mode, paged) for tp in (4, 2) for mode in TP_MODES
+              for paged in (False, True)]
+TP_GEN = 8
+TP_SEQ = max(PROMPT_LENS) + TP_GEN     # 15b's arena rows (max_seq)
+# internlm2-1.8b's projections as (name, K, N, the dim the `model` axis
+# splits): the columns of wq, wk / wv and w_gate / w_up, the rows of wo
+# and w_down (their partial products summed in rank order); the head's
+# vocab columns
+TP_PROJ = [("wq", 2048, 2048, "N"), ("wk/wv", 2048, 1024, "N"),
+           ("wo", 2048, 2048, "K"), ("w_gate/w_up", 2048, 8192, "N"),
+           ("w_down", 8192, 2048, "K")]
+TP_HEAD = (2048, 92672)
+TP_KV_HEADS, TP_GROUP, TP_DHEAD = 8, 2, 128
+
+
+def _tp_gemms() -> list:
+    """(M, K, N, epilogues, roles) of every local GEMM a rank of 15b's
+    engines launches: each projection's tile at tp 2 and 4, at decode
+    (M = 4: small_m) and a 512-token prefill (tc), in both weight modes;
+    the head's vocab tile at decode from codes only (the dense head is a
+    prequantized torch.matmul)."""
+    roles: dict = {}
+    for tp in TP_SIZES:
+        for name, K, N, dim in TP_PROJ:
+            key = (K // tp, N) if dim == "K" else (K, N // tp)
+            roles.setdefault(key, []).append(f"tp{tp} {name}")
+    return ([(M, K, N, ("fake_quant_rhs", "dequant"), r)
+             for (K, N), r in sorted(roles.items()) for M in (SLOTS, 512)]
+            + [(SLOTS, TP_HEAD[0], TP_HEAD[1] // tp, ("dequant",),
+                [f"tp{tp} head"]) for tp in TP_SIZES])
+
+
+TP_GEMMS = _tp_gemms()
+# decode attention's slots at 15b's arena, one past the end
+TP_POS = [TP_SEQ - 1, 0, 300, 63]
+# 15c: phase 10's depth cut, the training batch, 2 ranks, 3 steps: warm-up,
+# projection, then a joint step that partitions and freezes the masks
+TP_TRAIN_RANKS, TP_TRAIN_STEPS = 2, 3
+TP_COMP = dict(target_sparsity=0.3, warmup_steps=1, projection_periods=1,
+               projection_steps=1, pruning_periods=1, pruning_steps=1,
+               cooldown_steps=0)
+SMOKE_TP_LENS, SMOKE_TP_GEN = [12, 5, 9], 8
+# predictions written before the first card run of phase 15 (PERF.md §6)
+PREDICTED_TP = {"15a_gemm_2048_ms": 0.013, "15a_head_tile_ms": 0.03,
+                "15a_decode_ms": 0.010, "15b_tp2_tok_per_s": 160.0,
+                "15b_tp4_tok_per_s": 115.0, "15c_dp_step_s": 3.0,
+                "15c_fsdp_step_s": 8.0, "15c_peak_gb": 14.0,
+                "phase_s": 140.0}
+
+
+def _tp_gemm_name(M, K, N, label) -> str:
+    return f"{_report_name(label)}.tp.M{M}.{K}x{N}"
+
+
+def phase_tp_kernels(torch, timer) -> tuple[list, dict, list]:
+    """Phase 3's rows at every local shape of 15b's ranks (TP_GEMMS,
+    weights as `prepare_serving` stores them; decode attention on 8 / tp
+    KV heads of 15b's arena, contiguous and on bf16 pages), each held
+    against its plain version and timed in this process as phase 3 times
+    kernels; 15a holds the ranks' wrapper calls to the 1-rank kernels."""
+    import itertools
+    from repro_torch.kernels import gemm_core as gc
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    rows, report, failures = [], {}, []
+
+    def keep(name, row):
+        rows.append(row)
+        if not row["ok"]:
+            failures.append(row)
+        report[name] = row
+
+    for M, K, N, epis, _ in TP_GEMMS:
+        x = torch.randn((M, K), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        for label, w, epi, dequantized in itertools.islice(
+                _gemm_cases(torch, K, N, gen), 2):
+            if label in epis:
+                keep(_tp_gemm_name(M, K, N, label),
+                     _gemm_row(torch, timer, gc, label, x,
+                               gc.aligned_rows(w), epi, dequantized(),
+                               tag=" (tp shard)"))
+        del x
+    pos = torch.tensor(TP_POS, dtype=torch.int64, device="cuda")
+    for tp in TP_SIZES:
+        shape = (SLOTS, TP_SEQ, TP_KV_HEADS // tp, TP_GROUP, TP_DHEAD)
+        keep(f"decode_attn.tp{tp}",
+             _decode_check(torch, timer, gen, *shape, pos))
+        keep(f"paged_decode_attn.bf16.tp{tp}",
+             _paged_check(torch, timer, gen, *shape, "bf16", pos))
+    return rows, report, failures
+
+
+def _tp_wrappers_rank(tp: int) -> dict | None:
+    """15a on one rank of a tp mesh: `tp_gemm` at internlm2's full decode
+    shapes (w_gate 2048->8192 in fake_quant_rhs and dequant, the head
+    2048->92672 in dequant) and `tp_decode_attn` (KVh 8 -> 8/tp a rank),
+    each bitwise against the 1-rank call on the same inputs, and w_down
+    8192->2048 split on K (this rank's rows, partials summed in rank
+    order, as the engine runs it) against the 1-rank call at phase 3's
+    tolerance. Returns {case: (ok, max |diff|)}."""
+    import torch
+    from repro_torch.core.quant import init_quant_params, quantize_int
+    from repro_torch.distributed.collectives import ordered_sum
+    from repro_torch.kernels import decode_attn as da
+    from repro_torch.kernels import gemm_core as gc
+    from repro_torch.launch import mesh as M
+    mesh = M.make_tp_mesh(tp)
+    if not mesh.member:
+        return None
+    gen = torch.Generator(device="cuda").manual_seed(151)
+    out = {}
+
+    def held(name, got, want, exact):
+        diff = (got.float() - want.float()).abs().max().item()
+        tol = 0.0 if exact else 1e-4 * want.float().abs().max().item()
+        out[name] = (bool(diff <= tol and torch.isfinite(got).all()), diff)
+
+    x = torch.randn((SLOTS, 2048), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    for K, N in ((2048, 8192), (2048, 92672)):
+        w = torch.randn((K, N), generator=gen, device="cuda",
+                        dtype=torch.bfloat16) * K ** -0.5
+        qp = init_quant_params(w, bits=8.0)
+        codes, d = quantize_int(w, qp, bits=8.0)
+        cases = [("dequant", codes.to(torch.int8), gc.dequant(d))]
+        if N == 8192:
+            cases.append(("fake_quant_rhs", w,
+                          gc.fake_quant_rhs(qp.d, qp.q_m, qp.t)))
+        for label, w_, epi in cases:
+            held(f"tp_gemm.{label}.{K}x{N}",
+                 gc.tp_gemm(x, w_, epi, mesh=mesh), gc.gemm(x, w_, epi), True)
+        del w, codes
+    xd = torch.randn((SLOTS, 8192), generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    wd = torch.randn((8192, 2048), generator=gen, device="cuda",
+                     dtype=torch.bfloat16) * 8192 ** -0.5
+    qp = init_quant_params(wd, bits=8.0)
+    epi = gc.fake_quant_rhs(qp.d, qp.q_m, qp.t)
+    lo, n = mesh.index("model") * (8192 // tp), 8192 // tp
+    part = gc.gemm(xd[:, lo:lo + n], wd[lo:lo + n], epi,
+                   out_dtype=torch.float32)
+    held("k_split.fake_quant_rhs.8192x2048",
+         ordered_sum(part, mesh, "model"),
+         gc.gemm(xd, wd, epi, out_dtype=torch.float32), False)
+    B, S, KVh, g, dh = SLOTS, DECODE_S, 8, 2, 128
+    q = torch.randn((B, KVh, g, dh), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k = torch.randn((B, S, KVh, dh), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    v = torch.randn((B, S, KVh, dh), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    pos = torch.tensor(DECODE_POS[:SLOTS], dtype=torch.int64, device="cuda")
+    held("tp_decode_attn", da.tp_decode_attn(q, k, v, pos, mesh=mesh),
+         da.decode_attn(q, k, v, pos), True)
+    return out
+
+
+def _tp_engine_rank(tp: int, mode: str, paged: bool,
+                    prompts) -> dict | None:
+    """15b on one rank: internlm2-1.8b at full width (bf16) served at tp
+    on the first tp ranks, 4 slots, the 8 prompts of phases 5-6, TP_GEN
+    tokens each; first the first decode step's logits
+    (`_first_step_logits`), then the drain. The engine decodes eagerly
+    (gloo), so `run()` needs no `warmup()`, which would only repeat the
+    prefills. Launch counts are zeroed right before `run()` and read
+    after; GEMM launches are also tallied by (variant, epilogue, K, N)."""
+    from collections import Counter
+
+    import torch
+    from repro_torch.kernels import gemm_core as gc
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.engine import build_engine
+    mesh = M.make_tp_mesh(tp)
+    if not mesh.member:
+        return None
+    kw = dict(TP_MODES[mode])
+    if paged:
+        kw.update(paged=True, page_size=PAGE)
+    t0 = time.perf_counter()
+    eng, _ = build_engine(ARCH, False, max_slots=SLOTS, max_seq=TP_SEQ,
+                          mesh=mesh, **kw)
+    build_s = time.perf_counter() - t0
+    info = {"param_bytes": eng.param_bytes(),
+            "param_bytes_per_rank": eng.param_bytes(per_device=True),
+            "kv_pool_bytes_per_rank": sum(
+                eng._leaf_nbytes(c, True) for c in eng.caches.values()),
+            "kv_pool_bytes": sum(eng._leaf_nbytes(c, False)
+                                 for c in eng.caches.values()),
+            "kv_bytes_per_rank": eng.kv_bytes(per_device=True),
+            "kv_bytes": eng.kv_bytes(), "decode_mode": eng.decode_mode,
+            "backend": mesh.backend, "staging": mesh.staging,
+            "fallbacks": sorted({n for n, _, _ in eng.tp_fallbacks}),
+            "build_s": build_s}
+    info["logits"] = _first_step_logits(torch, eng, prompts,
+                                        TP_GEN).cpu().numpy()
+    tally = Counter()
+    real = _gemm_shape_tally(gc, tally)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        toks = eng.run()
+        torch.cuda.synchronize()
+        info["drain_s"] = time.perf_counter() - t0
+    finally:
+        gc.gemm = real
+    info.update(tokens={int(r): t.tolist() for r, t in toks.items()},
+                launches=_nonzero(ops.launch_counts()),
+                tally={"/".join(map(str, k)): v for k, v in tally.items()},
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                **{k: eng.stats[k] for k in ("decode_steps", "decode_tokens",
+                                             "decode_s", "prefill_tokens",
+                                             "prefill_s")},
+                **eng.throughput())
+    del eng
+    torch.cuda.empty_cache()
+    return info
+
+
+def _tp_smoke_rank(tp: int) -> dict | None:
+    """15b's f32 check on one rank: the smoke config served at tp on the
+    card from weights drawn on the CPU (seed 0, as the CPU run draws
+    them); its tokens."""
+    import torch
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.engine import engine_serve
+    from repro_torch.models.transformer import LM
+    init = LM.init
+    LM.init = lambda self, gen: {
+        k: v.to(gen.device) for k, v in
+        init(self, torch.Generator().manual_seed(0)).items()}
+    try:
+        st: dict = {}
+        out = engine_serve(ARCH, True, SMOKE_TP_LENS, SMOKE_TP_GEN,
+                           verbose=False, tp=tp, stats=st)
+    finally:
+        LM.init = init
+    if not M.make_tp_mesh(tp).member:
+        return None
+    return {"tokens": {int(r): t.tolist() for r, t in out.items()},
+            "decode_mode": st["decode_mode"]}
+
+
+def _tp_train_rank(n: int, fsdp: bool, grad_slices: int) -> dict | None:
+    """15c on one rank of an (n, 1) mesh (n = 1: the sequential
+    reference): internlm2-1.8b at full width cut to RUN_LAYERS, the
+    sharded GETA step over TP_TRAIN_STEPS steps (TP_COMP: warm-up,
+    projection, a joint step that partitions) at batch 4 x 512. Returns
+    the losses, each step's wall seconds, the peak memory, the launch
+    counts, and digests of the gathered params, quantizers and masks
+    (every rank's checked identical first)."""
+    import hashlib
+
+    import torch
+    from repro_torch.configs import CompressionConfig, get_overrides
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.distributed import sharding as S
+    from repro_torch.distributed.collectives import assert_replicated
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import train as T
+    mesh = M.make_subset_mesh(n)
+    if not mesh.member:
+        return None
+    dev = torch.device("cuda", torch.cuda.current_device())
+    lm, params, qparams, _, qasso, qstate = T.init_geta(
+        ARCH, False, seed=0, comp=CompressionConfig(**TP_COMP), device=dev,
+        layers=RUN_LAYERS)
+    plan = S.make_plan(mesh, fsdp=fsdp, overrides=dict(get_overrides(ARCH)))
+    p_sh = plan.shardings(lm.param_axes(),
+                          {k: tuple(v.shape) for k, v in params.items()})
+    step, (psh, _, ssh, bsh) = T.make_sharded_geta_train_step(
+        lm, qasso, mesh, params, qparams, param_shardings=p_sh,
+        grad_slices=grad_slices)
+    params, qstate = S.place(params, psh), S.place(qstate, ssh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, walls = [], []
+    for i in range(TP_TRAIN_STEPS):
+        b = S.place(batch_for(lm.cfg, 0, i, TRAIN_BATCH, TRAIN_SEQ,
+                              device=dev), bsh)
+        t0 = time.perf_counter()
+        params, qparams, qstate, m = step(params, qparams, qstate, b)
+        losses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t0)
+    counts = _nonzero(ops.launch_counts())
+    peak = torch.cuda.max_memory_allocated()
+    full = S.gather_tree(params, psh)
+    masks = {**{"r." + k: v for k, v in qstate.redundant.items()},
+             **{"k." + k: v for k, v in qstate.keep_mask.items()}}
+    for k, v in masks.items():
+        assert_replicated(v, mesh, k)
+    digest = lambda tree: hashlib.sha256(b"".join(
+        tree[k].detach().contiguous().view(torch.uint8).cpu().numpy()
+        .tobytes() for k in sorted(tree))).hexdigest()
+    out = {"losses": losses, "walls": walls, "peak_bytes": peak,
+           "launches": counts, "params": digest(full),
+           "masks": digest(masks),
+           "qparams": {k: (float(q.d), float(q.q_m), float(q.t))
+                       for k, q in qparams.items()},
+           "stage": int(m["stage"]),
+           "sparsity": float(m["sparsity_hard"]),
+           "n_params": sum(v.numel() for v in full.values()),
+           "sharded": sum(1 for s in psh.values() if any(s.spec))}
+    del full, params, qstate
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_reckoning(n_params: int, ranks: int) -> str:
+    """A rank's device memory for the sharded step, reckoned: bf16 params,
+    AdamW's two f32 moments, f32 gradients; FSDP keeps a shard of the
+    params and moments and gathers the params whole inside a step."""
+    gb = lambda b: f"{b / 1e9:.2f} GB"
+    return (f"{n_params} params: bf16 params {gb(2 * n_params)}, AdamW "
+            f"moments {gb(8 * n_params)}, f32 gradients {gb(4 * n_params)}"
+            f" -> ~{gb(14 * n_params)} a rank in DP; FSDP keeps "
+            f"~{gb(10 * n_params / ranks)} between steps and holds "
+            f"~{gb(6 * n_params + 10 * n_params / ranks)} inside one (the "
+            f"params gathered, the gradients whole); + activations of a "
+            f"1 x {TRAIN_SEQ} slice")
+
+
+def phase_tp(torch, outs: dict, report: dict
+             ) -> tuple[dict, dict, list[str], dict]:
+    """Phase 15 (see the module docstring). `outs` are phase 5's tokens
+    (the 1-rank engine's, graph windows), `report` phase 3's rows at the
+    ranks' local shapes. Returns the summed launch counts of the ranks'
+    main-path runs, 15b's launches summed over the ranks by (tp, variant,
+    epilogue, K, N) for the GEMMs and (tp, kernel) for decode attention,
+    the failures and the numbers for --out."""
+    from collections import Counter
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.engine import build_engine, synthetic_prompts
+    failures, info = [], {}
+    counts, tally = Counter(), Counter()
+    prompts = synthetic_prompts(get_arch(ARCH), PROMPT_LENS, seed=0)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with M.RankPool(TP_WORLD, "cuda") as pool:
+        print(f"[15 tp] {TP_WORLD} ranks on one card over {pool.backend}"
+              f"{' (host-staged collectives)' if pool.staging else ''}, "
+              f"started in {time.perf_counter() - t0:.1f} s")
+        # 15a: the wrappers against the 1-rank kernels
+        for tp in TP_SIZES:
+            res = [r for r in pool.run(_tp_wrappers_rank, tp) if r]
+            for case in res[0]:
+                oks = [r[case][0] for r in res]
+                diff = max(r[case][1] for r in res)
+                print(f"[15a tp wrappers] tp={tp} {case}: max|diff| vs the "
+                      f"1-rank call {diff:.3e} "
+                      f"({'bitwise' if diff == 0 else 'tol 1e-4 x max|y|'})"
+                      f" on {len(res)} ranks {'ok' if all(oks) else 'FAIL'}")
+                if not all(oks):
+                    failures.append(f"15a tp={tp} {case}: {diff}")
+        # 15b: the engine at full width, against phase 5's 1-rank tokens
+        base_logits = {}
+        for mode in TP_MODES:
+            eng, _ = build_engine(ARCH, False, max_slots=SLOTS,
+                                  max_seq=TP_SEQ, device="cuda",
+                                  **TP_MODES[mode])
+            base_logits[mode] = _first_step_logits(torch, eng, prompts,
+                                                   TP_GEN).cpu()
+            del eng
+            torch.cuda.empty_cache()
+        for tp, mode, paged in TP_ENGINES:
+            t1 = time.perf_counter()
+            res = [r for r in pool.run(_tp_engine_rank, tp, mode,
+                                       paged, prompts) if r]
+            r0, label = res[0], (f"tp={tp} {mode} "
+                                 f"{'paged' if paged else 'contiguous'}")
+            same_ranks = all(r["tokens"] == r0["tokens"] for r in res)
+            ok = same_ranks
+            got = {k: np.asarray(v) for k, v in r0["tokens"].items()}
+            held, line = _logits_held(
+                torch, torch.from_numpy(r0["logits"]),
+                base_logits[mode])
+            ok = ok and held
+            # phase 5's 1-rank tokens, cut to TP_GEN
+            want = {k: v[:TP_GEN] for k, v in outs[mode].items()}
+            kv_exact = (r0["kv_pool_bytes_per_rank"] * tp
+                        == r0["kv_pool_bytes"])
+            steps = max(r0["decode_steps"], 1)
+            launched = Counter()
+            for r in res:
+                launched.update(r["launches"])
+                for k, v in r["tally"].items():
+                    var, epi, K, N = k.split("/")
+                    tally[(tp, var, epi, int(K), int(N))] += v
+            attn = "paged_decode_attn.bf16" if paged else "decode_attn"
+            tally[(tp, attn)] += launched[attn]
+            counts.update(launched)
+            main_ok = (launched["gemm_core.small_m"] > 0
+                       and launched["gemm_core.tc"] > 0
+                       and launched[attn] > 0)
+            ok = ok and kv_exact and main_ok and len(got) == len(
+                PROMPT_LENS)
+            info[label] = {k: v for k, v in r0.items()
+                           if k not in ("tokens", "logits")}
+            print(f"[15b tp engine] {label}: {r0['backend']}"
+                  f"{' host-staged' if r0['staging'] else ''}, "
+                  f"decode {r0['decode_mode']}; every rank's tokens "
+                  f"{'equal' if same_ranks else 'DIFFER'}; "
+                  f"vs the 1-rank engine (phase 5): "
+                  f"{_agreement(got, want)}; first step {line}; decode "
+                  f"{r0['decode_tok_per_s']:.1f} tok/s, "
+                  f"step {1e3 * r0['decode_s'] / steps:.2f} ms "
+                  f"({r0['decode_steps']} steps), prefill "
+                  f"{r0['prefill_tok_per_s']:.1f} tok/s; per-rank "
+                  f"param_bytes {r0['param_bytes_per_rank']} of "
+                  f"{r0['param_bytes']}, kv pool "
+                  f"{r0['kv_pool_bytes_per_rank']} of "
+                  f"{r0['kv_pool_bytes']} "
+                  f"({'exactly 1/tp' if kv_exact else 'NOT 1/tp'}), "
+                  f"peak {r0['peak_bytes'] / 1e9:.2f} GB a rank; "
+                  f"fallbacks {r0['fallbacks'] or 'none'}; launches "
+                  f"(all ranks) {dict(launched)}; "
+                  f"{time.perf_counter() - t1:.1f} s "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"15b {label}")
+        # every local GEMM the engines launched has a phase-3 row
+        checked = {(r["variant"], r["kernel"].split(".")[1], r["K"], r["N"])
+                   for r in report.values() if "variant" in r}
+        launched_shapes = {k[1:] for k in tally if len(k) == 5}
+        missed = sorted(launched_shapes - checked)
+        print(f"[15b tp engine] {len(launched_shapes)} local GEMM shapes "
+              f"(variant, epilogue, K, N) launched, each held against its "
+              f"plain version in phase 3"
+              + (f" but for {missed} FAIL" if missed else " ok"))
+        if missed:
+            failures.append(f"15b GEMM shapes without a phase-3 row: "
+                            f"{missed}")
+        from repro_torch.launch.engine import engine_serve
+        want = engine_serve(ARCH, True, SMOKE_TP_LENS, SMOKE_TP_GEN,
+                            verbose=False, device="cpu")
+        res = [r for r in pool.run(_tp_smoke_rank, 4) if r]
+        same = all({int(k): list(v) for k, v in want.items()} == r["tokens"]
+                   for r in res)
+        print(f"[15b tp engine] smoke config (f32) at tp=4 on the card, "
+              f"decode {res[0]['decode_mode']}: tokens "
+              f"{'equal' if same else 'DIFFER FROM'} the CPU run's on every "
+              f"rank ({len(want)} requests x {SMOKE_TP_GEN}) "
+              f"{'ok' if same else 'FAIL'}")
+        if not same:
+            failures.append("15b smoke tp=4 card vs CPU")
+        # 15c: the sharded GETA step
+        torch.cuda.empty_cache()
+        ref = _tp_train_rank(1, False, TP_TRAIN_RANKS)
+        print(f"[15c sharded step] {_tp_reckoning(ref['n_params'], TP_TRAIN_RANKS)}")
+        print(f"[15c sharded step] 1 rank, grad_slices={TP_TRAIN_RANKS}: "
+              f"losses {ref['losses']}, step walls "
+              f"{[round(w, 2) for w in ref['walls']]} s, peak "
+              f"{ref['peak_bytes'] / 1e9:.2f} GB, stage {ref['stage']}, "
+              f"sparsity {ref['sparsity']:.3f}")
+        for fsdp in (False, True):
+            res = [r for r in pool.run(_tp_train_rank, TP_TRAIN_RANKS, fsdp,
+                                       TP_TRAIN_RANKS) if r]
+            same = all(r[k] == ref[k] for r in res for k in (
+                "losses", "params", "masks", "qparams"))
+            launched = Counter()
+            for r in res:
+                launched.update(r["launches"])
+            counts.update(launched)
+            ok = same and launched["fake_quant.fwd"] > 0 and launched[
+                "fake_quant.bwd"] > 0 and launched["gemm_core.tc"] > 0
+            print(f"[15c sharded step] {TP_TRAIN_RANKS} ranks "
+                  f"{'FSDP' if fsdp else 'DP'} ({res[0]['sharded']} params "
+                  f"sharded): loss, params, quantizers and masks "
+                  f"{'bitwise equal to' if same else 'DIFFER FROM'} the "
+                  f"1-rank step over {TP_TRAIN_STEPS} steps; step walls "
+                  f"{[round(w, 2) for w in res[0]['walls']]} s, peak "
+                  f"{[round(r['peak_bytes'] / 1e9, 2) for r in res]} GB a "
+                  f"rank; launches (all ranks) {dict(launched)} "
+                  f"{'ok' if ok else 'FAIL'}")
+            info[f"15c {'fsdp' if fsdp else 'dp'}"] = {
+                k: v for r in res[:1] for k, v in r.items()}
+            if not ok:
+                failures.append(f"15c {'fsdp' if fsdp else 'dp'}")
+        info["15c reference"] = ref
+    for name in ("gemm_core.small_m", "gemm_core.tc", "decode_attn",
+                 "paged_decode_attn.bf16", "fake_quant.fwd",
+                 "fake_quant.bwd"):
+        if counts[name] <= 0:
+            failures.append(f"{name} never launched on phase 15's path")
+    print(f"[15 tp] launch counts of the ranks' main-path runs (host "
+          f"calls, all eager): {_nonzero(dict(counts))}")
+    print(f"[15 tp] predictions (PERF.md): {PREDICTED_TP}")
+    return dict(counts), dict(tally), failures, info
+
+
+def _tp_kernel_rows(tp_report: dict, tp_tally: dict, gemm, attn,
+                    paged) -> list:
+    """The kernel line's rows at a tp rank's local shapes (phase 3's
+    rows), with phase 15b's launches at each row's (variant, epilogue, K,
+    N), or its tp and arena for decode attention, summed over the engines
+    and their ranks. `gemm`, `attn`, `paged`: (source, replaces) pairs."""
+    out = []
+    for M, K, N, epis, roles in TP_GEMMS:
+        for label in epis:
+            name = _tp_gemm_name(M, K, N, label)
+            row = tp_report[name]
+            key = (row["variant"], _report_name(label).split(".")[1], K, N)
+            out.append({
+                "name": name, "route": "cuda", "source": gemm[0],
+                "replaces": gemm[1],
+                "launches": sum(v for k, v in tp_tally.items()
+                                if k[1:] == key),
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "shape": f"M={M} K={K} N={N} ({', '.join(roles)} of "
+                         f"{ARCH})", "variant": row["variant"],
+                **({"block_height_ms": row["heights"]} if "heights" in row
+                   else {"kernels_per_launch": row.get("kernels_per_call")})})
+    for tp in TP_SIZES:
+        for base, (src, replaces) in (("decode_attn", attn),
+                                      ("paged_decode_attn.bf16", paged)):
+            row = tp_report[f"{base}.tp{tp}"]
+            out.append({
+                "name": f"{base}.tp{tp}", "route": "cuda", "source": src,
+                "replaces": replaces, "launches": tp_tally.get((tp, base), 0),
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "shape": f"B={row['B']} S={row['S']} KVh={row['KVh']} "
+                         f"g={row['g']} dh={row['dh']}"
+                         + (f" P={row['P']}" if "P" in row else "")
+                         + f" R={row['R']} q bf16, pos int64 (a tp-{tp} "
+                         f"rank's {row['KVh']} of {TP_KV_HEADS} KV heads)",
+                "kernels_per_launch": row["kernels_per_call"]})
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -4923,6 +5518,9 @@ def main(argv=None) -> int:
                                                                    timer)
     rows += front_rows
     failures += front_kfail
+    tp_rows, tp_report, tp_kfail = phase_tp_kernels(torch, timer)
+    rows += tp_rows
+    failures += tp_kfail
     del timer
     torch.cuda.empty_cache()
     failures = [f"{r['kernel']} {r}" for r in failures]
@@ -4969,6 +5567,10 @@ def main(argv=None) -> int:
     front_counts, front_gemms, front_fail, front_info = phase_frontends(torch)
     failures += front_fail
     lap("14 frontends")
+    torch.cuda.empty_cache()
+    tp_counts, tp_tally, tp_fail, tp_info = phase_tp(torch, outs, tp_report)
+    failures += tp_fail
+    lap("15 tp")
 
     if args.out:
         out = Path(args.out)
@@ -5000,6 +5602,10 @@ def main(argv=None) -> int:
              "frontend_gemm_launches": {"/".join(map(str, k)): v
                                         for k, v in front_gemms.items()},
              "frontends": front_info,
+             "tp_launches": tp_counts,
+             "tp_kernel_launches": {"/".join(map(str, k)): v
+                                    for k, v in tp_tally.items()},
+             "tp": tp_info,
              "trace_takes": _TRACE_TAKES,
              "spec_engines": {f"{t}/{d}": {
                  k: v for k, v in st.items()
@@ -5265,6 +5871,7 @@ def main(argv=None) -> int:
                      f"g={row['g']} dh={row['dh']} R={row['R']} q bf16, pos "
                      f"int64 ({what})",
             "kernels_per_launch": row["kernels_per_call"]})
+    kernels += _tp_kernel_rows(tp_report, tp_tally, gemm, attn, paged)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -20,9 +20,12 @@ attaches the self-speculative draft (the same init params sliced to
 `--draft-k` tokens a round, which the target verifies in one chunked
 pass; the report adds the acceptance rate. `--chunked-prefill C`
 prefills each prompt C rows at a time between decode steps; the report
-adds the chunks and the decode steps that ran mid-prefill. The modes the
-port does not have yet (`--tp`, `--devices`) raise NotImplementedError
-naming the ROADMAP item that brings them. `--arch rwkv6-3b` and `--arch
+adds the chunks and the decode steps that ran mid-prefill. `--tp N`
+serves tensor-parallel on N ranks (processes; `--devices N` starts N
+ranks and serves at tp N): each holds its shards of the params and the KV
+arena, every rank emits the same tokens and rank 0 prints; the MoE and
+recurrent archs raise NotImplementedError under it, naming the ROADMAP
+item that brings them. `--arch rwkv6-3b` and `--arch
 jamba-1.5-large-398b` serve the recurrent mixers; their paged arena runs
 without prefix sharing (a prefix hit would skip the prefill that sets a
 slot's recurrent state), which the example turns off and prints. Codebook
@@ -49,14 +52,18 @@ versions and decodes its windows eagerly:
 
     PYTHONPATH=src python examples/serve_engine_torch.py \
         --chunked-prefill 8 --device cpu
+
+    PYTHONPATH=src python examples/serve_engine_torch.py --tp 2 \
+        --compressed --device cpu
 """
 import argparse
 
 from repro_torch.configs import get_arch
+from repro_torch.launch import mesh as meshlib
 from repro_torch.launch.engine import (PLAIN_TOKENS_ONLY, build_engine,
+                                       require_tp_family, resolve_device,
                                        synthetic_prompts)
-from repro_torch.models.layers import not_in_this_slice
-from repro_torch.models.transformer import layer_plan, recurrent_mixers
+from repro_torch.models.transformer import LM, layer_plan, recurrent_mixers
 
 
 def main(argv=None):
@@ -113,15 +120,26 @@ def main(argv=None):
                     metavar="CHUNK",
                     help="prefill prompts at most CHUNK rows a step into a "
                          "staging row, so decode runs on mid-prefill")
-    # the reference example's modes that come with a later slice
-    ap.add_argument("--tp", type=int, default=0)
-    ap.add_argument("--devices", type=int, default=0)
+    ap.add_argument("--tp", type=int, default=0,
+                    help="serve tensor-parallel on this many ranks")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="ranks to start (serves at --tp, default N)")
     args = ap.parse_args(argv)
-    if args.devices:
-        raise not_in_this_slice("multi-device serving (--devices)",
-                                "ROADMAP Queue 1 item 14")
     if args.kv_bits is not None:
         args.paged = True
+    args.tp = args.tp or args.devices
+    if args.tp > 1:
+        require_tp_family(LM(get_arch(args.arch, smoke=True)))
+        if args.devices and args.devices < args.tp:
+            raise SystemExit("--devices must be at least --tp")
+        return meshlib.spawn(serve, args.devices or args.tp,
+                             str(resolve_device(args.device)), args)[0]
+    return serve(args)
+
+
+def serve(args):
+    """The example on this process, or on this rank of a --tp group."""
+    say = print if meshlib.world()[0] == 0 else (lambda *a, **k: None)
 
     lens = [int(x) for x in args.prompt_lens.split(",")]
     gens = [int(x) for x in args.gens.split(",")]
@@ -135,13 +153,14 @@ def main(argv=None):
         raise SystemExit(f"{args.arch}: {PLAIN_TOKENS_ONLY}")
     recurrent = recurrent_mixers(layer_plan(cfg)[0])
     if args.paged and recurrent:
-        print(f"{args.arch}: paged arena without prefix sharing ({recurrent} "
+        say(f"{args.arch}: paged arena without prefix sharing ({recurrent} "
               f"mixers keep a per-slot state only a prefill sets)")
     eng, lm = build_engine(args.arch, smoke=True, quantized=args.quant,
                            compressed=args.compressed, packed=args.packed,
                            bits_init=args.bits, max_slots=args.slots,
                            max_seq=max(p + g for p, g in zip(lens, gens)),
-                           verbose=True, device=args.device,
+                           verbose=meshlib.world()[0] == 0,
+                           device=args.device,
                            paged=args.paged, page_size=args.page_size,
                            kv_bits=args.kv_bits, pruned=args.pruned,
                            sparsity=args.sparsity,
@@ -160,7 +179,7 @@ def main(argv=None):
     for rid, n, g in zip(rids, lens, gens):
         toks = " ".join(str(t) for t in out[rid][:12])
         more = " ..." if len(out[rid]) > 12 else ""
-        print(f"request {rid}: prompt {n} tokens -> {len(out[rid])}/{g} "
+        say(f"request {rid}: prompt {n} tokens -> {len(out[rid])}/{g} "
               f"generated: {toks}{more}")
     th = eng.throughput()
     s = eng.stats
@@ -187,7 +206,12 @@ def main(argv=None):
         line += (f"; paged: {s['prefills']} prefills, "
                  f"{s['prefix_hits']} prefix hits, kv_bytes "
                  f"{eng.kv_bytes()} of {eng.kv_pool_bytes()} pooled")
-    print(line)
+    if eng.mesh is not None:
+        line += (f"; tp {eng.mesh.size} over {eng.mesh.backend}, decode "
+                 f"{eng.decode_mode}, per-rank param bytes "
+                 f"{eng.param_bytes(per_device=True)} of "
+                 f"{eng.param_bytes()}")
+    say(line)
     return out
 
 

@@ -176,11 +176,11 @@ def restore_checkpoint(directory: str, example_tree: Any,
     The manifest's step, leaf count and structure are checked against the
     request before any leaf is rebuilt; each mismatch raises with both
     sides named, and a requested step that is missing raises. Each tensor
-    lands on the device of the example's matching leaf."""
-    if shardings is not None:
-        from repro_torch.models.layers import not_in_this_slice
-        raise not_in_this_slice("restore with shardings=",
-                                "ROADMAP Queue 1 item 14 (multi-device)")
+    lands on the device of the example's matching leaf, in the saved
+    dtype. `shardings` (a tree of `distributed.sharding.NamedSharding`s
+    over the example, a node's covering the leaves below it) places each
+    full saved leaf as this rank's shard of the current mesh, whatever
+    mesh wrote it (elastic resharding)."""
     step = latest_step(directory) if step is None else step
     if step is None:
         return None
@@ -213,4 +213,8 @@ def restore_checkpoint(directory: str, example_tree: Any,
                                   dtypes[i] if i < len(dtypes) else "",
                                   ex)
                        for i, ex in enumerate(flat_ex)])
-    return tree_map(lambda _: next(leaves), example_tree), step
+    tree = tree_map(lambda _: next(leaves), example_tree)
+    if shardings is not None:
+        from repro_torch.distributed.sharding import place
+        tree = place(tree, shardings)
+    return tree, step

@@ -1,2 +1,2 @@
-"""Fault tolerance on the host (multi-device sharding comes with ROADMAP
-Queue 1 item 14)."""
+"""Fault tolerance on the host, sharding rules and cross-rank reductions
+over `torch.distributed` ranks (`launch.mesh`)."""

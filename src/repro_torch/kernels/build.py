@@ -9,7 +9,10 @@ with a plain C interface:
 
 The hash covers the sources and the flags, so an edited kernel rebuilds
 and an unchanged one is loaded as it is. The build happens at the first
-kernel launch in a process, never at import. Only the repo's own sources
+kernel launch in a process, never at import, under a file lock
+(`fcntl`) on `<hash>.lock`: of several processes that launch a kernel at
+once (the ranks of `launch.mesh.RankPool`), one builds and the others
+wait and load its library. Only the repo's own sources
 are compiled; nothing is downloaded. Kernels allocate nothing: the Python
 wrappers allocate outputs and scratch with `torch.empty` and pass raw
 device pointers, with the stream from
@@ -18,6 +21,7 @@ device pointers, with the stream from
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -127,11 +131,18 @@ def load() -> ctypes.CDLL:
         lib_path = out_dir / "libkernels.so"
         if not lib_path.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
-            try:
-                lib_path = _compile(find_nvcc(), out_dir)
-            except RuntimeError as err:
-                _state["error"] = str(err)
-                raise
+            with open(out_dir.with_suffix(".lock"), "w") as lock:
+                # another process may be building: wait for it, then
+                # load what it built
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                try:
+                    if not lib_path.exists():
+                        lib_path = _compile(find_nvcc(), out_dir)
+                except RuntimeError as err:
+                    _state["error"] = str(err)
+                    raise
+                finally:
+                    fcntl.flock(lock, fcntl.LOCK_UN)
         lib = ctypes.CDLL(str(lib_path))
         for name, args in SIGNATURES.items():
             fn = getattr(lib, name)

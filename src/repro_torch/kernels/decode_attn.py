@@ -114,6 +114,28 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 decode_attn.launches = 0
 
 
+def tp_decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   pos: torch.Tensor, *, mesh, axis: str = "model"
+                   ) -> torch.Tensor:
+    """KV-head-parallel `decode_attn` over the ranks of `mesh`'s `axis`:
+    a rank takes its KVh / tp KV heads of k and v (read in place) and
+    their query heads of q, runs the kernel on them and the heads are
+    gathered, so every rank returns the full (B, KVh, g, dh). Softmax
+    normalizes within a head, so each head carries the 1-rank call's
+    bits. Raises unless the axis size divides KVh (a rank's q head h
+    reads KV head h // g, which a finer split would put elsewhere)."""
+    tp = int(mesh.shape[axis])
+    KVh = q.shape[1]
+    if KVh % tp:
+        raise ValueError(f"tp_decode_attn: KVh={KVh} must divide the "
+                         f"{axis!r} axis size {tp}")
+    n = KVh // tp
+    lo = mesh.index(axis) * n
+    out = decode_attn(q[:, lo:lo + n], k[:, :, lo:lo + n],
+                      v[:, :, lo:lo + n], pos)
+    return torch.cat(mesh.all_gather(out, axis), dim=1)
+
+
 def bytes_moved(q: torch.Tensor, k: torch.Tensor, pos) -> int:
     """Bytes one call must move at least: q and pos once, the valid K and
     V rows once each, and the f32 output once."""

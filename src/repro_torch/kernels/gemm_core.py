@@ -285,10 +285,13 @@ def operands(x: torch.Tensor, w: torch.Tensor, epi: Epilogue):
 
 
 def gemm(x: torch.Tensor, w: torch.Tensor, epi: Epilogue, *,
-         out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+         out_dtype: Optional[torch.dtype] = None,
+         plan_n: Optional[int] = None) -> torch.Tensor:
     """y = x @ T(w) with f32 accumulation, written in `out_dtype` (default
     x's dtype). x: (M, K); w: (K, N), or (ceil(K/cpw), N) int32 words for
-    unpack_dequant. Either may be a transposed view."""
+    unpack_dequant. Either may be a transposed view. `plan_n` plans the
+    small-M variant's K split as for a call of that many columns (`tp_gemm`:
+    a column shard then sums K in the full-width call's order)."""
     M, K = x.shape
     Kw, N = w.shape
     if Kw != -(-K // epi.k_pack):
@@ -334,7 +337,7 @@ def gemm(x: torch.Tensor, w: torch.Tensor, epi: Epilogue, *,
     else:
         cluster = k_slice = 0            # the SIMT variant splits nothing
         if kind == SMALL_M:
-            plan = small_m_plan(M, N, K, build.sm_count(dev))
+            plan = small_m_plan(M, plan_n or N, K, build.sm_count(dev))
             cluster, k_slice = plan.cluster, plan.k_slice
         err = lib.repro_gemm(
             x.data_ptr(), _DTYPE_CODE[x.dtype], lda, w.data_ptr(),
@@ -349,6 +352,38 @@ def gemm(x: torch.Tensor, w: torch.Tensor, epi: Epilogue, *,
 
 gemm.launches = {name: 0 for name in (*_EPI_CODE, SMALL_M, TC, SIMT,
                                       "copies")}
+
+
+def tp_gemm(x: torch.Tensor, w: torch.Tensor, epi: Epilogue, *, mesh,
+            axis: str = "model",
+            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Column-parallel y = x @ T(w) over the ranks of `mesh`'s `axis`: x
+    whole on every rank, w (or its packed words: packing runs along K)
+    and every per-column operand (a mask, a scale of N values) cut into
+    column tiles, one `gemm` per rank on its tile, the tiles gathered, so
+    every rank returns the full (M, N). Each tile plans its K split as the
+    full-width call does (`plan_n`), so every column carries the 1-rank
+    call's bits. Raises unless the axis size divides N."""
+    tp = int(mesh.shape[axis])
+    N = w.shape[1]
+    if N % tp:
+        raise ValueError(f"tp_gemm: N={N} must divide the {axis!r} axis "
+                         f"size {tp}")
+    n = N // tp
+    lo = mesh.index(axis) * n
+
+    def tile(v):
+        v = torch.as_tensor(v)
+        return v.reshape(-1)[lo:lo + n] if v.numel() == N else v
+
+    ops = epi.operands
+    if epi.name in (FAKE_QUANT, FQ_MASK):
+        ops = ops[:3] + tuple(tile(v) for v in ops[3:])
+    else:
+        ops = tuple(tile(v) for v in ops)
+    y = gemm(x, w[:, lo:lo + n], dataclasses.replace(epi, operands=ops),
+             out_dtype=out_dtype, plan_n=N)
+    return torch.cat(mesh.all_gather(y, axis), dim=-1)
 
 
 def bytes_moved(M: int, N: int, K: int, x_itemsize: int, w: torch.Tensor,

@@ -1,6 +1,6 @@
 """Continuous-batching serving engine: port of `repro.launch.engine.Engine`
 with its contiguous and paged KV arenas, its pruned (slim), speculative
-and chunked-prefill modes, without tensor parallelism.
+and chunked-prefill modes, and tensor parallelism.
 
 - Requests queue with their own prompt and token budget; a finished
   request frees its slot and the next queued request is admitted.
@@ -65,6 +65,21 @@ and chunked-prefill modes, without tensor parallelism.
   slot as a one-shot prefill row. Chunks run eagerly; on CUDA its decode
   replays the captured one-step window.
 
+- A tensor-parallel engine (`mesh=`, one per rank of a `launch.mesh`
+  rank group) holds the rank's shards of the served params
+  (`distributed.sharding.serving_param_specs`: heads, MLP hidden and
+  vocab on `model`, int codes and packed words by name) and of the arena
+  (`kv_cache_specs`: by KV head, or whole where the KV heads do not
+  divide the ranks); its LM runs on them (`LM.tp`), products sharded on
+  K summing their partials in rank order. Every rank runs the same host
+  loop (admission, scheduler, page allocator) and takes its argmax from
+  the same gathered logits, so every rank emits the same tokens. A
+  collective over gloo cannot be captured in a CUDA graph: there the
+  windows decode eagerly and `decode_mode` says so; over nccl they are
+  captured as on one card. The MoE, recurrent, codebook and vision
+  families are refused under a mesh (ROADMAP Queue 1 item 14b).
+  `engine_serve(tp=N)` outside a rank group starts N ranks itself.
+
 Entry points run on CUDA unless the caller passes `device="cpu"`, and
 raise when no CUDA device is there; nothing falls back silently.
 """
@@ -85,6 +100,8 @@ from repro_torch.core.subnet import (compression_report,
                                      masked_reference_params,
                                      prepare_serving, tree_bytes)
 from repro_torch.kernels import ops as Kops
+from repro_torch.distributed import sharding as shlib
+from repro_torch.launch import mesh as meshlib
 from repro_torch.launch import paging
 from repro_torch.launch.scheduler import (ChunkedPrefillScheduler,
                                           OneShotScheduler, PrefillJob,
@@ -96,8 +113,11 @@ from repro_torch.models.transformer import LM, recurrent_mixers
 
 
 def resolve_device(device=None) -> torch.device:
-    """`cuda` unless the caller asks for something else; raises when CUDA
-    is asked for (explicitly or by default) and there is no CUDA device."""
+    """`cuda` unless the caller asks for something else (on a rank of a
+    rank group, the rank's device); raises when CUDA is asked for
+    (explicitly or by default) and there is no CUDA device."""
+    if device is None and meshlib.in_ranks():
+        device = meshlib.rank_device()
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -157,6 +177,17 @@ def _require_full_attention(lm: LM, mode: str) -> None:
                          + mixer_why.format(bad=bad))
 
 
+def require_tp_family(lm: LM) -> None:
+    """Refuse tensor-parallel serving of the families it does not cover
+    yet: MoE (expert parallelism) and the recurrent mixers."""
+    what = ("an MoE" if lm.cfg.moe is not None else
+            f"{recurrent_mixers(lm.plan)} mixers" if recurrent_mixers(lm.plan)
+            else None)
+    if what is not None:
+        raise not_in_this_slice(f"tensor-parallel serving of {what} "
+                                f"({lm.cfg.name})", "ROADMAP Queue 1 item 14b")
+
+
 @dataclasses.dataclass
 class Request:
     rid: int
@@ -187,17 +218,37 @@ class Engine:
                  paged: bool = False, page_size: int = 16,
                  kv_bits: Optional[int] = None,
                  n_pages: Optional[int] = None, prefix_sharing: bool = True,
-                 scheduler=None):
+                 scheduler=None, mesh=None, param_axes: Optional[dict] = None):
         cfg = lm.cfg
         if cfg.num_codebooks or cfg.vision_patches:
             raise ValueError(PLAIN_TOKENS_ONLY)
         self.lm = lm
         self.max_slots = max_slots
         self.max_seq = max_seq
-        self.params = params
-        self.qparams = qparams
         self.device = params["embed"].device
         self.dtype = dtype_of(cfg)
+        # tensor parallelism: this rank's shards of the params (the
+        # arenas shard in `_arena`); shapes the mesh cannot divide
+        # replicate, recorded in `tp_fallbacks`
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.tp_fallbacks: list = []
+        self._full_param_bytes = tree_bytes(params)
+        # id of an arena leaf -> its bytes before sharding (`_arena`)
+        self._full_leaf_bytes: dict[int, int] = {}
+        if self.mesh is not None:
+            require_tp_family(lm)
+            params, self.tp_fallbacks = self._shard(
+                lm, params, param_axes or lm.param_axes())
+        self.params = params
+        self.qparams = qparams
+        # CUDA graphs capture the decode windows on one card and over
+        # nccl; a gloo collective cannot be captured, so a gloo engine
+        # decodes eagerly (`decode_mode` says which)
+        self.captures = self.device.type == "cuda" and (
+            self.mesh is None or self.mesh.backend == "nccl")
+        self.decode_mode = ("graphs" if self.captures else
+                            "eager (gloo collectives cannot be captured)"
+                            if self.device.type == "cuda" else "eager")
         # the head's fake-quant is the same every step: split the
         # quantizers once (re-splitting the result is the identity)
         self._run_params, self._run_qparams = lm._prequantize(params, qparams)
@@ -254,6 +305,11 @@ class Engine:
                 raise ValueError(
                     f"draft_k={self.draft_k} must be in [1, "
                     f"max_seq={max_seq})")
+            if self.mesh is not None:
+                draft.params, fb = self._shard(draft.lm, draft.params,
+                                               draft.lm.param_axes())
+                self.tp_fallbacks += [("draft:" + n, a, d)
+                                      for n, a, d in fb]
             self._draft_params, self._draft_qparams = \
                 draft.lm._prequantize(draft.params, draft.qparams)
             self.dcaches = self._arena(draft.lm)
@@ -287,16 +343,44 @@ class Engine:
         # what `build_engine`'s prepare_serving reported (sparsity, bytes)
         self.serving_meta: dict = {}
 
+    def _shard(self, lm: LM, params: dict, axes: dict
+               ) -> tuple[dict, list]:
+        """(this rank's shards of the served `params`, the replication
+        fallbacks): `serving_param_specs` under the mesh's TP plan, which
+        `lm` then runs on (`LM.tp`)."""
+        plan = shlib.make_plan(self.mesh, mode="tp")
+        specs = shlib.serving_param_specs(plan, axes, params)
+        lm.tp = shlib.TensorParallel(self.mesh, specs)
+        return ({k: shlib.local_shard(v, specs[k], self.mesh)
+                 for k, v in params.items()}, list(plan.fallbacks))
+
+    def _local(self, caches: dict) -> dict:
+        """Under a mesh, this rank's shards of a KV cache (`kv_cache_specs`:
+        by KV head where the heads divide the ranks); else the cache."""
+        if self.mesh is None:
+            return caches
+        specs = shlib.kv_cache_specs(
+            self.mesh, {k: tuple(c.shape) for k, c in caches.items()})
+        return {k: shlib.local_shard(c, specs[k], self.mesh)
+                for k, c in caches.items()}
+
     def _arena(self, lm: LM) -> dict:
         """A zeroed KV arena of `lm`'s widths: the page pools when paged,
-        else (n_blocks, slots, max_seq, KVh, dh) per leaf."""
+        else (n_blocks, slots, max_seq, KVh, dh) per leaf; this rank's
+        shards of it under a mesh (each leaf's whole bytes remembered for
+        `kv_bytes`)."""
         if self.paged:
-            return lm.init_paged_cache(self.n_pages, self.page_size,
-                                       dtype=self.dtype, kv_bits=self.kv_bits,
-                                       device=self.device,
-                                       batch=self.max_slots)
-        return lm.init_cache(self.max_slots, self.max_seq, dtype=self.dtype,
-                             device=self.device)
+            full = lm.init_paged_cache(
+                self.n_pages, self.page_size, dtype=self.dtype,
+                kv_bits=self.kv_bits, device=self.device,
+                batch=self.max_slots)
+        else:
+            full = lm.init_cache(self.max_slots, self.max_seq,
+                                 dtype=self.dtype, device=self.device)
+        arena = self._local(full)
+        for k, c in full.items():
+            self._full_leaf_bytes[id(arena[k])] = c.numel() * c.element_size()
+        return arena
 
     # ------------------------------------------------------------ requests
     def submit(self, prompt, max_new_tokens: int) -> int:
@@ -581,8 +665,8 @@ class Engine:
         (whole pages, so `_insert_pages` cuts it without padding), else
         max_seq (an arena row, for a chunked prefill's staging)."""
         rows = self.Lp * self.page_size if self.paged else self.max_seq
-        return (lm or self.lm).init_cache(1, rows, dtype=self.dtype,
-                                          device=self.device)
+        return self._local((lm or self.lm).init_cache(
+            1, rows, dtype=self.dtype, device=self.device))
 
     def _finish(self, req: Request) -> None:
         req.finish_t = time.time()
@@ -790,7 +874,7 @@ class Engine:
             self._eager = False
 
     def _replaying(self) -> bool:
-        return self.device.type == "cuda" and not self._eager
+        return self.captures and not self._eager
 
     def _act_admit(self) -> bool:
         return self._admit() > 0
@@ -1011,7 +1095,7 @@ class Engine:
                     torch.zeros((1, n), dtype=torch.int64, device=dev),
                     last_logit_only=True)
         _sync(dev)
-        if stream is None or self.graphs:
+        if stream is None or self.graphs or not self.captures:
             return
         body = self._window_body if self.draft is None else (
             lambda k: self._spec_body(k, self.caches, self.dcaches))
@@ -1108,10 +1192,10 @@ class Engine:
         k = min(1 << (k.bit_length() - 1), self.MAX_WINDOW)
         t0 = time.time()
         self._stage()
-        if self.device.type == "cuda":
+        if self.captures:
             toks = self._replay(k)
         else:
-            toks = self._window_body(k).numpy()
+            toks = self._window_body(k).cpu().numpy()
         self.stats["decode_s"] += time.time() - t0
         self._commit(toks)
         return True
@@ -1159,18 +1243,27 @@ class Engine:
                                       / max(s["spec_drafted"], 1))
         return out
 
-    def kv_bytes(self) -> int:
+    def _leaf_nbytes(self, leaf: torch.Tensor, per_device: bool) -> int:
+        """Bytes of one arena leaf: this rank's shard with `per_device`,
+        else the whole leaf (a leaf sharded by KV head holds 1/tp of it
+        here; a replicated one all of it)."""
+        n = leaf.numel() * leaf.element_size()
+        return n if per_device else self._full_leaf_bytes.get(id(leaf), n)
+
+    def kv_bytes(self, per_device: bool = False) -> int:
         """KV bytes the engine is using, the draft's arena included: the
         whole contiguous arenas, or, paged, the allocated pages (live and
         reserved) pro-rated over the pools, the per-slot recurrent state
-        whole, plus the page table."""
+        whole, plus the page table. `per_device`: one rank's share under
+        tensor parallelism (a leaf sharded by KV head weighs 1/tp, a
+        replicated one its whole)."""
+        size = lambda c: self._leaf_nbytes(c, per_device)
         if not self.paged:
-            return sum(tree_bytes(a) for a in self._arenas())
+            return sum(size(c) for a in self._arenas() for c in a.values())
         n_alloc = self.alloc.n_live + paging.N_RESERVED
         pages = {id(c) for a in self._arenas() for c in self._page_leaves(a)}
         return self.page_table.nbytes + sum(
-            c.numel() * c.element_size() // self.n_pages * n_alloc
-            if id(c) in pages else c.numel() * c.element_size()
+            size(c) // self.n_pages * n_alloc if id(c) in pages else size(c)
             for a in self._arenas() for c in a.values())
 
     def kv_pool_bytes(self) -> int:
@@ -1180,8 +1273,11 @@ class Engine:
         table = self.page_table.nbytes if self.paged else 0
         return sum(tree_bytes(a) for a in self._arenas()) + table
 
-    def param_bytes(self) -> int:
-        return tree_bytes(self.params)
+    def param_bytes(self, per_device: bool = False) -> int:
+        """Bytes of the served param dict; `per_device`: this rank's
+        shards under tensor parallelism."""
+        return (tree_bytes(self.params) if per_device
+                else self._full_param_bytes)
 
 
 # ------------------------------------------------------------ entry points
@@ -1189,12 +1285,6 @@ class Engine:
 # engine_serve, serve_on_devices and prepare_serving
 WEIGHT_MODES = {"dense": {}, "compressed": dict(compressed=True),
                 "packed_b4": dict(packed=True, bits_init=4.0)}
-
-
-def _reject_later_modes(tp: int = 0) -> None:
-    if tp and tp > 1:
-        raise not_in_this_slice("tensor-parallel serving",
-                                "ROADMAP Queue 1 item 14")
 
 
 def _init_lm(arch: str, smoke: bool, seed: int, dev: torch.device
@@ -1222,8 +1312,8 @@ def build_engine(arch: str, smoke: bool = True, *, quantized: bool = True,
                  paged: bool = False, page_size: int = 16,
                  kv_bits: Optional[int] = None,
                  n_pages: Optional[int] = None, prefix_sharing: bool = True,
-                 tp: int = 0, prefill_chunk: Optional[int] = None
-                 ) -> tuple[Engine, LM]:
+                 tp: int = 0, prefill_chunk: Optional[int] = None,
+                 mesh=None) -> tuple[Engine, LM]:
     """Init an LM at `arch` scale from the torch RNG (seeded by `seed`) on
     `device` (CUDA by default) and wrap it in an Engine. `packed` implies
     `compressed`; `bits_init` sets the quantizer init width, so
@@ -1237,11 +1327,20 @@ def build_engine(arch: str, smoke: bool = True, *, quantized: bool = True,
     the same init params (`launch.speculative.build_draft`, sliced at
     `draft_sparsity` and packed at `draft_bits`) proposing up to `draft_k`
     tokens a round; `prefill_chunk` prefills in chunks of that many rows
-    (`ChunkedPrefillScheduler`). Tensor parallelism (`tp > 1`) raises
-    NotImplementedError naming the slice that brings it.
+    (`ChunkedPrefillScheduler`). `tp > 1` builds this rank's engine of a
+    tensor-parallel group over the first tp ranks (`make_tp_mesh`; call
+    it on every rank of a `launch.mesh.RankPool`), `mesh` on a given mesh
+    instead: every rank draws the same weights and keeps its shards.
     `Engine.serving_meta` keeps prepare_serving's report (`sparsity` when
-    pruned), `kv_bytes`, and the speculative and chunked settings."""
-    _reject_later_modes(tp)
+    pruned), `kv_bytes`, the speculative and chunked settings and, under
+    a mesh, `tp` (ranks, per-rank bytes, fallbacks, decode mode)."""
+    if mesh is None and tp and tp > 1:
+        if not meshlib.in_ranks():
+            raise ValueError(
+                f"build_engine(tp={tp}) builds one rank's engine: call it "
+                f"on each rank of a launch.mesh.RankPool, or serve with "
+                f"engine_serve(tp={tp}), which starts the ranks")
+        mesh = meshlib.make_tp_mesh(tp)
     pruned = pruned or keep_masks is not None
     dev = resolve_device(device)
     compressed = compressed or packed
@@ -1260,8 +1359,18 @@ def build_engine(arch: str, smoke: bool = True, *, quantized: bool = True,
                  draft=draft, draft_k=draft_k, paged=paged,
                  page_size=page_size, kv_bits=kv_bits, n_pages=n_pages,
                  prefix_sharing=prefix_sharing,
-                 scheduler=_scheduler(prefill_chunk))
+                 scheduler=_scheduler(prefill_chunk), mesh=mesh)
     meta["kv_bytes"] = eng.kv_bytes()
+    if eng.mesh is not None:
+        meta["tp"] = {
+            "devices": eng.mesh.size, "backend": eng.mesh.backend,
+            "staging": eng.mesh.staging, "decode": eng.decode_mode,
+            "param_bytes": eng.param_bytes(),
+            "param_bytes_per_device": eng.param_bytes(per_device=True),
+            "kv_bytes": eng.kv_bytes(),
+            "kv_bytes_per_device": eng.kv_bytes(per_device=True),
+            "replicated_fallbacks": sorted({n for n, _, _
+                                            in eng.tp_fallbacks})}
     if prefill_chunk:
         meta["prefill_chunk"] = int(prefill_chunk)
     if draft is not None:
@@ -1272,7 +1381,7 @@ def build_engine(arch: str, smoke: bool = True, *, quantized: bool = True,
             "draft_param_bytes": tree_bytes(draft.params),
             "draft_kv_bytes": tree_bytes(eng.dcaches)}
     eng.serving_meta = meta
-    if verbose and (compressed or pruned):
+    if verbose and (compressed or pruned) and meshlib.world()[0] == 0:
         print(compression_report(arch, meta))
     return eng, lm
 
@@ -1325,6 +1434,8 @@ def _mode_label(eng: Engine, compressed: bool, packed: bool,
         mode += "+paged" + (f"@kv{eng.kv_bits}" if eng.kv_bits else "")
     if eng._chunk:
         mode += f"+chunked@{eng._chunk}"
+    if eng.mesh is not None:
+        mode += f"+tp{eng.mesh.size}"
     return mode
 
 
@@ -1337,7 +1448,31 @@ def engine_serve(arch: str, smoke: bool, prompt_lens: list[int], gen: int,
                  **engine_kw) -> dict[int, np.ndarray]:
     """Submit one request per prompt length, run to drain, report tok/s.
     `engine_kw` goes to `build_engine` (the speculative, paged and
-    chunked keywords, and `tp`, which raises)."""
+    chunked keywords, and `tp`). With `tp > 1` outside a rank group this
+    starts tp ranks on `device` (`launch.mesh.spawn`), serves on each and
+    returns rank 0's tokens, checked equal on every rank; `stats` gets
+    rank 0's. On a rank of a group it serves on the first tp ranks (a
+    rank past them returns {})."""
+    tp = engine_kw.get("tp") or 0
+    if tp > 1 and not meshlib.in_ranks():
+        runs = meshlib.spawn(
+            _serve_rank, tp, str(resolve_device(device)), arch, smoke,
+            prompt_lens, gen, dict(
+                quantized=quantized, compressed=compressed, packed=packed,
+                pruned=pruned, sparsity=sparsity, bits_init=bits_init,
+                max_slots=max_slots, seed=seed, verbose=verbose,
+                **engine_kw))
+        out, st = runs[0]
+        for r, (o, _) in enumerate(runs[1:], 1):
+            if sorted(o) != sorted(out) or any(
+                    not np.array_equal(o[k], out[k]) for k in out):
+                raise AssertionError(f"rank {r} emitted other tokens than "
+                                     f"rank 0")
+        if stats is not None:
+            stats.update(st)
+        return out
+    if tp > 1 and not meshlib.make_tp_mesh(tp).member:
+        return {}          # a rank of the group outside the tp ranks
     max_seq = max(prompt_lens) + gen
     eng, lm = build_engine(arch, smoke, quantized=quantized,
                            compressed=compressed, packed=packed,
@@ -1354,8 +1489,10 @@ def engine_serve(arch: str, smoke: bool, prompt_lens: list[int], gen: int,
         stats.update(eng.stats, **th, param_bytes=eng.param_bytes(),
                      kv_bytes=eng.kv_bytes(),
                      kv_pool_bytes=eng.kv_pool_bytes(),
-                     sparsity=eng.serving_meta.get("sparsity"))
-    if verbose:
+                     sparsity=eng.serving_meta.get("sparsity"),
+                     decode_mode=eng.decode_mode,
+                     tp=eng.serving_meta.get("tp"))
+    if verbose and meshlib.world()[0] == 0:
         mode = _mode_label(eng, compressed, packed, pruned)
         line = (f"{arch} [engine/{mode} on {eng.device}]: "
                 f"{len(prompt_lens)} requests "
@@ -1370,8 +1507,20 @@ def engine_serve(arch: str, smoke: bool, prompt_lens: list[int], gen: int,
         if eng.draft is not None:
             line += (f"; acceptance {th['acceptance_rate']:.2f} over "
                      f"{eng.stats['spec_steps']} rounds")
+        if eng.mesh is not None:
+            line += (f"; {eng.mesh.backend}"
+                     f"{' host-staged' if eng.mesh.staging else ''}, "
+                     f"decode {eng.decode_mode}")
         print(line)
     return out
+
+
+def _serve_rank(arch: str, smoke: bool, prompt_lens: list[int], gen: int,
+                kw: dict) -> tuple[dict, dict]:
+    """One rank of `engine_serve(tp=N)`: (tokens, stats)."""
+    st: dict = {}
+    out = engine_serve(arch, smoke, prompt_lens, gen, stats=st, **kw)
+    return out, st
 
 
 def serve_on_devices(arch: str, smoke: bool, prompt_lens: list[int],

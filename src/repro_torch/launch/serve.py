@@ -21,7 +21,10 @@ a draft (the same init params sliced at `--draft-sparsity`, a percentage
 or a fraction, and packed at `--draft-bits`) proposing up to `--draft-k`
 tokens a round, which the target verifies in one chunked pass;
 `--chunked-prefill C` prefills each prompt C rows at a time between
-decode steps.
+decode steps. `--tp N` serves tensor-parallel on N ranks (processes,
+`launch.mesh`): gloo on the CPU, nccl when each rank has a card, else
+gloo with host-staged collectives (ranks sharing one card), where the
+decode windows run eagerly; it stacks with every mode above.
 
 `--static` runs `serve_loop`: one fixed batch of `--batch` prompts of
 `--prompt-len` tokens in lockstep, prefilled one token per decode step.
@@ -29,7 +32,9 @@ decode steps.
 Runs on CUDA; `--device cpu` runs the plain PyTorch versions of the
 kernels instead (as the tests do). In `--smoke` mode `--chunked-prefill`
 asserts chunked tokens equal one-shot tokens (and that decode ran
-mid-prefill), `--paged` (without `--kv-bits`) asserts paged tokens equal
+mid-prefill), `--tp N` asserts the N-rank tokens equal the one-rank
+engine's (before every other check, stacking with all of them), `--paged`
+(without `--kv-bits`) asserts paged tokens equal
 contiguous tokens (stacking with `--speculative`), `--speculative`
 asserts speculative tokens equal the plain engine's, `--packed` asserts
 packed tokens equal int8 tokens, and `--pruned` alone asserts the pruned
@@ -58,6 +63,8 @@ Examples:
       --draft-k 4 --draft-sparsity 50 --draft-bits 2 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
       --chunked-prefill 8 --prompt-lens 12,5,21 --gen 8 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --tp 2 \
+      --device cpu
 """
 from __future__ import annotations
 
@@ -300,6 +307,68 @@ def speculative_parity_check(arch: str, smoke: bool,
     return got
 
 
+def _tp_label(st: dict) -> str:
+    tp = st.get("tp") or {}
+    fb = tp.get("replicated_fallbacks") or []
+    return (f"{tp.get('backend')}"
+            f"{' host-staged' if tp.get('staging') else ''}, decode "
+            f"{st.get('decode_mode')}, per-rank param bytes "
+            f"{tp.get('param_bytes_per_device')} of {tp.get('param_bytes')},"
+            f" kv bytes at build {tp.get('kv_bytes_per_device')} of "
+            f"{tp.get('kv_bytes')}; replicated fallbacks: "
+            f"{', '.join(fb) if fb else 'none'}")
+
+
+def tp_parity_check(arch: str, smoke: bool, prompt_lens: list[int],
+                    gen: int, *, tp: int, quantized: bool = True,
+                    compressed: bool = False, packed: bool = False,
+                    pruned: bool = False, sparsity: float = 0.5,
+                    bits_init: float = 8.0, speculative: bool = False,
+                    draft_k: int = 4, draft_sparsity: float = 0.5,
+                    draft_bits: float = 2.0, paged: bool = False,
+                    page_size: int = 16, kv_bits: int | None = None,
+                    prefix_sharing: bool = True,
+                    prefill_chunk: int | None = None, max_slots: int,
+                    seed: int = 0, verbose: bool = True,
+                    device=None) -> dict:
+    """Assert the tensor-parallel engine (tp ranks) emits the one-rank
+    engine's tokens on the same weights, prompts and seed, across the
+    whole serving stack. Column-parallel products give each column the
+    one-rank arithmetic; products sharded on K (wo, w_down) sum their
+    partials in rank order, which reassociates the one-rank sum, so the
+    check holds where those ulps flip no argmax (f32, as the smoke config
+    runs; the reference's check holds as much). Returns the TP engine's
+    output and prints its transport, decode mode, per-rank bytes and
+    replication fallbacks."""
+    common = dict(quantized=quantized, compressed=compressed, packed=packed,
+                  pruned=pruned, sparsity=sparsity, bits_init=bits_init,
+                  speculative=speculative, draft_k=draft_k,
+                  draft_sparsity=draft_sparsity, draft_bits=draft_bits,
+                  paged=paged, page_size=page_size, kv_bits=kv_bits,
+                  prefix_sharing=prefix_sharing,
+                  prefill_chunk=prefill_chunk, max_slots=max_slots,
+                  seed=seed, device=device)
+    want = engine_serve(arch, smoke, prompt_lens, gen, verbose=False,
+                        **common)
+    st: dict = {}
+    got = engine_serve(arch, smoke, prompt_lens, gen, verbose=verbose,
+                       tp=tp, stats=st, **common)
+    _assert_same(got, want, f"tp={tp} decode diverged from the "
+                            f"single-device engine")
+    mode = "packed" if packed else "compressed" if compressed else "dense"
+    if pruned:
+        mode += f"+pruned@{sparsity:.2f}"
+    if paged:
+        mode += "+paged"
+    if speculative:
+        mode += f"+spec(k={draft_k})"
+    if prefill_chunk:
+        mode += f"+chunked@{prefill_chunk}"
+    print(f"{arch}: tp={tp} decode token-identical to the single-device "
+          f"engine over {len(want)} requests ({mode}); {_tp_label(st)}")
+    return got
+
+
 def chunked_prefill_parity_check(arch: str, smoke: bool,
                                  prompt_lens: list[int], gen: int, *,
                                  prefill_chunk: int, quantized: bool = True,
@@ -309,15 +378,16 @@ def chunked_prefill_parity_check(arch: str, smoke: bool,
                                  bits_init: float = 8.0, paged: bool = False,
                                  page_size: int = 16, max_slots: int,
                                  seed: int = 0, verbose: bool = True,
-                                 device=None) -> dict:
+                                 device=None, tp: int = 0) -> dict:
     """Assert the chunked-prefill engine's decode is token-identical to
     the one-shot engine's, and that decode ran while a prompt was
-    mid-prefill whenever a later prompt needed several chunks. Returns
-    the chunked engine's output."""
+    mid-prefill whenever a later prompt needed several chunks; `tp`
+    runs both arms on that many ranks. Returns the chunked engine's
+    output."""
     common = dict(quantized=quantized, compressed=compressed, packed=packed,
                   pruned=pruned, sparsity=sparsity, bits_init=bits_init,
                   paged=paged, page_size=page_size, max_slots=max_slots,
-                  seed=seed, device=device)
+                  seed=seed, device=device, tp=tp)
     want = engine_serve(arch, smoke, prompt_lens, gen, verbose=False,
                         **common)
     st: dict = {}
@@ -405,6 +475,11 @@ def main(argv=None):
                     help="prefill each prompt CHUNK rows at a time between "
                          "decode steps (in --smoke mode also asserts tokens "
                          "identical to the one-shot engine's)")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="serve tensor-parallel on N ranks: params shard by "
+                         "attention head, MLP hidden and vocab, the KV arena "
+                         "by KV head; in --smoke mode also asserts tokens "
+                         "identical to the one-rank engine's")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
@@ -442,6 +517,14 @@ def main(argv=None):
                 draft_bits=args.draft_bits)
     weights = dict(quantized=args.quantized, compressed=args.compressed,
                    packed=args.packed, bits_init=args.bits)
+    if args.tp > 1 and args.smoke:
+        tp_parity_check(args.arch, args.smoke, lens, args.gen, tp=args.tp,
+                        speculative=args.speculative, paged=args.paged,
+                        page_size=args.page_size, kv_bits=args.kv_bits,
+                        prefill_chunk=args.chunked_prefill,
+                        max_slots=args.slots, device=args.device,
+                        **arena, **weights, **spec, **prune)
+        return
     if args.chunked_prefill and args.smoke:
         chunked_prefill_parity_check(
             args.arch, args.smoke, lens, args.gen,
@@ -480,7 +563,7 @@ def main(argv=None):
     engine_serve(args.arch, args.smoke, lens, args.gen,
                  max_slots=args.slots, device=args.device, paged=args.paged,
                  page_size=args.page_size, kv_bits=args.kv_bits,
-                 speculative=args.speculative,
+                 speculative=args.speculative, tp=args.tp,
                  prefill_chunk=args.chunked_prefill, **arena, **weights,
                  **(spec if args.speculative else {}), **prune)
 

@@ -1,4 +1,4 @@
-"""GETA training on one device: port of `repro.launch.train`.
+"""GETA training: port of `repro.launch.train`.
 
 The step is the JAX package's: loss -> gradients of (params, qparams) ->
 QASSO update. `LM.loss` runs the block projections through the GEMM
@@ -6,6 +6,17 @@ kernels' autograd Functions and the quantizers through the fake-quant
 kernels; QASSO runs its stage logic on the host. `train_loop(ckpt_dir=)`
 checkpoints the whole state and resumes from the newest checkpoint after
 a failure (`--ckpt-dir`).
+
+Data parallelism is deterministic (`make_ordered_loss_grads`): the batch
+splits into k slices, each slice's gradients are computed apart and
+summed in f32 in slice order, on one rank (`grad_slices=k`) or on k ranks
+(one slice each, the sum an all-gather and an ordered sum), so a k-rank
+step is bitwise the 1-rank step with `grad_slices=k`.
+`make_sharded_geta_train_step` runs it on a mesh of ranks with QASSO
+replica-consistent; FSDP (`fsdp=True`) keeps each rank's params and
+base-optimizer moments as its `embed` shard and gathers them in full
+inside the step. `--devices N [--fsdp]` starts N ranks
+(`launch.mesh.spawn`).
 
 Runs on CUDA; `--device cpu` runs the plain PyTorch versions of the
 kernels instead (as the tests do). Examples:
@@ -15,10 +26,13 @@ kernels instead (as the tests do). Examples:
       --full --steps 5 --batch 4 --seq 512
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 20 \
       --ckpt-dir /path/to/ckpt --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 10 \
+      --devices 4 --fsdp --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import time
 from typing import Optional
@@ -29,13 +43,16 @@ from repro_torch.checkpoint import (clone_tree, restore_checkpoint,
                                     save_checkpoint)
 from repro_torch.configs import CompressionConfig, get_arch, get_overrides
 from repro_torch.core.qadg import build_qadg
-from repro_torch.core.qasso import QASSO, QASSOConfig
+from repro_torch.core.qasso import QASSO, QASSOConfig, QASSOState
 from repro_torch.core.quant import QuantParams
 from repro_torch.data.synthetic import batch_for, step_key
+from repro_torch.distributed import sharding as shlib
+from repro_torch.distributed.collectives import ordered_sum
 from repro_torch.distributed.fault import FaultConfig, FaultTolerantLoop
+from repro_torch.launch import mesh as meshlib
 from repro_torch.launch.engine import resolve_device
 from repro_torch.models.layers import not_in_this_slice
-from repro_torch.models.transformer import LM
+from repro_torch.models.transformer import LM, recurrent_mixers
 from repro_torch.optim.schedules import cosine
 
 F32 = torch.float32
@@ -135,6 +152,157 @@ def make_geta_train_step(lm: LM, qasso: QASSO, microbatches: int = 1):
         return params, qparams, qstate, metrics
 
     return step
+
+
+# ------------------------------------------------------- sharded training
+def make_ordered_loss_grads(lm, mesh, param_specs_tree=None,
+                            grad_slices: Optional[int] = None,
+                            axis: str = "data"):
+    """lg(params, qparams, batch) -> (loss, gx, gq) with a deterministic
+    reduction over the batch: the batch splits into `grad_slices` equal
+    slices (default: the mesh's `axis` size), each slice's loss and
+    gradients are computed apart and summed in f32 in slice order, then
+    scaled by 1/k; gradients come back f32.
+
+    On a 1-rank `axis` the slices run one after the other. On k ranks
+    each rank holds one slice (the batch `place`d by `batch_spec`), and
+    the sum is an all-gather and an ordered sum (`ordered_sum`): the same
+    terms in the same order, so the k-rank step is bitwise the 1-rank
+    step with `grad_slices=k`. `param_specs_tree` (name -> spec) gathers
+    sharded params in full first (FSDP). Raises unless k equals the
+    axis size on more than one rank."""
+    dp = mesh.shape.get(axis, 1) if mesh is not None else 1
+    k = grad_slices or max(dp, 1)
+    if dp > 1 and k != dp:
+        raise ValueError(
+            f"deterministic grads need one slice per device: "
+            f"grad_slices={k} but mesh has {dp} {axis!r} devices")
+    scale = 1.0 / k
+
+    def finish(loss, gx, gq):
+        return (loss * scale, {n: g * scale for n, g in gx.items()},
+                {n: QuantParams(*(t * scale for t in q))
+                 for n, q in gq.items()})
+
+    if dp == 1:
+        def lg(params, qparams, batch):
+            loss = gx = gq = None
+            for i in range(k):
+                mb = {n: v.reshape(k, v.shape[0] // k, *v.shape[1:])[i]
+                      for n, v in batch.items()}
+                li, gxi, gqi = loss_and_grads(lm, params, qparams, mb)
+                li = li.to(F32)
+                gxi = {n: g.to(F32) for n, g in gxi.items()}
+                gqi = {n: [t.to(F32) for t in (q.d, q.q_m, q.t)]
+                       for n, q in gqi.items()}
+                if loss is None:
+                    loss, gx, gq = li, gxi, gqi
+                    continue
+                loss = loss + li
+                gx = {n: gx[n] + gxi[n] for n in gx}
+                gq = {n: [a + b for a, b in zip(gq[n], gqi[n])] for n in gq}
+            return finish(loss, gx, gq)
+
+        return lg
+
+    def lg(params, qparams, batch):
+        if param_specs_tree is not None:
+            params = {n: shlib.gather_full(w, param_specs_tree.get(n, ()),
+                                           mesh)
+                      for n, w in params.items()}
+        loss, gx, gq = loss_and_grads(lm, params, qparams, batch)
+        # the terms cross in their own dtype and widen to f32 in the sum,
+        # as the sequential path widens each slice's gradients
+        total = lambda t: ordered_sum(t, mesh, axis, F32)
+        return finish(total(loss), {n: total(g) for n, g in gx.items()},
+                      {n: [total(t) for t in (q.d, q.q_m, q.t)]
+                       for n, q in gq.items()})
+
+    return lg
+
+
+def geta_state_shardings(qasso: QASSO, params, qparams, mesh,
+                         param_shardings=None):
+    """(param, qparam, QASSOState) sharding trees for the GETA state:
+    params follow `param_shardings` (the plan's: FSDP shards the embed
+    axis), the base optimizer's moments follow their params, and the
+    control plane (quantizers, masks, step, gamma) is replicated, the
+    values QASSO must agree on across ranks. A NamedSharding at a node
+    covers every leaf below it (`sharding.map_sharded`)."""
+    rep = shlib.NamedSharding(mesh, ())
+    p_sh = {k: (param_shardings or {}).get(k) or rep for k in params}
+    q_sh = {k: rep for k in qparams}
+    base = qasso.base.init({})
+    if isinstance(base, tuple) and hasattr(base, "m"):      # AdamW
+        base_sh = type(base)(None, dict(p_sh), dict(p_sh))
+    elif isinstance(base, dict):             # momentum: one moment tree
+        base_sh = dict(p_sh)
+    else:                                    # sgd: stateless
+        base_sh = base
+    s_sh = QASSOState(step=None, base=base_sh, redundant=rep, keep_mask=rep,
+                      gamma=rep)
+    return p_sh, q_sh, s_sh
+
+
+def _on_shards(base, shardings: dict):
+    """The base optimizer `base` run on each rank's shards: the moments of
+    a sharded param never leave their rank; `update` takes the full
+    gradients and params, cuts this rank's pieces, updates them and
+    gathers the deltas whole. The update is elementwise, so the deltas
+    are bitwise the full update's."""
+    def update(grads, state, params, lr):
+        sh = {k: shardings[k] for k in grads}
+        delta, state = base.update(shlib.place(grads, sh), state,
+                                   shlib.place(params, sh), lr)
+        return shlib.gather_tree(delta, sh), state
+
+    return dataclasses.replace(base, update=update)
+
+
+def make_sharded_geta_train_step(lm, qasso: QASSO, mesh, params, qparams, *,
+                                 param_shardings=None,
+                                 grad_slices: Optional[int] = None,
+                                 deterministic: bool = True,
+                                 microbatches: int = 1):
+    """The GETA step on a mesh of ranks. Returns (step, (param_sh,
+    qparam_sh, qstate_sh, batch_sh)); callers `sharding.place` the initial
+    state and each batch with the returned shardings, and step(params,
+    qparams, qstate, batch) takes and returns this rank's pieces.
+
+    Gradients come from `make_ordered_loss_grads` (bitwise across mesh
+    sizes: a k-rank run equals the 1-rank run with `grad_slices=k`). QASSO
+    is replica-consistent by construction: the step gathers the params in
+    full (`gather_full`, bitwise) and the gradients are summed in rank
+    order, so every statistic that feeds a decision (the Eq 15-17 site
+    reductions, the saliency scores) is reduced from the same bits in the
+    same order on every rank, as on one rank; every rank takes the same
+    decisions and keeps its shard (the tests and the card check hold the
+    masks with `collectives.assert_replicated`).
+    The base optimizer's moments stay sharded with their params
+    (`_on_shards`: only the deltas cross). The reference's GSPMD step
+    (`deterministic=False`) and its microbatches are not ported."""
+    if not deterministic or microbatches > 1:
+        raise not_in_this_slice(
+            "the all-reduce sharded step (deterministic=False, "
+            "microbatches)", "ROADMAP Queue 1 item 14b")
+    qasso = copy.copy(qasso)        # the caller's keeps its own base
+    p_sh, q_sh, s_sh = geta_state_shardings(qasso, params, qparams, mesh,
+                                            param_shardings)
+    if any(s.spec for s in p_sh.values()):
+        qasso.base = _on_shards(qasso.base, p_sh)
+    batch_sh = shlib.NamedSharding(mesh, shlib.batch_spec(mesh))
+    lg = make_ordered_loss_grads(lm, mesh, grad_slices=grad_slices)
+
+    def step(params, qparams, qstate, batch):
+        # the moments stay this rank's (`_on_shards`); the rest of the
+        # state is replicated
+        full = shlib.gather_tree(params, p_sh)
+        loss, gx, gq = lg(full, qparams, batch)
+        p, q, s, metrics = qasso.update(full, qparams, gx, gq, qstate)
+        metrics["loss"] = loss
+        return shlib.place(p, p_sh), q, s, metrics
+
+    return step, (p_sh, q_sh, s_sh, batch_sh)
 
 
 def default_compression(steps: int) -> CompressionConfig:
@@ -241,30 +409,58 @@ def train_loop(arch: str, smoke: bool, steps: int, batch: int, seq: int,
                fsdp: bool = False, checkpoint_every: Optional[int] = None,
                device=None, history: list | None = None,
                report: dict | None = None, layers: Optional[int] = None):
-    """GETA training on one device. Returns (state, qadg, qasso, losses)
-    with state = {"params", "qparams", "qstate", "rng"}: "rng" is the data
-    key of the next step (`data.synthetic.step_key`), so the stream of a
-    restored run is the saved one. `layers` cuts the depth (widths stay).
-    The loop is `run_steps`' (see there for `ckpt_dir`,
-    `checkpoint_every`, `inject_failure_at`, `history` and `report`)."""
-    if mesh is not None or fsdp:
-        raise not_in_this_slice("sharded training (--devices, --fsdp)",
-                                "ROADMAP Queue 1 item 14")
+    """GETA training. Returns (state, qadg, qasso, losses) with state =
+    {"params", "qparams", "qstate", "rng"}: "rng" is the data key of the
+    next step (`data.synthetic.step_key`), so the stream of a restored run
+    is the saved one. `layers` cuts the depth (widths stay). The loop is
+    `run_steps`' (see there for `ckpt_dir`, `checkpoint_every`,
+    `inject_failure_at`, `history` and `report`).
+
+    `mesh` (a `launch.mesh.Mesh`, on each of its ranks) trains data
+    parallel with the sharded step (`fsdp`: params and moments sharded on
+    `embed` over the data axis); every rank draws the same init and batch
+    and keeps its pieces, state is this rank's, checkpoints hold the full
+    state and a restore places each leaf as the current mesh's shard.
+    The MoE, recurrent, codebook and vision families train on one device
+    only (ROADMAP Queue 1 item 14b)."""
+    if fsdp and mesh is None:
+        raise ValueError("fsdp shards over a mesh: pass mesh= "
+                         "(--devices N)")
     comp = comp or default_compression(steps)
     lm, params, qparams, qadg, qasso, qstate = init_geta(
         arch, smoke, seed=seed, comp=comp, device=device, layers=layers)
     dev = params["embed"].device
+    step, place_batch, state_sh = make_geta_train_step(lm, qasso), None, None
+    if mesh is not None:
+        cfg = lm.cfg
+        if (cfg.moe is not None or cfg.num_codebooks or cfg.vision_patches
+                or recurrent_mixers(lm.plan)):
+            raise not_in_this_slice(f"sharded training of {cfg.name}",
+                                    "ROADMAP Queue 1 item 14b")
+        plan = shlib.make_plan(mesh, fsdp=fsdp,
+                               overrides=dict(get_overrides(arch)))
+        p_sh = plan.shardings(lm.param_axes(),
+                              {k: tuple(v.shape) for k, v in params.items()})
+        step, (p_sh, q_sh, s_sh, b_sh) = make_sharded_geta_train_step(
+            lm, qasso, mesh, params, qparams, param_shardings=p_sh)
+        params, qstate = shlib.place(params, p_sh), shlib.place(qstate, s_sh)
+        state_sh = {"params": p_sh, "qparams": q_sh, "qstate": s_sh,
+                    "rng": shlib.NamedSharding(mesh, ())}
+        place_batch = lambda b: shlib.place(b, b_sh)
     initial = {"params": params, "qparams": qparams, "qstate": qstate,
                "rng": step_key(seed, 0)}
     del params, qparams, qstate
+
+    def batch_fn(i, key):
+        b = batch_for(lm.cfg, seed, i, batch, seq, device=dev, key=key)
+        return b if place_batch is None else place_batch(b)
+
     state, losses = run_steps(
-        make_geta_train_step(lm, qasso), initial, steps,
-        lambda i, key: batch_for(lm.cfg, seed, i, batch, seq, device=dev,
-                                 key=key),
-        lambda i: step_key(seed, i), ckpt_dir=ckpt_dir,
-        checkpoint_every=checkpoint_every,
+        step, initial, steps, batch_fn, lambda i: step_key(seed, i),
+        ckpt_dir=ckpt_dir, checkpoint_every=checkpoint_every,
         inject_failure_at=inject_failure_at, log_every=log_every,
-        verbose=verbose, history=history, report=report)
+        verbose=verbose and meshlib.world()[0] == 0, history=history,
+        report=report, shardings=state_sh)
     return state, qadg, qasso, losses
 
 
@@ -273,7 +469,7 @@ def run_steps(step, initial: dict, steps: int, batch_fn, key_fn, *,
               checkpoint_every: Optional[int] = None,
               inject_failure_at: Optional[int] = None, log_every: int = 10,
               verbose: bool = False, history: list | None = None,
-              report: dict | None = None):
+              report: dict | None = None, shardings=None):
     """`steps` train steps from `initial` = {"params", "qparams",
     "qstate", "rng"}: step i draws `batch_fn(i, state["rng"])` and leaves
     rng = `key_fn(i + 1)`. Returns (final state, losses).
@@ -291,7 +487,10 @@ def run_steps(step, initial: dict, steps: int, batch_fn, key_fn, *,
     `history`, when given, receives each step's metrics as
     Python numbers (stage, loss, lr, sparsity, bits) and its wall time;
     `report`, when given, receives the `RunResult` (with `ckpt_dir`) and
-    each save's and restore's seconds."""
+    each save's and restore's seconds. `shardings` (a tree of
+    `NamedSharding`s over the state, under a mesh): a save gathers the
+    full state and the mesh's first rank writes it; a restore places each
+    leaf as this rank's shard."""
     losses = []
     pending_failure = [inject_failure_at]   # one-shot injection
     report = {} if report is None else report
@@ -333,12 +532,19 @@ def run_steps(step, initial: dict, steps: int, batch_fn, key_fn, *,
 
     def save_fn(state, i):
         t0 = time.perf_counter()
-        save_checkpoint(ckpt_dir, i, state)
+        if shardings is None:
+            save_checkpoint(ckpt_dir, i, state)
+        else:
+            mesh = shardings["rng"].mesh
+            full = shlib.gather_tree(state, shardings)
+            if mesh.rank == mesh.ranks[0]:
+                save_checkpoint(ckpt_dir, i, full)
+            mesh.barrier()
         report["save_s"].append(time.perf_counter() - t0)
 
     def restore_fn():
         t0 = time.perf_counter()
-        out = restore_checkpoint(ckpt_dir, initial)
+        out = restore_checkpoint(ckpt_dir, initial, shardings=shardings)
         if out is not None:
             report["restore_s"].append(time.perf_counter() - t0)
         return out
@@ -364,22 +570,42 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--devices", type=int, default=None,
-                    help="data-parallel mesh (not in the port yet)")
+                    help="train data parallel on N ranks (processes) of a "
+                         "(N, 1) mesh, one batch slice each (gloo on the "
+                         "CPU; nccl when each rank has a card, else gloo "
+                         "staged through host memory)")
     ap.add_argument("--fsdp", action="store_true",
-                    help="shard params/opt-state (not in the port yet)")
+                    help="with --devices: shard params and optimizer "
+                         "moments over the data axis")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
     args = ap.parse_args(argv)
+    if args.fsdp and not args.devices:
+        ap.error("--fsdp shards over ranks: pass --devices N")
     t0 = time.time()
-    state, qadg, qasso, losses = train_loop(
-        args.arch, args.smoke, args.steps, args.batch, args.seq,
-        ckpt_dir=args.ckpt_dir, seed=args.seed, mesh=args.devices,
-        fsdp=args.fsdp, device=args.device)
+    if args.devices:
+        runs = meshlib.spawn(_train_rank, args.devices,
+                             str(resolve_device(args.device)), args)
+        losses, sp = runs[0]
+        if any(r != runs[0] for r in runs[1:]):
+            raise AssertionError("the ranks' losses or masks differ")
+    else:
+        losses, sp = _train_rank(args)
     print(f"trained {args.steps} steps in {time.time() - t0:.1f}s; "
           f"loss {losses[0]:.3f} -> {losses[-1]:.3f}")
-    sp = float(qasso.space.sparsity(state["qstate"].keep_mask))
     print(f"final hard sparsity: {sp:.3f}")
+
+
+def _train_rank(args) -> tuple[list, float]:
+    """The CLI's run on this rank (on a mesh of every rank under
+    `--devices`): (losses, final hard sparsity)."""
+    mesh = meshlib.make_subset_mesh(args.devices) if args.devices else None
+    state, _, qasso, losses = train_loop(
+        args.arch, args.smoke, args.steps, args.batch, args.seq,
+        ckpt_dir=args.ckpt_dir, seed=args.seed, mesh=mesh, fsdp=args.fsdp,
+        device=args.device)
+    return losses, float(qasso.space.sparsity(state["qstate"].keep_mask))
 
 
 if __name__ == "__main__":

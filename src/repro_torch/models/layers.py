@@ -390,10 +390,51 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, prefix: str,
     return p
 
 
+def tp_row_proj(tp, h: torch.Tensor, h_split: bool, lp: dict,
+                qp: Optional[dict], name: str) -> torch.Tensor:
+    """h @ w for a weight that takes its input on the tensor-parallel
+    axis (wo, w_down), on a rank holding `h` whole or as its column tile
+    (`h_split`). A weight split on K multiplies this rank's K tile of h
+    (for packed words, the rows its words cover, zero-padded past K) and
+    the partial products are summed in rank order; a replicated weight
+    multiplies the whole h."""
+    key = tp.key(lp, name)
+    if not tp.split(key, -2):
+        return dense_proj(tp.gather(h) if h_split else h, lp, qp, name)
+    rows = lp[key].shape[-2]
+    cpw = (32 // int(key.rpartition(".packed")[2])
+           if ".packed" in key else 1)
+    if h_split and h.shape[-1] != rows * cpw:
+        h, h_split = tp.gather(h), False
+    if not h_split:
+        h = tp.tile(h, rows * cpw)
+    return tp.sum(dense_proj(h, lp, qp, name))
+
+
+def _tp_heads(tp, lp: dict, prefix: str, q, k, v, H: int, KVh: int):
+    """A rank's q, k, v and head counts under tensor parallelism. When
+    the KV heads divide the ranks the arena holds this rank's KVh / tp
+    heads (`kv_cache_specs`) and attention runs on its own q and KV
+    heads, column tile `index` of each projection; otherwise the arena
+    holds every KV head and q, k and v are gathered whole, so each rank
+    attends over every head (its q head h needs KV head h // g, which a
+    head split would put on another rank). Returns (q, k, v, H, KVh,
+    whether the output is this rank's column tile)."""
+    split = [tp.split(tp.key(lp, f"{prefix}.{w}"), -1)
+             for w in ("wq", "wk", "wv")]
+    n = tp.size
+    if KVh % n == 0:
+        q, k, v = (t if s else tp.tile(t) for t, s in zip((q, k, v), split))
+        return q, k, v, H // n, KVh // n, True
+    q, k, v = (tp.gather(t) if s else t for t, s in zip((q, k, v), split))
+    return q, k, v, H, KVh, False
+
+
 def attn_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
                rope: tuple, prefix: str, cache: Optional[tuple] = None,
                q_offset: int = 0, shapes: Optional[LayerShapes] = None,
-               chunked: bool = False, pages: Optional[PagedView] = None):
+               chunked: bool = False, pages: Optional[PagedView] = None,
+               tp=None):
     """Attention sublayer; lp is one layer's view of the params.
 
     Five branches: the full sequence (no cache), the chunked scoring
@@ -418,7 +459,11 @@ def attn_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
     unless `pages.kv_bits` is set). Every cache branch writes the cache IN
     PLACE (advanced-index assignment into the view) and returns the same
     tensors. The chunked scoring is plain PyTorch, as the reference's is
-    plain XLA. Returns (out, new_cache)."""
+    plain XLA. `tp` (a `distributed.sharding.TensorParallel`) runs the
+    layer on a rank's shards: its heads (`_tp_heads`; the cache then holds
+    the rank's KV heads, or all of them) and wo's K tile, whose partial
+    products sum over the ranks (`tp_row_proj`). Returns (out,
+    new_cache)."""
     B, S, _ = x.shape
     shapes = shapes or LayerShapes.from_config(cfg)
     H, KVh, dh = shapes.n_heads, shapes.n_kv_heads, shapes.d_head
@@ -429,6 +474,9 @@ def attn_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
         q = q + lp[f"{prefix}.bq"]
         k = k + lp[f"{prefix}.bk"]
         v = v + lp[f"{prefix}.bv"]
+    if tp is not None:
+        q, k, v, H, KVh, out_split = _tp_heads(tp, lp, prefix, q, k, v, H,
+                                               KVh)
     q = apply_rope(q.reshape(B, S, H, dh), *rope)
     k = apply_rope(k.reshape(B, S, KVh, dh), *rope)
     v = v.reshape(B, S, KVh, dh)
@@ -527,6 +575,9 @@ def attn_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
     else:
         out = attention(q, k, v, cfg, window=window, q_offset=q_offset)
     out = qa(out.reshape(B, S, H * dh), qp, f"{prefix}.attn_out.aq")
+    if tp is not None:
+        return tp_row_proj(tp, out, out_split, lp, qp,
+                           f"{prefix}.wo"), new_cache
     return dense_proj(out, lp, qp, f"{prefix}.wo"), new_cache
 
 
@@ -541,11 +592,23 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, prefix: str,
 
 
 def mlp_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
-              prefix: str) -> torch.Tensor:
+              prefix: str, tp=None) -> torch.Tensor:
+    """SwiGLU MLP; under `tp` on a rank's hidden tile (w_gate and w_up
+    split on their columns) with w_down's partial products summed over
+    the ranks (`tp_row_proj`)."""
     g = dense_proj(x, lp, qp, f"{prefix}.w_gate")
     u = dense_proj(x, lp, qp, f"{prefix}.w_up")
+    split = False
+    if tp is not None:
+        gs, us = (tp.split(tp.key(lp, f"{prefix}.{w}"), -1)
+                  for w in ("w_gate", "w_up"))
+        if gs != us:
+            g, u = (tp.gather(g) if gs else g), (tp.gather(u) if us else u)
+        split = gs and us
     h = torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype) * u
     h = qa(h, qp, f"{prefix}.mlp_act.aq")
+    if tp is not None:
+        return tp_row_proj(tp, h, split, lp, qp, f"{prefix}.w_down")
     return dense_proj(h, lp, qp, f"{prefix}.w_down")
 
 

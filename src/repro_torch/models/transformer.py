@@ -111,6 +111,38 @@ _QUANT_WEIGHTS = {
     "rwkv": ["wr", "wk", "wv", "wg", "wo", "decay_w1", "decay_w2"],
     "chanmix": ["cm_k", "cm_v", "cm_r"],
 }
+# Logical axes of each component's params, after the stacked "layers"
+# axis (the reference's init axes dicts); the sharding rules map them to
+# mesh axes (`distributed.sharding`).
+_MLP_AXES = {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+             "w_down": ("mlp", "embed")}
+_PARAM_AXES = {
+    "attn": {"wq": ("embed", "q_heads"), "wk": ("embed", "kv_heads"),
+             "wv": ("embed", "kv_heads"), "wo": ("q_heads", "embed")},
+    "attn_bias": {"bq": ("q_heads",), "bk": ("kv_heads",),
+                  "bv": ("kv_heads",)},
+    "mlp": _MLP_AXES,
+    "moe": {"router": ("embed", "experts_router"),
+            "we_gate": ("experts", "embed", "expert_mlp"),
+            "we_up": ("experts", "embed", "expert_mlp"),
+            "we_down": ("experts", "expert_mlp", "embed")},
+    "mamba": {"in_proj_x": ("embed", "mamba_inner"),
+              "in_proj_z": ("embed", "mamba_inner"),
+              "conv_w": ("conv_k", "mamba_inner"),
+              "x_proj": ("mamba_inner", "mamba_lowrank"),
+              "dt_proj": ("mamba_lowrank_dt", "mamba_inner"),
+              "dt_bias": ("mamba_inner",),
+              "A_log": ("mamba_inner", "mamba_state"),
+              "D": ("mamba_inner",), "out_proj": ("mamba_inner", "embed")},
+    "rwkv": {"mu": ("mix5", "embed"), "wr": ("embed", "rwkv_heads"),
+             "wk": ("embed", "rwkv_heads"), "wv": ("embed", "rwkv_heads"),
+             "wg": ("embed", "rwkv_heads"), "wo": ("rwkv_heads", "embed"),
+             "decay_w1": ("embed", "lora"), "decay_w2": ("lora", "rwkv_heads"),
+             "decay_w0": ("rwkv_heads",), "u": ("rwkv_heads",),
+             "lnx_scale": ("rwkv_heads",), "lnx_bias": ("rwkv_heads",),
+             "cm_mu": ("mix2", "embed"), "cm_k": ("embed", "rwkv_ffn"),
+             "cm_v": ("rwkv_ffn", "embed"), "cm_r": ("embed", "rwkv_heads")},
+}
 # Activation-quant sites (per sublayer component).
 _ACT_SITES = {"attn": ["attn_out"], "mlp": ["mlp_act"], "moe": [],
               "mamba": ["mamba_out"], "rwkv": ["tm_out"],
@@ -127,6 +159,9 @@ class LM(torch.nn.Module):
         # subnet's after `apply_slim_plan`
         self.shapes = [Lyr.LayerShapes.from_config(cfg) for _ in self.plan]
         self.slim_plan = None
+        # a `distributed.sharding.TensorParallel` when a rank of a
+        # tensor-parallel engine serves this LM on its shards
+        self.tp = None
         self._freqs: dict[torch.device, torch.Tensor] = {}
 
     def apply_slim_plan(self, plan) -> None:
@@ -172,6 +207,34 @@ class LM(torch.nn.Module):
                 params.update(init_ffn(gen, cfg, f"{pre}.{sub.ffn}",
                                        self.n_blocks, dt))
         return params
+
+    def param_axes(self) -> dict[str, tuple]:
+        """The logical axes of every param `init` makes, by name: the
+        reference's `lm.init(key)[1]`, which the sharding rules read."""
+        cfg = self.cfg
+        if cfg.num_codebooks:
+            axes = {"embed": ("codebooks", "vocab", "embed"),
+                    "head": ("embed", "vocab_out")}
+        else:
+            axes = {"embed": ("vocab", "embed")}
+            if not cfg.tie_embeddings:
+                axes["head"] = ("embed", "vocab_out")
+        axes["final_norm"] = ("embed",)
+        stacked = lambda pre, table: {f"{pre}.{k}": ("layers",) + a
+                                      for k, a in table.items()}
+        for sub in self.plan:
+            pre = f"blocks.{sub.j}"
+            axes[f"{pre}.norm1"] = ("layers", "embed")
+            if sub.ffn != "none":
+                axes[f"{pre}.norm2"] = ("layers", "embed")
+            axes.update(stacked(f"{pre}.{sub.mixer}", _PARAM_AXES[sub.mixer]))
+            if sub.mixer == "attn" and cfg.qkv_bias:
+                axes.update(stacked(f"{pre}.attn", _PARAM_AXES["attn_bias"]))
+            if sub.ffn in ("mlp", "moe"):
+                axes.update(stacked(f"{pre}.{sub.ffn}", _PARAM_AXES[sub.ffn]))
+            if sub.ffn == "moe" and cfg.moe.shared_expert:
+                axes.update(stacked(f"{pre}.moe.shared", _MLP_AXES))
+        return axes
 
     # --------------------------------------------------------- quantization
     @staticmethod
@@ -272,6 +335,16 @@ class LM(torch.nn.Module):
         # indexing (`embed[tokens]`) would backprop through index_put_
         # with accumulation
         emb = params["embed"]
+        tp = self.tp
+        if tp is not None and tp.split("embed", -2):
+            # a rank holds rows [lo, lo + rows) of the vocab: its rows'
+            # embeddings and zeros elsewhere, summed over the ranks (one
+            # term of each sum is not zero, so the sum is exact)
+            rows = emb.shape[0]
+            local = tokens - tp.index * rows
+            inside = (local >= 0) & (local < rows)
+            x = F.embedding(torch.where(inside, local, 0), emb)
+            return tp.sum(x * inside[..., None].to(x.dtype))
         if not self.cfg.num_codebooks:
             return F.embedding(tokens, emb)
         x = F.embedding(tokens[..., 0], emb[0])
@@ -280,10 +353,17 @@ class LM(torch.nn.Module):
         return x
 
     def _head(self, params: dict, h: torch.Tensor) -> torch.Tensor:
-        """Logits (B, S, Vp), or (B, S, C, Vp) with codebooks."""
+        """Logits (B, S, Vp), or (B, S, C, Vp) with codebooks. Under
+        tensor parallelism a rank projects onto its vocab tile and the
+        tiles are gathered, so every rank holds the same logits."""
+        tp = self.tp
         if self._tied:
-            return h @ params["embed"].T
+            logits = h @ params["embed"].T
+            return (tp.gather(logits) if tp is not None
+                    and tp.split("embed", -2) else logits)
         logits = Lyr.dense_proj(h, params, None, "head")
+        if tp is not None and tp.split(tp.key(params, "head"), -1):
+            logits = tp.gather(logits)
         if self.cfg.num_codebooks:
             logits = logits.reshape(*logits.shape[:2],
                                     self.cfg.num_codebooks,
@@ -326,7 +406,7 @@ class LM(torch.nn.Module):
             mix, _ = Lyr.attn_apply(lp, qp_body, cfg, h, rope=rope,
                                     prefix=f"{pre}.attn", cache=cache,
                                     shapes=shp, pages=pages,
-                                    chunked=chunked)
+                                    chunked=chunked, tp=self.tp)
             return mix
         keys = ((f"{pre}.h", f"{pre}.conv") if sub.mixer == "mamba"
                 else (f"{pre}.tm_shift", f"{pre}.wkv"))
@@ -350,7 +430,8 @@ class LM(torch.nn.Module):
             return Lyr.moe_apply(lp, qp_body, cfg, h2, prefix=f"{pre}.moe",
                                  full_capacity=full_capacity, shapes=shp)
         if sub.ffn == "mlp":
-            return Lyr.mlp_apply(lp, qp_body, cfg, h2, prefix=f"{pre}.mlp")
+            return Lyr.mlp_apply(lp, qp_body, cfg, h2, prefix=f"{pre}.mlp",
+                                 tp=self.tp)
         key = f"{pre}.cm_shift"
         state = None
         if caches is not None and not prefill:

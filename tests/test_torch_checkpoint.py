@@ -7,7 +7,9 @@ and Python ints as Python ints). Also what only the port needs: each
 leaf restored on the device of the example's leaf, and an async save
 whose leaves are on the host before the live state moves on in place.
 The on-disk layout is the JAX package's; the same arrays saved by both
-read back the same bits.
+read back the same bits. Restore with `shardings=` places each leaf as
+this rank's shard of the current mesh, in the saved dtype, whatever mesh
+wrote it (a save at 2 ranks restored at 4 on CPU ranks).
 """
 import json
 import os
@@ -167,10 +169,66 @@ def test_restore_rejects_missing_step(tmp_path):
 
 
 def test_restore_refuses_shardings_until_multi_device(tmp_path):
-    save_checkpoint(str(tmp_path), 1, {"a": torch.zeros(2)})
-    with pytest.raises(NotImplementedError, match="item 14"):
-        restore_checkpoint(str(tmp_path), {"a": torch.zeros(2)},
-                           shardings={"a": None})
+    """Multi-device restore is here: `shardings` with a None leaf (no
+    sharding) restores that leaf whole, as the reference does."""
+    save_checkpoint(str(tmp_path), 1, {"a": torch.arange(2.0)})
+    tree, step = restore_checkpoint(str(tmp_path), {"a": torch.zeros(2)},
+                                    shardings={"a": None})
+    assert step == 1 and torch.equal(tree["a"], torch.arange(2.0))
+
+
+def test_restore_preserves_dtypes_with_shardings(tmp_path):
+    """The sharded restore does not cast leaves to the example's dtype:
+    the saved dtypes win (`tests/test_checkpoint_resume.py`)."""
+    from repro_torch.distributed.sharding import NamedSharding
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, 1), ("data", "model"))
+    tree = {"w": torch.ones((4, 4), dtype=torch.bfloat16),
+            "n": torch.tensor(7, dtype=torch.int32)}
+    save_checkpoint(str(tmp_path), 1, tree)
+    sh = {"w": NamedSharding(mesh, ("data", None)), "n": None}
+    # example deliberately carries the WRONG dtypes: saved dtypes win
+    example = {"w": torch.ones((4, 4)), "n": torch.tensor(0.0)}
+    restored, _ = restore_checkpoint(str(tmp_path), example, shardings=sh)
+    assert restored["w"].dtype == torch.bfloat16
+    assert restored["n"].dtype == torch.int32
+    assert_tree_bitwise(restored, tree)
+
+
+def test_elastic_reshard_restore(tmp_path):
+    """Restore places each leaf with the CURRENT mesh's sharding (here a
+    1-rank mesh: the whole leaf), whatever wrote it
+    (`tests/test_fault_tolerance.py`)."""
+    from repro_torch.distributed.sharding import NamedSharding
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, 1), ("data", "model"))
+    tree = {"w": torch.arange(16.0).reshape(4, 4)}
+    save_checkpoint(str(tmp_path), 1, tree)
+    sh = {"w": NamedSharding(mesh, ("data", None))}
+    restored, step = restore_checkpoint(str(tmp_path), tree, shardings=sh)
+    assert step == 1
+    np.testing.assert_array_equal(restored["w"].numpy(), tree["w"].numpy())
+
+
+def test_save_at_two_ranks_restore_at_four(tmp_path):
+    """A state sharded over 2 ranks is saved whole (gathered, written by
+    the first rank) and restored on 4 ranks, each taking its quarter of
+    the rows in the saved dtype (elastic resharding across mesh sizes)."""
+    import torch_ranks as R
+    from repro_torch.launch.mesh import RankPool
+    full = torch.arange(32.0).reshape(8, 4).to(torch.bfloat16).float()
+    with RankPool(4, "cpu", verbose=False) as pool:
+        saved = pool.run(R.save_sharded, str(tmp_path), 2)
+        for r in range(2):
+            np.testing.assert_array_equal(saved[r],
+                                          full[4 * r:4 * r + 4].numpy())
+        assert saved[2:] == [None, None]
+        assert latest_step(str(tmp_path)) == 1
+        for r, (rows, dtype, n, step) in enumerate(
+                pool.run(R.restore_sharded, str(tmp_path), 4)):
+            np.testing.assert_array_equal(rows,
+                                          full[2 * r:2 * r + 2].numpy())
+            assert dtype == "torch.bfloat16" and n == 7 and step == 1
 
 
 def test_on_disk_layout_is_the_reference_layout(tmp_path):

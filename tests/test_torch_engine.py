@@ -192,8 +192,17 @@ def test_cli_packed_smoke_on_cpu(capsys):
                                 dict(tp=2), dict(prefill_chunk=4, tp=4),
                                 dict(pruned=True, tp=2)])
 def test_later_modes_raise_naming_their_slice(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        TE.build_engine(ARCH, True, device="cpu", **kw)
+    """Tensor-parallel serving is here for the dense families; an MoE
+    under a mesh, in any mode, raises naming the item that brings it. A tp
+    engine is built on the ranks of a group: outside one, build_engine
+    says so."""
+    from repro_torch.launch.mesh import Mesh
+    kw = dict(kw)
+    mesh = Mesh(("data", "model"), (1, kw.pop("tp")))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14b"):
+        TE.build_engine("grok-1-314b", True, device="cpu", mesh=mesh, **kw)
+    with pytest.raises(ValueError, match="RankPool"):
+        TE.build_engine(ARCH, True, device="cpu", tp=mesh.size, **kw)
 
 
 def test_other_families_raise():
@@ -522,8 +531,13 @@ def test_example_serves_on_cpu(argv, capsys):
                                   ["--tp", "2"], ["--devices", "4"],
                                   ["--chunked-prefill", "8", "--tp", "2"]])
 def test_example_later_modes_raise(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        _example().main(argv + ["--device", "cpu"])
+    """The example serves `--tp` / `--devices` on ranks for the dense
+    families; for an MoE or a recurrent arch it raises naming the item
+    that brings them, before starting any rank."""
+    for arch in ("grok-1-314b", "rwkv6-3b"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 item 14b"):
+            _example().main(argv + ["--arch", arch, "--device", "cpu"])
 
 
 @pytest.mark.parametrize("arch", ["musicgen-large", "internvl2-26b"])

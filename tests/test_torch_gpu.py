@@ -2262,3 +2262,61 @@ def test_window_engine_on_card_matches_cpu_and_eager_steps(cuda,
             np.testing.assert_array_equal(runs["graph"][rid],
                                           runs[other][rid],
                                           err_msg=f"{other} {rid}")
+
+
+# ------------------------------------------------------------ multi-rank
+# Two ranks share the card (gloo, each collective staged through host
+# memory; `launch.mesh`); their functions live in `tests/torch_ranks.py`.
+@pytest.fixture(scope="module")
+def card_ranks():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device for the repro_torch kernels")
+    from repro_torch.launch.mesh import RankPool
+    with RankPool(2, "cuda", verbose=False) as pool:
+        yield pool
+
+
+def test_tp_wrappers_bitwise_the_one_rank_kernels(card_ranks):
+    """tp_gemm at the small-M and tensor-core heights in fake_quant_rhs,
+    dequant and unpack_dequant b4 (each rank's column tile planned as the
+    full-width call, `plan_n`), and tp_decode_attn (KV heads 8 -> 4 a
+    rank), on 2 ranks: every rank's gathered result bitwise the 1-rank
+    kernel call's."""
+    import torch_ranks as R
+    for res in card_ranks.run(R.tp_kernels_card, 2):
+        assert res and all(res.values()), res
+        assert {"small_m.dequant", "tc.unpack_b4", "decode_attn"} <= set(res)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_tp2_engine_tokens_equal_the_one_rank_engine(card_ranks, paged):
+    """The smoke config (f32) served at tp 2 on the card emits the 1-rank
+    engine's tokens on both ranks, decoding eagerly (gloo collectives
+    cannot be captured) while the 1-rank engine replays graphs."""
+    import torch_ranks as R
+    kw = dict(paged=True, page_size=8) if paged else {}
+    want = engine_serve("internlm2-1.8b", True, [12, 5, 9], 8,
+                        verbose=False, **kw)
+    for out, mode in card_ranks.run(R.serve_card, 2, [12, 5, 9], 8, kw):
+        assert mode.startswith("eager (gloo")
+        for rid in want:
+            np.testing.assert_array_equal(out[rid], want[rid])
+
+
+def test_tp2_ordered_grads_step_bitwise_one_rank(card_ranks):
+    """Two ranks, one batch slice each, on the card: 3 GETA steps bitwise
+    the 1-rank step with grad_slices=2 (loss, params, quantizers, masks),
+    and FSDP the same."""
+    import torch_ranks as R
+    want = R.sharded_train(1, False, 2, steps=3, device="cuda")
+    for fsdp in (False, True):
+        for got in card_ranks.run(R.sharded_train, 2, fsdp, 2, "lm", 3,
+                                  True, "cuda"):
+            assert got[0] == want[0]
+            for k in want[1]:
+                np.testing.assert_array_equal(got[1][k], want[1][k])
+            assert got[2] == want[2]
+            for key in ("redundant", "keep_mask"):
+                for fam in want[3][key]:
+                    np.testing.assert_array_equal(got[3][key][fam],
+                                                  want[3][key][fam])

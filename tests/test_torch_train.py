@@ -176,10 +176,14 @@ def test_cli_runs_on_cpu_and_needs_cuda_by_default(capsys, tmp_path):
             "--seq", "8", "--device", "cpu", "--ckpt-dir", str(tmp_path)])
     assert "trained 2 steps" in capsys.readouterr().out
     assert sorted(p.name for p in tmp_path.iterdir()) == ["step_1", "step_2"]
-    for extra in (["--devices", "2"], ["--fsdp"]):
-        with pytest.raises(NotImplementedError):
-            T.main(["--arch", ARCH, "--steps", "1", "--device", "cpu",
-                    *extra])
+    # --devices N trains on N ranks (--fsdp shards over them); --fsdp
+    # alone has no ranks to shard over
+    T.main(["--arch", ARCH, "--smoke", "--steps", "2", "--batch", "2",
+            "--seq", "8", "--device", "cpu", "--devices", "2", "--fsdp"])
+    assert "trained 2 steps" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        T.main(["--arch", ARCH, "--steps", "1", "--device", "cpu",
+                "--fsdp"])
 
 
 def test_act_quant_step_on_devices_reports_the_activation_sites():
