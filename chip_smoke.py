@@ -324,9 +324,12 @@ Phases, each printing its own lines:
    by (variant, epilogue, K, N) for the kernel line.
 14. The last LM families at published widths, bf16, random weights from
    seed 0; the reckoned bytes, peak and predicted times are printed
-   before each sub-phase. 14a: musicgen-large whole (48 layers, d_model
-   2048, 32 MHA heads of 64, d_ff 8192, 4 codebooks of vocab 2048; 3.26e9
-   params, 6.5 GB, no cut) through `serve_loop` (the static loop, which
+   before each sub-phase. 14a: musicgen-large at its published widths
+   (d_model 2048, 32 MHA heads of 64, d_ff 8192, 4 codebooks of vocab
+   2048) cut to 24 of 48 layers (`AUDIO_LAYERS`: whole, 3.26e9 params,
+   until PR 26, when the script passed 1100 s on a slow host; the cut
+   drops half the eager `serve_loop`'s layers, not a check) through
+   `serve_loop` (the static loop, which
    codebook archs serve through) at batch 4, 64 prompt frames and 64
    generated, in the dense fake-quant, int8 and packed b4 modes, and int8
    at the 4-bit init, whose frames the packed ones must equal; a 32-frame
@@ -349,8 +352,10 @@ Phases, each printing its own lines:
    (`_logits_held`); `serve_loop` text-only (prompt_len 1088: 64 text
    tokens, as the reference slices them) dense and int8; one GETA step
    (joint stage) at 2 of 48 layers on a 2 x (1024 + 512) batch, every
-   gradient finite, peak printed. 14d: internlm2-1.8b whole with the JAX
-   package's `window` field set to 256 (no config of the repo sets one):
+   gradient finite, peak printed. 14d: internlm2-1.8b at its published
+   widths cut to 12 of 24 layers (`WINDOW_LAYERS`, PR 26, the same
+   reason) with the JAX package's `window` field set to 256 (no config
+   of the repo sets one):
    the engine on 4 slots, prompts of 32-256 tokens each generating until
    it has decoded past row 255 of its ring, through graph windows, then
    eager `step()` (tokens equal), kv_bytes exactly 4 slots x 256 rows;
@@ -397,7 +402,33 @@ Phases, each printing its own lines:
    step's with grad_slices=2, the reckoned memory, step walls and peak a
    rank printed. The ranks' launch counts are zeroed before each drive
    and read after; every kernel of the path must have launched.
-16. Two JSON lines: the kernel table, then the device line (last). A
+16. The paper's experiment runners and the dry run
+   (`launch.experiments`, `launch.dryrun`). 16a: the runners at the JAX
+   package's full specs, each cut to steps=12 (11 QASSO steps through
+   every stage, against the reference's 120-240; the paper-scale
+   accuracies are the CLI's, `python -m repro_torch.launch.experiments
+   --spec full`): `run_baseline_cnn` and `run_geta_cnn` on ResNet20
+   (weight quantizers) and on VGG7 (the GETA run with activation
+   quantizers), `run_geta_cnn` on ResNet56 at sparsity 0.4, and
+   `run_geta_bert` and `run_prune_then_ptq_bert` at `BertEncoder()`'s
+   defaults at sparsity 0.3. Checks: finite losses, the stages in order,
+   exactly k_units units pruned and their elements zero, bits within
+   [b_l, b_u_final] and rel_bops < 1 in every GETA run, the fake-quant
+   launches at `predicted_runner_launches` (phase 11's count plus the
+   evaluation's forward) and no GEMM kernel. Prints accuracy or exact
+   match, rel_bops, sparsity, mean bits, the median step wall and images
+   or tokens a second. 16b: the meta dry run against the card on
+   internlm2-1.8b at phase 10's 4 of 24 layers (widths full, 1 x 1 mesh):
+   one GETA joint-stage step at batch 4 x 512 and one eager decode step
+   over phase 5's 4 slots and 576-row arena. The meta launch record by
+   (variant, epilogue, K, N), by fake-quant input shape and decode
+   attention must equal what the card launched for the same step (the
+   wrappers' counts, tallied by shape), and the dry run's arg bytes the
+   card tensors' bytes. Printed, not gated: the meta FLOPs over the
+   card's measured wall (TFLOP/s and its share of 989e12) and the meta
+   peak estimate (args + temp) against `max_memory_allocated`. Prints
+   the phase's and the script's seconds.
+17. Two JSON lines: the kernel table, then the device line (last). A
    serving kernel's `launches` are the host counts of phases 5-6 (a
    graph's calls once, at capture), a pruned-shape GEMM row's those of
    phase 8, a verify-height row's those of phase 9 (the captures of its
@@ -4264,6 +4295,7 @@ def phase_recurrent(torch) -> tuple[dict, dict, list[str], dict]:
 AUDIO_ARCH = "musicgen-large"
 VLM_ARCH = "internvl2-26b"
 AUDIO_PROMPT, AUDIO_GEN = 64, 64   # 14a's serve_loop: frames in, frames out
+AUDIO_LAYERS = 24                  # 14a's depth cut: 24 of 48 layers (PR 26)
 AUDIO_PREFILL = 32                 # 14a's prefill-vs-decode prompt (frames)
 AUDIO_SPARSITY = 0.3               # 14a's pruned subnet
 # 14a's serve_loop modes: packed b4 is held to int8 at the same 4-bit init
@@ -4277,6 +4309,7 @@ VLM_DECODE = 32                    # 14c: decode steps after the prefill
 VLM_SERVE_TEXT = 64                # 14c's serve_loop: prompt_len 1024 + 64
 VLM_TRAIN_LAYERS = 2               # 14c's GETA step: 2 of 48 layers
 WINDOW = 256                       # 14d: internlm2-1.8b's sliding window
+WINDOW_LAYERS = 12                 # 14d's depth cut: 12 of 24 layers (PR 26)
 WINDOW_LENS = [32, 64, 128, 256, 96, 200, 160, 240]
 # every request decodes past row 255 of its ring: n + gen >= WINDOW + 2
 WINDOW_GENS = [max(128, WINDOW + 2 - n) for n in WINDOW_LENS]
@@ -4408,8 +4441,8 @@ def _traced_kernel_counts(torch, fn, matches) -> dict[str, int]:
 
 
 def _audio_serving(torch, failures, info) -> None:
-    """14a: musicgen-large whole through `serve_loop` (see the module
-    docstring)."""
+    """14a: musicgen-large at AUDIO_LAYERS through `serve_loop` (see the
+    module docstring)."""
     from repro_torch.configs import get_arch
     from repro_torch.core.subnet import (construct_subnet, prepare_serving,
                                          resolve_keep_masks, tree_bytes)
@@ -4417,15 +4450,16 @@ def _audio_serving(torch, failures, info) -> None:
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import make_serve_step, serve_loop
     from repro_torch.models.transformer import LM
-    cfg = get_arch(AUDIO_ARCH)
+    full = get_arch(AUDIO_ARCH)
+    cfg = dataclasses.replace(full, n_layers=AUDIO_LAYERS)
     rk = lm_reckoning(cfg)
     C, Vp = cfg.num_codebooks, cfg.vocab_padded
     weights = rk["param_bytes"] - 4 * (2 * cfg.n_layers + 1) * cfg.d_model \
         - 2 * C * Vp * cfg.d_model
-    print(f"[14a musicgen] {AUDIO_ARCH} whole ({cfg.n_layers} layers, "
-          f"d_model {cfg.d_model}, {cfg.n_heads} MHA heads of {cfg.d_head}, "
-          f"d_ff {cfg.d_ff}, {C} codebooks of vocab {cfg.vocab}, bf16, no "
-          f"cut); reckoned {rk['params'] / 1e9:.3f}e9 params "
+    print(f"[14a musicgen] {AUDIO_ARCH} ({cfg.n_layers} of {full.n_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads} MHA heads of "
+          f"{cfg.d_head}, d_ff {cfg.d_ff}, {C} codebooks of vocab "
+          f"{cfg.vocab}, bf16); reckoned {rk['params'] / 1e9:.3f}e9 params "
           f"({rk['param_bytes'] / 1e9:.2f} GB; int8 served "
           f"{rk['int8_bytes'] / 1e9:.2f} GB), KV "
           f"{rk['kv_bytes_per_token'] / 1e3:.0f} KB a frame a slot; the "
@@ -4497,7 +4531,8 @@ def _audio_serving(torch, failures, info) -> None:
         before = ops.launch_counts()["decode_attn"]
         out[mode] = serve_loop(AUDIO_ARCH, False, SLOTS, AUDIO_PROMPT,
                                AUDIO_GEN, prompts=prompts, verbose=False,
-                               stats=st, device="cuda", **kw)
+                               stats=st, device="cuda", layers=AUDIO_LAYERS,
+                               **kw)
         st["decode_attn"] = ops.launch_counts()["decode_attn"] - before
         stats[mode] = st
         t = out[mode]
@@ -4721,18 +4756,21 @@ def _vision(torch, failures, info) -> None:
 
 
 def _window(torch, failures, info) -> None:
-    """14d: internlm2-1.8b whole with window = WINDOW, through the engine."""
+    """14d: internlm2-1.8b at WINDOW_LAYERS with window = WINDOW, through
+    the engine."""
     from repro_torch.configs import get_arch
     from repro_torch.core.subnet import prepare_serving
     from repro_torch.launch.engine import Engine, synthetic_prompts
     from repro_torch.launch.scheduler import ChunkedPrefillScheduler
     from repro_torch.launch.speculative import DraftModel
     from repro_torch.models.transformer import LM
-    cfg = dataclasses.replace(get_arch(ARCH), window=WINDOW)
+    cfg = dataclasses.replace(get_arch(ARCH), window=WINDOW,
+                              n_layers=WINDOW_LAYERS)
     rk = lm_reckoning(cfg)
     max_seq = max(n + g for n, g in zip(WINDOW_LENS, WINDOW_GENS))
     kv_want = SLOTS * WINDOW * rk["kv_bytes_per_token"]
-    print(f"[14d window] {ARCH} whole with window = {WINDOW} (the JAX "
+    print(f"[14d window] {ARCH} at {WINDOW_LAYERS} of 24 layers with window "
+          f"= {WINDOW} (the JAX "
           f"package's `window` field set on the published config: no config "
           f"of the repo sets one); {SLOTS} slots, prompts {WINDOW_LENS} "
           f"generating {WINDOW_GENS} (every request decodes past row "
@@ -5473,6 +5511,245 @@ def _tp_kernel_rows(tp_report: dict, tp_tally: dict, gemm, attn,
     return out
 
 
+# ----------------------------------------------------------------- phase 16
+# 16a: the paper's runners at the full specs, each cut to steps=12 (11
+# QASSO steps through every stage; the reference runs 120-240): (label,
+# runner, positional args, keyword args, unit, per-step count)
+RUNNER_STEPS = 12
+RUNNER_STAGES = [0, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3]
+DRY_BATCH, DRY_SEQ = TRAIN_BATCH, TRAIN_SEQ     # 16b's GETA step, 4 x 512
+
+
+def runners() -> list[tuple]:
+    """Phase 16a's runs (see the module docstring)."""
+    from repro_torch.launch import experiments as E
+    from repro_torch.models import cnn
+    img, tok = ("images", 64), ("tokens", 16 * 64)
+    return [("resnet20 baseline", E.run_baseline_cnn, (cnn.RESNET20,), {},
+             img),
+            ("resnet20 geta", E.run_geta_cnn, (cnn.RESNET20,),
+             dict(sparsity=0.35), img),
+            ("vgg7 baseline", E.run_baseline_cnn, (cnn.VGG7,), {}, img),
+            ("vgg7 geta w+a", E.run_geta_cnn, (cnn.VGG7,),
+             dict(sparsity=0.5, act_quant=True), img),
+            ("resnet56 geta sp40", E.run_geta_cnn, (cnn.RESNET56,),
+             dict(sparsity=0.4), img),
+            ("bert geta sp30", E.run_geta_bert, (0.3,),
+             dict(encoder=E.BERT_FULL), tok),
+            ("bert prune+ptq sp30", E.run_prune_then_ptq_bert, (0.3,),
+             dict(encoder=E.BERT_FULL), tok)]
+
+
+def predicted_runner_launches(facts: dict) -> dict:
+    """Fake-quant launches of a GETA runner: every weight and activation
+    site once forward and once backward a step, each quantized param once
+    more in a joint step (`predicted_substrate_launches`), and the
+    evaluation tail's one forward (accuracy or exact match)."""
+    sites = facts["n_weight_sites"] + facts["n_act_sites"]
+    steps = len(facts["stages"])
+    joint = sum(s == 2 for s in facts["stages"]) * facts["n_quantized_params"]
+    return {"fake_quant.fwd": sites * (steps + 1) + joint,
+            "fake_quant.bwd": sites * steps}
+
+
+def _runners(torch, failures, info) -> None:
+    from repro_torch.kernels import ops
+
+    def check(ok, what):
+        if not ok:
+            failures.append(f"16a {what}")
+        return "ok" if ok else "FAIL"
+
+    for label, fn, args, kw, (unit, per_step) in runners():
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = fn(*args, steps=RUNNER_STEPS, device="cuda", **kw)
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        walls = r.get("step_walls") or []
+        wall = statistics.median(walls)
+        metric = (f"acc {r['acc']:.4f}" if "acc" in r
+                  else f"em {r['em']:.4f}")
+        losses = r.get("losses") or []
+        line = (f"[16a runners] {label}: {metric}, rel_bops "
+                f"{r['rel_bops']:.5f}, losses finite "
+                f"{check(bool(losses) and all(map(math.isfinite, losses)), f'{label} finite losses')}"
+                f", step wall median {wall:.4f} s, {per_step / wall:.1f} "
+                f"{unit}/s, {secs:.1f} s")
+        gemm = {k: v for k, v in counts.items()
+                if k.startswith("gemm_core") and v}
+        if "stages" in r:
+            want = predicted_runner_launches(r)
+            got = {k: counts[k] for k in want}
+            geta = "ptq" not in label
+            line += (
+                f"; stages {r['stages']} "
+                f"{check(r['stages'] == RUNNER_STAGES, f'{label} stages')}"
+                f", pruned units {r['pruned_units']} (k_units "
+                f"{r['k_units']}) "
+                f"{check(r['pruned_units'] == r['k_units'], f'{label} sparsity')}"
+                f", nonzero pruned elements {r['nonzero_pruned']} "
+                f"{check(r['nonzero_pruned'] == 0, f'{label} pruned zero')}"
+                f", bits [{r['bits_min']:.3f}, {r['bits_max']:.3f}]")
+            if geta:
+                b_l, b_u = r["bit_lower"], r["bit_upper_final"]
+                ok = (b_l - 1e-3 <= r["bits_min"]
+                      and r["bits_max"] <= b_u + 1e-3)
+                line += (f" in [{b_l}, {b_u}] {check(ok, f'{label} bits')}"
+                         f", rel_bops < 1 "
+                         f"{check(r['rel_bops'] < 1.0, f'{label} rel_bops')}")
+            if "sparsity" in r:
+                line += (f", subnet sparsity {r['sparsity']:.4f} mean bits "
+                         f"{r['mean_bits']:.3f}")
+            line += (f", fake-quant launches {got} predicted {want} "
+                     f"{check(got == want, f'{label} fake-quant launches')}")
+        line += (f", GEMM kernels {gemm or 'none'} "
+                 f"{check(not gemm, f'{label} launched a GEMM kernel')}")
+        print(line, flush=True)
+        info[label] = {k: v for k, v in r.items()
+                       if k not in ("losses", "step_walls")}
+        info[label].update(step_wall_median_s=wall, seconds=secs,
+                           launches={k: v for k, v in counts.items() if v})
+        torch.cuda.empty_cache()
+
+
+def _args_bytes(torch, tree) -> int:
+    from repro_torch.launch.dryrun import _tensors
+    return sum(t.numel() * t.element_size() for t in _tensors(tree)
+               if t.is_cuda)
+
+
+def _dry_vs_card(torch, failures, info) -> None:
+    """16b (see the module docstring)."""
+    from repro_torch.configs.base import ShapeConfig
+
+    def check(ok, what):
+        if not ok:
+            failures.append(f"16b {what}")
+        return "ok" if ok else "FAIL"
+
+    shapes = {"geta joint step": ShapeConfig("dry_train", DRY_SEQ, DRY_BATCH,
+                                             "train"),
+              "decode step": ShapeConfig("dry_decode", DECODE_S, SLOTS,
+                                         "decode")}
+    for label, shape in shapes.items():
+        info[label] = _dry_vs_card_one(torch, label, shape, check)
+        torch.cuda.empty_cache()
+
+
+def _dry_vs_card_one(torch, label, shape, check) -> dict:
+    """One 16b step: the meta dry run, then the same step on the card
+    (every card tensor of the step is freed on return)."""
+    import collections
+    from repro_torch.configs import get_overrides
+    from repro_torch.distributed import sharding as shlib
+    from repro_torch.kernels import gemm_core as gc
+    from repro_torch.kernels import meta as kmeta
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import train as T
+    from repro_torch.models.transformer import LM
+
+    mesh = meshlib.abstract_mesh((1, 1), ("data", "model"))
+    t0 = time.perf_counter()
+    cell, cfg, _ = DR.build_cell(ARCH, shape, mesh, depth=RUN_LAYERS,
+                                 stages=("joint",))
+    dry = next(iter(DR.run(cell).values()))
+    dry_s = time.perf_counter() - t0
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device="cuda").manual_seed(0))
+    qparams = lm.init_qparams(params, bits_init=8.0)
+    if shape.kind == "train":
+        real = meshlib.make_subset_mesh(1)
+        plan = shlib.make_plan(real, overrides=dict(get_overrides(ARCH)))
+        p_sh = {k: shlib.NamedSharding(real, s.spec) for k, s in
+                plan.shardings(lm.param_axes(), {
+                    k: tuple(v.shape) for k, v in params.items()}).items()}
+        _, qasso = T.build_geta(lm, DR._DRYRUN_COMP, lr=3e-4,
+                                base_optimizer=get_overrides(ARCH).get(
+                                    "base_optimizer", "adamw"))
+        fn, _ = T.make_sharded_geta_train_step(lm, qasso, real, params,
+                                               qparams,
+                                               param_shardings=p_sh)
+        qstate = qasso.init(params, qparams)._replace(
+            step=qasso.cfg.projection_end)
+        batch = {"tokens": torch.randint(
+            0, cfg.vocab, (DRY_BATCH, DRY_SEQ), device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(0))}
+        args = (params, qparams, qstate, batch)
+        step = lambda: fn(params, qparams, qstate, batch)   # noqa: E731
+    else:
+        caches = lm.init_cache(SLOTS, DECODE_S, dtype=params[
+            "embed"].dtype, device="cuda")
+        token = torch.randint(0, cfg.vocab, (SLOTS, 1), device="cuda")
+        pos = torch.tensor(max(PROMPT_LENS[:SLOTS]) - 1, device="cuda")
+        args = (params, qparams, caches, token, pos)
+        step = lambda: lm.decode_step(params, qparams,   # noqa: E731
+                                      caches, token, pos)
+    step()                                   # warm: the first call
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    tally, by_shape = collections.Counter(), {}
+    real_gemm = _gemm_shape_tally(gc, tally)
+    restore = _tally_fq_shapes(by_shape)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t1 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    finally:
+        gc.gemm = real_gemm
+        restore()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    card = collections.Counter(tally)
+    for key, n in by_shape.items():
+        kernel, shp = key.split()
+        card[(kernel.split(".")[1],
+              tuple(int(d) for d in shp.split("x")))] += n
+    counts = ops.launch_counts()
+    card[("decode_attn", "")] += counts["decode_attn"]
+    card = +card
+    record = kmeta.tally(dry["launches"])
+    arg_dry, arg_card = cell.arg_bytes, _args_bytes(torch, args)
+    est = arg_dry + dry["temp_bytes"]
+    tflops = dry["flops"] / wall / 1e12
+    print(f"[16b dry run] {ARCH} {RUN_LAYERS} of 24 layers, {label}: "
+          f"meta launch record {sum(record.values())} launches over "
+          f"{len(record)} (kernel, variant, epilogue, K, N) keys, card "
+          f"{sum(card.values())} "
+          f"{check(record == card, f'{label} launch record')}"
+          + ("" if record == card else
+             f" (meta only {dict(record - card)}, card only "
+             f"{dict(card - record)})")
+          + f"; arg bytes {arg_dry} meta, {arg_card} card "
+          f"{check(arg_dry == arg_card, f'{label} arg bytes')}; meta "
+          f"FLOPs {dry['flops']:.4e} over the card's wall "
+          f"{wall * 1e3:.3f} ms: {tflops:.2f} TFLOP/s, "
+          f"{tflops * 1e12 / BF16_FLOP_PER_S:.4f} of 989e12; meta peak "
+          f"estimate {est / 2**30:.2f} GiB (args "
+          f"{arg_dry / 2**30:.2f} + temp {dry['temp_bytes'] / 2**30:.2f})"
+          f" against max_memory_allocated {peak / 2**30:.2f} GiB, ratio "
+          f"{est / peak:.3f}; meta bytes {dry['bytes']:.4e}; the dry "
+          f"run took {dry_s:.1f} s", flush=True)
+    return dict(launches=sum(record.values()), wall_ms=wall * 1e3,
+                meta_flops=dry["flops"], tflops=tflops,
+                meta_bytes=dry["bytes"], arg_bytes=arg_dry,
+                temp_bytes=dry["temp_bytes"], peak_bytes=peak,
+                dry_s=dry_s)
+
+
+def phase_experiments(torch) -> tuple[dict, list[str]]:
+    """Phase 16 (see the module docstring). Returns the runs' results and
+    the dry run's comparison, and the failures."""
+    failures, info = [], {"16a": {}, "16b": {}}
+    _runners(torch, failures, info["16a"])
+    _dry_vs_card(torch, failures, info["16b"])
+    return info, failures
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -5493,6 +5770,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import ops
 
     t_phase = [time.perf_counter()]
+    t_script = t_phase[0]
 
     def lap(label):
         now = time.perf_counter()
@@ -5571,6 +5849,11 @@ def main(argv=None) -> int:
     tp_counts, tp_tally, tp_fail, tp_info = phase_tp(torch, outs, tp_report)
     failures += tp_fail
     lap("15 tp")
+    torch.cuda.empty_cache()
+    exp_info, exp_fail = phase_experiments(torch)
+    failures += exp_fail
+    lap("16 experiments and dry run")
+    print(f"[total] script seconds {time.perf_counter() - t_script:.1f}")
 
     if args.out:
         out = Path(args.out)
@@ -5606,6 +5889,7 @@ def main(argv=None) -> int:
              "tp_kernel_launches": {"/".join(map(str, k)): v
                                     for k, v in tp_tally.items()},
              "tp": tp_info,
+             "experiments": exp_info,
              "trace_takes": _TRACE_TAKES,
              "spec_engines": {f"{t}/{d}": {
                  k: v for k, v in st.items()

@@ -47,6 +47,16 @@ def _f32(v) -> torch.Tensor:
     return torch.tensor(v, dtype=F32)
 
 
+def _on_host(t: torch.Tensor) -> torch.Tensor:
+    """t on the CPU, where the scalar rules run. A meta tensor (the dry
+    run, `launch.dryrun`) holds no values: ones stand in for it, so the
+    rules run on placeholders and the stage takes its common branch (no
+    site in case 0); the device work around them is the same."""
+    if t.device.type == "meta":
+        return torch.ones(t.shape, dtype=t.dtype)
+    return t.cpu()
+
+
 @dataclasses.dataclass(frozen=True)
 class QASSOConfig:
     # Eq 7b / 7c targets
@@ -234,8 +244,8 @@ class QASSO:
             stats = stats + self._site_stats_chunked(
                 params[pname], grads[pname], red_elem[pname], d0, qm, t)
         (dot_clip, dot_res, n_g2, n_clip2, n_res2, clip_sum,
-         cnt) = stats.cpu().unbind()
-        d0, qm, t = d0.cpu(), qm.cpu(), t.cpu()
+         cnt) = _on_host(stats).unbind()
+        d0, qm, t = _on_host(d0), _on_host(qm), _on_host(t)
 
         n_g = torch.sqrt(n_g2)
         n_clip = torch.sqrt(n_clip2)

@@ -7,8 +7,10 @@ PyTorch version (`ref.decode_attn_ref`, `ref.paged_decode_attn_ref`); a
 CUDA tensor goes to the hand-written kernel in `csrc/decode_attn.cu`
 (one split-rows kernel body with two row-addressing policies, then a
 combine pass), or raises if the library did not build or the launch
-failed. Both wrappers take their split plan from `plan_splits`, sized
-from the arena length the host knows, never from `pos`.
+failed; a meta tensor records the launch and computes nothing
+(`kernels.meta`: every arena row counts, since meta holds no positions).
+Both wrappers take their split plan from `plan_splits`, sized from the
+arena length the host knows, never from `pos`.
 
 `decode_attn.launches` counts calls that launched the kernel pair (one
 per layer per decode step), and `paged_decode_attn.launches` counts them
@@ -21,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, meta, ref
 
 G_MAX = 8       # query heads per KV head the kernel takes
 DH_MAX = 128    # head width the kernel takes (a multiple of 4)
@@ -88,6 +90,12 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n_splits, R = plan_splits(S, rows_per_split)
     if q.device.type == "cpu":
         return ref.decode_attn_ref(q, k, v, pos)
+    if q.device.type == "meta":
+        full = torch.full((B,), S - 1, dtype=torch.int64)
+        meta.record("decode_attn", "", "", (B, S, KVh, g, dh),
+                    bytes_moved(q, k, full), flops(q, k, full))
+        return torch.empty((B, KVh, g, dh), dtype=torch.float32,
+                           device="meta")
     if q.device.type != "cuda" or not (k.device == v.device == q.device):
         raise ValueError("decode_attn: the kernel takes CUDA tensors on one "
                          "device")
@@ -198,6 +206,14 @@ def paged_decode_attn(q: torch.Tensor, kpool: torch.Tensor,
         return ref.paged_decode_attn_ref(
             q, kpool, vpool, pos, page_table, page_size=P, seq_len=seq_len,
             kv_bits=kv_bits, k_scale=k_scale, v_scale=v_scale)
+    if q.device.type == "meta":
+        full = torch.full((B,), seq_len - 1, dtype=torch.int64)
+        kind = f"int{kv_bits}" if kv_bits else _DENSE.get(kpool.dtype, "")
+        meta.record("paged_decode_attn", kind, "", (B, seq_len, KVh, g, dh),
+                    paged_bytes_moved(q, kpool, full, P, seq_len, kv_bits),
+                    paged_flops(q, full, seq_len))
+        return torch.empty((B, KVh, g, dh), dtype=torch.float32,
+                           device="meta")
     tensors = (kpool, vpool, page_table, *scales)
     if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
         raise ValueError("paged_decode_attn: the kernel takes CUDA tensors "

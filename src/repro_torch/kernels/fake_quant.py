@@ -4,7 +4,8 @@ Port of `repro.kernels.fake_quant`. `fake_quant_fwd` and `fake_quant_bwd`
 decide by device: a CPU tensor goes to the plain PyTorch versions
 (`ref.fake_quant_fwd_ref` / `ref.fake_quant_bwd_ref`); a CUDA tensor goes
 to the hand-written kernels in `csrc/fake_quant.cu`, or raises if the
-library did not build or the launch failed. There is no fallback.
+library did not build or the launch failed; a meta tensor records the
+launch and computes nothing (`kernels.meta`). There is no fallback.
 
 Each call is one kernel launch. The backward reduces its three scalar
 sums without atomics: every block of `BWD_CHUNK` elements writes one
@@ -20,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, meta, ref
 
 FWD, BWD = "fwd", "bwd"
 BWD_CHUNK = 8192          # elements per backward block (csrc kChunk)
@@ -70,6 +71,9 @@ def fake_quant_fwd(x: torch.Tensor, d, q_m, t) -> torch.Tensor:
     """y = d * round(clip^t(|x|) / d) * sgn(x) in x's dtype; any shape."""
     if x.device.type == "cpu":
         return ref.fake_quant_fwd_ref(x, d, q_m, t)
+    if x.device.type == "meta":
+        meta.record("fake_quant.fwd", "", "", x.shape, fwd_bytes(x), 0)
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
     _check_cuda("fake_quant_fwd", x)
     dev = x.device
     x = x.contiguous()
@@ -92,6 +96,11 @@ def fake_quant_bwd(x: torch.Tensor, d, q_m, t, g: torch.Tensor):
                          f"{tuple(g.shape)}")
     if x.device.type == "cpu":
         return ref.fake_quant_bwd_ref(x, d, q_m, t, g)
+    if x.device.type == "meta":
+        meta.record("fake_quant.bwd", "", "", x.shape, bwd_bytes(x, g), 0)
+        s = torch.empty((), dtype=torch.float32, device="meta")
+        return (torch.empty_like(x, memory_format=torch.contiguous_format),
+                s, s.clone(), s.clone())
     _check_cuda("fake_quant_bwd", x, g)
     dev = x.device
     n = x.numel()

@@ -18,8 +18,9 @@ M = B*S tokens or M = K_in. They pass the transposed views as they are.
 `gemm` decides by device. A CPU tensor goes to the plain PyTorch version
 in `kernels.ref`; a CUDA tensor goes to a hand-written kernel in
 `csrc/gemm_core.cu`, or raises if the library did not build or the
-launch failed. There is no fallback from one to the other. On the card,
-`variant` picks the kernel by M and x's dtype:
+launch failed; a meta tensor computes nothing and records the launch the
+card would make (`kernels.meta`). There is no fallback from one to the
+other. On the card, `variant` picks the kernel by M and x's dtype:
 
   small_m  M <= 8 (decode): one launch; the blocks that split a
            column strip's K range form a thread-block cluster and sum
@@ -55,7 +56,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.quant import codes_per_word
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, meta, ref
 
 FAKE_QUANT, DEQUANT, UNPACK = "fake_quant_rhs", "dequant", "unpack_dequant"
 NONE, COL_MASK, FQ_MASK = "none", "col_mask", "fq_col_mask"
@@ -300,6 +301,12 @@ def gemm(x: torch.Tensor, w: torch.Tensor, epi: Epilogue, *,
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return plain(x, w, epi, out_dtype)
+    if x.device.type == "meta" and w.device.type == "meta":
+        kind = variant(M, x.dtype)
+        meta.record("gemm_core", kind, epi.name, (M, K, N),
+                    bytes_moved(M, N, K, x.element_size(), w,
+                                out_dtype.itemsize, epi), flops(M, N, K))
+        return torch.empty((M, N), dtype=out_dtype, device="meta")
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(f"gemm: x on {x.device}, w on {w.device}; the "
                          f"kernel takes CUDA tensors on one device")

@@ -177,15 +177,31 @@ def _require_full_attention(lm: LM, mode: str) -> None:
                          + mixer_why.format(bad=bad))
 
 
-def require_tp_family(lm: LM) -> None:
-    """Refuse tensor-parallel serving of the families it does not cover
-    yet: MoE (expert parallelism) and the recurrent mixers."""
-    what = ("an MoE" if lm.cfg.moe is not None else
+def _tp_gap(lm: LM) -> Optional[str]:
+    """The family that tensor-parallel serving does not cover yet, or
+    None: MoE (expert parallelism) and the recurrent mixers."""
+    return ("an MoE" if lm.cfg.moe is not None else
             f"{recurrent_mixers(lm.plan)} mixers" if recurrent_mixers(lm.plan)
             else None)
+
+
+def require_tp_family(lm: LM) -> None:
+    """Refuse tensor-parallel serving of the families it does not cover
+    yet (`_tp_gap`)."""
+    what = _tp_gap(lm)
     if what is not None:
         raise not_in_this_slice(f"tensor-parallel serving of {what} "
                                 f"({lm.cfg.name})", "ROADMAP Queue 1 item 14b")
+
+
+def plain_tokens(cfg) -> bool:
+    """Whether the engine serves `cfg` at all (PLAIN_TOKENS_ONLY)."""
+    return not (cfg.num_codebooks or cfg.vision_patches)
+
+
+def serves_tensor_parallel(lm: LM) -> bool:
+    """Whether `Engine(mesh=)` serves `lm` tensor parallel."""
+    return plain_tokens(lm.cfg) and _tp_gap(lm) is None
 
 
 @dataclasses.dataclass
@@ -220,7 +236,7 @@ class Engine:
                  n_pages: Optional[int] = None, prefix_sharing: bool = True,
                  scheduler=None, mesh=None, param_axes: Optional[dict] = None):
         cfg = lm.cfg
-        if cfg.num_codebooks or cfg.vision_patches:
+        if not plain_tokens(cfg):
             raise ValueError(PLAIN_TOKENS_ONLY)
         self.lm = lm
         self.max_slots = max_slots

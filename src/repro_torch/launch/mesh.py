@@ -23,9 +23,13 @@ state. The backend follows the device and the card count:
 Outside a rank group (no process group initialised) the world is one
 rank: `make_subset_mesh(1)` and `make_tp_mesh(1)` work and every
 collective is the identity. `make_production_mesh` and `abstract_mesh`
-come with the dry-run tools (ROADMAP Queue 1 item 15); a `Mesh` built
-from axis names and sizes alone (`Mesh(("data", "model"), (16, 16))`)
-serves the sharding rules, which read only its shape.
+build a `Mesh` from axis names and sizes alone (the reference's (16, 16)
+data x model and (2, 16, 16) pod x data x model), which serves the
+sharding rules, since they read only its shape. `meta_rank(mesh)` is
+one rank of such a mesh in the dry run (`launch.dryrun`): its tensors
+are `meta`, and each collective returns the shapes a real group of that
+size would and appends a `Collective` to `mesh.log` instead of moving
+anything.
 """
 from __future__ import annotations
 
@@ -50,6 +54,17 @@ _RANK: dict = {"device": None, "backend": None, "staging": False}
 _GROUPS: dict[tuple[int, ...], Any] = {}
 
 
+@dataclasses.dataclass(frozen=True)
+class Collective:
+    """One collective a dry-run rank made: the op (the port's are all
+    all-gathers: every cross-rank sum is an ordered sum over one), the
+    mesh axis or axes, the group size and the bytes of its result."""
+    op: str
+    axis: Any
+    group: int
+    nbytes: int
+
+
 @dataclasses.dataclass
 class Mesh:
     """Named axes over ranks. `ranks` are the global ranks the mesh spans
@@ -65,6 +80,7 @@ class Mesh:
     backend: str = "none"
     staging: bool = False
     groups: dict = dataclasses.field(default_factory=dict)
+    log: Optional[list] = None      # the dry run's collectives (`meta_rank`)
 
     def __post_init__(self):
         self.axis_names = tuple(self.axis_names)
@@ -87,6 +103,11 @@ class Mesh:
     @property
     def member(self) -> bool:
         return self.rank is not None
+
+    def axis_size(self, axes) -> int:
+        """The ranks along `axes`: an axis name or a tuple of them."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return math.prod(self.shape.get(a, 1) for a in axes)
 
     @property
     def coords(self) -> dict[str, int]:
@@ -112,10 +133,24 @@ class Mesh:
         """x from every rank along `axis`, in coordinate order; every rank
         passes the same shape and dtype. Pure data movement: the tensors
         cross as bytes, staged through host memory when ranks share a
-        card."""
-        n = self.shape.get(axis, 1)
+        card. `axis` may be a tuple of axes (the pod x data group of a
+        dry-run rank); on ranks, all but one of them must have size 1.
+        On a dry-run rank (`meta_rank`) the result is x and empty meta
+        tensors like it, and the call is logged."""
+        n = self.axis_size(axis)
         if n == 1:
             return [x]
+        if self.backend == "meta":
+            self.log.append(Collective("all-gather", axis, n,
+                                       n * x.numel() * x.element_size()))
+            return [x] + [torch.empty_like(x) for _ in range(n - 1)]
+        if not isinstance(axis, str):
+            big = [a for a in axis if self.shape.get(a, 1) > 1]
+            if len(big) > 1:
+                raise ValueError(f"all_gather over axes {tuple(axis)}: a "
+                                 f"rank group has one process group per "
+                                 f"axis")
+            axis = big[0]
         src = x.contiguous().reshape(-1).view(torch.uint8)
         if self.staging:
             src = src.cpu()
@@ -124,7 +159,7 @@ class Mesh:
         return [t.to(x.device).view(x.dtype).reshape(x.shape) for t in out]
 
     def barrier(self) -> None:
-        if self.size > 1:
+        if self.size > 1 and self.backend != "meta":
             dist.barrier(group=self.groups.get("_all"))
 
 
@@ -207,6 +242,28 @@ def make_tp_mesh(n: int, axes=AXES) -> Mesh:
     if n > world()[1]:
         raise ValueError(f"requested {n} devices, host has {world()[1]}")
     return _build((1, n), axes, tuple(range(n)))
+
+
+def abstract_mesh(shape, axes) -> Mesh:
+    """A mesh of axis names and sizes alone, spanning no process: the
+    layout the sharding rules and the dry run read."""
+    return Mesh(tuple(axes), tuple(shape))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production layout: (16, 16) data x model, or
+    (2, 16, 16) pod x data x model (shape only: `abstract_mesh`)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else AXES
+    return abstract_mesh(shape, axes)
+
+
+def meta_rank(mesh: Mesh) -> Mesh:
+    """The first rank of `mesh` in the dry run: coordinate 0 on every
+    axis, tensors on `meta`, collectives logged (`Mesh.all_gather`)."""
+    return Mesh(mesh.axis_names, mesh.sizes, ranks=mesh.ranks,
+                rank=mesh.ranks[0], device=torch.device("meta"),
+                backend="meta", log=[])
 
 
 # ------------------------------------------------------------------ ranks

@@ -169,9 +169,10 @@ def make_ordered_loss_grads(lm, mesh, param_specs_tree=None,
     the sum is an all-gather and an ordered sum (`ordered_sum`): the same
     terms in the same order, so the k-rank step is bitwise the 1-rank
     step with `grad_slices=k`. `param_specs_tree` (name -> spec) gathers
-    sharded params in full first (FSDP). Raises unless k equals the
+    sharded params in full first (FSDP). `axis` may be a tuple of axes
+    (a dry-run rank's pod x data group). Raises unless k equals the
     axis size on more than one rank."""
-    dp = mesh.shape.get(axis, 1) if mesh is not None else 1
+    dp = mesh.axis_size(axis) if mesh is not None else 1
     k = grad_slices or max(dp, 1)
     if dp > 1 and k != dp:
         raise ValueError(
@@ -279,8 +280,11 @@ def make_sharded_geta_train_step(lm, qasso: QASSO, mesh, params, qparams, *,
     decisions and keeps its shard (the tests and the card check hold the
     masks with `collectives.assert_replicated`).
     The base optimizer's moments stay sharded with their params
-    (`_on_shards`: only the deltas cross). The reference's GSPMD step
-    (`deterministic=False`) and its microbatches are not ported."""
+    (`_on_shards`: only the deltas cross). The batch splits over the
+    data-parallel axes of `sharding.batch_spec` ("data", or ("pod",
+    "data") on a dry-run rank of a multi-pod mesh). The
+    reference's GSPMD step (`deterministic=False`) and its microbatches
+    are not ported."""
     if not deterministic or microbatches > 1:
         raise not_in_this_slice(
             "the all-reduce sharded step (deterministic=False, "
@@ -291,7 +295,8 @@ def make_sharded_geta_train_step(lm, qasso: QASSO, mesh, params, qparams, *,
     if any(s.spec for s in p_sh.values()):
         qasso.base = _on_shards(qasso.base, p_sh)
     batch_sh = shlib.NamedSharding(mesh, shlib.batch_spec(mesh))
-    lg = make_ordered_loss_grads(lm, mesh, grad_slices=grad_slices)
+    lg = make_ordered_loss_grads(lm, mesh, grad_slices=grad_slices,
+                                 axis=batch_sh.spec[0])
 
     def step(params, qparams, qstate, batch):
         # the moments stay this rank's (`_on_shards`); the rest of the
