@@ -241,10 +241,14 @@ Phases, each printing its own lines:
    32 x 32 images (`image_batch`, NHWC), and the BERT encoder at its
    defaults (4 layers, d_model 256, 4 heads, d_ff 1024, vocab 8192) on
    `qa_batch` at 16 x 64 (Table 3's harness), each through 6 GETA steps
-   (every stage) under torch.use_deterministic_algorithms. Checks: finite
-   losses, stages in order, every site's bits in [b_l, b_u_final],
-   exactly k_units pruned units, all zero, two runs of the first joint
-   step from one state bitwise equal, the fake-quant launches at
+   (every stage) of the paper runners' loop
+   (`launch.experiments.train_geta`, under
+   torch.use_deterministic_algorithms), its facts from `geta_facts`.
+   Checks: finite losses, stages in order, every site's bits in
+   [b_l, b_u_final], exactly k_units pruned units, all zero, a second
+   whole run from the same seed bitwise the first (params, quantizers,
+   the QASSO state with its partitions and masks, losses and stages),
+   the first run's fake-quant launches at
    `predicted_substrate_launches` (each weight and activation site once
    forward and once backward a step, each weight once more in a joint
    step) and no GEMM kernel (convolutions and products are plain
@@ -403,21 +407,22 @@ Phases, each printing its own lines:
    rank printed. The ranks' launch counts are zeroed before each drive
    and read after; every kernel of the path must have launched.
 16. The paper's experiment runners and the dry run
-   (`launch.experiments`, `launch.dryrun`). 16a: the runners at the JAX
+   (`launch.experiments`, `launch.dryrun`). 16a: the runners that phase
+   11 does not already drive through the same loop, at the JAX
    package's full specs, each cut to steps=12 (11 QASSO steps through
    every stage, against the reference's 120-240; the paper-scale
    accuracies are the CLI's, `python -m repro_torch.launch.experiments
-   --spec full`): `run_baseline_cnn` and `run_geta_cnn` on ResNet20
-   (weight quantizers) and on VGG7 (the GETA run with activation
-   quantizers), `run_geta_cnn` on ResNet56 at sparsity 0.4, and
-   `run_geta_bert` and `run_prune_then_ptq_bert` at `BertEncoder()`'s
-   defaults at sparsity 0.3. Checks: finite losses, the stages in order,
-   exactly k_units units pruned and their elements zero, bits within
-   [b_l, b_u_final] and rel_bops < 1 in every GETA run, the fake-quant
-   launches at `predicted_runner_launches` (phase 11's count plus the
-   evaluation's forward) and no GEMM kernel. Prints accuracy or exact
-   match, rel_bops, sparsity, mean bits, the median step wall and images
-   or tokens a second. 16b: the meta dry run against the card on
+   --spec full`): `run_baseline_cnn` on ResNet20 and on VGG7,
+   `run_geta_cnn` on ResNet56 at sparsity 0.4, and
+   `run_prune_then_ptq_bert` at `BertEncoder()`'s defaults at sparsity
+   0.3, each with its evaluation tail. Checks: finite losses, the
+   stages in order, exactly k_units units pruned and their elements
+   zero, bits within [b_l, b_u_final] and rel_bops < 1 in the GETA run,
+   the fake-quant launches at `predicted_runner_launches` (phase 11's
+   count plus the evaluation's forward) and no GEMM kernel. Prints
+   accuracy or exact match, rel_bops, sparsity, mean bits, the median
+   step wall and images or tokens a second. 16b: the meta dry run
+   against the card on
    internlm2-1.8b at phase 10's 4 of 24 layers (widths full, 1 x 1 mesh):
    one GETA joint-stage step at batch 4 x 512 and one eager decode step
    over phase 5's 4 slots and 576-row arena. The meta launch record by
@@ -426,9 +431,42 @@ Phases, each printing its own lines:
    wrappers' counts, tallied by shape), and the dry run's arg bytes the
    card tensors' bytes. Printed, not gated: the meta FLOPs over the
    card's measured wall (TFLOP/s and its share of 989e12) and the meta
-   peak estimate (args + temp) against `max_memory_allocated`. Prints
-   the phase's and the script's seconds.
-17. Two JSON lines: the kernel table, then the device line (last). A
+   peak estimate (args + temp) against `max_memory_allocated`. Phases
+   3-16 run with an empty GEMM tuning table (`REPRO_GEMM_TUNE_CACHE` is
+   unset for the script), which the script asserts after phase 16.
+17. Launch introspection, the plan tuner and the static checker
+   (`kernels.introspect`, `kernels.autotune`, `analysis`). 17a, in a
+   fresh process of the script (`--records-out`, so that its profiler
+   trace starts from a clean profiler state): the
+   launch records `introspect.record_launches()` makes of one eager
+   8-step decode window of phase 5's engine in int8 and of 16b's joint
+   step, both at phase 10's 4 of 24 layers: by key they must equal the
+   wrappers' launches (tallied as 16b tallies them), their kernels by
+   family (small-M GEMM, decode-attention split and combine; tensor-core
+   GEMM, fake-quant forward and backward) the device kernels of a
+   profiler trace of the same run, every record within Hopper's budget
+   (registers included: a CUDA record carries `numRegs`), and each
+   kernel's modelled shared bytes `sharedSizeBytes` plus the opted-in
+   dynamic bytes of the instantiation it names (`cudaFuncGetAttributes`
+   through each source's attribute function); prints each kernel's
+   numRegs and bytes. 17b: `autotune_gemm` on the tensor-core variant at
+   M = 3072, 6144->16384 in fake_quant_rhs (bm 128 or 256; each bm,
+   forced through the table, bitwise the untuned call) and on the
+   small-M variant at M = 4 on
+   2048->8192, 8192->2048 and the tp-4 tile 2048->256 in dequant (the
+   tuned call within 1e-4 of the plain version, a repeat bitwise,
+   unpack_dequant b8 on the same codes bitwise dequant, and a column half
+   called with plan_n = the full N bitwise the full call's columns); the
+   next call takes the winner (its record says so). Each shape is tuned
+   in two rounds; every candidate's median and [min, max] ms by round
+   and the winner are printed beside the card's name and power limit
+   (the tuner keeps the rule's plan unless the fastest beats it by more
+   than the spread: `autotune.choose`); the table persists to a file in a temporary directory, and
+   after `clear()` a fresh lookup reloads the same plans. 17b runs first,
+   alone on the host, since its times are host-sensitive. 17c: `python
+   -m repro_torch.analysis.verify --fail-on-new` on the host's CPU, run
+   beside 17a, must exit 0 with 0 new findings.
+18. Two JSON lines: the kernel table, then the device line (last). A
    serving kernel's `launches` are the host counts of phases 5-6 (a
    graph's calls once, at capture), a pruned-shape GEMM row's those of
    phase 8, a verify-height row's those of phase 9 (the captures of its
@@ -632,7 +670,8 @@ def _per_call(row) -> str:
     return "" if n is None else f" kernels/call {n}"
 
 
-def phase_device(torch) -> str:
+def phase_device(torch) -> tuple[str, str]:
+    """(torch's name of the card, nvidia-smi's "name, power limit")."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -642,7 +681,7 @@ def phase_device(torch) -> str:
     print(f"[1 device] nvidia-smi: {line} | torch: {kind}, "
           f"{torch.cuda.device_count()} device(s), torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
-    return kind
+    return kind, line
 
 
 def phase_build() -> None:
@@ -2813,17 +2852,19 @@ def substrates() -> list[dict]:
                                           device="cuda"))]
 
 
-def predicted_substrate_launches(qasso, stages, act_sites: int) -> dict:
-    """Fake-quant launches of a substrate's steps: every weight site and
-    every activation site its forward quantizes once forward and once
-    backward; a joint step also fake-quantizes each weight site's params
-    once (Alg 2 line 18). Convolutions and products are plain PyTorch: no
-    GEMM kernel."""
-    sites = len(qasso.weight_sites) + act_sites
-    joint = sum(s == 2 for s in stages) * sum(
-        len(s.quantized_params) for s in qasso.weight_sites)
-    return {"fake_quant.fwd": sites * len(stages) + joint,
-            "fake_quant.bwd": sites * len(stages)}
+def predicted_substrate_launches(facts: dict) -> dict:
+    """Fake-quant launches of a GETA run's steps, from its
+    `launch.experiments.geta_facts`: every weight site and every
+    activation site its forward quantizes once forward and once backward;
+    a joint step also fake-quantizes each weight site's params once (Alg 2
+    line 18). Convolutions and products are plain PyTorch: no GEMM
+    kernel."""
+    sites = facts["n_weight_sites"] + facts["n_act_sites"]
+    steps = len(facts["stages"])
+    joint = (sum(s == 2 for s in facts["stages"])
+             * facts["n_quantized_params"])
+    return {"fake_quant.fwd": sites * steps + joint,
+            "fake_quant.bwd": sites * steps}
 
 
 def _tally_fq_shapes(tally: dict):
@@ -2850,18 +2891,16 @@ def _tally_fq_shapes(tally: dict):
 
 
 def phase_substrates(torch) -> tuple[dict, list]:
-    """Phase 11 (see the module docstring). Returns, per model, the
-    fake-quant launch counts and, under "by_shape", those launches by
-    kernel and shape; and the failures."""
-    from repro_torch.checkpoint import clone_tree
+    """Phase 11 (see the module docstring): each model through the
+    runners' GETA loop (`launch.experiments.train_geta`), its facts from
+    `geta_facts`. Returns, per model, the fake-quant launch counts and,
+    under "by_shape", those launches by kernel and shape; and the
+    failures."""
     from repro_torch.core.bops import model_bops
-    from repro_torch.core.qadg import build_qadg
-    from repro_torch.core.qasso import QASSO, QASSOConfig
-    from repro_torch.core.quant import bit_width
+    from repro_torch.core.qasso import QASSOConfig
     from repro_torch.core.subnet import construct_subnet
     from repro_torch.kernels import ops
-    from repro_torch.launch import train as T
-    from repro_torch.optim.schedules import constant
+    from repro_torch.launch import experiments as E
     failures, out = [], {}
 
     def check(ok, what):
@@ -2874,71 +2913,57 @@ def phase_substrates(torch) -> tuple[dict, list]:
         for sub in substrates():
             m, name = sub["model"], sub["name"]
             torch.cuda.reset_peak_memory_stats()
-            params = m.init(torch.Generator(device="cuda").manual_seed(0))
-            qparams = m.init_qparams(params, bits_init=sub["bits"],
-                                     act_quant=sub["act_quant"])
-            qadg = build_qadg(m.build_graph(act_quant=sub["act_quant"])
-                              .graph)
-            qadg.space.validate(params)
-            qasso = QASSO(qadg.space, qadg.sites, QASSOConfig(**SUB_SCHED),
-                          constant(sub["lr"]))
-            state = qasso.init(params, qparams)
-            step = T.make_geta_train_step(m, qasso)
-            stages, losses, walls, snap, by_shape = [], [], [], None, {}
+            by_shape = {}
             ops.reset_launch_counts()
             restore = _tally_fq_shapes(by_shape)
-            for i in range(qasso.cfg.total_steps):
-                b = sub["batch"](i)
-                if qasso.stage_index(i) == 2 and snap is None:
-                    snap = (clone_tree(params), clone_tree(qparams),
-                            clone_tree(state), b)
-                t0 = time.perf_counter()
-                params, qparams, state, met = step(params, qparams, state, b)
-                losses.append(float(met["loss"]))         # syncs the device
-                walls.append(time.perf_counter() - t0)
-                stages.append(met["stage"])
-            restore()
+            try:
+                run = E.train_geta(m, sub["bits"], QASSOConfig(**SUB_SCHED),
+                                   sub["lr"], sub["batch"], "cuda",
+                                   act_quant=sub["act_quant"])
+            finally:
+                restore()
             counts = ops.launch_counts()
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            # two runs of the first joint step from one state
-            reps = [step(*clone_tree(snap[:3]), snap[3]) for _ in range(2)]
-            (p0, q0, s0, m0), (p1, q1, s1, m1) = reps
-            same = (_same_tree(torch, (p0, q0, s0.redundant, s0.keep_mask),
-                               (p1, q1, s1.redundant, s1.keep_mask))
-                    and torch.equal(m0["loss"], m1["loss"]))
-            del reps, snap
-            keep = state.keep_mask
-            n_pruned = sum(int(torch.sum(v < 0.5)) for v in keep.values())
-            elem_keep = qasso._keep_elem_tree(params, keep)
-            nonzero = sum(int(torch.count_nonzero(
-                p * (1.0 - elem_keep[k]).to(p.dtype)))
-                for k, p in params.items())
-            b_l, b_u = qasso.cfg.bit_lower, qasso.cfg.bit_upper_final
-            bits = [float(bit_width(q.d, q.q_m, q.t))
-                    for q in qparams.values()]
-            act = sum(s.kind == "act" for s in qadg.sites)
-            want = predicted_substrate_launches(qasso, stages, act)
+            facts = E.geta_facts(run)
+            qasso, stages, losses = run.qasso, facts["stages"], run.losses
+            # the whole run again from the same seed: every step, the
+            # partitions and the pruning included, must repeat bit for bit
+            again = E.train_geta(m, sub["bits"], QASSOConfig(**SUB_SCHED),
+                                 sub["lr"], sub["batch"], "cuda",
+                                 act_quant=sub["act_quant"])
+            same = (_same_tree(torch, (run.params, run.qparams, run.state),
+                               (again.params, again.qparams, again.state))
+                    and again.losses == losses and again.stages == stages)
+            del again
+            b_l, b_u = facts["bit_lower"], facts["bit_upper_final"]
+            act = facts["n_act_sites"]
+            want = predicted_substrate_launches(facts)
             got = {k: counts[k] for k in want}
             gemm = {k: v for k, v in counts.items()
                     if k.startswith("gemm_core") and v}
-            sn = construct_subnet(qadg, params, qparams, keep)
+            keep = run.state.keep_mask
+            sn = construct_subnet(run.qadg, run.params, run.qparams, keep)
             macs = (m.layer_macs(BERT_BATCH, BERT_SEQ) if name == "bert"
                     else m.layer_macs(batch=1))
-            bops = model_bops(qadg, params, qparams, macs, masks=keep)
+            bops = model_bops(run.qadg, run.params, run.qparams, macs,
+                              masks=keep)
+            walls = run.step_walls
             wall = statistics.median(walls)
             out[name] = dict(got, by_shape=by_shape)
-            print(f"[11 substrates] {name}: {len(qadg.sites)} sites ({act} "
-                  f"activation), {qasso.total_units} units, stages {stages} "
-                  f"{check(stages == SUB_STAGES, f'{name} stages')}, losses "
-                  f"{', '.join(f'{x:.4f}' for x in losses)} finite "
+            print(f"[11 substrates] {name}: {len(run.qadg.sites)} sites "
+                  f"({act} activation), {qasso.total_units} units, stages "
+                  f"{stages} {check(stages == SUB_STAGES, f'{name} stages')}"
+                  f", losses {', '.join(f'{x:.4f}' for x in losses)} finite "
                   f"{check(all(math.isfinite(x) for x in losses), f'{name} finite loss')}"
-                  f", pruned units {n_pruned} (k_units {qasso.k_units}) "
-                  f"{check(n_pruned == qasso.k_units, f'{name} sparsity')}, "
-                  f"nonzero pruned elements {nonzero} "
-                  f"{check(nonzero == 0, f'{name} pruned units zero')}, bits "
-                  f"[{min(bits):.3f}, {max(bits):.3f}] in [{b_l}, {b_u}] "
-                  f"{check(b_l - 1e-3 <= min(bits) and max(bits) <= b_u + 1e-3, f'{name} bits')}"
-                  f", two runs of a joint step from one state "
+                  f", pruned units {facts['pruned_units']} (k_units "
+                  f"{facts['k_units']}) "
+                  f"{check(facts['pruned_units'] == facts['k_units'], f'{name} sparsity')}"
+                  f", nonzero pruned elements {facts['nonzero_pruned']} "
+                  f"{check(facts['nonzero_pruned'] == 0, f'{name} pruned units zero')}"
+                  f", bits [{facts['bits_min']:.3f}, {facts['bits_max']:.3f}]"
+                  f" in [{b_l}, {b_u}] "
+                  f"{check(b_l - 1e-3 <= facts['bits_min'] and facts['bits_max'] <= b_u + 1e-3, f'{name} bits')}"
+                  f", two runs from one seed "
                   f"{'bitwise equal' if same else 'DIFFER'} "
                   f"{check(same, f'{name} step reproducible')}")
             tallied = {k: sum(v for key, v in by_shape.items()
@@ -2959,7 +2984,7 @@ def phase_substrates(torch) -> tuple[dict, list]:
                   f"({', '.join(f'{w:.4f}' for w in walls)}), "
                   f"{sub['per_step'] / wall:.1f} {sub['unit']}/s; peak "
                   f"memory {peak:.2f} GiB")
-            del params, qparams, state, step
+            del run
             torch.cuda.empty_cache()
     finally:
         torch.use_deterministic_algorithms(False)
@@ -5521,35 +5546,29 @@ DRY_BATCH, DRY_SEQ = TRAIN_BATCH, TRAIN_SEQ     # 16b's GETA step, 4 x 512
 
 
 def runners() -> list[tuple]:
-    """Phase 16a's runs (see the module docstring)."""
+    """Phase 16a's runs (see the module docstring): what phase 11 does not
+    already run through the same loop, `train_geta`: the baselines,
+    ResNet56's GETA run, the prune-then-PTQ runner, each with its
+    evaluation tail."""
     from repro_torch.launch import experiments as E
     from repro_torch.models import cnn
     img, tok = ("images", 64), ("tokens", 16 * 64)
     return [("resnet20 baseline", E.run_baseline_cnn, (cnn.RESNET20,), {},
              img),
-            ("resnet20 geta", E.run_geta_cnn, (cnn.RESNET20,),
-             dict(sparsity=0.35), img),
             ("vgg7 baseline", E.run_baseline_cnn, (cnn.VGG7,), {}, img),
-            ("vgg7 geta w+a", E.run_geta_cnn, (cnn.VGG7,),
-             dict(sparsity=0.5, act_quant=True), img),
             ("resnet56 geta sp40", E.run_geta_cnn, (cnn.RESNET56,),
              dict(sparsity=0.4), img),
-            ("bert geta sp30", E.run_geta_bert, (0.3,),
-             dict(encoder=E.BERT_FULL), tok),
             ("bert prune+ptq sp30", E.run_prune_then_ptq_bert, (0.3,),
              dict(encoder=E.BERT_FULL), tok)]
 
 
 def predicted_runner_launches(facts: dict) -> dict:
-    """Fake-quant launches of a GETA runner: every weight and activation
-    site once forward and once backward a step, each quantized param once
-    more in a joint step (`predicted_substrate_launches`), and the
-    evaluation tail's one forward (accuracy or exact match)."""
-    sites = facts["n_weight_sites"] + facts["n_act_sites"]
-    steps = len(facts["stages"])
-    joint = sum(s == 2 for s in facts["stages"]) * facts["n_quantized_params"]
-    return {"fake_quant.fwd": sites * (steps + 1) + joint,
-            "fake_quant.bwd": sites * steps}
+    """Fake-quant launches of a GETA runner: its steps'
+    (`predicted_substrate_launches`), and the evaluation tail's one
+    forward (accuracy or exact match) through every site."""
+    want = predicted_substrate_launches(facts)
+    want["fake_quant.fwd"] += facts["n_weight_sites"] + facts["n_act_sites"]
+    return want
 
 
 def _runners(torch, failures, info) -> None:
@@ -5637,26 +5656,18 @@ def _dry_vs_card(torch, failures, info) -> None:
         torch.cuda.empty_cache()
 
 
-def _dry_vs_card_one(torch, label, shape, check) -> dict:
-    """One 16b step: the meta dry run, then the same step on the card
-    (every card tensor of the step is freed on return)."""
-    import collections
+def _card_step(torch, cfg, shape):
+    """16b's step on the card at `cfg`: one GETA joint-stage step at
+    DRY_BATCH x DRY_SEQ on a 1-rank mesh (`shape.kind` "train"), or one
+    eager decode step over SLOTS slots of a DECODE_S-row arena; returns
+    (step, the tensors it takes)."""
     from repro_torch.configs import get_overrides
     from repro_torch.distributed import sharding as shlib
-    from repro_torch.kernels import gemm_core as gc
-    from repro_torch.kernels import meta as kmeta
-    from repro_torch.kernels import ops
     from repro_torch.launch import dryrun as DR
     from repro_torch.launch import mesh as meshlib
     from repro_torch.launch import train as T
     from repro_torch.models.transformer import LM
 
-    mesh = meshlib.abstract_mesh((1, 1), ("data", "model"))
-    t0 = time.perf_counter()
-    cell, cfg, _ = DR.build_cell(ARCH, shape, mesh, depth=RUN_LAYERS,
-                                 stages=("joint",))
-    dry = next(iter(DR.run(cell).values()))
-    dry_s = time.perf_counter() - t0
     lm = LM(cfg)
     params = lm.init(torch.Generator(device="cuda").manual_seed(0))
     qparams = lm.init_qparams(params, bits_init=8.0)
@@ -5678,32 +5689,33 @@ def _dry_vs_card_one(torch, label, shape, check) -> dict:
             0, cfg.vocab, (DRY_BATCH, DRY_SEQ), device="cuda",
             generator=torch.Generator(device="cuda").manual_seed(0))}
         args = (params, qparams, qstate, batch)
-        step = lambda: fn(params, qparams, qstate, batch)   # noqa: E731
-    else:
-        caches = lm.init_cache(SLOTS, DECODE_S, dtype=params[
-            "embed"].dtype, device="cuda")
-        token = torch.randint(0, cfg.vocab, (SLOTS, 1), device="cuda")
-        pos = torch.tensor(max(PROMPT_LENS[:SLOTS]) - 1, device="cuda")
-        args = (params, qparams, caches, token, pos)
-        step = lambda: lm.decode_step(params, qparams,   # noqa: E731
-                                      caches, token, pos)
-    step()                                   # warm: the first call
-    torch.cuda.synchronize()
+        return (lambda: fn(params, qparams, qstate, batch)), args
+    caches = lm.init_cache(SLOTS, DECODE_S, dtype=params["embed"].dtype,
+                           device="cuda")
+    token = torch.randint(0, cfg.vocab, (SLOTS, 1), device="cuda")
+    pos = torch.tensor(max(PROMPT_LENS[:SLOTS]) - 1, device="cuda")
+    args = (params, qparams, caches, token, pos)
+    return (lambda: lm.decode_step(params, qparams, caches, token, pos)
+            ), args
+
+
+def _card_launches(torch, fn):
+    """fn() once, with the kernel wrappers' launches tallied by the keys
+    of `kernels.meta.tally` ((variant, epilogue, K, N) for a GEMM, the
+    direction and input shape for fake-quant, (kernel, variant) for decode
+    attention): (fn's output, the tally)."""
+    import collections
+    from repro_torch.kernels import gemm_core as gc
+    from repro_torch.kernels import ops
     ops.reset_launch_counts()
     tally, by_shape = collections.Counter(), {}
     real_gemm = _gemm_shape_tally(gc, tally)
     restore = _tally_fq_shapes(by_shape)
-    torch.cuda.reset_peak_memory_stats()
     try:
-        t1 = time.perf_counter()
-        out = step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t1
+        out = fn()
     finally:
         gc.gemm = real_gemm
         restore()
-    peak = torch.cuda.max_memory_allocated()
-    del out
     card = collections.Counter(tally)
     for key, n in by_shape.items():
         kernel, shp = key.split()
@@ -5711,7 +5723,39 @@ def _dry_vs_card_one(torch, label, shape, check) -> dict:
               tuple(int(d) for d in shp.split("x")))] += n
     counts = ops.launch_counts()
     card[("decode_attn", "")] += counts["decode_attn"]
-    card = +card
+    for k, n in counts.items():
+        if k.startswith("paged_decode_attn."):
+            card[("paged_decode_attn", k.split(".")[1])] += n
+    return out, +card
+
+
+def _dry_vs_card_one(torch, label, shape, check) -> dict:
+    """One 16b step: the meta dry run, then the same step on the card
+    (every card tensor of the step is freed on return)."""
+    from repro_torch.kernels import meta as kmeta
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as meshlib
+
+    mesh = meshlib.abstract_mesh((1, 1), ("data", "model"))
+    t0 = time.perf_counter()
+    cell, cfg, _ = DR.build_cell(ARCH, shape, mesh, depth=RUN_LAYERS,
+                                 stages=("joint",))
+    dry = next(iter(DR.run(cell).values()))
+    dry_s = time.perf_counter() - t0
+    step, args = _card_step(torch, cfg, shape)
+    step()                                   # warm: the first call
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def timed():
+        t1 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t1
+
+    (out, wall), card = _card_launches(torch, timed)
+    peak = torch.cuda.max_memory_allocated()
+    del out
     record = kmeta.tally(dry["launches"])
     arg_dry, arg_card = cell.arg_bytes, _args_bytes(torch, args)
     est = arg_dry + dry["temp_bytes"]
@@ -5750,10 +5794,342 @@ def phase_experiments(torch) -> tuple[dict, list[str]]:
     return info, failures
 
 
+# ----------------------------------------------------------------- phase 17
+WINDOW_K = 8               # 17a's decode window: 8 steps over 4 slots
+# 17b's tuned GEMMs: the tensor-core variant at internvl2's prefill height
+# (2 x (1024 + 512) tokens, w_gate / w_up) in fake_quant_rhs, and the
+# small-M variant at M = 4 in dequant on internlm2-1.8b's w_gate, w_down
+# and its tp-4 wk / wv tile
+TUNE_TC = (3072, 6144, 16384)
+TUNE_SMALL_M = [(4, 2048, 8192), (4, 8192, 2048), (4, 2048, 256)]
+TUNE_REPEATS = {"tc": 5, "small_m": 20}
+TUNE_ROUNDS = 2            # each shape tuned twice: the spread across runs
+
+
+def _family(name: str) -> str:
+    """A device kernel's family: its name up to the template arguments."""
+    return name.split("<")[0].split("(")[0].strip()
+
+
+def _records_vs_card(torch, check, info) -> None:
+    """17a (see the module docstring)."""
+    import collections
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.subnet import prepare_serving
+    from repro_torch.kernels import introspect
+    from repro_torch.kernels import meta as kmeta
+    from repro_torch.launch.engine import Engine, synthetic_prompts
+    from repro_torch.models.transformer import LM
+
+    cfg = dataclasses.replace(get_arch(ARCH), n_layers=RUN_LAYERS)
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device="cuda").manual_seed(0))
+    served, qparams, _ = prepare_serving(lm, params, compressed=True)
+    del params
+    eng = Engine(lm, served, qparams, max_slots=SLOTS,
+                 max_seq=max(PROMPT_LENS) + GEN)
+    for p in synthetic_prompts(cfg, PROMPT_LENS[:SLOTS], seed=0):
+        eng.submit(p, GEN)
+    eng._admit()
+    eng._stage()
+    steps = {"decode window": lambda: eng._window_body(WINDOW_K)}
+    families = {"decode window": ("gemm_small_m", "flash_decode_split",
+                                  "flash_decode_combine"),
+                "joint step": ("gemm_tc", "fq_fwd", "fq_bwd")}
+    seen = {}
+    for label in families:
+        if label == "joint step":
+            del eng, served, qparams
+            torch.cuda.empty_cache()
+            steps[label] = _card_step(torch, cfg, ShapeConfig(
+                "dry_train", DRY_SEQ, DRY_BATCH, "train"))[0]
+        fn = steps[label]
+        fn()                                  # warm: the first call
+        torch.cuda.synchronize()
+        last = {}
+
+        def run():
+            with introspect.record_launches() as recs:
+                _, card = _card_launches(torch, fn)
+                torch.cuda.synchronize()
+            last.update(recs=list(recs), card=card)
+
+        traced = _traced_kernel_counts(torch, run, families[label])
+        recs, card = last["recs"], last["card"]
+        record = kmeta.tally(recs)
+        kern = collections.Counter(_family(k.name) for r in recs
+                                   for k in r.kernels)
+        fam_ok = all(traced[f] == kern[f] > 0 for f in families[label])
+        faults = [f for r in recs for f in introspect.launch_faults(r)]
+        print(f"[17a records] {ARCH} {RUN_LAYERS} of 24 layers, {label}: "
+              f"{len(recs)} records over {len(record)} keys equal the "
+              f"wrappers' launches by key "
+              f"{check(record == card, f'{label} records by key')}"
+              + ("" if record == card else
+                 f" (records only {dict(record - card)}, card only "
+                 f"{dict(card - record)})")
+              + f"; device kernels in the trace {traced} against the "
+              f"records' {dict(kern)} "
+              f"{check(fam_ok, f'{label} records against the trace')}; "
+              f"within Hopper's budget "
+              f"{check(not faults, f'{label} budget {faults[:3]}')}",
+              flush=True)
+        for r in recs:
+            for k in r.kernels:
+                seen.setdefault((k.name, k.query), (k, r.route))
+        steps[label] = None
+        torch.cuda.empty_cache()
+    rows = []
+    for (name, _), (k, route) in sorted(seen.items()):
+        a = introspect.card_attributes(k)
+        ok = (route == "cuda" and k.regs == a["regs"]
+              and k.smem == a["static"] + a["dynamic"]
+              and (k.smem_static, k.smem_dynamic) == (a["static"],
+                                                      a["dynamic"]))
+        rows.append(dict(kernel=name, grid=list(k.grid), threads=k.threads,
+                         cluster=k.cluster, regs=a["regs"],
+                         smem_static=a["static"], smem_dynamic=a["dynamic"],
+                         model_bytes=k.smem, ok=ok))
+        print(f"[17a records] {name}: numRegs {a['regs']}, shared bytes "
+              f"{k.smem} modelled = sharedSizeBytes {a['static']} + opted-in "
+              f"dynamic {a['dynamic']} "
+              f"{check(ok, f'{name} shared-memory model')}; grid "
+              f"{k.grid}, {k.threads} threads, cluster {k.cluster}")
+    info["kernels"] = rows
+
+
+def _tuner_on_card(torch, check, info, card) -> None:
+    """17b (see the module docstring)."""
+    import tempfile
+    from repro_torch.core.quant import (init_quant_params, pack_codes,
+                                        quantize_int)
+    from repro_torch.kernels import autotune, build, introspect
+    from repro_torch.kernels import gemm_core as gc
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    sm = build.sm_count(torch.device("cuda"))
+    tuned = []
+
+    def tuned_call(x, w, epi, **kw):
+        with introspect.record_launches() as recs:
+            y = gc.gemm(x, w, epi, out_dtype=torch.float32, **kw)
+        return y, recs[0]
+
+    def tune(x, w, epi, repeats, name):
+        """TUNE_ROUNDS rounds of `autotune_gemm`: the last round's winner
+        and medians, and each candidate's median and [min, max] by round
+        as text."""
+        rounds = []
+        for _ in range(TUNE_ROUNDS):
+            samples = {}
+            win, times = autotune.autotune_gemm(x, w, epi, repeats=repeats,
+                                                samples=samples)
+            rounds.append((win, samples))
+        text = "; ".join(
+            f"round {i + 1}: " + ", ".join(
+                f"{name(p)} {statistics.median(t):.5f} [{min(t):.5f}, "
+                f"{max(t):.5f}]" for p, t in smp.items())
+            + f" -> {name(w_)}" for i, (w_, smp) in enumerate(rounds))
+        spread = {name(p): [[statistics.median(t), min(t), max(t)]
+                            for _, smp in rounds for q, t in smp.items()
+                            if q == p] for p in rounds[-1][1]}
+        return win, times, text, spread, len({w_ for w_, _ in rounds}) == 1
+
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ[autotune.ENV_VAR] = os.path.join(tmp, "tune.json")
+        autotune.clear()
+        try:
+            M, K, N = TUNE_TC
+            w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
+            qp = init_quant_params(w, bits=8.0)
+            w = w.to(torch.bfloat16)
+            epi = gc.fake_quant_rhs(qp.d, qp.q_m, qp.t)
+            x = torch.randn((M, K), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            rule = gc.tc_block_m(M, N, sm)
+            before = gc.gemm(x, w, epi, out_dtype=torch.float32)
+            win, times, text, spread, agree = tune(
+                x, w, epi, TUNE_REPEATS["tc"], lambda p: f"bm={p[0]}")
+            y, rec = tuned_call(x, w, epi)
+            ops = autotune.ops_key(epi)
+            # every bm, forced through the table, against the rule's call
+            forced = {}
+            for bm in autotune.TC_HEIGHTS:
+                autotune.record(M, N, K, gc.TC, sm, (bm,), ops,
+                                persist=False)
+                yb, recb = tuned_call(x, w, epi)
+                forced[bm] = recb.plan == (bm,) and torch.equal(yb, before)
+                del yb
+            autotune.record(M, N, K, gc.TC, sm, win, ops)
+            print(f"[17b tuner] tc fake_quant_rhs M={M} K={K} N={N} on "
+                  f"{card}: median [min, max] ms of {TUNE_REPEATS['tc']} "
+                  f"by round: {text} (rounds agree: {agree}); winner "
+                  f"bm={win[0]} (the rule's bm={rule}); the next call takes "
+                  f"it {check(rec.tuned and rec.plan == win, 'tc tuned plan used')}"
+                  f"; each bm forced by the table bitwise the untuned call "
+                  f"{forced} "
+                  f"{check(all(forced.values()), 'tc every bm bitwise')}",
+                  flush=True)
+            tuned.append(dict(variant="tc", M=M, K=K, N=N,
+                              epilogue="fake_quant_rhs", rule=[rule],
+                              winner=list(win), rounds_agree=agree,
+                              ms={str(list(p)): t for p, t in times.items()},
+                              spread=spread,
+                              key=(M, N, K, "tc", sm, ops)))
+            del w, x, before, y
+            for M, K, N in TUNE_SMALL_M:
+                w = torch.randn((K, N), generator=gen, device="cuda") * 0.02
+                codes, d = quantize_int(w, init_quant_params(w, bits=8.0),
+                                        bits=8.0)
+                codes = codes.to(torch.int8)
+                scale = d * (1.0 + (torch.arange(N, device="cuda") % 7 == 0)
+                             * 0.5)
+                epi = gc.dequant(scale)
+                x = torch.randn((M, K), generator=gen, device="cuda").to(
+                    torch.bfloat16)
+                rule = gc.small_m_plan(M, N, K, sm)
+                win, times, text, spread, agree = tune(
+                    x, codes, epi, TUNE_REPEATS["small_m"],
+                    lambda p: f"{p[0]}x{p[1]}")
+                y, rec = tuned_call(x, codes, epi)
+                again, _ = tuned_call(x, codes, epi)
+                plain = gc.plain(x, codes, epi, torch.float32)
+                err = float((y - plain).abs().max())
+                tol = 1e-4 * float(plain.abs().max())
+                ok = bool(torch.allclose(y, plain, rtol=1e-4, atol=tol))
+                b8, rec8 = tuned_call(x, pack_codes(codes, 8, axis=0),
+                                      gc.unpack_dequant(8, scale))
+                half, rech = tuned_call(x, codes[:, :N // 2],
+                                        gc.dequant(scale[:N // 2]),
+                                        plan_n=N)
+                used = all(r.tuned and r.plan == (rule.strip, *win)
+                           for r in (rec, rec8, rech))
+                print(f"[17b tuner] small_m dequant M={M} K={K} N={N} on "
+                      f"{card}: cluster x k_slice median [min, max] ms of "
+                      f"{TUNE_REPEATS['small_m']} by round: {text} (rounds "
+                      f"agree: {agree}); winner {win[0]}x{win[1]} "
+                      f"(the rule's {rule.cluster}x{rule.k_slice}); the "
+                      f"next calls take it "
+                      f"{check(used, f'small_m {K}x{N} tuned plan used')}"
+                      f"; against the plain version max abs err {err:.3e}"
+                      f" (atol {tol:.3e}) "
+                      f"{check(ok, f'small_m {K}x{N} tuned vs plain')}"
+                      f", a repeat bitwise "
+                      f"{check(torch.equal(y, again), f'small_m {K}x{N} repeat')}"
+                      f", unpack_dequant b8 bitwise dequant "
+                      f"{check(torch.equal(b8, y), f'small_m {K}x{N} b8 == dequant')}"
+                      f", the column half at plan_n={N} bitwise the full "
+                      f"call's columns "
+                      f"{check(torch.equal(half, y[:, :N // 2]), f'small_m {K}x{N} column half')}",
+                      flush=True)
+                tuned.append(dict(variant="small_m", M=M, K=K, N=N,
+                                  epilogue="dequant",
+                                  rule=[rule.cluster, rule.k_slice],
+                                  winner=list(win), max_abs_err=err,
+                                  rounds_agree=agree, spread=spread,
+                                  ms={str(list(p)): t
+                                      for p, t in times.items()},
+                                  key=(M, N, K, "small_m", sm, "")))
+            table = autotune.load()
+            autotune.clear()
+            again = {tuple(t["key"]): autotune.lookup(*t["key"])
+                     for t in tuned}
+            same = all(again[tuple(t["key"])] == tuple(t["winner"])
+                       for t in tuned)
+            print(f"[17b tuner] the table persisted to a file of "
+                  f"{len(table)} plans; after clear() a fresh lookup "
+                  f"reloads the same plans "
+                  f"{check(same and len(table) == len(tuned), 'tuning table reloads')}",
+                  flush=True)
+        finally:
+            os.environ.pop(autotune.ENV_VAR, None)
+            autotune.clear()
+    info["tuned"] = [{k: v for k, v in t.items() if k != "key"}
+                     for t in tuned]
+
+
+def phase_introspect(torch, card: str) -> tuple[dict, list[str]]:
+    """Phase 17 (see the module docstring): the launch records against the
+    card, the tuner on the card, and the static checker (on the host's
+    CPU, beside the other two). Returns what it measured and the
+    failures."""
+    import tempfile
+    failures, info = [], {"17a": {}, "17b": {}}
+
+    def check(ok, what):
+        if not ok:
+            failures.append(f"17 {what}")
+        return "ok" if ok else "FAIL"
+
+    # the tuner times first, alone on the host: a process beside it slows
+    # the host's enqueue of each timed call
+    _tuner_on_card(torch, check, info["17b"], card)
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    analyzer = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.analysis.verify", "--fail-on-new"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        result = Path(tmp) / "17a.json"
+        # 17a in a fresh process: its profiler trace must not depend on
+        # the profiler state that phases 3-16 left in this one (a long
+        # run once traced no device event at all there)
+        records = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--records-out",
+             str(result)], cwd=ROOT)
+        try:
+            records.wait(timeout=600)
+            out, _ = analyzer.communicate(timeout=600)
+        finally:
+            for proc in (records, analyzer):
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        got = (json.loads(result.read_text())
+               if records.returncode == 0 and result.exists() else None)
+    if got is None:
+        failures.append(f"17 records: the 17a process exited "
+                        f"{records.returncode}")
+    else:
+        info["17a"] = got["info"]
+        failures += got["failures"]
+    last = out.strip().splitlines()[-2:]
+    print(f"[17c analyzer] python -m repro_torch.analysis.verify "
+          f"--fail-on-new on this host's CPU: exit {analyzer.returncode}, "
+          f"{' / '.join(last)} ({time.perf_counter() - t0:.1f} s, beside "
+          f"17a) "
+          f"{check(analyzer.returncode == 0 and ' 0 new' in out, 'analyzer')}",
+          flush=True)
+    info["17c"] = {"returncode": analyzer.returncode, "tail": last}
+    return info, failures
+
+
+def records_only(torch, path: str) -> int:
+    """Phase 17a alone (phase 17 runs the script so, in a fresh process):
+    writes {"info", "failures"} to `path` as JSON."""
+    failures, info = [], {}
+
+    def check(ok, what):
+        if not ok:
+            failures.append(f"17 {what}")
+        return "ok" if ok else "FAIL"
+
+    _records_vs_card(torch, check, info)
+    Path(path).write_text(json.dumps({"info": info, "failures": failures}))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
                     help="write the kernel rows and launch counts here")
+    ap.add_argument("--records-out", default=None,
+                    help="run only phase 17a and write its result here "
+                         "(phase 17 starts the script so)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -5767,7 +6143,12 @@ def main(argv=None) -> int:
     # library yardsticks must not round through TF32 (the kernels never do)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import autotune, ops
+    # phases 3-16 run every GEMM on its rule's plan: no tuning table
+    os.environ.pop(autotune.ENV_VAR, None)
+    autotune.clear()
+    if args.records_out:
+        return records_only(torch, args.records_out)
 
     t_phase = [time.perf_counter()]
     t_script = t_phase[0]
@@ -5777,7 +6158,7 @@ def main(argv=None) -> int:
         print(f"[{label}] phase seconds {now - t_phase[0]:.1f}")
         t_phase[0] = now
 
-    kind = phase_device(torch)
+    kind, card = phase_device(torch)
     phase_build()
     lap("2 build")
     timer = Timer(torch)
@@ -5853,6 +6234,15 @@ def main(argv=None) -> int:
     exp_info, exp_fail = phase_experiments(torch)
     failures += exp_fail
     lap("16 experiments and dry run")
+    table = autotune.load()
+    print(f"[16 experiments] the tuning table stayed empty through phases "
+          f"3-16: {'ok' if not table else f'FAIL ({table})'}")
+    if table:
+        failures.append(f"the tuning table held {table} in phases 3-16")
+    torch.cuda.empty_cache()
+    intro_info, intro_fail = phase_introspect(torch, card)
+    failures += intro_fail
+    lap("17 introspect, tuner and analyzer")
     print(f"[total] script seconds {time.perf_counter() - t_script:.1f}")
 
     if args.out:
@@ -5890,6 +6280,7 @@ def main(argv=None) -> int:
                                     for k, v in tp_tally.items()},
              "tp": tp_info,
              "experiments": exp_info,
+             "introspect": intro_info,
              "trace_takes": _TRACE_TAKES,
              "spec_engines": {f"{t}/{d}": {
                  k: v for k, v in st.items()

@@ -58,6 +58,10 @@ SIGNATURES = {
     "repro_fake_quant_fwd": (_P, _I, _P, _LL, _P, _P, _P, _P),
     "repro_fake_quant_bwd": (_P, _I, _P, _I, _P, _P, _P, _P, _LL, _P, _P,
                              _P, _P),
+    # each source's kernel attributes (`kernels.introspect`)
+    "repro_gemm_attributes": (_I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "repro_decode_attn_attributes": (_I, _I, _I, _I, _I, _I, _P),
+    "repro_fake_quant_attributes": (_I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

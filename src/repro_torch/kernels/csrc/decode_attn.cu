@@ -536,12 +536,31 @@ bool bad_plan(const Plan& p) {
          || (long long)(p.n_splits - 1) * p.R >= p.S;
 }
 
+// The split kernel's dynamic shared bytes: R rows of K and of V at a
+// 16-byte pitch, then the warps' P.V sums.
+int split_smem(int row_bytes, int R, int g, int dh) {
+  const int pitch = (row_bytes + 15) / 16 * 16;
+  return 2 * R * pitch + kWarps * g * dh * 4;
+}
+
+template <typename Kern>
+int func_attributes(Kern kern, int dynamic, int* out) {
+  cudaFuncAttributes a;
+  const int err = cudaFuncGetAttributes(&a, kern);
+  if (err != 0) return err;
+  out[0] = static_cast<int>(a.sharedSizeBytes);
+  out[1] = a.numRegs;
+  out[2] = a.maxThreadsPerBlock;
+  out[3] = dynamic;
+  return 0;
+}
+
 template <typename Rows, typename Src, int G>
 int launch(const Src& src, const Plan& p, int unit, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int row_bytes = Rows::row_bytes(p.dh);
   const int pitch = (row_bytes + 15) / 16 * 16;
-  const int smem = 2 * p.R * pitch + kWarps * p.g * p.dh * 4;
+  const int smem = split_smem(row_bytes, p.R, p.g, p.dh);
   // a block may hold more than 48 KB of shared memory, static and dynamic
   // together, only after opting in (g = 6, dh = 128: 44 KB dynamic beside
   // the kernel's ~6 KB of static arrays)
@@ -586,6 +605,19 @@ int launch(const Src& src, const Plan& p, int unit, void* stream) {
   if (p.g <= 2) return launch<Rows, Src, 2>(src, p, unit, stream);
   if (p.g <= 4) return launch<Rows, Src, 4>(src, p, unit, stream);
   return launch<Rows, Src, 8>(src, p, unit, stream);
+}
+
+// The split kernel `launch<Rows, Src>` picks for g, and its dynamic bytes
+template <typename Rows, typename Src>
+int split_attributes(int g, int dh, int R, int* out) {
+  const int smem = split_smem(Rows::row_bytes(dh), R, g, dh);
+  if (g <= 1)
+    return func_attributes(flash_decode_split<Rows, Src, 1>, smem, out);
+  if (g <= 2)
+    return func_attributes(flash_decode_split<Rows, Src, 2>, smem, out);
+  if (g <= 4)
+    return func_attributes(flash_decode_split<Rows, Src, 4>, smem, out);
+  return func_attributes(flash_decode_split<Rows, Src, 8>, smem, out);
 }
 
 }  // namespace
@@ -657,4 +689,33 @@ extern "C" int repro_paged_decode_attn(
     case 2: return launch<Int8Rows>(src, p, unit, stream);
     default: return launch<Int4Rows>(src, p, unit, stream);
   }
+}
+
+// The attributes of a kernel of the pair a call launches, read with
+// cudaFuncGetAttributes and without launching anything: the combine kernel
+// (combine = 1), or the split kernel of row format `kind` (as the paged
+// entry's; 0 and 1 only for the contiguous arena, paged = 0) for g query
+// heads, head width dh and R rows a split. out[0] sharedSizeBytes, out[1]
+// numRegs, out[2] maxThreadsPerBlock, out[3] the dynamic shared bytes the
+// launcher passes. `decode_attn.describe` builds these arguments.
+extern "C" int repro_decode_attn_attributes(int kind, int paged, int g,
+                                            int dh, int R, int combine,
+                                            int* out) {
+  if (combine) return func_attributes(flash_decode_combine, 0, out);
+  if (g < 1 || g > kGMax || dh < 4 || dh > kDhMax || R < 1 || R > kRMax)
+    return cudaErrorInvalidValue;
+  if (!paged) {
+    if (kind == 0)
+      return split_attributes<F32Rows, ContiguousSrc>(g, dh, R, out);
+    if (kind == 1)
+      return split_attributes<Bf16Rows, ContiguousSrc>(g, dh, R, out);
+    return cudaErrorInvalidValue;
+  }
+  switch (kind) {
+    case 0: return split_attributes<F32Rows, PagedSrc>(g, dh, R, out);
+    case 1: return split_attributes<Bf16Rows, PagedSrc>(g, dh, R, out);
+    case 2: return split_attributes<Int8Rows, PagedSrc>(g, dh, R, out);
+    case 3: return split_attributes<Int4Rows, PagedSrc>(g, dh, R, out);
+  }
+  return cudaErrorInvalidValue;
 }

@@ -400,6 +400,24 @@ fq_bwd(const T* __restrict__ x, const G* __restrict__ g, T* __restrict__ dx,
   }
 }
 
+template <typename Kern>
+cudaError_t func_attributes(Kern kern, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kern);
+  if (err != cudaSuccess) return err;
+  out[0] = static_cast<int>(a.sharedSizeBytes);
+  out[1] = a.numRegs;
+  out[2] = a.maxThreadsPerBlock;
+  out[3] = 0;               // neither kernel takes dynamic shared memory
+  return cudaSuccess;
+}
+
+template <typename T, typename G>
+cudaError_t bwd_attributes(int vec, int* out) {
+  return vec ? func_attributes(fq_bwd<T, G, true>, out)
+             : func_attributes(fq_bwd<T, G, false>, out);
+}
+
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -474,5 +492,29 @@ extern "C" int repro_fake_quant_bwd(const void* x, int x_dtype, const void* g,
   if (x_dtype == DT_BF16 && g_dtype == DT_BF16)
     return L(__nv_bfloat16, __nv_bfloat16);
 #undef L
+  return cudaErrorInvalidValue;
+}
+
+// The attributes of the kernel a call launches, read with
+// cudaFuncGetAttributes and without launching anything: fq_fwd<x_dtype>
+// (bwd = 0), or fq_bwd<x_dtype, g_dtype, vec> (vec: x, g and dx 16-byte
+// aligned). out[0] sharedSizeBytes, out[1] numRegs, out[2]
+// maxThreadsPerBlock, out[3] 0 (no dynamic shared memory).
+// `fake_quant.describe_fwd` / `describe_bwd` build these arguments.
+extern "C" int repro_fake_quant_attributes(int bwd, int x_dtype, int g_dtype,
+                                           int vec, int* out) {
+  if (!bwd) {
+    if (x_dtype == DT_F32) return func_attributes(fq_fwd<float>, out);
+    if (x_dtype == DT_BF16) return func_attributes(fq_fwd<__nv_bfloat16>, out);
+    return cudaErrorInvalidValue;
+  }
+  if (x_dtype == DT_F32 && g_dtype == DT_F32)
+    return bwd_attributes<float, float>(vec, out);
+  if (x_dtype == DT_F32 && g_dtype == DT_BF16)
+    return bwd_attributes<float, __nv_bfloat16>(vec, out);
+  if (x_dtype == DT_BF16 && g_dtype == DT_F32)
+    return bwd_attributes<__nv_bfloat16, float>(vec, out);
+  if (x_dtype == DT_BF16 && g_dtype == DT_BF16)
+    return bwd_attributes<__nv_bfloat16, __nv_bfloat16>(vec, out);
   return cudaErrorInvalidValue;
 }

@@ -1448,11 +1448,27 @@ template <> constexpr CUtensorMapDataType tma_dtype<int32_t>() {
   return CU_TENSOR_MAP_DATA_TYPE_INT32;
 }
 
+// A call with `attrs` set launches nothing: its launcher writes the
+// attributes of the instantiation it would launch (`repro_gemm_attributes`)
+// and the dynamic shared bytes it would opt into.
+template <typename Kern>
+cudaError_t func_attributes(Kern kern, int dynamic, int* attrs) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kern);
+  if (err != cudaSuccess) return err;
+  attrs[0] = static_cast<int>(a.sharedSizeBytes);
+  attrs[1] = a.numRegs;
+  attrs[2] = a.maxThreadsPerBlock;
+  attrs[3] = dynamic;
+  return cudaSuccess;
+}
+
 struct TcCall {
   const void* x; long long lda; bool a_mn;
   const void* w; long long ldb; bool b_mn;
   EpiArgs e; void* out; int out_bf16; int M, N, K, bm;
   cudaStream_t st;
+  int* attrs;
 };
 
 template <int KIND, typename WT, int BITS, int BM, bool A_MN, bool B_MN>
@@ -1463,6 +1479,7 @@ cudaError_t launch_tc(const TcCall& c) {
   // first CUDA call this is, such as autograd's worker, it fails without
   // one).
   auto kern = gemm_tc<KIND, WT, BITS, BM, A_MN, B_MN>;
+  if (c.attrs) return func_attributes(kern, Tr::kSmem, c.attrs);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Tr::kSmem);
   if (err != cudaSuccess) return err;
@@ -1558,6 +1575,7 @@ struct GemmCall {
   const void* x; int x_bf16; long long lda; const void* w; long long ldw;
   EpiArgs e; void* out; int out_bf16; int M, N, K, cluster, k_slice;
   cudaStream_t st;
+  int* attrs;
 };
 
 template <int EPI, typename WT, int BITS, int MT>
@@ -1565,6 +1583,7 @@ cudaError_t launch_small_m(const GemmCall& c) {
   auto kern = gemm_small_m<EPI, WT, BITS, MT>;
   const int win = c.k_slice < SM_WINDOW ? c.k_slice : SM_WINDOW;
   const int smem = sm_smem_bytes<MT>(win);     // above 48 KB: opt in
+  if (c.attrs) return func_attributes(kern, smem, c.attrs);
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -1591,6 +1610,7 @@ cudaError_t launch(const GemmCall& c) {
   if (c.M <= 4) return launch_small_m<EPI, WT, BITS, 4>(c);
   if (c.M <= SM_MMAX) return launch_small_m<EPI, WT, BITS, 8>(c);
   if (c.x_bf16) return cudaErrorInvalidValue;
+  if (c.attrs) return func_attributes(gemm_general<EPI, WT, BITS>, 0, c.attrs);
   dim3 grid((c.N + GM_BN - 1) / GM_BN, (c.M + GM_BM - 1) / GM_BM);
   gemm_general<EPI, WT, BITS><<<grid, GM_THREADS, 0, c.st>>>(
       static_cast<const float*>(c.x), c.lda, c.w, c.ldw, c.e, c.out,
@@ -1639,15 +1659,17 @@ cudaError_t gm_share(int epi, int w_dtype, int bits, const GemmCall& c) {
 #define REPRO_TC_PASS                                                       \
   x, lda, x_transposed, w, w_dtype, ldb, w_transposed, epi, bits, scale,    \
       scale_stride, fq_d, fq_qm, fq_t, out, out_dtype, M, N, K, bm, stream
+// a share also takes the attribute query's output (null: launch)
+#define REPRO_TC_SHARE_ARGS REPRO_TC_ARGS, int *attrs
 
 // One share of the tensor-core kernels (`tc_share`), in its build part;
 // repro_gemm_tc calls the share a call takes.
 #define REPRO_TC_SHARE(S)                                                   \
-  extern "C" int repro_gemm_tc_share##S(REPRO_TC_ARGS) {                    \
+  extern "C" int repro_gemm_tc_share##S(REPRO_TC_SHARE_ARGS) {              \
     const TcCall c{x, lda, x_transposed != 0, w, ldb, w_transposed == 0,    \
                    EpiArgs{scale, scale_stride, fq_d, fq_qm, fq_t}, out,    \
                    out_dtype == DT_BF16, M, N, K, bm,                       \
-                   static_cast<cudaStream_t>(stream)};                      \
+                   static_cast<cudaStream_t>(stream), attrs};               \
     return tc_share<S>(epi, w_dtype, bits, c);                              \
   }
 #if REPRO_PART(1)
@@ -1667,12 +1689,12 @@ REPRO_TC_SHARE(3)
       long long ldw, int epi, int bits, const float *scale,                 \
       int scale_stride, const float *fq_d, const float *fq_qm,              \
       const float *fq_t, void *out, int out_dtype, int M, int N, int K,     \
-      int cluster, int k_slice, void *stream
+      int cluster, int k_slice, void *stream, int *attrs
 #define REPRO_GEMM_CALL                                                     \
   GemmCall{x, x_dtype == DT_BF16, lda, w, ldw,                              \
            EpiArgs{scale, scale_stride, fq_d, fq_qm, fq_t}, out,            \
            out_dtype == DT_BF16, M, N, K, cluster, k_slice,                 \
-           static_cast<cudaStream_t>(stream)}
+           static_cast<cudaStream_t>(stream), attrs}
 #if REPRO_PART(4)
 extern "C" int repro_gemm_share4(REPRO_GEMM_ARGS) {
   return gm_share<4>(epi, w_dtype, bits, REPRO_GEMM_CALL);
@@ -1687,9 +1709,9 @@ extern "C" int repro_gemm_share5(REPRO_GEMM_ARGS) {
 #if REPRO_PART(0)
 extern "C" int repro_gemm_share4(REPRO_GEMM_ARGS);
 extern "C" int repro_gemm_share5(REPRO_GEMM_ARGS);
-extern "C" int repro_gemm_tc_share1(REPRO_TC_ARGS);
-extern "C" int repro_gemm_tc_share2(REPRO_TC_ARGS);
-extern "C" int repro_gemm_tc_share3(REPRO_TC_ARGS);
+extern "C" int repro_gemm_tc_share1(REPRO_TC_SHARE_ARGS);
+extern "C" int repro_gemm_tc_share2(REPRO_TC_SHARE_ARGS);
+extern "C" int repro_gemm_tc_share3(REPRO_TC_SHARE_ARGS);
 
 // Returns the cudaError_t of the launch (0 on success). Pointers are device
 // pointers; x is (M, K) with rows lda elements apart (f32 or bf16; f32 only
@@ -1708,6 +1730,7 @@ extern "C" int repro_gemm(const void* x, int x_dtype, long long lda,
                           const float* fq_qm, const float* fq_t, void* out,
                           int out_dtype, int M, int N, int K, int cluster,
                           int k_slice, void* stream) {
+  int* const attrs = nullptr;
   const bool dt_ok = (x_dtype == DT_F32 || x_dtype == DT_BF16) &&
                      (out_dtype == DT_F32 || out_dtype == DT_BF16);
   const bool plan_ok =
@@ -1726,11 +1749,13 @@ extern "C" int repro_gemm(const void* x, int x_dtype, long long lda,
   if (epi == EPI_DEQUANT || epi == EPI_UNPACK)
     return repro_gemm_share4(x, x_dtype, lda, w, w_dtype, ldw, epi, bits,
                              scale, scale_stride, fq_d, fq_qm, fq_t, out,
-                             out_dtype, M, N, K, cluster, k_slice, stream);
+                             out_dtype, M, N, K, cluster, k_slice, stream,
+                             attrs);
   if (w_dtype == DT_F32)
     return repro_gemm_share5(x, x_dtype, lda, w, w_dtype, ldw, epi, bits,
                              scale, scale_stride, fq_d, fq_qm, fq_t, out,
-                             out_dtype, M, N, K, cluster, k_slice, stream);
+                             out_dtype, M, N, K, cluster, k_slice, stream,
+                             attrs);
   return gm_share<0>(epi, w_dtype, bits, REPRO_GEMM_CALL);
 }
 
@@ -1749,10 +1774,49 @@ extern "C" int repro_gemm_tc(REPRO_TC_ARGS) {
   if (out_dtype != DT_F32 && out_dtype != DT_BF16)
     return cudaErrorInvalidValue;
   switch (tc_share_of(epi, w_dtype)) {
-    case 1: return repro_gemm_tc_share1(REPRO_TC_PASS);
-    case 2: return repro_gemm_tc_share2(REPRO_TC_PASS);
-    case 3: return repro_gemm_tc_share3(REPRO_TC_PASS);
+    case 1: return repro_gemm_tc_share1(REPRO_TC_PASS, nullptr);
+    case 2: return repro_gemm_tc_share2(REPRO_TC_PASS, nullptr);
+    case 3: return repro_gemm_tc_share3(REPRO_TC_PASS, nullptr);
   }
   return cudaErrorInvalidValue;
+}
+
+// The attributes of the kernel a call with these arguments launches, read
+// with cudaFuncGetAttributes and without launching anything: out[0] its
+// static shared bytes (sharedSizeBytes), out[1] numRegs, out[2]
+// maxThreadsPerBlock, out[3] the dynamic shared bytes its launcher passes
+// (and opts into past 48 KB). The variant follows M and x_dtype as a launch
+// does: small-M (M <= 8; its accumulator rows by M, its window by k_slice),
+// else tensor-core for bf16 x (bm, x_transposed, w_transposed), else SIMT.
+// `gemm_core.kernel_of` builds these arguments from its launch record.
+extern "C" int repro_gemm_attributes(int x_dtype, int w_dtype, int epi,
+                                     int bits, int M, int k_slice, int bm,
+                                     int x_transposed, int w_transposed,
+                                     int* out) {
+  if (M > SM_MMAX && x_dtype == DT_BF16) {
+#define Q(S)                                                                \
+  repro_gemm_tc_share##S(nullptr, 0, x_transposed, nullptr, w_dtype, 0,     \
+                         w_transposed, epi, bits, nullptr, 0, nullptr,      \
+                         nullptr, nullptr, nullptr, DT_F32, M, 1, 1, bm,    \
+                         nullptr, out)
+    switch (tc_share_of(epi, w_dtype)) {
+      case 1: return Q(1);
+      case 2: return Q(2);
+      case 3: return Q(3);
+    }
+#undef Q
+    return cudaErrorInvalidValue;
+  }
+#define Q(S)                                                                \
+  repro_gemm_share##S(nullptr, x_dtype, 0, nullptr, w_dtype, 0, epi, bits,  \
+                      nullptr, 0, nullptr, nullptr, nullptr, nullptr,       \
+                      DT_F32, M, 1, 1, 1, k_slice, nullptr, out)
+  if (epi == EPI_DEQUANT || epi == EPI_UNPACK) return Q(4);
+  if (w_dtype == DT_F32) return Q(5);
+#undef Q
+  return gm_share<0>(epi, w_dtype, bits,
+                     GemmCall{nullptr, x_dtype == DT_BF16, 0, nullptr, 0,
+                              EpiArgs{}, nullptr, 0, M, 1, 1, 1, k_slice,
+                              nullptr, out});
 }
 #endif

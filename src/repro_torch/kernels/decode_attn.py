@@ -10,7 +10,8 @@ combine pass), or raises if the library did not build or the launch
 failed; a meta tensor records the launch and computes nothing
 (`kernels.meta`: every arena row counts, since meta holds no positions).
 Both wrappers take their split plan from `plan_splits`, sized from the
-arena length the host knows, never from `pos`.
+arena length the host knows, never from `pos`; `describe` records the
+pair of kernels a call launches (`kernels.introspect`) on every route.
 
 `decode_attn.launches` counts calls that launched the kernel pair (one
 per layer per decode step), and `paged_decode_attn.launches` counts them
@@ -23,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, meta, ref
+from repro_torch.kernels import build, introspect, meta, ref
 
 G_MAX = 8       # query heads per KV head the kernel takes
 DH_MAX = 128    # head width the kernel takes (a multiple of 4)
@@ -45,6 +46,41 @@ def plan_splits(S: int, rows_per_split: int = ROWS_PER_SPLIT
         raise ValueError(f"plan_splits: S={S}, rows_per_split={R} (the "
                          f"kernel takes 1..{R_MAX})")
     return -(-int(S) // R), R
+
+
+# the split kernel's row formats (csrc `F32Rows` ... `Int4Rows`) by page
+# storage: the `kind` of the launcher and of the attribute query
+_ROWS = {"f32": ("F32Rows", 0), "bf16": ("Bf16Rows", 1),
+         "int8": ("Int8Rows", 2), "int4": ("Int4Rows", 3)}
+
+
+def _row_bytes(kind: str, dh: int) -> int:
+    return {"f32": 4 * dh, "bf16": 2 * dh, "int8": dh, "int4": dh // 2}[kind]
+
+
+def describe(name: str, kind: str, B: int, S: int, KVh: int, g: int,
+             dh: int, R: int, n_splits: int, nbytes: int, flops_: int,
+             route: str) -> meta.Launch:
+    """The launch record of a `decode_attn` (`name`, rows `kind` f32 or
+    bf16) or `paged_decode_attn` call (page storage `kind`): the split
+    kernel over (n_splits, KVh, B) blocks of 128 threads, its template's
+    query heads G (g rounded up to 1, 2, 4 or 8), and the combine over
+    (KVh, B) blocks of g * dh threads rounded up to a warp."""
+    paged = int(name == "paged_decode_attn")
+    rows, code = _ROWS[kind]
+    G = next(G for G in (1, 2, 4, 8) if g <= G)
+    src = "PagedSrc" if paged else "ContiguousSrc"
+    split = meta.Kernel(
+        f"flash_decode_split<{rows}, {src}, {G}>",
+        (code, paged, g, dh, R, 0), (n_splits, KVh, B), 128, 1,
+        introspect.decode_split_static(bool(paged), code >= 2),
+        introspect.decode_split_smem(_row_bytes(kind, dh), g, dh, R))
+    combine = meta.Kernel(
+        "flash_decode_combine", (code, paged, g, dh, R, 1), (KVh, B, 1),
+        -(-g * dh // 32) * 32, 1, introspect.DECODE_COMBINE_SMEM, 0)
+    return meta.launch(name, kind if paged else "", "", (B, S, KVh, g, dh),
+                       nbytes, flops_, plan=(n_splits, R),
+                       kernels=(split, combine), route=route)
 
 
 def _kernel_inputs(name, q, pos, B, g, dh):
@@ -88,12 +124,19 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"decode_attn: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     n_splits, R = plan_splits(S, rows_per_split)
-    if q.device.type == "cpu":
-        return ref.decode_attn_ref(q, k, v, pos)
-    if q.device.type == "meta":
+    route = q.device.type
+
+    def launch():
         full = torch.full((B,), S - 1, dtype=torch.int64)
-        meta.record("decode_attn", "", "", (B, S, KVh, g, dh),
-                    bytes_moved(q, k, full), flops(q, k, full))
+        return describe("decode_attn", _DENSE.get(k.dtype, "f32"), B, S,
+                        KVh, g, dh, R, n_splits, bytes_moved(q, k, full),
+                        flops(q, k, full), route)
+
+    if route == "meta" or (route == "cpu" and introspect.recording()):
+        introspect.note(launch())
+    if route == "cpu":
+        return ref.decode_attn_ref(q, k, v, pos)
+    if route == "meta":
         return torch.empty((B, KVh, g, dh), dtype=torch.float32,
                            device="meta")
     if q.device.type != "cuda" or not (k.device == v.device == q.device):
@@ -105,6 +148,8 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("decode_attn: the kernel takes unit-stride rows")
     q, pos = _kernel_inputs("decode_attn", q, pos, B, g, dh)
     out, part = _workspace(B, KVh, g, dh, n_splits, q.device)
+    if introspect.recording():
+        introspect.note(introspect.on_card(launch()))
     lib = build.load()
     err = lib.repro_decode_attn(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
@@ -202,16 +247,23 @@ def paged_decode_attn(q: torch.Tensor, kpool: torch.Tensor,
         raise ValueError(f"paged_decode_attn: kv_bits={kv_bits} needs "
                          f"scales of shape {shape[:3]}")
     n_splits, R = plan_splits(seq_len, rows_per_split)
-    if q.device.type == "cpu":
+    route = q.device.type
+
+    def launch():
+        full = torch.full((B,), seq_len - 1, dtype=torch.int64)
+        kind = f"int{kv_bits}" if kv_bits else _DENSE.get(kpool.dtype, "f32")
+        return describe(
+            "paged_decode_attn", kind, B, seq_len, KVh, g, dh, R, n_splits,
+            paged_bytes_moved(q, kpool, full, P, seq_len, kv_bits),
+            paged_flops(q, full, seq_len), route)
+
+    if route == "meta" or (route == "cpu" and introspect.recording()):
+        introspect.note(launch())
+    if route == "cpu":
         return ref.paged_decode_attn_ref(
             q, kpool, vpool, pos, page_table, page_size=P, seq_len=seq_len,
             kv_bits=kv_bits, k_scale=k_scale, v_scale=v_scale)
-    if q.device.type == "meta":
-        full = torch.full((B,), seq_len - 1, dtype=torch.int64)
-        kind = f"int{kv_bits}" if kv_bits else _DENSE.get(kpool.dtype, "")
-        meta.record("paged_decode_attn", kind, "", (B, seq_len, KVh, g, dh),
-                    paged_bytes_moved(q, kpool, full, P, seq_len, kv_bits),
-                    paged_flops(q, full, seq_len))
+    if route == "meta":
         return torch.empty((B, KVh, g, dh), dtype=torch.float32,
                            device="meta")
     tensors = (kpool, vpool, page_table, *scales)
@@ -236,6 +288,8 @@ def paged_decode_attn(q: torch.Tensor, kpool: torch.Tensor,
     out, part = _workspace(B, KVh, g, dh, n_splits, q.device)
     ks, vs = (k_scale.data_ptr(), v_scale.data_ptr()) if scales else (None,
                                                                        None)
+    if introspect.recording():
+        introspect.note(introspect.on_card(launch()))
     lib = build.load()
     err = lib.repro_paged_decode_attn(
         q.data_ptr(), int(q.dtype == torch.bfloat16), kpool.data_ptr(),

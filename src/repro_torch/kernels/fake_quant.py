@@ -15,17 +15,20 @@ so the sums are the same bits run to run. The fold order depends on the
 element count only (`bwd_rows`), never on the card.
 
 `launches` counts wrapper calls that launched a kernel, by direction.
-Only the CUDA path adds to it.
+Only the CUDA path adds to it. `describe_fwd` / `describe_bwd` record a
+call's launch (`kernels.introspect`) on every route.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, meta, ref
+from repro_torch.kernels import build, introspect, meta, ref
 
 FWD, BWD = "fwd", "bwd"
 BWD_CHUNK = 8192          # elements per backward block (csrc kChunk)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_TYPE = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16"}
+THREADS, UNROLL = 256, 2  # threads a block; slots in flight per thread
 
 launches = {FWD: 0, BWD: 0}
 _tickets: dict = {}       # (device index, stream) -> int32 counter at 0
@@ -67,18 +70,52 @@ def _ticket(dev: torch.device, stream: int) -> torch.Tensor:
     return _tickets[key]
 
 
+def describe_fwd(x: torch.Tensor, route: str) -> meta.Launch:
+    """The forward's launch: the elements before x's first 16-byte boundary
+    (`head`, by x's address: 0 on meta) go one a thread, the rest in
+    16-byte slots, UNROLL a thread; plan (blocks, head)."""
+    n, es = x.numel(), x.element_size()
+    head = min(n, (16 - x.data_ptr() % 16) % 16 // es)
+    slots = (n - head) // (16 // es)
+    blocks = max(1, -(-slots // (THREADS * UNROLL)))
+    code = _DTYPE_CODE.get(x.dtype, 0)
+    kernel = meta.Kernel(f"fq_fwd<{_TYPE.get(x.dtype)}>", (0, code, code, 1),
+                         (blocks, 1, 1), THREADS, 1, 0, 0)
+    return meta.launch("fake_quant.fwd", "", "", x.shape, fwd_bytes(x), 0,
+                       plan=(blocks, head), kernels=(kernel,), route=route)
+
+
+def describe_bwd(x: torch.Tensor, g: torch.Tensor, route: str
+                 ) -> meta.Launch:
+    """The backward's launch: `bwd_rows(n)` blocks; slots by vector loads
+    (`VEC`) when x and g start on 16-byte boundaries (dx is a fresh
+    allocation); plan (blocks,)."""
+    rows = bwd_rows(x.numel())
+    vec = int(x.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0)
+    kernel = meta.Kernel(
+        f"fq_bwd<{_TYPE.get(x.dtype)}, {_TYPE.get(g.dtype)}, {vec}>",
+        (1, _DTYPE_CODE.get(x.dtype, 0), _DTYPE_CODE.get(g.dtype, 0), vec),
+        (rows, 1, 1), THREADS, 1, introspect.FQ_BWD_SMEM, 0)
+    return meta.launch("fake_quant.bwd", "", "", x.shape, bwd_bytes(x, g), 0,
+                       plan=(rows,), kernels=(kernel,), route=route)
+
+
 def fake_quant_fwd(x: torch.Tensor, d, q_m, t) -> torch.Tensor:
     """y = d * round(clip^t(|x|) / d) * sgn(x) in x's dtype; any shape."""
     if x.device.type == "cpu":
+        if introspect.recording():
+            introspect.note(describe_fwd(x, "cpu"))
         return ref.fake_quant_fwd_ref(x, d, q_m, t)
     if x.device.type == "meta":
-        meta.record("fake_quant.fwd", "", "", x.shape, fwd_bytes(x), 0)
+        introspect.note(describe_fwd(x, "meta"))
         return torch.empty_like(x, memory_format=torch.contiguous_format)
     _check_cuda("fake_quant_fwd", x)
     dev = x.device
     x = x.contiguous()
     y = empty_coaligned(x)
     d, q_m, t = (build.device_scalar(v, dev) for v in (d, q_m, t))
+    if introspect.recording():
+        introspect.note(introspect.on_card(describe_fwd(x, "cuda")))
     err = build.load().repro_fake_quant_fwd(
         x.data_ptr(), _DTYPE_CODE[x.dtype], y.data_ptr(), x.numel(),
         d.data_ptr(), q_m.data_ptr(), t.data_ptr(),
@@ -95,9 +132,11 @@ def fake_quant_bwd(x: torch.Tensor, d, q_m, t, g: torch.Tensor):
         raise ValueError(f"fake_quant_bwd: x {tuple(x.shape)} vs g "
                          f"{tuple(g.shape)}")
     if x.device.type == "cpu":
+        if introspect.recording():
+            introspect.note(describe_bwd(x, g, "cpu"))
         return ref.fake_quant_bwd_ref(x, d, q_m, t, g)
     if x.device.type == "meta":
-        meta.record("fake_quant.bwd", "", "", x.shape, bwd_bytes(x, g), 0)
+        introspect.note(describe_bwd(x, g, "meta"))
         s = torch.empty((), dtype=torch.float32, device="meta")
         return (torch.empty_like(x, memory_format=torch.contiguous_format),
                 s, s.clone(), s.clone())
@@ -110,6 +149,8 @@ def fake_quant_bwd(x: torch.Tensor, d, q_m, t, g: torch.Tensor):
     sums = torch.empty((3,), dtype=torch.float32, device=dev)
     d, q_m, t = (build.device_scalar(v, dev) for v in (d, q_m, t))
     stream = torch.cuda.current_stream(dev).cuda_stream
+    if introspect.recording():
+        introspect.note(introspect.on_card(describe_bwd(x, g, "cuda")))
     err = build.load().repro_fake_quant_bwd(
         x.data_ptr(), _DTYPE_CODE[x.dtype], g.data_ptr(),
         _DTYPE_CODE[g.dtype], dx.data_ptr(), rows.data_ptr(),

@@ -43,6 +43,12 @@ multiples (w_down's input x at K = 5734), for the others a weight whose
 rows are not a multiple of 4 columns apart (their 4-column loads); they
 read a row-major x at any row stride.
 
+The plan of a call (the small-M split, the tensor-core block height) is
+the tuning table's where `kernels.autotune` holds one for the call's key,
+else the rule's (`small_m_plan`, `tc_block_m`): `plan` resolves it on
+the CUDA and meta routes. `describe` builds the call's launch record
+(`kernels.introspect`) from the same functions on every route.
+
 `gemm.launches` counts kernel launches: the GEMM kernel per epilogue name
 and per variant (every call is one launch), and under "copies" the
 operand copies the wrapper made before a launch. Only the CUDA path adds
@@ -56,7 +62,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.quant import codes_per_word
-from repro_torch.kernels import build, meta, ref
+from repro_torch.kernels import autotune, build, introspect, meta, ref
 
 FAKE_QUANT, DEQUANT, UNPACK = "fake_quant_rhs", "dequant", "unpack_dequant"
 NONE, COL_MASK, FQ_MASK = "none", "col_mask", "fq_col_mask"
@@ -73,9 +79,12 @@ SMALL_M_MAX = 8      # rows the kernel's small-M (decode) variant takes
 # The small-M variant's constants (csrc/gemm_core.cu, SM_*): columns per
 # strip, K-groups per block, K rows of x a block stages at once, and the
 # portable thread-block-cluster size
-_SMALL_M_BN, _SMALL_M_GROUPS, _SMALL_M_WINDOW = 128, 32, 2048
+_SMALL_M_BN, SMALL_M_GROUPS, SMALL_M_WINDOW = 128, 32, 2048
 SMALL_M_CLUSTER_MAX = 8
 _TC_BN = 128         # columns per block of the tensor-core variant
+# threads a block of each variant, and the SIMT variant's block tile
+SMALL_M_THREADS, _TC_THREADS, _GM_THREADS = 256, 4 * 128 + 32, 256
+_GM_BM = _GM_BN = 128
 _ROW_ALIGN = 16      # bytes: TMA's row stride, the kernels' chunk
 
 
@@ -155,14 +164,14 @@ class SmallMPlan:
         rows, as the kernel shares them out: within each window of up to
         2048 rows of its slice, K-group g of 32 sums rows [lo, hi), rg =
         window / 32 of them from g * rg on, in ascending order."""
-        win = min(self.k_slice, _SMALL_M_WINDOW)
-        rg = win // _SMALL_M_GROUPS
+        win = min(self.k_slice, SMALL_M_WINDOW)
+        rg = win // SMALL_M_GROUPS
         for rank in range(self.cluster):
             kb = rank * self.k_slice
             ke = min(K, kb + self.k_slice)
             for wb in range(kb, ke, win):
                 we = min(ke, wb + win)
-                for g in range(_SMALL_M_GROUPS):
+                for g in range(SMALL_M_GROUPS):
                     lo = min(we, wb + g * rg)
                     hi = min(we, lo + rg)
                     if lo < hi:
@@ -181,14 +190,14 @@ def small_m_plan(M: int, N: int, K: int, sm_count: int) -> SmallMPlan:
         raise ValueError(f"small_m_plan: M={M}, N={N}, K={K}")
     strips = -(-N // _SMALL_M_BN)
     fill = max(sm_count, strips)
-    for rows in range(8, _SMALL_M_WINDOW // _SMALL_M_GROUPS + 1, 8):
-        k_slice = _SMALL_M_GROUPS * rows
+    for rows in range(8, SMALL_M_WINDOW // SMALL_M_GROUPS + 1, 8):
+        k_slice = SMALL_M_GROUPS * rows
         cluster = -(-K // k_slice)
         if cluster <= SMALL_M_CLUSTER_MAX and strips * cluster <= fill:
             return SmallMPlan(_SMALL_M_BN, cluster, k_slice)
     want = max(1, min(SMALL_M_CLUSTER_MAX, sm_count // strips,
-                      -(-K // _SMALL_M_WINDOW)))
-    k_slice = -(-K // (want * _SMALL_M_WINDOW)) * _SMALL_M_WINDOW
+                      -(-K // SMALL_M_WINDOW)))
+    k_slice = -(-K // (want * SMALL_M_WINDOW)) * SMALL_M_WINDOW
     return SmallMPlan(_SMALL_M_BN, -(-K // k_slice), k_slice)
 
 
@@ -206,6 +215,117 @@ def tc_block_m(M: int, N: int, sm_count: int) -> int:
     128 rows spread them over more SMs. The sums do not depend on it."""
     waves = lambda bm: -(-(-(-M // bm) * -(-N // _TC_BN)) // sm_count)
     return 256 if waves(256) < waves(128) else 128
+
+
+def plan_of(kind: str, plan: tuple):
+    """A tuning-table plan as the variant takes it: a `SmallMPlan` from
+    (cluster, k_slice), bm from (bm,), None for SIMT."""
+    if kind == SMALL_M:
+        return SmallMPlan(_SMALL_M_BN, *plan)
+    return plan[0] if kind == TC else None
+
+
+def plan(kind: str, M: int, N: int, K: int, epi: Epilogue, sm_count: int,
+         plan_n: Optional[int] = None):
+    """(the plan a call launches, whether the tuning table gave it): the
+    table's plan for the call's key (`kernels.autotune`), else the rule's,
+    `small_m_plan` (planned for `plan_n` columns where given) or
+    `tc_block_m`; (None, False) for the SIMT variant."""
+    if kind == SIMT:
+        return None, False
+    n = plan_n or N if kind == SMALL_M else N
+    if autotune.active():
+        ops = autotune.ops_key(epi) if kind == TC else ""
+        hit = autotune.lookup(M, n, K, kind, sm_count, ops)
+        if hit is not None:
+            return plan_of(kind, hit), True
+    return (small_m_plan(M, n, K, sm_count) if kind == SMALL_M
+            else tc_block_m(M, N, sm_count)), False
+
+
+def _tc_kind(epi: Epilogue, w_dtype: torch.dtype) -> int:
+    """How the tensor-core variant takes the weight tile (csrc `TcKind`)."""
+    if epi.name == UNPACK:
+        return introspect.TC_UNPACK
+    if epi.name in (FAKE_QUANT, FQ_MASK):
+        return introspect.TC_FQ
+    if epi.name in (NONE, COL_MASK) and w_dtype == torch.bfloat16:
+        return introspect.TC_DIRECT
+    return introspect.TC_VALUE
+
+
+_DTYPE_NAME = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16",
+               torch.int8: "int8_t", torch.int16: "int16_t",
+               torch.int32: "int32_t"}
+
+
+def kernel_of(kind: str, M: int, N: int, K: int, epi: Epilogue,
+              w_dtype: torch.dtype, plan_, x_transposed: bool = False,
+              w_transposed: bool = False,
+              x_dtype: torch.dtype = torch.bfloat16) -> meta.Kernel:
+    """The kernel a call of `kind` launches under `plan_` (`plan`): its
+    instantiation, grid, block, cluster and shared memory, as
+    `csrc/gemm_core.cu`'s launchers set them."""
+    epi_code, wt = _EPI_CODE[epi.name], _DTYPE_NAME[w_dtype]
+    x_code = _DTYPE_CODE[torch.float32 if kind == SIMT else x_dtype]
+    bits = epi.bits
+    if kind == SMALL_M:
+        mt = introspect.small_m_rows(M)
+        return meta.Kernel(
+            f"gemm_small_m<{epi_code}, {wt}, {bits}, {mt}>",
+            (x_code, _DTYPE_CODE[w_dtype], epi_code, bits, M, plan_.k_slice,
+             0, 0, 0), (plan_.cluster, -(-N // _SMALL_M_BN), 1),
+            SMALL_M_THREADS, plan_.cluster, 0,
+            introspect.small_m_smem(M, plan_.k_slice))
+    if kind == TC:
+        tk = _tc_kind(epi, w_dtype)
+        a_mn, b_mn = int(x_transposed), int(not w_transposed)
+        return meta.Kernel(
+            f"gemm_tc<{tk}, {wt}, {bits}, {plan_}, {a_mn}, {b_mn}>",
+            (x_code, _DTYPE_CODE[w_dtype], epi_code, bits, M, 0, plan_,
+             int(x_transposed), int(w_transposed)),
+            (-(-N // _TC_BN), -(-M // plan_), 1), _TC_THREADS, 1, 0,
+            introspect.tc_smem(tk, w_dtype.itemsize, bits, plan_))
+    return meta.Kernel(
+        f"gemm_general<{epi_code}, {wt}, {bits}>",
+        (x_code, _DTYPE_CODE[w_dtype], epi_code, bits, M, 0, 0, 0, 0),
+        (-(-N // _GM_BN), -(-M // _GM_BM), 1), _GM_THREADS, 1,
+        introspect.SIMT_SMEM, 0)
+
+
+def describe(x: torch.Tensor, w: torch.Tensor, epi: Epilogue,
+             out_dtype: torch.dtype, plan_n: Optional[int] = None,
+             resolved: Optional[tuple] = None) -> meta.Launch:
+    """The launch record of `gemm(x, w, epi)`: the kernel, variant,
+    epilogue, (M, K, N), bytes and operations, and the plan and kernel
+    the CUDA route launches (x and w as that route reads them: in place
+    where it can, else row-major copies; `operands`). `resolved` is the
+    `plan` result the launch itself takes, where the caller has it; else
+    it is resolved here, with the card's SM count for a CUDA tensor and
+    the H100's otherwise."""
+    M, K = x.shape
+    N = w.shape[1]
+    kind = variant(M, x.dtype)
+    if resolved is None:
+        sm = (build.sm_count(x.device) if x.is_cuda else introspect.H100_SMS)
+        resolved = plan(kind, M, N, K, epi, sm, plan_n)
+    plan_, tuned = resolved
+    tc = kind == TC
+    x_t = (_in_place(x, tc, _ROW_ALIGN if tc else x.element_size())
+           or (None, 0, False))[2]
+    w_align = _ROW_ALIGN if tc else min(_ROW_ALIGN, 4 * w.element_size())
+    w_t = (_in_place(w, tc, w_align) or (None, 0, False))[2]
+    if kind == SMALL_M:
+        plan_ints = (plan_.strip, plan_.cluster, plan_.k_slice)
+    else:
+        plan_ints = () if plan_ is None else (plan_,)
+    return meta.launch(
+        "gemm_core", kind, epi.name, (M, K, N),
+        bytes_moved(M, N, K, x.element_size(), w, out_dtype.itemsize, epi),
+        flops(M, N, K), plan=plan_ints,
+        kernels=(kernel_of(kind, M, N, K, epi, w.dtype, plan_, x_t, w_t,
+                           x.dtype),),
+        tuned=tuned, route=x.device.type)
 
 
 def padded_ld(cols: int, itemsize: int) -> int:
@@ -300,12 +420,11 @@ def gemm(x: torch.Tensor, w: torch.Tensor, epi: Epilogue, *,
                          f"match w {tuple(w.shape)} (k_pack {epi.k_pack})")
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
+        if introspect.recording():
+            introspect.note(describe(x, w, epi, out_dtype, plan_n))
         return plain(x, w, epi, out_dtype)
     if x.device.type == "meta" and w.device.type == "meta":
-        kind = variant(M, x.dtype)
-        meta.record("gemm_core", kind, epi.name, (M, K, N),
-                    bytes_moved(M, N, K, x.element_size(), w,
-                                out_dtype.itemsize, epi), flops(M, N, K))
+        introspect.note(describe(x, w, epi, out_dtype, plan_n))
         return torch.empty((M, N), dtype=out_dtype, device="meta")
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(f"gemm: x on {x.device}, w on {w.device}; the "
@@ -331,21 +450,24 @@ def gemm(x: torch.Tensor, w: torch.Tensor, epi: Epilogue, *,
                              f"values for N={N} columns")
         scale_stride = int(scale.numel() == N)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    resolved = plan(kind, M, N, K, epi, build.sm_count(dev), plan_n)
+    if introspect.recording():
+        introspect.note(introspect.on_card(
+            describe(x, w, epi, out_dtype, plan_n, resolved)))
     lib = build.load()
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    plan_ = resolved[0]
     if kind == TC:
         err = lib.repro_gemm_tc(
             x.data_ptr(), lda, int(x_t), w.data_ptr(), _DTYPE_CODE[w.dtype],
             ldb, int(w_t), _EPI_CODE[epi.name], epi.bits, ptr(scale),
             scale_stride, *map(ptr, fq), out.data_ptr(),
-            _DTYPE_CODE[out_dtype], M, N, K,
-            tc_block_m(M, N, build.sm_count(dev)), stream)
+            _DTYPE_CODE[out_dtype], M, N, K, plan_, stream)
     else:
         cluster = k_slice = 0            # the SIMT variant splits nothing
         if kind == SMALL_M:
-            plan = small_m_plan(M, plan_n or N, K, build.sm_count(dev))
-            cluster, k_slice = plan.cluster, plan.k_slice
+            cluster, k_slice = plan_.cluster, plan_.k_slice
         err = lib.repro_gemm(
             x.data_ptr(), _DTYPE_CODE[x.dtype], lda, w.data_ptr(),
             _DTYPE_CODE[w.dtype], ldb, _EPI_CODE[epi.name], epi.bits,

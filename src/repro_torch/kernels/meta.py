@@ -14,11 +14,42 @@ wrappers' own launch counts are the card's and stay untouched.
 Where the card's work depends on values a meta tensor does not hold
 (decode attention's valid rows), the record counts the most the call can
 need: every row of the arena.
+
+A `Launch` also carries the launch itself (`kernels.introspect`): the
+resolved plan and, for each CUDA kernel of the call, a `Kernel` with its
+grid, threads a block, cluster size and shared memory. The wrappers build
+it on every route with the functions the CUDA route launches from, so the
+meta route's record and `introspect.record_launches()`'s are the launch.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class Kernel:
+    """One CUDA kernel of a wrapper call. `name` is the kernel's template
+    instantiation as the source writes it; `query` the arguments of its
+    source's attribute function (`introspect.card_attributes`), which
+    names the same instantiation. `smem_static`: the block's static
+    shared arrays; `smem_dynamic`: the dynamic bytes the launcher passes
+    (and opts into past 48 KB). `regs`: `numRegs` from the card, on the
+    CUDA route only (None elsewhere: registers are not modelled)."""
+    name: str
+    query: tuple
+    grid: tuple
+    threads: int
+    cluster: int
+    smem_static: int
+    smem_dynamic: int
+    regs: Optional[int] = None
+
+    @property
+    def smem(self) -> int:
+        """Shared-memory bytes a block: static plus dynamic."""
+        return self.smem_static + self.smem_dynamic
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +64,13 @@ class Launch:
     shape: tuple
     nbytes: int
     flops: int
+    # the resolved plan: (strip, cluster, k_slice) small-M, (bm,)
+    # tensor-core, () SIMT; (n_splits, R) decode attention; (blocks, head)
+    # and (rows,) fake-quant forward and backward
+    plan: tuple = ()
+    kernels: tuple = ()          # Kernel, in launch order
+    tuned: bool = False          # the plan came from `kernels.autotune`
+    route: str = "meta"          # the device type of the call
 
     @property
     def key(self) -> tuple:
@@ -50,10 +88,12 @@ class Launch:
 LOG: list[Launch] = []
 
 
-def record(kernel: str, variant: str, epilogue: str, shape, nbytes: int,
-           flops: int) -> None:
-    LOG.append(Launch(kernel, variant, epilogue,
-                      tuple(int(s) for s in shape), int(nbytes), int(flops)))
+def launch(kernel: str, variant: str, epilogue: str, shape, nbytes: int,
+           flops: int, **fields) -> Launch:
+    """A `Launch` with its counts as ints (`fields`: plan, kernels, tuned,
+    route)."""
+    return Launch(kernel, variant, epilogue, tuple(int(s) for s in shape),
+                  int(nbytes), int(flops), **fields)
 
 
 def take() -> list[Launch]:

@@ -86,6 +86,7 @@ raise when no CUDA device is there; nothing falls back silently.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import time
 from collections import Counter, deque
@@ -452,9 +453,7 @@ class Engine:
         """Prefill the prompt into `row`, a (1, S) cache whose rows are
         zero, in place; returns the first generated token."""
         t0 = time.time()
-        logits, _ = self.lm.prefill(self._run_params, self._run_qparams, row,
-                                    self._tokens(prompt),
-                                    last_logit_only=True)
+        logits = self._prefill_logits(row, self._tokens(prompt))
         first = int(torch.argmax(logits[:, -1], dim=-1)[0])
         self.stats["prefill_s"] += time.time() - t0
         self.stats["prefills"] += 1
@@ -466,12 +465,16 @@ class Engine:
         of the draft's widths), in place. Its time and tokens are draft
         work, counted apart from the target's prefill rate."""
         t0 = time.time()
-        self.draft.lm.prefill(self._draft_params, self._draft_qparams, row,
-                              self._tokens(prompt), last_logit_only=True)
+        self._draft_prefill_rows(row, self._tokens(prompt))
         _sync(self.device)
         self.stats["draft_prefill_s"] += time.time() - t0
         self.stats["draft_prefills"] += 1
         self.stats["draft_prefill_tokens"] += int(prompt.size)
+
+    def _draft_prefill_rows(self, row: dict, tokens: torch.Tensor) -> None:
+        """The draft's one-shot prefill of `tokens` into `row` in place."""
+        self.draft.lm.prefill(self._draft_params, self._draft_qparams, row,
+                              tokens, last_logit_only=True)
 
     def _admit(self) -> int:
         """Prefill queued requests into free slots. Returns #admitted."""
@@ -512,6 +515,14 @@ class Engine:
                                 req.prompt)
         return self._occupy(req, slot, first)
 
+    def _prefill_logits(self, row: dict, tokens: torch.Tensor
+                        ) -> torch.Tensor:
+        """The target's one-shot prefill of `tokens` into `row` in place
+        (`_prefill`'s device work); its last logits."""
+        logits, _ = self.lm.prefill(self._run_params, self._run_qparams, row,
+                                    tokens, last_logit_only=True)
+        return logits
+
     def _occupy(self, req: Request, slot: int, first: int) -> bool:
         """Record the admitted request's first token and seat it in the
         slot, unless that token finished it."""
@@ -546,11 +557,15 @@ class Engine:
         dirty = self.alloc.take_dirty()
         if not dirty:
             return
-        ids = torch.as_tensor(dirty, dtype=torch.int64, device=self.device)
+        self._zero_pages(dirty)
+        self.alloc.mark_zeroed(dirty)
+
+    def _zero_pages(self, ids: list[int]) -> None:
+        """Zero pages `ids` in every arena's page leaves, in place."""
+        ids = torch.as_tensor(ids, dtype=torch.int64, device=self.device)
         for arena in self._arenas():
             for c in self._page_leaves(arena):
                 c[:, ids] = 0
-        self.alloc.mark_zeroed(dirty)
 
     def _copy_page(self, src: int, dst: int) -> None:
         for arena in self._arenas():
@@ -784,12 +799,18 @@ class Engine:
         """Copy a staged row into the slot's contiguous arena row, prefill
         the draft one-shot when one is attached (its sliced shapes make it
         the cheap half), and seat the request."""
-        for key, c in self.caches.items():
-            c[:, slot:slot + 1].copy_(row[key])
+        self._insert_row(self.caches, row, slot)
         if self.draft is not None:
             self._prefill_draft(self._slot_row(self.dcaches, slot),
                                 req.prompt)
         self._occupy(req, slot, first)
+
+    @staticmethod
+    def _insert_row(caches: dict, row: dict, slot: int) -> None:
+        """Copy a staged one-slot row into the slot's contiguous arena row,
+        in place."""
+        for key, c in caches.items():
+            c[:, slot:slot + 1].copy_(row[key])
 
     # -------------------------------------------------------------- decode
     def _static_buffers(self) -> None:
@@ -1035,6 +1056,132 @@ class Engine:
             if req.done:
                 self._finish(req)
         return True
+
+    # ---------------------------------------------------------- analysis
+    def _with(self, state: dict) -> "Engine":
+        """A shallow copy of the engine that reads the tensors of `state`
+        (params, qparams, dparams, dqparams, caches, dcaches, static) in
+        place of its own, on their device; the host state (page table,
+        allocator, slots) is shared and only read."""
+        eng = copy.copy(self)
+        for key, attr in (("params", "_run_params"),
+                          ("qparams", "_run_qparams"),
+                          ("dparams", "_draft_params"),
+                          ("dqparams", "_draft_qparams"),
+                          ("caches", "caches"), ("dcaches", "dcaches"),
+                          ("static", "_static")):
+            if key in state:
+                setattr(eng, attr, state[key])
+        eng.device = state["static"]["tok"].device
+        return eng
+
+    def entry_points(self) -> list[dict]:
+        """Every dispatch `run()` can reach for this engine's mode, for the
+        static checker (`repro_torch.analysis`): the counterpart of the
+        reference's jitted entries. Each is a dict: `name`; `fn`, a
+        function of one `state` dict; `args`, `(state,)` with example
+        tensors at the engine's real shapes; `writes`, the state keys of
+        the arenas and rows the dispatch writes in place, each with
+        ("target" or "draft", "arena" or "row"). The example state holds
+        the engine's params and quantizers (read only), zeroed scratch
+        copies of its arenas and static buffers, and fresh rows, so
+        running an entry never touches live slot state. A speculative
+        engine's rounds are `spec_k<k>` for k in `_spec_ks()`, a plain
+        engine's captured windows `decode_window_k<k>` for k in
+        `warmed_window_ks()` (a chunked engine's: the one-step window),
+        and `decode` the eager step. The names follow the reference's
+        `Engine.entry_points` (`paged` adds `_paged`)."""
+        S = min(8, self.max_seq)
+        zeros = lambda tree: {k: torch.zeros_like(c) for k, c in tree.items()}
+        base = {"params": self._run_params, "qparams": self._run_qparams,
+                "static": zeros(self._static)}
+        if self.draft is not None:
+            base.update(dparams=self._draft_params,
+                        dqparams=self._draft_qparams)
+        tokens = torch.zeros((1, S), dtype=torch.int64, device=self.device)
+        suffix = "_paged" if self.paged else ""
+        T, D = ("target", "arena"), ("draft", "arena")
+        eps: list[dict] = []
+
+        def add(name, fn, writes, **extra):
+            state = dict(base, **extra)
+            eps.append(dict(name=name, fn=fn, args=(state,), writes=writes))
+
+        def arenas():
+            out = {"caches": zeros(self.caches)}
+            if self.draft is not None:
+                out["dcaches"] = zeros(self.dcaches)
+            return out
+
+        def row(lm=None):
+            return {"row": self._fresh_row(lm)}
+
+        if self._chunk:
+            for c in chunk_buckets(self._chunk):
+                add(f"prefill_chunk_c{c}", lambda st: self.lm.verify_chunk(
+                    st["params"], st["qparams"], st["row"], st["tokens"],
+                    torch.zeros((1,), dtype=torch.int64,
+                                device=st["tokens"].device),
+                    last_logit_only=True)[0],
+                    {"row": ("target", "row")}, **row(),
+                    tokens=torch.zeros((1, c), dtype=torch.int64,
+                                       device=self.device))
+        if self.paged or self._chunk:
+            # a prefill into a fresh row, which admission then inserts
+            if not self._chunk:
+                add("prefill", lambda st: self._with(st)._prefill_logits(
+                    st["row"], st["tokens"]), {"row": ("target", "row")},
+                    **row(), tokens=tokens)
+            if self.paged:
+                npp = paging.pages_for_rows(S, self.page_size)
+                pages = list(range(paging.N_RESERVED,
+                                   paging.N_RESERVED + npp))
+                add("insert_pages", lambda st: self._with(st)._insert_pages(
+                    st["caches"], st["row"], pages, 0), {"caches": T},
+                    **arenas(), **row())
+                writes = {"caches": T, **({"dcaches": D} if self.draft
+                                          is not None else {})}
+                add("zero_pages", lambda st: self._with(st)._zero_pages(
+                    pages), writes, **arenas())
+                add("copy_page", lambda st: self._with(st)._copy_page(
+                    pages[0], pages[-1]), writes, **arenas())
+            else:
+                add("insert", lambda st: self._insert_row(
+                    st["caches"], st["row"], 0), {"caches": T}, **arenas(),
+                    **row())
+        else:
+            # contiguous one-shot admission: the slot's arena row zeroed
+            # and the prompt prefilled into it in place
+            add("prefill", lambda st: self._with(st)._prefill_logits(
+                self._slot_row(st["caches"], 0), st["tokens"]),
+                {"caches": T}, **arenas(), tokens=tokens)
+        if self.draft is not None:
+            if self.paged:
+                add("prefill_draft", lambda st: self._with(
+                    st)._draft_prefill_rows(st["row"], st["tokens"]),
+                    {"row": ("draft", "row")}, **row(self.draft.lm),
+                    tokens=tokens)
+                add("insert_pages_d", lambda st: self._with(
+                    st)._insert_pages(st["dcaches"], st["row"], pages, 0),
+                    {"dcaches": D}, **arenas(), **row(self.draft.lm))
+            else:
+                add("prefill_draft", lambda st: self._with(
+                    st)._draft_prefill_rows(
+                        self._slot_row(st["dcaches"], 0), st["tokens"]),
+                    {"dcaches": D}, **arenas(), tokens=tokens)
+            for k in self._spec_ks():
+                add(f"spec{suffix}_k{k}", lambda st, k=k: self._with(
+                    st)._spec_body(k, st["caches"], st["dcaches"]),
+                    {"caches": T, "dcaches": D}, **arenas())
+            return eps
+        add(f"decode{suffix}", lambda st: self._with(st)._decode(
+            st["static"]["tok"], st["static"]["pos"],
+            self._with(st)._pages()), {"caches": T}, **arenas())
+        for k in self._graph_ks():
+            add(f"decode_window{suffix}_k{k}",
+                lambda st, k=k: self._with(st)._window_body(k),
+                {"caches": T}, **arenas())
+        return eps
 
     # -------------------------------------------------------------- warmup
     def warmed_window_ks(self) -> list[int]:

@@ -109,6 +109,15 @@ the full ring); musicgen's smoke `serve_loop` frames, internvl2's vision
 prefill + decode tokens and the window-8 engine's tokens past the wrap
 (graph windows and eager `step()`) on the card equal to the CPU run's
 (f32, one CPU-drawn model).
+Launch introspection and the tuner (`test_introspect_*`,
+`test_autotune_*`): for every kernel instantiation chip_smoke.py's
+phases 5 and 7 launch, the launch record's shared bytes equal the card's
+`sharedSizeBytes` plus the dynamic bytes its launcher opts into, its
+`numRegs` the card's, within Hopper's budget; `autotune_gemm`'s winner is
+the next call's plan, a tuned tensor-core call bitwise the untuned one, a
+tuned small-M call within the GEMM's bound of the plain version, bitwise
+on a repeat, bitwise unpack_dequant b8 on the same codes and bitwise a
+column half called with plan_n = N; the table reloads from its file.
 Every profiler trace opens with 64 int16 fill kernels that no count
 includes (`_traced_kernels`): a trace now and then loses the session's
 first kernels.
@@ -2320,3 +2329,116 @@ def test_tp2_ordered_grads_step_bitwise_one_rank(card_ranks):
                 for fam in want[3][key]:
                     np.testing.assert_array_equal(got[3][key][fam],
                                                   want[3][key][fam])
+
+
+# ------------------------------------------- launch introspection, tuner
+def _introspect_calls(cuda):
+    """One call of every kernel instantiation chip_smoke.py's phases 5
+    (serving, 4 slots: the small-M GEMM in each weight mode, the
+    tensor-core GEMM at prefill heights, contiguous decode attention) and
+    7 (training: the tensor-core GEMM in every training epilogue and
+    layout, the fake-quant kernels) launch, at full-width shapes."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    bf = torch.bfloat16
+    rn = lambda *s: torch.randn(s, generator=gen, device=cuda)  # noqa: E731
+    mask = (torch.rand(8192, generator=gen, device=cuda) > 0.3).float()
+    for epilogue in ("fake_quant_rhs", "dequant", "unpack_b4"):
+        w, epi = _weights(epilogue, 2048, 8192, gen)
+        for M in (4, 64, 512):              # decode; prefill bm 128, 256
+            TG.gemm(rn(M, 2048).to(bf), w, epi)
+    qp = init_quant_params(rn(2048, 8192), bits=8.0)
+    fq = (qp.d, qp.q_m, qp.t)
+    w = (rn(2048, 8192) * 0.02).to(bf)
+    x, g = rn(2048, 2048).to(bf), rn(2048, 8192).to(bf)
+    for epi in (TG.fake_quant_rhs(*fq), TG.fq_col_mask(*fq, mask),
+                TG.col_mask(mask), TG.none()):
+        TG.gemm(x, w, epi)                              # the forward
+    TG.gemm(g, w.T, TG.fake_quant_rhs(*fq), out_dtype=bf)   # dx
+    TG.gemm(x.T, g, TG.none(), out_dtype=bf)                 # dwq
+    TFQ.fake_quant_fwd(w, *fq)
+    TFQ.fake_quant_bwd(w, *fq, w)
+    q = rn(4, 8, 2, 128).to(bf)
+    kv = rn(4, 576, 8, 128).to(bf)
+    TDA.decode_attn(q, kv, kv, torch.tensor([575, 0, 300, 63], device=cuda))
+
+
+def test_introspect_smem_model_equals_the_cards_attributes(cuda):
+    """For every instantiation phases 5 and 7 launch, the record's shared
+    bytes are the card's sharedSizeBytes plus the dynamic bytes its
+    launcher opts into, its numRegs the card's, and the launch within
+    Hopper's budget."""
+    from repro_torch.kernels import introspect
+    with introspect.record_launches() as launches:
+        _introspect_calls(cuda)
+    torch.cuda.synchronize()
+    seen = {}
+    for launch in launches:
+        assert launch.route == "cuda" and not introspect.launch_faults(launch)
+        for k in launch.kernels:
+            seen[(k.name, k.query)] = k
+    assert len(seen) >= 12, sorted(seen)
+    for k in seen.values():
+        a = introspect.card_attributes(k)
+        assert (k.smem_static, k.smem_dynamic) == (a["static"],
+                                                   a["dynamic"]), k.name
+        assert k.regs == a["regs"] and k.threads <= a["max_threads"], k.name
+
+
+def test_autotune_winner_is_used_and_keeps_the_bitwise_rules(cuda, tmp_path,
+                                                           monkeypatch):
+    """`autotune_gemm` records a winner the next call takes: a tensor-core
+    call under either bm is bitwise the untuned one; a tuned small-M call is
+    within the GEMM's bound of the plain version, repeats bitwise, equals
+    unpack_dequant b8 on the same codes bitwise, and a column half called
+    with plan_n = N equals the full call's columns bitwise; the table
+    reloads from its file."""
+    from repro_torch.kernels import autotune, introspect
+    monkeypatch.setenv(autotune.ENV_VAR, str(tmp_path / "tune.json"))
+    autotune.clear()
+    try:
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        w, epi = _weights("fake_quant_rhs", 2048, 4096, gen)
+        x = torch.randn((512, 2048), generator=gen, device=cuda).to(
+            torch.bfloat16)
+        before = TG.gemm(x, w, epi, out_dtype=torch.float32)
+        win, times = autotune.autotune_gemm(x, w, epi, repeats=2)
+        assert set(times) == {(128,), (256,)} and win in times
+        with introspect.record_launches() as rec:
+            y = TG.gemm(x, w, epi, out_dtype=torch.float32)
+        assert rec[0].tuned and rec[0].plan == win
+        assert torch.equal(y, before)
+        # every bm, forced through the table, bitwise the untuned call
+        sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+        for bm in autotune.TC_HEIGHTS:
+            autotune.record(512, 4096, 2048, "tc", sm, (bm,),
+                            autotune.ops_key(epi), persist=False)
+            with introspect.record_launches() as rec:
+                y = TG.gemm(x, w, epi, out_dtype=torch.float32)
+            assert rec[0].plan == (bm,) and torch.equal(y, before), bm
+        K, N = 8192, 2048
+        codes, epi = _weights("dequant", K, N, gen)
+        x = torch.randn((4, K), generator=gen, device=cuda).to(torch.bfloat16)
+        # a split that is not the rule's, so the table visibly decides
+        win, _ = autotune.autotune_gemm(x, codes, epi,
+                                        candidates=[(6, 1536), (5, 1792)],
+                                        repeats=2)
+        with introspect.record_launches() as rec:
+            ys = [TG.gemm(x, codes, epi, out_dtype=torch.float32)
+                  for _ in range(2)]
+            b8 = TG.gemm(x, pack_codes(codes.to(torch.int32), 8, axis=0),
+                         TG.unpack_dequant(8, epi.operands[0]),
+                         out_dtype=torch.float32)
+            half = TG.gemm(x, codes[:, :N // 2],
+                           TG.dequant(epi.operands[0][:N // 2]),
+                           out_dtype=torch.float32, plan_n=N)
+        assert all(r.tuned and r.plan == (128, *win) for r in rec)
+        want = TG.plain(x, codes, epi, torch.float32)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(ys[0], want, rtol=1e-4,
+                                   atol=1e-4 * want.abs().max().item())
+        assert torch.equal(ys[0], ys[1]) and torch.equal(b8, ys[0])
+        assert torch.equal(half, ys[0][:, :N // 2])
+        autotune.clear()
+        assert autotune.lookup(4, N, K, "small_m", sm) == win
+    finally:
+        autotune.clear()
