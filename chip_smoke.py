@@ -377,13 +377,17 @@ Phases, each printing its own lines:
    that share the card (a `launch.mesh.RankPool`, started after phase 2
    built the library: gloo with every collective staged through host
    memory, since NCCL refuses two ranks on one device), at tp 2 and 4.
-   Phase 3 adds a row for every local call a rank of 15b's engines
-   makes (`TP_GEMMS`: each projection's column or K tile at tp 2 and 4,
-   at M = 4 and 512, in fake_quant_rhs and dequant; the head's vocab tile
-   from codes; decode attention, contiguous and on bf16 pages, on a
-   rank's 8 / tp KV heads), each held against its plain version and
-   timed there; 15b fails if a rank launched a GEMM at a (variant,
-   epilogue, K, N) that has no such row.
+   Phase 3 adds a row for every local call a rank of 15b's and 15d's
+   engines makes (`TP_GEMMS`: each projection's column or K tile at tp
+   4, at M = 4 and 512, in fake_quant_rhs and dequant; the head's vocab
+   tile from codes; decode attention, contiguous and on bf16 pages, on a
+   rank's 8 / tp KV heads; `TP_FAMILY_GEMMS`: grok-1's, rwkv6-3b's and
+   jamba's tiles at each family's tp at M = 4 and 128, and the f32
+   copies' at 128; the fake-quant forward on a rank's expert stacks,
+   `TP_FAMILY_STACKS`, and the f32 copy's, `TP_FAMILY_STACKS_F32`),
+   each held against its
+   plain version and timed there; 15b and 15d fail if a rank launched a
+   GEMM at a (variant, epilogue, K, N) that has no such row.
    15a: on the ranks, `tp_gemm` at the full decode shapes (w_gate in
    fake_quant_rhs and dequant, the head in dequant) and `tp_decode_attn`
    bitwise the 1-rank call on every rank (each column tile plans its K
@@ -391,9 +395,10 @@ Phases, each printing its own lines:
    summed in rank order within 1e-4 of max|y|. 15b: internlm2-1.8b at its
    published width (bf16, seed 0, every rank drawing the same weights) on
    4 slots, phases 5-6's 8 requests, in the dense fake-quant and int8
-   modes over both arenas at tp 2 and 4 (8 engines), `TP_GEN` tokens a
-   request (cut from phases 5-6's 64: ROADMAP item 14b): every rank's
-   tokens equal; the
+   modes over both arenas at tp 4 (4 engines; the tp 2 engines were cut
+   to pay for 15d and 15e, and with them the bf16 first-step rule at tp 2
+   at full width), `TP_GEN` tokens a request (cut from phases 5-6's 64:
+   ROADMAP item 14b): every rank's tokens equal; the
    first decode step's logits against a 1-rank engine's (`_logits_held`,
    contiguous), token agreement against phase 5's 1-rank tokens printed;
    a rank's KV pool exactly 1/tp, per-rank param bytes, decode tok/s and
@@ -404,8 +409,43 @@ Phases, each printing its own lines:
    projection, a joint step that partitions), on 2 ranks in DP and FSDP:
    losses, params, quantizers and masks (digests) bitwise the 1-rank
    step's with grad_slices=2, the reckoned memory, step walls and peak a
-   rank printed. The ranks' launch counts are zeroed before each drive
-   and read after; every kernel of the path must have launched.
+   rank printed. 15d: the MoE and recurrent families tensor and expert
+   parallel on the same ranks, at their published widths in bf16:
+   grok-1 at 1 of 64 layers at tp 4 (8 experts, 2 a rank), rwkv6-3b at
+   phase 13's 8 of 32 layers at tp 4 (40 heads, 10 a rank), jamba at
+   phase 13d's period of 8 layers and 4 experts at tp 2 (2 a rank;
+   mamba's 16384 channels, 8192 a rank: at tp 4 the last rank's whole
+   draw beside three ranks' shards ran the card out of memory), each in
+   the dense fake-quant and int8 modes (jamba dense only: its int8
+   build, the whole bf16 model beside the codes it makes, did not fit
+   beside the other rank's shards), and rwkv6 and jamba each also as an
+   f32 copy of the dense weights (rwkv6 at the same cut; jamba at 2
+   layers, an attention + MLP and a mamba + MoE layer, with the 4
+   experts: `TP_HYB_F32_LAYERS`), 4 requests of 32-128 tokens, `TP_GEN`
+   tokens each, decoding eagerly.
+   The 1-rank engine on the same weights runs first in this process (its
+   first decode step's logits, its eager drain's tokens) and is freed;
+   the ranks then build one at a time (a rank holds the whole model only
+   while it cuts its shards) and serve: every rank's tokens equal, the
+   first decode step's logits within the bf16 rule of the 1-rank
+   engine's (`_family_logits_held`: `_logits_held`; rwkv6 and jamba in
+   bf16, as phase 13 holds rwkv6, within the 1-rank step's own spread
+   under one ulp on every embedding weight, the larger of two draws,
+   where the rule fails: a loose check, jamba's spread exceeds its
+   largest logit, so their f32 copies are the tight witnesses, held by
+   the rule), no
+   replication fallback, token agreement, step ms, tok/s, per-rank
+   bytes, shards, peaks and the card's free memory around each build
+   printed. 15e: the sharded GETA step
+   of rwkv6-3b at full width cut to 2 of 32 layers, 15c's batch, steps
+   and schedule, on 2 ranks in DP and FSDP, bitwise the 1-rank step with
+   grad_slices=2; jamba at full width is reckoned from rwkv6's measured
+   bytes a param and not trained (two whole copies of its smallest plan
+   with a mamba and an MoE layer do not fit the card: ROADMAP item 14b),
+   and its smoke config (f32, every width cut) trains in the same way,
+   so that mamba and MoE leaves go through the sharded step on the card.
+   The ranks' launch counts are zeroed before each drive and read after;
+   every kernel of the path must have launched.
 16. The paper's experiment runners and the dry run
    (`launch.experiments`, `launch.dryrun`). 16a: the runners that phase
    11 does not already drive through the same loop, at the JAX
@@ -498,6 +538,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -3138,18 +3179,34 @@ def _fq_bwd_against_plain(torch, x, sc, g, got) -> dict:
             "sum_err_over_scale": serr, "ok": dx_same and max(serr) <= 1e-5}
 
 
-def _moe_fq_rows(torch, timer, gen) -> tuple[list, dict, list]:
-    """Phase 3's fake-quant rows on the expert stacks (bf16, the 16-bit
-    init of 12d, t = 1): the kernels against their plain versions piece by
-    piece (forward bitwise; backward dx bitwise, sums within 1e-5 of
-    `sum_scales`, a second call bitwise), times, bounds, kernels per
-    call."""
+def _fq_stack_line(r, label, shape, n, dt: str = "bf16") -> None:
+    print(f"[3 kernels] {r['kernel']:<29} {label} "
+          f"{'x'.join(map(str, shape))} {dt} ({n} elements) t=1 "
+          f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} (in "
+          f"pieces of {PLAIN_CHUNK}) library_ms=none "
+          f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})"
+          + (f" bitwise={r['bitwise']}" if "bitwise" in r else
+             f" dx_bitwise={r['dx_bitwise']} sums/scale="
+             f"{max(r['sum_err_over_scale']):.1e} repeat_bitwise="
+             f"{r['repeat_bitwise']} rows={r['bwd_rows']}")
+          + f"{_per_call(r)} {'ok' if r['ok'] else 'FAIL'}")
+
+
+def _moe_fq_rows(torch, timer, gen, stacks=MOE_STACKS, bwd: bool = True,
+                 f32: bool = False) -> tuple[list, dict, list]:
+    """Phase 3's fake-quant rows on expert stacks (`stacks`: label ->
+    shape; bf16, or f32 with `f32`, the 16-bit init of 12d, t = 1): the
+    kernels against
+    their plain versions piece by piece (forward bitwise; with `bwd` the
+    backward too: dx bitwise, sums within 1e-5 of `sum_scales`, a second
+    call bitwise), times, bounds, kernels per call."""
     from repro_torch.core.quant import init_quant_params
     from repro_torch.kernels import fake_quant as fq
     rows, report, failures = [], {}, []
-    for label, shape in MOE_STACKS.items():
+    for label, shape in stacks.items():
         x = torch.randn(shape, generator=gen, device="cuda",
-                        dtype=torch.bfloat16).mul_(shape[-2] ** -0.5)
+                        dtype=torch.float32 if f32 else torch.bfloat16
+                        ).mul_(shape[-2] ** -0.5)
         qp = init_quant_params(x, bits=16.0)
         sc = (qp.d, qp.q_m, qp.t)
         n = x.numel()
@@ -3169,6 +3226,15 @@ def _moe_fq_rows(torch, timer, gen) -> tuple[list, dict, list]:
                "plain_ms": timer(lambda: _plain_fwd_chunked(torch, x, sc))}
         row["bound_ms"], row["bound_by"] = bound_ms(fq.fwd_bytes(x), 0)
         _one_kernel(torch, row, lambda: fq.fake_quant_fwd(x, *sc))
+        if not bwd:
+            _fq_stack_line(row, label, shape, n, "f32" if f32 else "bf16")
+            rows.append(row)
+            if not row["ok"]:
+                failures.append(row)
+            report[f"{row['kernel']}.{label}"] = row
+            del x
+            torch.cuda.empty_cache()
+            continue
         g = torch.randn(shape, generator=gen, device="cuda",
                         dtype=torch.bfloat16).mul_(1e-3)
         got = fq.fake_quant_bwd(x, *sc, g)
@@ -3187,16 +3253,7 @@ def _moe_fq_rows(torch, timer, gen) -> tuple[list, dict, list]:
         brow["bound_ms"], brow["bound_by"] = bound_ms(fq.bwd_bytes(x, g), 0)
         _one_kernel(torch, brow, lambda: fq.fake_quant_bwd(x, *sc, g))
         for r in (row, brow):
-            print(f"[3 kernels] {r['kernel']:<29} {label} "
-                  f"{'x'.join(map(str, shape))} bf16 ({n} elements) t=1 "
-                  f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} (in "
-                  f"pieces of {PLAIN_CHUNK}) library_ms=none "
-                  f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})"
-                  + (f" bitwise={r['bitwise']}" if "bitwise" in r else
-                     f" dx_bitwise={r['dx_bitwise']} sums/scale="
-                     f"{max(r['sum_err_over_scale']):.1e} repeat_bitwise="
-                     f"{r['repeat_bitwise']} rows={r['bwd_rows']}")
-                  + f"{_per_call(r)} {'ok' if r['ok'] else 'FAIL'}")
+            _fq_stack_line(r, label, shape, n)
             rows.append(r)
             if not r["ok"]:
                 failures.append(r)
@@ -4991,16 +5048,19 @@ def phase_frontends(torch) -> tuple[dict, dict, list[str], dict]:
 # tensor-parallel serving and the sharded GETA step; the ranks are
 # processes sharing the card (gloo with host-staged collectives), started
 # once for the phase, after phase 2 built the kernel library
-TP_SIZES = (2, 4)
+TP_SIZES = (2, 4)          # 15a's wrappers
 TP_WORLD = 4
 TP_MODES = {"dense": {}, "compressed": dict(compressed=True)}
-# 15b's engines as (tp, mode, paged): both modes over both arenas at tp 4
-# and 2, each decoding TP_GEN tokens a request: a collective staged
-# through the host between processes that share the card costs
-# milliseconds (PERF.md §7), so phases 5-6's 64 tokens a request took
-# phase 15 to ~490 s (ROADMAP item 14b names the cut)
-TP_ENGINES = [(tp, mode, paged) for tp in (4, 2) for mode in TP_MODES
+# 15b's engines as (tp, mode, paged): both modes over both arenas at tp
+# 4, each decoding TP_GEN tokens a request: a collective staged through
+# the host between processes that share the card costs milliseconds
+# (PERF.md §7), so phases 5-6's 64 tokens a request took phase 15 to
+# ~490 s (ROADMAP item 14b names the cut); the tp 2 engines (4 of 8)
+# were cut to pay for 15d and 15e, and with them the bf16 first-step
+# rule at tp 2 at full width (the CPU tests hold tp 2 tokens in f32)
+TP_ENGINES = [(4, mode, paged) for mode in TP_MODES
               for paged in (False, True)]
+TP_ENGINE_SIZES = sorted({tp for tp, _, _ in TP_ENGINES})
 TP_GEN = 8
 TP_SEQ = max(PROMPT_LENS) + TP_GEN     # 15b's arena rows (max_seq)
 # internlm2-1.8b's projections as (name, K, N, the dim the `model` axis
@@ -5021,14 +5081,14 @@ def _tp_gemms() -> list:
     the head's vocab tile at decode from codes only (the dense head is a
     prequantized torch.matmul)."""
     roles: dict = {}
-    for tp in TP_SIZES:
+    for tp in TP_ENGINE_SIZES:
         for name, K, N, dim in TP_PROJ:
             key = (K // tp, N) if dim == "K" else (K, N // tp)
             roles.setdefault(key, []).append(f"tp{tp} {name}")
     return ([(M, K, N, ("fake_quant_rhs", "dequant"), r)
              for (K, N), r in sorted(roles.items()) for M in (SLOTS, 512)]
             + [(SLOTS, TP_HEAD[0], TP_HEAD[1] // tp, ("dequant",),
-                [f"tp{tp} head"]) for tp in TP_SIZES])
+                [f"tp{tp} head"]) for tp in TP_ENGINE_SIZES])
 
 
 TP_GEMMS = _tp_gemms()
@@ -5041,24 +5101,143 @@ TP_COMP = dict(target_sparsity=0.3, warmup_steps=1, projection_periods=1,
                projection_steps=1, pruning_periods=1, pruning_steps=1,
                cooldown_steps=0)
 SMOKE_TP_LENS, SMOKE_TP_GEN = [12, 5, 9], 8
+# 15d: the MoE and recurrent families at their published widths (bf16)
+# on the same ranks, tensor and expert parallel: grok-1 at 1 of 64
+# layers (8 experts, 2 a rank at tp 4), rwkv6-3b at phase 13's
+# REC_LAYERS (tp 4), jamba at phase 13d's period and experts (4, 2 a
+# rank at tp 2: at tp 4 the last rank's whole draw, 30.3 GiB, beside
+# three ranks' shards ran the card out of memory); 4 requests (one a
+# slot) at lengths the recurrent prefill takes, TP_GEN tokens each,
+# decoding eagerly. Each serves in the dense fake-quant and int8 modes
+# (rwkv6 also an f32 copy of its dense weights, "dense_f32"), but for
+# jamba's int8 engine: every rank draws the whole model, and building
+# the int8 codes beside it (~2.3x the bf16 model's bytes, as grok's
+# 30.3 GB build peak against its 13 GB shows) beside the other rank's
+# shards ran the card out of memory. jamba's f32 copy is cut to
+# TP_HYB_F32_LAYERS (an f32 copy of the period, 16.2e9 params, would
+# take 65 GB a copy)
+TP_FAMILY_TP = {"grok": 4, "rwkv6": 4, "jamba": 2}
+TP_FAMILIES = ("grok", "rwkv6", "jamba")
+TP_FAMILY_MODES = {"grok": ("dense", "compressed"),
+                   "rwkv6": ("dense", "compressed", "dense_f32"),
+                   "jamba": ("dense", "dense_f32")}
+# the families whose bf16 first step the bf16 rule may not hold, for a
+# random-weight recurrent stack, held instead within the 1-rank step's
+# own spread under one ulp on every embedding weight (phase 13's way);
+# a spread can exceed the logits themselves (jamba's did), so each of
+# these families also serves an f32 copy, which the bf16 rule holds
+TP_FAMILY_SPREAD = ("rwkv6", "jamba")
+# jamba's f32 copy: the smallest plan with all three of its parallel
+# paths at full width (`layer_plan` puts attention at position 0 of a
+# period, the MoE at odd positions): attn_every 2, an attention + MLP
+# layer and a mamba + MoE layer, 4 experts (2 a rank at tp 2), 4.67e9
+# params
+TP_HYB_F32_LAYERS = 2
+TP_FAMILY_LENS = [64, 128, 32, 64]
+TP_FAMILY_PREFILL = 128      # the prefill height of 15d's phase-3 rows
+# each family's projections as (name, K, N, the dim `model` splits: N
+# for a column tile, K for a K tile summed in rank order, None whole),
+# x bf16 unless named; the head's vocab tile runs a GEMM kernel from
+# codes only (dense, it is prequantized and multiplied by torch.matmul),
+# and at prefill on the last position alone (M = 1: small_m)
+TP_FAMILY_PROJ = {
+    "grok": [("wq", 6144, 6144, "N"), ("wk/wv", 6144, 1024, "N"),
+             ("wo", 6144, 6144, "K")],
+    "rwkv6": [("wr/wk/wv/wg/cm_r", 2560, 2560, "N"),
+              ("cm_k", 2560, 8960, "N"), ("decay_w1", 2560, 64, None),
+              ("decay_w2 (x f32)", 64, 2560, "N"), ("wo", 2560, 2560, "K"),
+              ("cm_v", 8960, 2560, "K")],
+    "jamba": [("wq", 8192, 8192, "N"), ("wk/wv", 8192, 1024, "N"),
+              ("wo", 8192, 8192, "K"), ("w_gate/w_up", 8192, 24576, "N"),
+              ("w_down", 24576, 8192, "K"), ("in_proj_x/z", 8192, 16384, "N"),
+              ("x_proj", 16384, 544, "K"),
+              ("dt_proj (x strided)", 512, 16384, "N"),
+              ("out_proj", 16384, 8192, "K")]}
+TP_FAMILY_HEAD = {"grok": (6144, 131072), "rwkv6": (2560, 65536),
+                  "jamba": (8192, 65536)}
+# a rank's expert stacks, which the engine fake-quants once at build
+# (dense stacks keep their fake-quant sites in the int8 mode too)
+TP_FAMILY_STACKS = {"grok_tp4_we_gate_up": (1, 2, 6144, 32768),
+                    "grok_tp4_we_down": (1, 2, 32768, 6144),
+                    "jamba_tp2_we_gate_up": (1, 2, 8192, 24576),
+                    "jamba_tp2_we_down": (1, 2, 24576, 8192)}
+# the same stacks of jamba's f32 copy, in f32
+TP_FAMILY_STACKS_F32 = {"jamba_tp2_f32_we_gate_up": (1, 2, 8192, 24576),
+                        "jamba_tp2_f32_we_down": (1, 2, 24576, 8192)}
+# 15e: rwkv6-3b at full width cut to 2 of 32 layers, 15c's batch, steps
+# and schedule, on 2 ranks in DP and FSDP against the 1-rank step; then
+# jamba's smoke config (f32, every width cut) in the same way, so that
+# mamba and MoE leaves go through the sharded step on the card: no jamba
+# plan at full width fits two whole copies (`_jamba_train_reckoning`)
+TP_REC_TRAIN_LAYERS = 2
 # predictions written before the first card run of phase 15 (PERF.md §6)
 PREDICTED_TP = {"15a_gemm_2048_ms": 0.013, "15a_head_tile_ms": 0.03,
-                "15a_decode_ms": 0.010, "15b_tp2_tok_per_s": 160.0,
-                "15b_tp4_tok_per_s": 115.0, "15c_dp_step_s": 3.0,
-                "15c_fsdp_step_s": 8.0, "15c_peak_gb": 14.0,
-                "phase_s": 140.0}
+                "15a_decode_ms": 0.010, "15b_tp4_tok_per_s": 115.0,
+                "15c_dp_step_s": 3.0, "15c_fsdp_step_s": 8.0,
+                "15c_peak_gb": 14.0, "15d_grok_step_ms": 60.0,
+                "15d_rwkv6_step_ms": 150.0, "15d_jamba_step_ms": 150.0,
+                "15d_s": 150.0, "15e_dp_step_s": 3.0,
+                "15e_fsdp_step_s": 4.0, "phase_s": 330.0}
 
 
 def _tp_gemm_name(M, K, N, label) -> str:
     return f"{_report_name(label)}.tp.M{M}.{K}x{N}"
 
 
+def _tp_family_gemms() -> list:
+    """(family, M, K, N, epilogues, x dtype, x strided, role) of every
+    local GEMM a rank of 15d launches: each projection's tile at the
+    family's TP_FAMILY_TP (TP_FAMILY_PROJ) at decode (M = SLOTS: small_m) and at a
+    prefill height (tc, or simt for an f32 x; the variant's key ignores
+    M), in fake_quant_rhs and dequant; the head's vocab tile from codes
+    (small_m only)."""
+    out = []
+    for fam in TP_FAMILIES:
+        n = TP_FAMILY_TP[fam]
+        for name, K, N, dim in TP_FAMILY_PROJ[fam]:
+            K, N = (K // n, N) if dim == "K" else (K, N // n) if dim else (
+                K, N)
+            f32 = "f32" in name
+            epis = tuple(e for e, m in zip(_EP2, ("dense", "compressed"))
+                         if m in TP_FAMILY_MODES[fam])
+            for M in (SLOTS, TP_FAMILY_PREFILL):
+                out.append((fam, M, K, N, epis, "f32" if f32 else "bf16",
+                            "strided" in name, name))
+            if "dense_f32" in TP_FAMILY_MODES[fam] and not f32:
+                # the f32 copy's prefill (an f32 x past 8 rows: simt)
+                out.append((fam, TP_FAMILY_PREFILL, K, N,
+                            ("fake_quant_rhs",), "f32", "strided" in name,
+                            f"{name} (the f32 copy)"))
+        K, V = TP_FAMILY_HEAD[fam]
+        if "compressed" in TP_FAMILY_MODES[fam]:
+            out.append((fam, SLOTS, K, V // n, ("dequant",), "bf16", False,
+                        "head"))
+    # one row a shape: projections of one shape share it (jamba's
+    # in_proj and out_proj tiles at tp 2 are both 8192x8192)
+    rows: dict = {}
+    for fam, M, K, N, epis, xdt, strided, role in out:
+        key = (fam, M, K, N, epis, xdt, strided)
+        rows[key] = f"{rows[key]}, {role}" if key in rows else role
+    return [(*key, role) for key, role in rows.items()]
+
+
+TP_FAMILY_GEMMS = _tp_family_gemms()
+
+
+def _tp_family_gemm_name(fam, M, K, N, label, xdt) -> str:
+    return (f"{_report_name(label)}.{fam}.tp{TP_FAMILY_TP[fam]}.M{M}."
+            f"{K}x{N}" + (".f32" if xdt == "f32" else ""))
+
+
 def phase_tp_kernels(torch, timer) -> tuple[list, dict, list]:
-    """Phase 3's rows at every local shape of 15b's ranks (TP_GEMMS,
-    weights as `prepare_serving` stores them; decode attention on 8 / tp
-    KV heads of 15b's arena, contiguous and on bf16 pages), each held
-    against its plain version and timed in this process as phase 3 times
-    kernels; 15a holds the ranks' wrapper calls to the 1-rank kernels."""
+    """Phase 3's rows at every local shape of 15b's and 15d's ranks
+    (TP_GEMMS and TP_FAMILY_GEMMS, weights as `prepare_serving` stores
+    them; decode attention on 8 / tp KV heads of 15b's arena, contiguous
+    and on bf16 pages; the fake-quant forward on a rank's expert stacks,
+    TP_FAMILY_STACKS, and f32 TP_FAMILY_STACKS_F32), each held against
+    its plain version and timed in
+    this process as phase 3 times kernels; 15a holds the ranks' wrapper
+    calls to the 1-rank kernels."""
     import itertools
     from repro_torch.kernels import gemm_core as gc
     gen = torch.Generator(device="cuda").manual_seed(15)
@@ -5082,12 +5261,35 @@ def phase_tp_kernels(torch, timer) -> tuple[list, dict, list]:
                                tag=" (tp shard)"))
         del x
     pos = torch.tensor(TP_POS, dtype=torch.int64, device="cuda")
-    for tp in TP_SIZES:
+    for tp in TP_ENGINE_SIZES:
         shape = (SLOTS, TP_SEQ, TP_KV_HEADS // tp, TP_GROUP, TP_DHEAD)
         keep(f"decode_attn.tp{tp}",
              _decode_check(torch, timer, gen, *shape, pos))
         keep(f"paged_decode_attn.bf16.tp{tp}",
              _paged_check(torch, timer, gen, *shape, "bf16", pos))
+    for fam, M, K, N, epis, xdt, strided, role in TP_FAMILY_GEMMS:
+        # strided: dt_low, a view of x_proj's output, rows 544 apart
+        x = torch.randn((M, 544 if strided else K), generator=gen,
+                        device="cuda", dtype=torch.bfloat16)
+        if xdt == "f32":
+            x = torch.tanh(x.float())
+        x = x[:, :K]
+        for label, w, epi, dequantized in itertools.islice(
+                _gemm_cases(torch, K, N, gen), 2):
+            if label in epis:
+                keep(_tp_family_gemm_name(fam, M, K, N, label, xdt),
+                     _gemm_row(torch, timer, gc, label, x,
+                               gc.aligned_rows(w), epi, dequantized(),
+                               tag=f" ({fam} tp{TP_FAMILY_TP[fam]} {role})"))
+        del x
+        torch.cuda.empty_cache()
+    for stacks, f32 in ((TP_FAMILY_STACKS, False),
+                        (TP_FAMILY_STACKS_F32, True)):
+        r, rep, f = _moe_fq_rows(torch, timer, gen, stacks, bwd=False,
+                                 f32=f32)
+        rows += r
+        report.update(rep)
+        failures += f
     return rows, report, failures
 
 
@@ -5243,11 +5445,14 @@ def _tp_smoke_rank(tp: int) -> dict | None:
             "decode_mode": st["decode_mode"]}
 
 
-def _tp_train_rank(n: int, fsdp: bool, grad_slices: int) -> dict | None:
-    """15c on one rank of an (n, 1) mesh (n = 1: the sequential
-    reference): internlm2-1.8b at full width cut to RUN_LAYERS, the
-    sharded GETA step over TP_TRAIN_STEPS steps (TP_COMP: warm-up,
-    projection, a joint step that partitions) at batch 4 x 512. Returns
+def _tp_train_rank(n: int, fsdp: bool, grad_slices: int, arch: str = ARCH,
+                   layers: int | None = RUN_LAYERS, smoke: bool = False
+                   ) -> dict | None:
+    """15c (and 15e) on one rank of an (n, 1) mesh (n = 1: the sequential
+    reference): `arch` at full width cut to `layers` (with `smoke`, its
+    smoke config at the smoke depth: `layers` None), the sharded GETA
+    step over TP_TRAIN_STEPS steps (TP_COMP: warm-up, projection, a joint
+    step that partitions) at batch 4 x 512. Returns
     the losses, each step's wall seconds, the peak memory, the launch
     counts, and digests of the gathered params, quantizers and masks
     (every rank's checked identical first)."""
@@ -5266,9 +5471,11 @@ def _tp_train_rank(n: int, fsdp: bool, grad_slices: int) -> dict | None:
         return None
     dev = torch.device("cuda", torch.cuda.current_device())
     lm, params, qparams, _, qasso, qstate = T.init_geta(
-        ARCH, False, seed=0, comp=CompressionConfig(**TP_COMP), device=dev,
-        layers=RUN_LAYERS)
-    plan = S.make_plan(mesh, fsdp=fsdp, overrides=dict(get_overrides(ARCH)))
+        arch, smoke, seed=0, comp=CompressionConfig(**TP_COMP), device=dev,
+        layers=layers)
+    # the arch's rules, but the run's own fsdp (jamba's rules ask for it)
+    plan = S.make_plan(mesh, fsdp=fsdp, overrides={
+        k: v for k, v in get_overrides(arch).items() if k != "fsdp"})
     p_sh = plan.shardings(lm.param_axes(),
                           {k: tuple(v.shape) for k, v in params.items()})
     step, (psh, _, ssh, bsh) = T.make_sharded_geta_train_step(
@@ -5310,6 +5517,370 @@ def _tp_train_rank(n: int, fsdp: bool, grad_slices: int) -> dict | None:
     return out
 
 
+def _free_card(torch) -> float:
+    """Release what this process holds on the card and no longer
+    references (cycles included); the card's free GB, every process's
+    memory counted."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.mem_get_info()[0] / 1e9
+
+
+def _tp_family_cfg(fam: str, mode: str = "dense"):
+    """15d's config of a family in `mode`: its published widths at phase
+    12's or 13's cut (grok-1 at 1 layer here; jamba's f32 copy at
+    TP_HYB_F32_LAYERS with attention every 2 layers)."""
+    if fam == "jamba" and mode == "dense_f32":
+        return dataclasses.replace(_hyb_cfg(TP_HYB_F32_LAYERS), attn_every=2)
+    return {"grok": lambda: _moe_cfg(1), "rwkv6": _rec_cfg,
+            "jamba": _hyb_cfg}[fam]()
+
+
+def _fq_key(x) -> str:
+    """15d's tally key of a fake-quant forward's input: shape and dtype."""
+    return f"{'x'.join(map(str, x.shape))} {str(x.dtype)[6:]}"
+
+
+def _tp_family_build(torch, fam: str, mode: str, mesh=None):
+    """The family's engine in `mode` on 4 slots, its weights drawn on the
+    card from seed 0 (bf16; mode "dense_f32": an f32 copy of the dense
+    model's weights, served in f32); under `mesh`, this rank's: the
+    engine takes each whole tensor out of the served params as it cuts
+    its shard."""
+    from repro_torch.core.subnet import prepare_serving
+    from repro_torch.launch.engine import Engine
+    from repro_torch.models.transformer import LM
+    cfg = _tp_family_cfg(fam, mode)
+    params = LM(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    if mode == "dense_f32":
+        cfg = dataclasses.replace(cfg, dtype="float32")
+        params = {k: v.float() for k, v in params.items()}
+    lm = LM(cfg)
+    p, q, _ = prepare_serving(lm, params, **TP_MODES[mode.split("_")[0]])
+    del params
+    return Engine(lm, p, q, max_slots=SLOTS,
+                  max_seq=max(TP_FAMILY_LENS) + TP_GEN, mesh=mesh)
+
+
+def _tp_family_one(torch, fam: str, mode: str, prompts) -> dict:
+    """15d's 1-rank engine on the same weights, in this process: its first
+    decode step's logits and its eager drain's tokens, and, for the
+    recurrent families in bf16 (TP_FAMILY_SPREAD), the first step's
+    spread when every embedding weight moves by one bf16 ulp, the larger
+    of two draws (phase 13's yardstick for a random-weight rwkv6)."""
+    torch.cuda.reset_peak_memory_stats()
+    eng = _tp_family_build(torch, fam, mode)
+    out = {"logits": _first_step_logits(torch, eng, prompts, TP_GEN).cpu()}
+    t0 = time.perf_counter()
+    toks = eng._drain(eng.step)
+    torch.cuda.synchronize()
+    out.update(tokens={int(r): t for r, t in toks.items()},
+               drain_s=time.perf_counter() - t0,
+               decode_steps=eng.stats["decode_steps"],
+               decode_s=eng.stats["decode_s"],
+               param_bytes=eng.param_bytes(),
+               kv_bytes=eng.kv_bytes(), decode_tok_per_s=eng.throughput()[
+                   "decode_tok_per_s"],
+               peak_bytes=torch.cuda.max_memory_allocated())
+    if fam in TP_FAMILY_SPREAD and mode != "dense_f32":
+        # the same engine, its embedding moved by one ulp each way at
+        # random (drained between draws, so every request is admitted)
+        run, out["spread"] = eng._run_params, 0.0
+        e = run["embed"]
+        for seed in (23, 24):
+            up = torch.rand(e.shape, generator=torch.Generator(
+                device="cuda").manual_seed(seed), device="cuda",
+                dtype=torch.float16) < 0.5
+            eng._run_params = dict(run, embed=torch.nextafter(
+                e, torch.full_like(e, torch.inf).masked_fill_(
+                    ~up, -torch.inf)))
+            del up
+            moved = _first_step_logits(torch, eng, prompts, TP_GEN).cpu()
+            out["spread"] = max(out["spread"], (moved - out["logits"])
+                                .abs().max().item())
+            eng._drain(eng.step)
+        eng._run_params = run
+        del run, e, moved
+    del eng
+    out["card_free_gb"] = _free_card(torch)
+    return out
+
+
+def _family_logits_held(torch, got, one: dict) -> tuple[bool, str]:
+    """15d's rule for a rank's first-step logits `got` against the 1-rank
+    engine's (`_tp_family_one`'s `one`): `_logits_held`, or, where `one`
+    has a spread (TP_FAMILY_SPREAD in bf16), max|diff| within it."""
+    held, line = _logits_held(torch, got, one["logits"])
+    if "spread" in one:
+        diff = (got - one["logits"]).abs().max().item()
+        held = held or diff <= one["spread"]
+        line += (f"; the 1-rank step's own spread under one ulp on every "
+                 f"embedding weight {one['spread']:.4f}: "
+                 f"{'held' if held else 'NOT held'}")
+    return held, line
+
+
+def _tp_family_rank(fam: str, mode: str, prompts,
+                    tp: int | None = None) -> dict | None:
+    """15d on one rank of the (1, tp) mesh (default the family's
+    TP_FAMILY_TP): the family served tensor and expert parallel. The ranks build in turn, so one whole model is on
+    the card at a time (each rank frees its whole tensors as it cuts its
+    shards); then the first decode step's logits (`_first_step_logits`)
+    and the drain, eager over gloo (over nccl, with a card a rank, the
+    engine captures its windows first: `tools/tp_check.py`). Launch counts
+    are zeroed before the build and read after the drain (the build's
+    fake-quant forward on the rank's expert stacks included); the GEMM
+    launches are tallied by (variant, epilogue, K, N), the fake-quant
+    forward's by input shape and dtype."""
+    from collections import Counter
+
+    import torch
+    from repro_torch.kernels import fake_quant as fq
+    from repro_torch.kernels import gemm_core as gc
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as M
+    mesh = M.make_tp_mesh(tp or TP_FAMILY_TP[fam])
+    if not mesh.member:
+        return None
+    tally, fq_shapes = Counter(), Counter()
+    real, real_fwd = _gemm_shape_tally(gc, tally), fq.fake_quant_fwd
+
+    def fwd_by_shape(x, d, q_m, t):
+        if x.is_cuda:
+            fq_shapes[_fq_key(x)] += 1
+        return real_fwd(x, d, q_m, t)
+
+    fq.fake_quant_fwd = fwd_by_shape
+    free = []
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        _free_card(torch)
+        mesh.barrier()
+        for r in range(mesh.size):
+            if mesh.index("model") == r:
+                free.append(torch.cuda.mem_get_info()[0] / 1e9)
+                eng = _tp_family_build(torch, fam, mode, mesh)
+                free.append(_free_card(torch))
+            mesh.barrier()
+        info = {"build_s": time.perf_counter() - t0,
+                "card_free_gb_before_after_build": free,
+                "build_peak_bytes": torch.cuda.max_memory_allocated(),
+                "param_bytes": eng.param_bytes(),
+                "param_bytes_per_rank": eng.param_bytes(per_device=True),
+                "kv_bytes": eng.kv_bytes(),
+                "kv_bytes_per_rank": eng.kv_bytes(per_device=True),
+                "decode_mode": eng.decode_mode, "backend": mesh.backend,
+                "staging": mesh.staging,
+                "fallbacks": sorted({n for n, _, _ in eng.tp_fallbacks}),
+                "shards": {k: list(v.shape) for k, v in eng.params.items()
+                           if k.endswith((".we_gate", ".conv_w", ".u"))}}
+        info["shards"].update({k: list(v.shape) for k, v in
+                               eng.caches.items()
+                               if k.endswith((".h", ".wkv", ".tm_shift"))})
+        torch.cuda.reset_peak_memory_stats()
+        info["logits"] = _first_step_logits(torch, eng, prompts,
+                                            TP_GEN).cpu().numpy()
+        if eng.captures:
+            eng.warmup()
+        t0 = time.perf_counter()
+        toks = eng.run()
+        torch.cuda.synchronize()
+        info["drain_s"] = time.perf_counter() - t0
+    finally:
+        gc.gemm = real
+        fq.fake_quant_fwd = real_fwd
+    info.update(tokens={int(r): t.tolist() for r, t in toks.items()},
+                launches=_nonzero(ops.launch_counts()),
+                tally={"/".join(map(str, k)): v for k, v in tally.items()},
+                fq_shapes=dict(fq_shapes),
+                serve_peak_bytes=torch.cuda.max_memory_allocated(),
+                **{k: eng.stats[k] for k in ("decode_steps", "decode_tokens",
+                                             "decode_s", "prefill_tokens",
+                                             "prefill_s")},
+                **eng.throughput())
+    del eng
+    _free_card(torch)
+    return info
+
+
+def _tp_families(torch, pool, report, counts, info, failures) -> dict:
+    """15d (see the module docstring): every family in both modes on the
+    ranks, each against its 1-rank engine, built, measured and freed in
+    this process first. Returns 15d's launches summed over the ranks by
+    (variant, epilogue, K, N) and by fake-quant input shape."""
+    from collections import Counter
+    from repro_torch.launch.engine import synthetic_prompts
+    tally = Counter()
+    for fam in TP_FAMILIES:
+        cfg = _tp_family_cfg(fam)
+        prompts = synthetic_prompts(cfg, TP_FAMILY_LENS, seed=0)
+        for mode in TP_FAMILY_MODES[fam]:
+            t1 = time.perf_counter()
+            free0 = _free_card(torch)
+            one = _tp_family_one(torch, fam, mode, prompts)
+            res = [r for r in pool.run(_tp_family_rank, fam, mode, prompts)
+                   if r]
+            r0, label = res[0], f"{fam} {mode} tp={TP_FAMILY_TP[fam]}"
+            mcfg = _tp_family_cfg(fam, mode)
+            if mcfg.n_layers != cfg.n_layers:
+                label += (f" ({mcfg.n_layers} layers, attention every "
+                          f"{mcfg.attn_every})")
+            same_ranks = all(r["tokens"] == r0["tokens"] for r in res)
+            held, line = _family_logits_held(
+                torch, torch.from_numpy(r0["logits"]), one)
+            got = {k: np.asarray(v) for k, v in r0["tokens"].items()}
+            launched, fq_launched = Counter(), Counter()
+            for r in res:
+                launched.update(r["launches"])
+                fq_launched.update(r["fq_shapes"])
+                for k, v in r["tally"].items():
+                    var, epi, K, N = k.split("/")
+                    tally[(var, epi, int(K), int(N))] += v
+            for k, v in fq_launched.items():
+                tally[("fake_quant.fwd", k)] += v
+            counts.update(launched)
+            # an f32 copy multiplies at prefill on SIMT, not tensor cores
+            need = ["gemm_core.small_m"] + (
+                ["gemm_core.simt"] if mode == "dense_f32" else
+                ["gemm_core.tc"])
+            need += ["decode_attn"] if fam != "rwkv6" else [
+                "gemm_core.simt"]
+            if fam != "rwkv6" or mode.startswith("dense"):
+                need.append("fake_quant.fwd")
+            main_ok = all(launched[k] > 0 for k in need)
+            ok = (same_ranks and held and main_ok and not r0["fallbacks"]
+                  and len(got) == len(prompts))
+            steps = max(r0["decode_steps"], 1)
+            info[f"15d {label}"] = {k: v for k, v in r0.items()
+                                    if k not in ("tokens", "logits")}
+            info[f"15d {label}"]["one_rank"] = {
+                k: v for k, v in one.items() if k not in ("tokens",
+                                                          "logits")}
+            print(f"[15d tp families] {label}: {r0['backend']}"
+                  f"{' host-staged' if r0['staging'] else ''}, decode "
+                  f"{r0['decode_mode']}; every rank's tokens "
+                  f"{'equal' if same_ranks else 'DIFFER'}; vs the 1-rank "
+                  f"engine: {_agreement(got, one['tokens'])}; first step "
+                  f"{line}; decode {r0['decode_tok_per_s']:.1f} tok/s, step "
+                  f"{1e3 * r0['decode_s'] / steps:.2f} ms ({steps} steps; 1 "
+                  f"rank {1e3 * one['decode_s'] / max(one['decode_steps'], 1):.2f}"
+                  f" ms eager), prefill {r0['prefill_tok_per_s']:.1f} tok/s;"
+                  f" build {r0['build_s']:.1f} s one rank at a time, peak "
+                  f"{r0['build_peak_bytes'] / 1e9:.2f} GB building, "
+                  f"{r0['serve_peak_bytes'] / 1e9:.2f} GB serving a rank; "
+                  f"the card's free GB {free0:.1f} before the 1-rank "
+                  f"engine (its peak {one['peak_bytes'] / 1e9:.1f}), "
+                  f"{one['card_free_gb']:.1f} after, and before / after "
+                  f"each rank's build "
+                  f"{[round(f, 1) for r in res for f in r['card_free_gb_before_after_build']]}; "
+                  f"per-rank param_bytes {r0['param_bytes_per_rank']} of "
+                  f"{r0['param_bytes']}, kv {r0['kv_bytes_per_rank']} of "
+                  f"{r0['kv_bytes']}; shards {r0['shards']}; fallbacks "
+                  f"{r0['fallbacks'] or 'none'}; launches (all ranks) "
+                  f"{dict(launched)}; {time.perf_counter() - t1:.1f} s "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"15d {label}")
+    checked = {(r["variant"], r["kernel"].split(".")[1], r["K"], r["N"])
+               for r in report.values() if "variant" in r}
+    launched = {k for k in tally if len(k) == 4}
+    missed = sorted(launched - checked)
+    stacks = {f"{'x'.join(map(str, s))} {dt}"
+              for group, dt in ((TP_FAMILY_STACKS, "bfloat16"),
+                                (TP_FAMILY_STACKS_F32, "float32"))
+              for s in group.values()}
+    fq_seen = {k[1] for k in tally if k[0] == "fake_quant.fwd"}
+    fq_missed = sorted(k for k in fq_seen - stacks if k.count("x") == 3)
+    print(f"[15d tp families] {len(launched)} local GEMM shapes (variant, "
+          f"epilogue, K, N) launched, each held against its plain version "
+          f"in phase 3" + (f" but for {missed} FAIL" if missed else " ok")
+          + f"; fake-quant forward inputs {sorted(fq_seen)}, every expert "
+          f"stack held in phase 3"
+          + (f" but for {fq_missed} FAIL" if fq_missed else " ok"))
+    if missed or fq_missed:
+        failures.append(f"15d shapes without a phase-3 row: {missed} "
+                        f"{fq_missed}")
+    return tally
+
+
+def _sharded_steps(torch, pool, sub: str, arch: str, layers: int | None,
+                   counts, info, failures, smoke: bool = False) -> dict:
+    """15c or 15e: the sharded GETA step of `arch` at `layers` (its smoke
+    config with `smoke`) on TP_TRAIN_RANKS ranks in DP and FSDP against
+    the 1-rank step with grad_slices=TP_TRAIN_RANKS, built in this
+    process. Returns the 1-rank step's numbers."""
+    from collections import Counter
+    torch.cuda.empty_cache()
+    ref = _tp_train_rank(1, False, TP_TRAIN_RANKS, arch, layers, smoke)
+    tag = (f"[{sub} sharded step] {arch} "
+           + ("smoke config (f32, every width cut)" if smoke else
+              f"at {layers} layers"))
+    # a smoke config's f32 GEMMs run on SIMT, not tensor cores
+    gemm = "gemm_core.simt" if smoke else "gemm_core.tc"
+    print(f"{tag}: {_tp_reckoning(ref['n_params'], TP_TRAIN_RANKS)}")
+    print(f"{tag}, 1 rank, grad_slices={TP_TRAIN_RANKS}: "
+          f"losses {ref['losses']}, step walls "
+          f"{[round(w, 2) for w in ref['walls']]} s, peak "
+          f"{ref['peak_bytes'] / 1e9:.2f} GB, stage {ref['stage']}, "
+          f"sparsity {ref['sparsity']:.3f}")
+    for fsdp in (False, True):
+        res = [r for r in pool.run(_tp_train_rank, TP_TRAIN_RANKS, fsdp,
+                                   TP_TRAIN_RANKS, arch, layers, smoke) if r]
+        same = all(r[k] == ref[k] for r in res for k in (
+            "losses", "params", "masks", "qparams"))
+        launched = Counter()
+        for r in res:
+            launched.update(r["launches"])
+        counts.update(launched)
+        ok = same and launched["fake_quant.fwd"] > 0 and launched[
+            "fake_quant.bwd"] > 0 and launched[gemm] > 0
+        print(f"{tag}, {TP_TRAIN_RANKS} ranks "
+              f"{'FSDP' if fsdp else 'DP'} ({res[0]['sharded']} params "
+              f"sharded): loss, params, quantizers and masks "
+              f"{'bitwise equal to' if same else 'DIFFER FROM'} the "
+              f"1-rank step over {TP_TRAIN_STEPS} steps; step walls "
+              f"{[round(w, 2) for w in res[0]['walls']]} s, peak "
+              f"{[round(r['peak_bytes'] / 1e9, 2) for r in res]} GB a "
+              f"rank; launches (all ranks) {dict(launched)} "
+              f"{'ok' if ok else 'FAIL'}")
+        info[f"{sub} {arch} {'fsdp' if fsdp else 'dp'}"] = {
+            k: v for r in res[:1] for k, v in r.items()}
+        if not ok:
+            failures.append(f"{sub} {arch} {'fsdp' if fsdp else 'dp'}")
+    info[f"{sub} {arch} reference"] = ref
+    return ref
+
+
+def _jamba_train_reckoning(card_bytes: int, rec: dict) -> str:
+    """Why 15e trains no jamba at full width: its smallest plan with a
+    mamba and an MoE layer (`layer_plan` puts attention at position 0 of
+    every period, so no plan has a mamba layer without an attention one),
+    and what two whole copies of its sharded step hold against the card's
+    `card_bytes`: reckoned from the bytes a param that the rwkv6 1-rank
+    step `rec` held at its peak on this card, less the second f32 moment
+    of rwkv6's AdamW (jamba's base optimizer is momentum)."""
+    cfg = dataclasses.replace(_hyb_cfg(2, 2), attn_every=2)
+    n = hybrid_reckoning(cfg)["params"]
+    per_param = rec["peak_bytes"] / rec["n_params"]
+    per_rank = (per_param - 4) * n
+    # the floor: bf16 params, one f32 moment and f32 gradients alone
+    floor = 10 * n
+    return (f"{HYB_ARCH} not trained at full width: its smallest plan "
+            f"with a mamba and an MoE layer (attn_every 2: an attention + "
+            f"MLP layer and a mamba + MoE layer, 2 experts, top-2) holds "
+            f"{n / 1e9:.2f}e9 params; rwkv6's 1-rank step above held "
+            f"{per_param:.1f} bytes a param at its peak, {per_param - 4:.1f}"
+            f" without AdamW's second moment: {per_rank / 1e9:.1f} GB a "
+            f"rank, {2 * per_rank / 1e9:.1f} GB for two whole copies "
+            f"(at the floor of bf16 params, one f32 moment and f32 "
+            f"gradients alone, {2 * floor / 1e9:.1f} GB), against the "
+            f"card's {card_bytes / 1e9:.1f} GB; its smoke config trains "
+            f"below, and full width waits for the sharded init (ROADMAP "
+            f"item 14b)")
+
+
 def _tp_reckoning(n_params: int, ranks: int) -> str:
     """A rank's device memory for the sharded step, reckoned: bf16 params,
     AdamW's two f32 moments, f32 gradients; FSDP keeps a shard of the
@@ -5331,7 +5902,8 @@ def phase_tp(torch, outs: dict, report: dict
     ranks' local shapes. Returns the summed launch counts of the ranks'
     main-path runs, 15b's launches summed over the ranks by (tp, variant,
     epilogue, K, N) for the GEMMs and (tp, kernel) for decode attention,
-    the failures and the numbers for --out."""
+    15d's by (variant, epilogue, K, N) and by fake-quant input shape, the
+    failures and the numbers for --out."""
     from collections import Counter
     from repro_torch.configs import get_arch
     from repro_torch.launch import mesh as M
@@ -5449,56 +6021,41 @@ def phase_tp(torch, outs: dict, report: dict
         if not same:
             failures.append("15b smoke tp=4 card vs CPU")
         # 15c: the sharded GETA step
-        torch.cuda.empty_cache()
-        ref = _tp_train_rank(1, False, TP_TRAIN_RANKS)
-        print(f"[15c sharded step] {_tp_reckoning(ref['n_params'], TP_TRAIN_RANKS)}")
-        print(f"[15c sharded step] 1 rank, grad_slices={TP_TRAIN_RANKS}: "
-              f"losses {ref['losses']}, step walls "
-              f"{[round(w, 2) for w in ref['walls']]} s, peak "
-              f"{ref['peak_bytes'] / 1e9:.2f} GB, stage {ref['stage']}, "
-              f"sparsity {ref['sparsity']:.3f}")
-        for fsdp in (False, True):
-            res = [r for r in pool.run(_tp_train_rank, TP_TRAIN_RANKS, fsdp,
-                                       TP_TRAIN_RANKS) if r]
-            same = all(r[k] == ref[k] for r in res for k in (
-                "losses", "params", "masks", "qparams"))
-            launched = Counter()
-            for r in res:
-                launched.update(r["launches"])
-            counts.update(launched)
-            ok = same and launched["fake_quant.fwd"] > 0 and launched[
-                "fake_quant.bwd"] > 0 and launched["gemm_core.tc"] > 0
-            print(f"[15c sharded step] {TP_TRAIN_RANKS} ranks "
-                  f"{'FSDP' if fsdp else 'DP'} ({res[0]['sharded']} params "
-                  f"sharded): loss, params, quantizers and masks "
-                  f"{'bitwise equal to' if same else 'DIFFER FROM'} the "
-                  f"1-rank step over {TP_TRAIN_STEPS} steps; step walls "
-                  f"{[round(w, 2) for w in res[0]['walls']]} s, peak "
-                  f"{[round(r['peak_bytes'] / 1e9, 2) for r in res]} GB a "
-                  f"rank; launches (all ranks) {dict(launched)} "
-                  f"{'ok' if ok else 'FAIL'}")
-            info[f"15c {'fsdp' if fsdp else 'dp'}"] = {
-                k: v for r in res[:1] for k, v in r.items()}
-            if not ok:
-                failures.append(f"15c {'fsdp' if fsdp else 'dp'}")
-        info["15c reference"] = ref
-    for name in ("gemm_core.small_m", "gemm_core.tc", "decode_attn",
-                 "paged_decode_attn.bf16", "fake_quant.fwd",
+        _sharded_steps(torch, pool, "15c", ARCH, RUN_LAYERS, counts, info,
+                       failures)
+        # 15d: the MoE and recurrent families, tensor and expert parallel
+        t1 = time.perf_counter()
+        family_tally = _tp_families(torch, pool, report, counts, info,
+                                    failures)
+        print(f"[15d tp families] {time.perf_counter() - t1:.1f} s")
+        # 15e: the recurrent families' sharded GETA step
+        t1 = time.perf_counter()
+        rec = _sharded_steps(torch, pool, "15e", REC_ARCH,
+                             TP_REC_TRAIN_LAYERS, counts, info, failures)
+        card = torch.cuda.get_device_properties(0).total_memory
+        print(f"[15e sharded step] {_jamba_train_reckoning(card, rec)}")
+        _sharded_steps(torch, pool, "15e", HYB_ARCH, None, counts, info,
+                       failures, smoke=True)
+        print(f"[15e sharded step] {time.perf_counter() - t1:.1f} s")
+    for name in ("gemm_core.small_m", "gemm_core.tc", "gemm_core.simt",
+                 "decode_attn", "paged_decode_attn.bf16", "fake_quant.fwd",
                  "fake_quant.bwd"):
         if counts[name] <= 0:
             failures.append(f"{name} never launched on phase 15's path")
     print(f"[15 tp] launch counts of the ranks' main-path runs (host "
           f"calls, all eager): {_nonzero(dict(counts))}")
     print(f"[15 tp] predictions (PERF.md): {PREDICTED_TP}")
-    return dict(counts), dict(tally), failures, info
+    return dict(counts), dict(tally), dict(family_tally), failures, info
 
 
-def _tp_kernel_rows(tp_report: dict, tp_tally: dict, gemm, attn,
-                    paged) -> list:
+def _tp_kernel_rows(tp_report: dict, tp_tally: dict, family_tally: dict,
+                    gemm, attn, paged, fq_fwd) -> list:
     """The kernel line's rows at a tp rank's local shapes (phase 3's
     rows), with phase 15b's launches at each row's (variant, epilogue, K,
     N), or its tp and arena for decode attention, summed over the engines
-    and their ranks. `gemm`, `attn`, `paged`: (source, replaces) pairs."""
+    and their ranks; then 15d's rows with 15d's launches (the GEMMs by
+    (variant, epilogue, K, N), the fake-quant forward by input shape).
+    `gemm`, `attn`, `paged`, `fq_fwd`: (source, replaces) pairs."""
     out = []
     for M, K, N, epis, roles in TP_GEMMS:
         for label in epis:
@@ -5517,7 +6074,7 @@ def _tp_kernel_rows(tp_report: dict, tp_tally: dict, gemm, attn,
                          f"{ARCH})", "variant": row["variant"],
                 **({"block_height_ms": row["heights"]} if "heights" in row
                    else {"kernels_per_launch": row.get("kernels_per_call")})})
-    for tp in TP_SIZES:
+    for tp in TP_ENGINE_SIZES:
         for base, (src, replaces) in (("decode_attn", attn),
                                       ("paged_decode_attn.bf16", paged)):
             row = tp_report[f"{base}.tp{tp}"]
@@ -5533,6 +6090,42 @@ def _tp_kernel_rows(tp_report: dict, tp_tally: dict, gemm, attn,
                          + f" R={row['R']} q bf16, pos int64 (a tp-{tp} "
                          f"rank's {row['KVh']} of {TP_KV_HEADS} KV heads)",
                 "kernels_per_launch": row["kernels_per_call"]})
+    for fam, M, K, N, epis, xdt, strided, role in TP_FAMILY_GEMMS:
+        for label in epis:
+            name = _tp_family_gemm_name(fam, M, K, N, label, xdt)
+            row = tp_report[name]
+            key = (row["variant"], _report_name(label).split(".")[1], K, N)
+            out.append({
+                "name": name, "route": "cuda", "source": gemm[0],
+                "replaces": gemm[1], "launches": family_tally.get(key, 0),
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "shape": f"M={M} K={K} N={N} x {xdt}"
+                         + (" (a strided view, rows 544 apart)" if strided
+                            else "")
+                         + f" ({role} of a tp-{TP_FAMILY_TP[fam]} {fam} "
+                           f"rank)",
+                "variant": row["variant"],
+                **({"block_height_ms": row["heights"]} if "heights" in row
+                   else {"kernels_per_launch": row.get("kernels_per_call")})})
+    for label, shape, dt in (
+            [(k, s, "bf16") for k, s in TP_FAMILY_STACKS.items()]
+            + [(k, s, "f32") for k, s in TP_FAMILY_STACKS_F32.items()]):
+        row = tp_report[f"fake_quant.fwd.{label}"]
+        key = f"{'x'.join(map(str, shape))} " + (
+            "float32" if dt == "f32" else "bfloat16")
+        out.append({
+            "name": f"fake_quant.fwd.{label}", "route": "cuda",
+            "source": fq_fwd[0], "replaces": fq_fwd[1],
+            "launches": family_tally.get(("fake_quant.fwd", key), 0),
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+            "shape": f"{'x'.join(map(str, shape))} {dt} t=1 ({row['numel']} "
+                     f"elements: a {label.split('_')[1]} rank's expert "
+                     f"stack)",
+            "kernels_per_launch": row["kernels_per_call"]})
     return out
 
 
@@ -6227,7 +6820,8 @@ def main(argv=None) -> int:
     failures += front_fail
     lap("14 frontends")
     torch.cuda.empty_cache()
-    tp_counts, tp_tally, tp_fail, tp_info = phase_tp(torch, outs, tp_report)
+    tp_counts, tp_tally, family_tally, tp_fail, tp_info = phase_tp(
+        torch, outs, tp_report)
     failures += tp_fail
     lap("15 tp")
     torch.cuda.empty_cache()
@@ -6278,6 +6872,8 @@ def main(argv=None) -> int:
              "tp_launches": tp_counts,
              "tp_kernel_launches": {"/".join(map(str, k)): v
                                     for k, v in tp_tally.items()},
+             "tp_family_kernel_launches": {"/".join(map(str, k)): v
+                                           for k, v in family_tally.items()},
              "tp": tp_info,
              "experiments": exp_info,
              "introspect": intro_info,
@@ -6546,7 +7142,8 @@ def main(argv=None) -> int:
                      f"g={row['g']} dh={row['dh']} R={row['R']} q bf16, pos "
                      f"int64 ({what})",
             "kernels_per_launch": row["kernels_per_call"]})
-    kernels += _tp_kernel_rows(tp_report, tp_tally, gemm, attn, paged)
+    kernels += _tp_kernel_rows(tp_report, tp_tally, family_tally, gemm,
+                               attn, paged, train_src["fake_quant.fwd"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -23,9 +23,11 @@ prefills each prompt C rows at a time between decode steps; the report
 adds the chunks and the decode steps that ran mid-prefill. `--tp N`
 serves tensor-parallel on N ranks (processes; `--devices N` starts N
 ranks and serves at tp N): each holds its shards of the params and the KV
-arena, every rank emits the same tokens and rank 0 prints; the MoE and
-recurrent archs raise NotImplementedError under it, naming the ROADMAP
-item that brings them. `--arch rwkv6-3b` and `--arch
+arena (an MoE's experts, mamba's channels and rwkv6's heads included),
+every rank emits the same tokens and rank 0 prints; a mode the arch
+refuses on one rank (`--speculative` or `--chunked-prefill` on a
+recurrent arch) raises its ValueError before any rank starts.
+`--arch grok-1-314b` serves the MoE family, `--arch rwkv6-3b` and `--arch
 jamba-1.5-large-398b` serve the recurrent mixers; their paged arena runs
 without prefix sharing (a prefix hit would skip the prefill that sets a
 slot's recurrent state), which the example turns off and prints. Codebook
@@ -55,13 +57,16 @@ versions and decodes its windows eagerly:
 
     PYTHONPATH=src python examples/serve_engine_torch.py --tp 2 \
         --compressed --device cpu
+
+    PYTHONPATH=src python examples/serve_engine_torch.py --tp 2 \
+        --arch grok-1-314b --device cpu
 """
 import argparse
 
 from repro_torch.configs import get_arch
 from repro_torch.launch import mesh as meshlib
 from repro_torch.launch.engine import (PLAIN_TOKENS_ONLY, build_engine,
-                                       require_tp_family, resolve_device,
+                                       check_modes, resolve_device,
                                        synthetic_prompts)
 from repro_torch.models.transformer import LM, layer_plan, recurrent_mixers
 
@@ -129,7 +134,10 @@ def main(argv=None):
         args.paged = True
     args.tp = args.tp or args.devices
     if args.tp > 1:
-        require_tp_family(LM(get_arch(args.arch, smoke=True)))
+        # a mode one rank refuses fails here, before any rank starts
+        check_modes(LM(get_arch(args.arch, smoke=True)),
+                    speculative=args.speculative,
+                    prefill_chunk=args.chunked_prefill)
         if args.devices and args.devices < args.tp:
             raise SystemExit("--devices must be at least --tp")
         return meshlib.spawn(serve, args.devices or args.tp,

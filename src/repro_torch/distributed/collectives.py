@@ -18,8 +18,15 @@ The reference pins each QASSO statistic to a replicated layout
 replica-dependent points; the port has no counterpart: its sharded step
 computes every statistic locally from tensors that `gather_full` and
 `ordered_sum` made bitwise identical on every rank, and
-`assert_replicated` checks that claim. Expert parallelism
-(`moe_ep_constraints`) comes with ROADMAP Queue 1 item 14b.
+`assert_replicated` checks that claim.
+
+Expert parallelism: the reference pins the dispatched activations (E, C,
+D) to `model` (`moe_ep_constraints`) and lets GSPMD lower the MoE's
+dispatch and combine to all-to-all. The port has no partitioner: every
+rank builds the whole dispatch and combine masks from the same router
+bits, `moe_ep_slices` cuts out its experts' columns (no collective), the
+expert products run on the rank's experts alone, and each rank's partial
+output is summed in rank order (`ordered_sum`).
 """
 from __future__ import annotations
 
@@ -40,6 +47,18 @@ def ordered_sum(x: torch.Tensor, mesh, axis: str, dtype=None
     for t in xs[1:]:
         acc = acc + t.to(F32)
     return acc.to(dtype or x.dtype)
+
+
+def moe_ep_slices(dispatch: torch.Tensor, combine: torch.Tensor,
+                  n_local: int, mesh, axis: str = "model"
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """This rank's experts' columns of the (G, n, E, C) dispatch and
+    combine masks: experts [i * n_local, (i + 1) * n_local) for the rank's
+    index i on `axis`. The capacity C and each token's queue place come
+    from the whole masks, identical on every rank, so the drops are the
+    1-rank call's."""
+    lo = mesh.index(axis) * n_local
+    return dispatch[:, :, lo:lo + n_local], combine[:, :, lo:lo + n_local]
 
 
 def assert_replicated(x: torch.Tensor, mesh, what: str = "tensor") -> None:

@@ -23,7 +23,12 @@ sharded dim, minor axis first, in the order of the reference's
 but the code that calls these functions.
 
 `TensorParallel` is a served model's layout on the `model` axis, which
-the LM's layers read to run on a rank's shards (`models.layers`).
+the LM's layers read to run on a rank's shards (`models.layers`):
+attention heads, MLP hidden units, the vocab, an MoE's experts (expert
+parallelism: dim -3 of the expert stacks), mamba's inner channels and
+rwkv6's heads and channel-mix hidden units. `serving_plan` is its plan:
+the reference's rules with the MoE router replicated, and rwkv6's heads
+kept whole on a rank.
 """
 from __future__ import annotations
 
@@ -71,19 +76,25 @@ class ShardingPlan:
     mesh: Any                    # anything with a `.shape` axis -> size map
     rules: dict[str, Any]
     fallbacks: list[tuple[str, str, int]]  # (param, axis, dim) replicated
+    # logical axis -> the width a leaf's LAST dim on it splits in whole
+    # multiples of (rwkv6's head size on `rwkv_heads`: a column tile must
+    # not cut a head; a K tile of rows may)
+    units: dict[str, int] = dataclasses.field(default_factory=dict)
 
     def spec_for(self, name: str, logical: tuple[str, ...],
                  shape: tuple[int, ...]) -> tuple:
         parts = []
         used = set()
-        for ax_name, dim in zip(logical, shape):
+        for i, (ax_name, dim) in enumerate(zip(logical, shape)):
             mesh_ax = self.rules.get(ax_name)
             if mesh_ax is None:
                 parts.append(None)
                 continue
             axes = tuple(a for a in _axes(mesh_ax) if a in self.mesh.shape)
             size = math.prod(self.mesh.shape[a] for a in axes)
-            if size <= 1 or dim % size != 0 or any(a in used for a in axes):
+            unit = self.units.get(ax_name, 1) if i == len(logical) - 1 else 1
+            if (size <= 1 or dim % (size * unit) != 0
+                    or any(a in used for a in axes)):
                 if size > 1:
                     self.fallbacks.append((name, ax_name, dim))
                 parts.append(None)
@@ -137,6 +148,22 @@ def make_plan(mesh, *, fsdp: bool = False, overrides: Optional[dict] = None,
     return ShardingPlan(mesh=mesh, rules=rules, fallbacks=[])
 
 
+def serving_plan(mesh, cfg=None) -> ShardingPlan:
+    """The tensor-parallel serving plan (`make_plan(mode="tp")`) with two
+    departures from the rules: the MoE router (`experts_router`) stays
+    whole on every rank, so every rank and the 1-rank engine pick the same
+    experts from the same bits (a column tile of the router product could
+    round a near-tie the other way), and, for a config with rwkv6 mixers
+    (`cfg.rwkv`), a column tile on `rwkv_heads` holds whole heads (the WKV
+    scan and the group norm run per head); a head count the ranks do not
+    divide replicates, recorded in `fallbacks`."""
+    plan = make_plan(mesh, mode="tp", overrides={"experts_router": None})
+    rwkv = getattr(cfg, "rwkv", None)
+    if rwkv is not None:
+        plan.units["rwkv_heads"] = int(rwkv.head_size)
+    return plan
+
+
 def serving_axes_for(name: str, params_axes: dict[str, tuple]
                      ) -> Optional[tuple]:
     """Logical axes for a served param key: `<w>.codes` and
@@ -175,22 +202,32 @@ def serving_param_specs(plan: ShardingPlan, params_axes: dict[str, tuple],
     return specs
 
 
+# a recurrent-state leaf's suffix -> (its rank, the dim of its channels
+# or heads): mamba's h (nb, B, Di, N) and conv (nb, B, K-1, Di), rwkv6's
+# wkv (nb, B, H, dh, dh)
+_STATE_DIMS = {"h": (4, 2), "conv": (4, 3), "wkv": (5, 2)}
+
+
 def kv_cache_specs(mesh, cache_shapes: dict[str, tuple]) -> dict[str, tuple]:
     """Specs for a KV arena, contiguous or paged: K/V leaves shard their
     KV-head axis (3 in both the (nb, B, S, KVh, dh) arena and the (nb,
     n_pages, P, KVh, dh) pools, and in the (nb, n_pages, P, KVh) scale
-    planes) over `model`; a KVh that does not divide replicates, as do
-    recurrent-state leaves."""
+    planes) over `model`. Recurrent-state leaves shard with the channels
+    and heads of their mixer, as its params do: mamba's h and conv on Di,
+    rwkv6's wkv state on its heads; the token shifts (nb, B, D) stay
+    whole (the reference replicates every state leaf and lets GSPMD move
+    it). A width that does not divide replicates."""
     size = int(mesh.shape.get("model", 1))
     specs: dict[str, tuple] = {}
     for name, shape in cache_shapes.items():
         kv = name.endswith(".k") or name.endswith(".v")
         sc = name.endswith("_scale")
-        if size > 1 and ((kv and len(shape) == 5) or (sc and len(shape) == 4)) \
-                and shape[3] % size == 0:
-            specs[name] = (None, None, None, "model")
-        else:
-            specs[name] = ()
+        ndim, dim = _STATE_DIMS.get(name.rpartition(".")[2], (0, 0))
+        if kv and len(shape) == 5 or sc and len(shape) == 4:
+            ndim, dim = len(shape), 3
+        specs[name] = ()
+        if size > 1 and ndim == len(shape) and ndim and shape[dim] % size == 0:
+            specs[name] = (None,) * dim + ("model",)
     return specs
 
 

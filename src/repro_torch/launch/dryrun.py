@@ -32,10 +32,12 @@ is the FSDP plan), or, with `step="base"`, the base optimizer's step.
 The GETA cell runs one step in each QASSO stage (warm-up, projection, a
 joint step that recomputes the partition, cool-down), counted apart; the
 record's top-level numbers are the joint stage's, the costliest. Serving
-(prefill, and decode in the `qat` and `prequant` modes): the dense
-families run tensor parallel on `model` as the engine serves them
-(`LM.tp`), the others with whole weights, the batch split over the data
-axes. The `psum` and `seqshard` values of `serve_attn` pin GSPMD score
+(prefill, and decode in the `qat` and `prequant` modes): every family
+the engine serves runs tensor parallel on `model` as the engine serves
+it (`LM.tp` under `sharding.serving_plan`: heads, MLP hidden units, the
+vocab, an MoE's experts, mamba's inner channels and rwkv6's heads, the
+recurrent state with its channels or heads), the codebook and VLM archs
+with whole weights, the batch split over the data axes. The `psum` and `seqshard` values of `serve_attn` pin GSPMD score
 layouts, which the port has no counterpart of: they raise ValueError.
 
 QASSO's scalar rules read statistics on the host; on meta they run on
@@ -296,7 +298,7 @@ def build_cell(arch: str, shape, mesh, step: str = "geta",
             raise ValueError(f"step {step!r}: geta or base")
     else:
         tp = serves_tensor_parallel(lm) and mesh.shape.get("model", 1) > 1
-        plan = shlib.make_plan(mesh, mode="tp")
+        plan = shlib.serving_plan(mesh, cfg)
         p_recs, _, axes = param_specs(lm)
         if tp:
             specs = shlib.serving_param_specs(

@@ -67,18 +67,23 @@ and chunked-prefill modes, and tensor parallelism.
 
 - A tensor-parallel engine (`mesh=`, one per rank of a `launch.mesh`
   rank group) holds the rank's shards of the served params
-  (`distributed.sharding.serving_param_specs`: heads, MLP hidden and
-  vocab on `model`, int codes and packed words by name) and of the arena
-  (`kv_cache_specs`: by KV head, or whole where the KV heads do not
-  divide the ranks); its LM runs on them (`LM.tp`), products sharded on
-  K summing their partials in rank order. Every rank runs the same host
-  loop (admission, scheduler, page allocator) and takes its argmax from
-  the same gathered logits, so every rank emits the same tokens. A
-  collective over gloo cannot be captured in a CUDA graph: there the
-  windows decode eagerly and `decode_mode` says so; over nccl they are
-  captured as on one card. The MoE, recurrent, codebook and vision
-  families are refused under a mesh (ROADMAP Queue 1 item 14b).
-  `engine_serve(tp=N)` outside a rank group starts N ranks itself.
+  (`distributed.sharding.serving_param_specs` under `serving_plan`:
+  heads, MLP hidden, vocab, an MoE's experts, mamba's inner channels and
+  rwkv6's heads on `model`, int codes and packed words by name; the MoE
+  router whole) and of the arena (`kv_cache_specs`: by KV head, or whole
+  where the KV heads do not divide the ranks; the recurrent state with
+  its mixer's channels or heads, the token shifts whole); its LM runs on
+  them (`LM.tp`), products sharded on K or on the expert axis summing
+  their partials in rank order. Every rank runs the same host loop
+  (admission, scheduler, page allocator) and takes its argmax from the
+  same gathered logits, so every rank emits the same tokens; what one
+  rank refuses on a recurrent plan (prefix sharing, speculative
+  decoding, chunked prefill, a prompt the scan chunk does not divide) a
+  tensor-parallel engine refuses with the same ValueError. A collective
+  over gloo cannot be captured in a CUDA graph: there the windows decode
+  eagerly and `decode_mode` says so; over nccl they are captured as on
+  one card (the MoE path makes no host sync). `engine_serve(tp=N)`
+  outside a rank group starts N ranks itself.
 
 Entry points run on CUDA unless the caller passes `device="cpu"`, and
 raise when no CUDA device is there; nothing falls back silently.
@@ -109,7 +114,7 @@ from repro_torch.launch.scheduler import (ChunkedPrefillScheduler,
                                           chunk_buckets, chunk_plan)
 from repro_torch.launch.speculative import (DraftModel, build_draft,
                                             make_spec_step, pow2_floor)
-from repro_torch.models.layers import PagedView, dtype_of, not_in_this_slice
+from repro_torch.models.layers import PagedView, dtype_of
 from repro_torch.models.transformer import LM, recurrent_mixers
 
 
@@ -178,21 +183,16 @@ def _require_full_attention(lm: LM, mode: str) -> None:
                          + mixer_why.format(bad=bad))
 
 
-def _tp_gap(lm: LM) -> Optional[str]:
-    """The family that tensor-parallel serving does not cover yet, or
-    None: MoE (expert parallelism) and the recurrent mixers."""
-    return ("an MoE" if lm.cfg.moe is not None else
-            f"{recurrent_mixers(lm.plan)} mixers" if recurrent_mixers(lm.plan)
-            else None)
-
-
-def require_tp_family(lm: LM) -> None:
-    """Refuse tensor-parallel serving of the families it does not cover
-    yet (`_tp_gap`)."""
-    what = _tp_gap(lm)
-    if what is not None:
-        raise not_in_this_slice(f"tensor-parallel serving of {what} "
-                                f"({lm.cfg.name})", "ROADMAP Queue 1 item 14b")
+def check_modes(lm: LM, *, speculative: bool = False,
+                prefill_chunk: Optional[int] = None) -> None:
+    """Raise the ValueError an Engine of `lm` in these modes raises at
+    construction, where it calls this (speculative decoding and chunked
+    prefill need full attention arenas): what a caller that starts ranks
+    checks first, so a refused mode fails before any rank starts."""
+    if speculative:
+        _require_full_attention(lm, "speculative decoding")
+    if prefill_chunk:
+        _require_full_attention(lm, "chunked prefill")
 
 
 def plain_tokens(cfg) -> bool:
@@ -201,8 +201,10 @@ def plain_tokens(cfg) -> bool:
 
 
 def serves_tensor_parallel(lm: LM) -> bool:
-    """Whether `Engine(mesh=)` serves `lm` tensor parallel."""
-    return plain_tokens(lm.cfg) and _tp_gap(lm) is None
+    """Whether `Engine(mesh=)` serves `lm` tensor parallel: every arch the
+    engine serves (the codebook and VLM archs serve through the static
+    loop)."""
+    return plain_tokens(lm.cfg)
 
 
 @dataclasses.dataclass
@@ -225,7 +227,12 @@ class Engine:
     """Continuous-batching decode over a slot arena (contiguous, or paged
     with `paged=True`), with an optional speculative draft (`draft=`) and
     step policy (`scheduler=`). Drive it one `step()` at a time, or with
-    `run()` until every submitted request finished."""
+    `run()` until every submitted request finished. Under `mesh` the
+    engine serves this rank's shards of `params` and pops each whole
+    tensor out of the caller's `params` dict as it cuts the shard (the
+    dict is left empty), so a rank that drew the whole model holds one
+    whole tensor beside its shards instead of two copies; pass a copy of
+    the dict to keep it."""
 
     MAX_WINDOW = 32
 
@@ -253,7 +260,6 @@ class Engine:
         # id of an arena leaf -> its bytes before sharding (`_arena`)
         self._full_leaf_bytes: dict[int, int] = {}
         if self.mesh is not None:
-            require_tp_family(lm)
             params, self.tp_fallbacks = self._shard(
                 lm, params, param_axes or lm.param_axes())
         self.params = params
@@ -282,6 +288,8 @@ class Engine:
                 f"prefill that sets the slot's recurrent state, so the slot "
                 f"would decode from its previous occupant's state; pass "
                 f"prefix_sharing=False")
+        check_modes(lm, speculative=draft is not None,
+                    prefill_chunk=getattr(scheduler, "chunk", None))
         if self.paged:
             self.Lp = paging.pages_for_rows(max_seq, self.page_size)
             if n_pages is None:
@@ -317,7 +325,6 @@ class Engine:
         self.draft_k = int(draft_k)
         self.dcaches = None
         if draft is not None:
-            _require_full_attention(lm, "speculative decoding")
             if not 1 <= self.draft_k < max_seq:
                 raise ValueError(
                     f"draft_k={self.draft_k} must be in [1, "
@@ -339,9 +346,6 @@ class Engine:
         self._prefill_job: Optional[PrefillJob] = None
         chunk = getattr(self.scheduler, "chunk", None)
         self._chunk = int(chunk) if chunk else None
-        if self._chunk:
-            # chunks go through verify_chunk, with its preconditions
-            _require_full_attention(lm, "chunked prefill")
 
         self._static_buffers()
         # k -> (CUDA graph, its output); the host launch counts each
@@ -363,13 +367,15 @@ class Engine:
     def _shard(self, lm: LM, params: dict, axes: dict
                ) -> tuple[dict, list]:
         """(this rank's shards of the served `params`, the replication
-        fallbacks): `serving_param_specs` under the mesh's TP plan, which
-        `lm` then runs on (`LM.tp`)."""
-        plan = shlib.make_plan(self.mesh, mode="tp")
+        fallbacks): `serving_param_specs` under the mesh's TP serving plan
+        (`sharding.serving_plan`), which `lm` then runs on (`LM.tp`).
+        Each whole tensor leaves `params` as its shard is cut (the dict
+        is emptied)."""
+        plan = shlib.serving_plan(self.mesh, lm.cfg)
         specs = shlib.serving_param_specs(plan, axes, params)
         lm.tp = shlib.TensorParallel(self.mesh, specs)
-        return ({k: shlib.local_shard(v, specs[k], self.mesh)
-                 for k, v in params.items()}, list(plan.fallbacks))
+        return ({k: shlib.local_shard(params.pop(k), specs[k], self.mesh)
+                 for k in list(params)}, list(plan.fallbacks))
 
     def _local(self, caches: dict) -> dict:
         """Under a mesh, this rank's shards of a KV cache (`kv_cache_specs`:

@@ -24,7 +24,9 @@ tokens a round, which the target verifies in one chunked pass;
 decode steps. `--tp N` serves tensor-parallel on N ranks (processes,
 `launch.mesh`): gloo on the CPU, nccl when each rank has a card, else
 gloo with host-staged collectives (ranks sharing one card), where the
-decode windows run eagerly; it stacks with every mode above.
+decode windows run eagerly; it stacks with every mode above and serves
+every arch the engine serves (an MoE's experts, mamba's inner channels
+and rwkv6's heads split over the ranks).
 
 `--static` runs `serve_loop`: one fixed batch of `--batch` prompts of
 `--prompt-len` tokens in lockstep, prefilled one token per decode step.
@@ -65,6 +67,8 @@ Examples:
       --chunked-prefill 8 --prompt-lens 12,5,21 --gen 8 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --tp 2 \
       --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --tp 2 \
+      --arch rwkv6-3b --device cpu
 """
 from __future__ import annotations
 
@@ -477,9 +481,11 @@ def main(argv=None):
                          "identical to the one-shot engine's)")
     ap.add_argument("--tp", type=int, default=0,
                     help="serve tensor-parallel on N ranks: params shard by "
-                         "attention head, MLP hidden and vocab, the KV arena "
-                         "by KV head; in --smoke mode also asserts tokens "
-                         "identical to the one-rank engine's")
+                         "attention head, MLP hidden, vocab, expert, mamba "
+                         "channel and rwkv head, the KV arena by KV head "
+                         "and the recurrent state with its channels; in "
+                         "--smoke mode also asserts tokens identical to the "
+                         "one-rank engine's")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")

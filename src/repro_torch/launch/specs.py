@@ -12,8 +12,10 @@ design"): the token ids are int64, torch's index dtype; the KV cache
 shards its KV-head axis over `model` where the heads divide it and is
 otherwise whole on every rank (the port's tensor-parallel layers cannot
 split d_head, `sharding.kv_cache_specs`); a batch of 1 is whole on every
-rank (the port has no sequence-sharded decode); and there is no `seq`
-cache layout (a GSPMD pin): the cache shards by KV head only.
+rank (the port has no sequence-sharded decode); there is no `seq`
+cache layout (a GSPMD pin): the cache shards by KV head only; and the
+recurrent state shards with its mixer's channels or heads where the
+reference replicates it.
 """
 from __future__ import annotations
 
@@ -93,7 +95,8 @@ def decode_specs(cfg: ModelConfig, shape: ShapeConfig, mesh=None) -> dict:
     """serve-step records: one new token per sequence against a seq_len
     KV cache: {"caches": {name: ArraySpec}, "token", "pos"}. Under a mesh
     the batch splits over the data-parallel axes (whole when it is 1) and
-    the K/V leaves over `model` by KV head (`sharding.kv_cache_specs`)."""
+    the K/V leaves over `model` by KV head, the recurrent state with its
+    channels or heads (`sharding.kv_cache_specs`)."""
     B, S = shape.global_batch, shape.seq_len
     lm = LM(cfg)
     caches = lm.init_cache(B, S, dtype=_float(cfg), device="meta")
@@ -105,10 +108,9 @@ def decode_specs(cfg: ModelConfig, shape: ShapeConfig, mesh=None) -> dict:
     def cache_spec(name, t):
         if mesh is None:
             return ArraySpec(tuple(t.shape), t.dtype)
-        parts = [None] * t.ndim
+        spec = kv.get(name, ())
+        parts = list(spec) + [None] * (t.ndim - len(spec))
         parts[1] = dp                    # (n_blocks, B, ...) every leaf
-        if kv.get(name):
-            parts[3] = "model"
         return ArraySpec(tuple(t.shape), t.dtype, tuple(parts), mesh)
 
     tok = (B, 1, cfg.num_codebooks) if cfg.num_codebooks else (B, 1)

@@ -52,7 +52,7 @@ from repro_torch.distributed.fault import FaultConfig, FaultTolerantLoop
 from repro_torch.launch import mesh as meshlib
 from repro_torch.launch.engine import resolve_device
 from repro_torch.models.layers import not_in_this_slice
-from repro_torch.models.transformer import LM, recurrent_mixers
+from repro_torch.models.transformer import LM
 from repro_torch.optim.schedules import cosine
 
 F32 = torch.float32
@@ -160,7 +160,9 @@ def make_ordered_loss_grads(lm, mesh, param_specs_tree=None,
                             axis: str = "data"):
     """lg(params, qparams, batch) -> (loss, gx, gq) with a deterministic
     reduction over the batch: the batch splits into `grad_slices` equal
-    slices (default: the mesh's `axis` size), each slice's loss and
+    slices of whole sequences (default: the mesh's `axis` size; every
+    leaf on its first axis: tokens (B, S), codebook frames (B, S, C), a
+    vlm batch's patch embeds (B, P, D) with their text), each slice's loss and
     gradients are computed apart and summed in f32 in slice order, then
     scaled by 1/k; gradients come back f32.
 
@@ -426,8 +428,10 @@ def train_loop(arch: str, smoke: bool, steps: int, batch: int, seq: int,
     `embed` over the data axis); every rank draws the same init and batch
     and keeps its pieces, state is this rank's, checkpoints hold the full
     state and a restore places each leaf as the current mesh's shard.
-    The MoE, recurrent, codebook and vision families train on one device
-    only (ROADMAP Queue 1 item 14b)."""
+    Every family trains so: an MoE's capacity is per sequence, so a rank's
+    slice of whole sequences routes as the whole batch does; a codebook
+    batch (B, S, C) and a vlm batch's patch embeds split with their
+    sequences."""
     if fsdp and mesh is None:
         raise ValueError("fsdp shards over a mesh: pass mesh= "
                          "(--devices N)")
@@ -437,11 +441,6 @@ def train_loop(arch: str, smoke: bool, steps: int, batch: int, seq: int,
     dev = params["embed"].device
     step, place_batch, state_sh = make_geta_train_step(lm, qasso), None, None
     if mesh is not None:
-        cfg = lm.cfg
-        if (cfg.moe is not None or cfg.num_codebooks or cfg.vision_patches
-                or recurrent_mixers(lm.plan)):
-            raise not_in_this_slice(f"sharded training of {cfg.name}",
-                                    "ROADMAP Queue 1 item 14b")
         plan = shlib.make_plan(mesh, fsdp=fsdp,
                                overrides=dict(get_overrides(arch)))
         p_sh = plan.shardings(lm.param_axes(),

@@ -47,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quant import (PACKED_STORAGE_BITS, QuantParams,
                                     fake_quant, kv_quant_encode)
+from repro_torch.distributed import collectives
 from repro_torch.kernels import ops as Kops
 
 # Components whose 2-D weights execute through `dense_proj`.
@@ -411,6 +412,14 @@ def tp_row_proj(tp, h: torch.Tensor, h_split: bool, lp: dict,
     return tp.sum(dense_proj(h, lp, qp, name))
 
 
+def tp_col_tile(tp, lp: dict, name: str, y: torch.Tensor) -> torch.Tensor:
+    """This rank's column tile of y = x @ w for a weight whose columns lie
+    on the tensor-parallel axis: y itself where w's columns are split, its
+    tile where w is whole on every rank (a packed or coded width the
+    ranks do not divide)."""
+    return y if tp.split(tp.key(lp, name), -1) else tp.tile(y)
+
+
 def _tp_heads(tp, lp: dict, prefix: str, q, k, v, H: int, KVh: int):
     """A rank's q, k, v and head counts under tensor parallelism. When
     the KV heads divide the ranks the arena holds this rank's KVh / tp
@@ -644,7 +653,7 @@ def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 def moe_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
               prefix: str, full_capacity: bool = False,
-              shapes: Optional[LayerShapes] = None) -> torch.Tensor:
+              shapes: Optional[LayerShapes] = None, tp=None) -> torch.Tensor:
     """Top-k token-choice MoE with GShard's grouped einsum dispatch, as the
     reference computes it: one group per sequence with per-group capacity
     C = max(int(cf * n * K / E), 4), or n * K with `full_capacity` (the
@@ -656,7 +665,15 @@ def moe_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
     or past C drops it (zero gate, zero one-hot row). `dispatch` is built
     in x's dtype, `combine` in f32 and cast to x's dtype before the last
     product; SiLU runs in f32. The shared expert is an MLP through
-    `dense_proj` (its sites fuse into the GEMM epilogue)."""
+    `dense_proj` (its sites fuse into the GEMM epilogue).
+
+    Under `tp` with the expert stacks split on their expert axis (dim -3;
+    expert parallelism) the router is whole on every rank (`sharding.
+    serving_plan`), so every rank builds the same dispatch and combine,
+    with C and the queue places of the whole layer; a rank runs only its
+    E/tp experts' products (`collectives.moe_ep_slices`) and the combine,
+    a product sharded on the expert axis, sums its partials in rank order
+    (`tp.sum`). The shared expert takes the MLP's TP path."""
     B, S, D = x.shape
     shapes = shapes or LayerShapes.from_config(cfg)
     E, K = shapes.n_experts, cfg.moe.top_k
@@ -687,14 +704,22 @@ def moe_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
     combine = torch.einsum("gnke,gnkc,gnk->gnec", onehot,
                            posoh.to(torch.float32), gate_vals)
 
+    we_gate, we_up, we_down = (qw(lp, qp, f"{prefix}.{w}")
+                               for w in ("we_gate", "we_up", "we_down"))
+    ep = tp is not None and tp.split(f"{prefix}.we_gate", -3)
+    if ep:
+        dispatch, combine = collectives.moe_ep_slices(
+            dispatch, combine, we_gate.shape[0], tp.mesh, tp.axis)
     xe = torch.einsum("gnec,gnd->gecd", dispatch, xg)          # (G, E, C, D)
-    g = torch.einsum("gecd,edf->gecf", xe, qw(lp, qp, f"{prefix}.we_gate"))
-    u = torch.einsum("gecd,edf->gecf", xe, qw(lp, qp, f"{prefix}.we_up"))
+    g = torch.einsum("gecd,edf->gecf", xe, we_gate)
+    u = torch.einsum("gecd,edf->gecf", xe, we_up)
     h = torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype) * u
-    ye = torch.einsum("gecf,efd->gecd", h, qw(lp, qp, f"{prefix}.we_down"))
+    ye = torch.einsum("gecf,efd->gecd", h, we_down)
     y = torch.einsum("gnec,gecd->gnd", combine.to(x.dtype), ye)
+    if ep:
+        y = tp.sum(y)
     if cfg.moe.shared_expert:
-        y = y + mlp_apply(lp, qp, cfg, x, prefix=f"{prefix}.shared")
+        y = y + mlp_apply(lp, qp, cfg, x, prefix=f"{prefix}.shared", tp=tp)
     return y.reshape(B, S, D)
 
 
@@ -801,18 +826,32 @@ def _mamba_chunk_scan(xc, dt, Bc, Cc, A, D_vec, h0, chunk: int = 64):
 
 def mamba_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
                 prefix: str, state: Optional[tuple] = None,
-                shapes: Optional[LayerShapes] = None):
+                shapes: Optional[LayerShapes] = None, tp=None):
     """Selective SSM block; state = (h (B, Di, N) f32, conv (B, K-1, Di))
     for decode, None for a full sequence from zero state. Di comes from
     `shapes`. The depthwise conv sums its K taps in f32 term by term, in
-    the reference's order. Returns (out, new_state)."""
+    the reference's order. Returns (out, new_state).
+
+    Under `tp` with the inner channels split (`mamba_inner`; conv_w's
+    columns tell) a rank runs on its Di/tp channels: column tiles of
+    in_proj_x, in_proj_z and dt_proj, its own conv_w, A_log, D, dt_bias
+    and scan, and state leaves of its channels (`kv_cache_specs`).
+    x_proj takes K on the inner axis, so (dt_low, B, C) are partial sums,
+    summed in rank order: every rank scans with the same B and C.
+    out_proj sums its K tiles the same way (`tp_row_proj`); the
+    `mamba_out` site is elementwise with scalar (d, q_m, t)."""
     B, S, D = x.shape
     mc = cfg.mamba
     shapes = shapes or LayerShapes.from_config(cfg)
     Di, N, Kc = shapes.mamba_inner, mc.d_state, mc.d_conv
     f32 = torch.float32
+    local = tp is not None and tp.split(f"{prefix}.conv_w", -1)
     xi = dense_proj(x, lp, qp, f"{prefix}.in_proj_x")      # (B, S, Di)
     z = dense_proj(x, lp, qp, f"{prefix}.in_proj_z")
+    if local:
+        xi = tp_col_tile(tp, lp, f"{prefix}.in_proj_x", xi)
+        z = tp_col_tile(tp, lp, f"{prefix}.in_proj_z", z)
+        Di = xi.shape[-1]
     conv_w = lp[f"{prefix}.conv_w"].to(f32)                  # (K, Di)
     if state is None:
         pad = torch.zeros((B, Kc - 1, Di), dtype=xi.dtype, device=x.device)
@@ -824,11 +863,14 @@ def mamba_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
         new_conv = xpad[:, -(Kc - 1):] if Kc > 1 else conv_prev
     xc = sum(xpad[:, i:i + S].to(f32) * conv_w[i] for i in range(Kc))
     xc = F.silu(xc).to(x.dtype)
-    proj = dense_proj(xc, lp, qp, f"{prefix}.x_proj")
+    proj = (tp_row_proj(tp, xc, local, lp, qp, f"{prefix}.x_proj")
+            if tp is not None else dense_proj(xc, lp, qp, f"{prefix}.x_proj"))
     dtr = mc.dt_rank or D // 16
     dt_low, Bc, Cc = torch.split(proj, [dtr, N, N], dim=-1)
-    dt = _softplus(dense_proj(dt_low, lp, qp, f"{prefix}.dt_proj").to(f32)
-                   + lp[f"{prefix}.dt_bias"].to(f32))       # (B, S, Di)
+    dt = dense_proj(dt_low, lp, qp, f"{prefix}.dt_proj")
+    if local:
+        dt = tp_col_tile(tp, lp, f"{prefix}.dt_proj", dt)
+    dt = _softplus(dt.to(f32) + lp[f"{prefix}.dt_bias"].to(f32))  # (B,S,Di)
     A = -torch.exp(lp[f"{prefix}.A_log"].to(f32))            # (Di, N)
     h0 = (torch.zeros((B, Di, N), dtype=f32, device=x.device)
           if state is None else state[0])
@@ -837,6 +879,9 @@ def mamba_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
                                   chunk=mc.chunk)
     y = (y * F.silu(z.to(f32))).to(x.dtype)
     y = qa(y, qp, f"{prefix}.mamba_out.aq")
+    if tp is not None:
+        return (tp_row_proj(tp, y, local, lp, qp, f"{prefix}.out_proj"),
+                (h_last, new_conv))
     out = dense_proj(y, lp, qp, f"{prefix}.out_proj")
     return out, (h_last, new_conv)
 
@@ -912,27 +957,42 @@ def _wkv_scan(r, k, v, w, u, s0, chunk: int = 64):
 
 def rwkv_timemix_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
                        prefix: str, state: Optional[tuple] = None,
-                       shapes: Optional[LayerShapes] = None):
+                       shapes: Optional[LayerShapes] = None, tp=None):
     """RWKV6 (Finch) time-mix with data-dependent decay. state =
     (shift_last (B, D) f32, wkv (B, H, dh, dh) f32), None for a full
-    sequence from zero state; H comes from `shapes`. The mixes, the decay
+    sequence from zero state; H is the projections' width over the head
+    size (`shapes.rwkv_heads`, or a rank's share). The mixes, the decay
     chain and the gate run in f32, each mix cast to x's dtype before its
-    projection. Returns (out, new_state)."""
+    projection. Returns (out, new_state).
+
+    Under `tp` with the heads split (`rwkv_heads`; u's columns tell) a
+    rank runs on its H/tp heads: head tiles of wr, wk, wv, wg and
+    decay_w2, its own decay_w0, u and lnx_* (the group norm is per head),
+    the WKV scan over its heads with a wkv state of its heads; the token
+    shift stays whole. wo sums its K tiles in rank order
+    (`tp_row_proj`)."""
     B, S, D = x.shape
     rc = cfg.rwkv
     dh = rc.head_size
-    shapes = shapes or LayerShapes.from_config(cfg)
-    H = shapes.rwkv_heads
     f32 = torch.float32
+    local = tp is not None and tp.split(f"{prefix}.u", -1)
     xs = _token_shift(x, state[0] if state is not None else None)
     mixed = _mixes(x, xs, lp[f"{prefix}.mu"])                # (5, B, S, D)
-    r = dense_proj(mixed[0], lp, qp, f"{prefix}.wr").reshape(B, S, H, dh)
-    k = dense_proj(mixed[1], lp, qp, f"{prefix}.wk").reshape(B, S, H, dh)
-    v = dense_proj(mixed[2], lp, qp, f"{prefix}.wv").reshape(B, S, H, dh)
-    g = F.silu(dense_proj(mixed[3], lp, qp, f"{prefix}.wg").to(f32))
+
+    def proj(i: int, w: str) -> torch.Tensor:
+        y = dense_proj(mixed[i], lp, qp, f"{prefix}.{w}")
+        return tp_col_tile(tp, lp, f"{prefix}.{w}", y) if local else y
+
+    r, k, v, g = (proj(i, w) for i, w in enumerate(("wr", "wk", "wv", "wg")))
+    H = r.shape[-1] // dh        # `shapes.rwkv_heads`, or a rank's share
+    r, k, v = (t.reshape(B, S, H, dh) for t in (r, k, v))
+    g = F.silu(g.to(f32))
     dd = torch.tanh(dense_proj(mixed[4], lp, qp, f"{prefix}.decay_w1")
                     .to(f32))
-    dd = dense_proj(dd, lp, qp, f"{prefix}.decay_w2").to(f32)
+    dd = dense_proj(dd, lp, qp, f"{prefix}.decay_w2")
+    if local:
+        dd = tp_col_tile(tp, lp, f"{prefix}.decay_w2", dd)
+    dd = dd.to(f32)
     logw = -torch.exp(torch.clamp(
         lp[f"{prefix}.decay_w0"].to(f32) + dd, -8.0, 4.0))
     w = torch.exp(logw).reshape(B, S, H, dh)
@@ -945,19 +1005,33 @@ def rwkv_timemix_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
                         H, cfg.norm_eps)
     y = (y.to(f32) * g).to(x.dtype)
     y = qa(y, qp, f"{prefix}.tm_out.aq")
-    out = dense_proj(y, lp, qp, f"{prefix}.wo")
+    if tp is not None:
+        out = tp_row_proj(tp, y, local, lp, qp, f"{prefix}.wo")
+    else:
+        out = dense_proj(y, lp, qp, f"{prefix}.wo")
     return out, (x[:, -1].to(f32), s_last)
 
 
 def rwkv_chanmix_apply(lp: dict, qp: Optional[dict], cfg: ModelConfig, x, *,
-                       prefix: str, state: Optional[torch.Tensor] = None):
+                       prefix: str, state: Optional[torch.Tensor] = None,
+                       tp=None):
     """RWKV channel-mix FFN; state = shift_last (B, D) f32. Returns
-    (out, new_state)."""
+    (out, new_state). Under `tp` a rank runs its tile of cm_k's hidden
+    units (`rwkv_ffn`) and cm_v sums its K tiles in rank order
+    (`tp_row_proj`); cm_r's columns lie on `rwkv_heads`, but sigmoid(r)
+    multiplies the whole output, so r's tiles are gathered whole."""
     f32 = torch.float32
     xk, xr = _mixes(x, _token_shift(x, state), lp[f"{prefix}.cm_mu"])
     k = torch.square(torch.relu(dense_proj(xk, lp, qp, f"{prefix}.cm_k")
                                 .to(f32))).to(x.dtype)
     k = qa(k, qp, f"{prefix}.cm_act.aq")
-    val = dense_proj(k, lp, qp, f"{prefix}.cm_v")
-    r = torch.sigmoid(dense_proj(xr, lp, qp, f"{prefix}.cm_r").to(f32))
+    r = dense_proj(xr, lp, qp, f"{prefix}.cm_r")
+    if tp is None:
+        val = dense_proj(k, lp, qp, f"{prefix}.cm_v")
+    else:
+        val = tp_row_proj(tp, k, tp.split(tp.key(lp, f"{prefix}.cm_k"), -1),
+                          lp, qp, f"{prefix}.cm_v")
+        if tp.split(tp.key(lp, f"{prefix}.cm_r"), -1):
+            r = tp.gather(r)
+    r = torch.sigmoid(r.to(f32))
     return (val.to(f32) * r).to(x.dtype), x[:, -1].to(f32)

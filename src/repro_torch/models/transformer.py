@@ -416,7 +416,7 @@ class LM(torch.nn.Module):
         apply = (Lyr.mamba_apply if sub.mixer == "mamba"
                  else Lyr.rwkv_timemix_apply)
         mix, new = apply(lp, qp_body, cfg, h, prefix=f"{pre}.{sub.mixer}",
-                         state=state, shapes=shp)
+                         state=state, shapes=shp, tp=self.tp)
         if caches is not None:
             for k, t in zip(keys, new):
                 caches[k][i].copy_(t)
@@ -428,7 +428,8 @@ class LM(torch.nn.Module):
         pre = f"blocks.{sub.j}"
         if sub.ffn == "moe":
             return Lyr.moe_apply(lp, qp_body, cfg, h2, prefix=f"{pre}.moe",
-                                 full_capacity=full_capacity, shapes=shp)
+                                 full_capacity=full_capacity, shapes=shp,
+                                 tp=self.tp)
         if sub.ffn == "mlp":
             return Lyr.mlp_apply(lp, qp_body, cfg, h2, prefix=f"{pre}.mlp",
                                  tp=self.tp)
@@ -437,7 +438,8 @@ class LM(torch.nn.Module):
         if caches is not None and not prefill:
             state = caches[key][i]
         f, new = Lyr.rwkv_chanmix_apply(lp, qp_body, cfg, h2,
-                                        prefix=f"{pre}.rwkv", state=state)
+                                        prefix=f"{pre}.rwkv", state=state,
+                                        tp=self.tp)
         if caches is not None:
             caches[key][i].copy_(new)
         return f

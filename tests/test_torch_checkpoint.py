@@ -210,12 +210,28 @@ def test_elastic_reshard_restore(tmp_path):
     np.testing.assert_array_equal(restored["w"].numpy(), tree["w"].numpy())
 
 
-def test_save_at_two_ranks_restore_at_four(tmp_path):
+@pytest.mark.parametrize("case", ["rows", "jamba_fsdp"])
+def test_save_at_two_ranks_restore_at_four(tmp_path, case):
     """A state sharded over 2 ranks is saved whole (gathered, written by
     the first rank) and restored on 4 ranks, each taking its quarter of
-    the rows in the saved dtype (elastic resharding across mesh sizes)."""
+    the rows in the saved dtype (elastic resharding across mesh sizes).
+    `jamba_fsdp`: jamba's smoke params under FSDP (embed over the data
+    axis: the expert stacks and the mamba tensors among them) restore on
+    4 ranks bitwise as each rank's shard."""
     import torch_ranks as R
     from repro_torch.launch.mesh import RankPool
+    if case == "jamba_fsdp":
+        arch = "jamba-1.5-large-398b"
+        with RankPool(4, "cpu", verbose=False) as pool:
+            saved = pool.run(R.save_family, str(tmp_path), 2, arch)
+            assert saved[2:] == [None, None]
+            for same, shapes in pool.run(R.restore_family, str(tmp_path),
+                                         4, arch):
+                assert same and set(shapes) == set(saved[0])
+                # (L, E, D, F): D = 128 in quarters
+                assert shapes["blocks.1.moe.we_gate"][2] == 128 // 4
+                assert shapes["blocks.1.mamba.in_proj_x"][1] == 128 // 4
+        return
     full = torch.arange(32.0).reshape(8, 4).to(torch.bfloat16).float()
     with RankPool(4, "cpu", verbose=False) as pool:
         saved = pool.run(R.save_sharded, str(tmp_path), 2)

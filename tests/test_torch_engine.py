@@ -192,17 +192,41 @@ def test_cli_packed_smoke_on_cpu(capsys):
                                 dict(tp=2), dict(prefill_chunk=4, tp=4),
                                 dict(pruned=True, tp=2)])
 def test_later_modes_raise_naming_their_slice(kw):
-    """Tensor-parallel serving is here for the dense families; an MoE
-    under a mesh, in any mode, raises naming the item that brings it. A tp
-    engine is built on the ranks of a group: outside one, build_engine
-    says so."""
+    """Tensor-parallel serving takes the MoE family in every mode: grok-1's
+    engine builds on rank 0 of a (1, tp) mesh (a layout: building makes no
+    collective) with its experts split over the ranks. A tp engine is
+    built on the ranks of a group: outside one, build_engine says so."""
     from repro_torch.launch.mesh import Mesh
     kw = dict(kw)
-    mesh = Mesh(("data", "model"), (1, kw.pop("tp")))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14b"):
-        TE.build_engine("grok-1-314b", True, device="cpu", mesh=mesh, **kw)
+    tp = kw.pop("tp")
+    eng, lm = TE.build_engine("grok-1-314b", True, device="cpu",
+                              mesh=Mesh(("data", "model"), (1, tp), rank=0),
+                              **kw)
+    assert lm.tp is not None and eng.serving_meta["tp"]["devices"] == tp
+    n_experts = lm.shapes[0].n_experts     # 4, or 2 when pruned at s50
+    assert eng.params["blocks.0.moe.we_gate"].shape[1] == n_experts // tp
+    assert eng.params["blocks.0.moe.router"].shape[-1] == n_experts
     with pytest.raises(ValueError, match="RankPool"):
-        TE.build_engine(ARCH, True, device="cpu", tp=mesh.size, **kw)
+        TE.build_engine(ARCH, True, device="cpu", tp=tp, **kw)
+
+
+@pytest.mark.parametrize("arch", [ARCH, "jamba-1.5-large-398b"])
+def test_mesh_engine_takes_the_callers_params(arch):
+    """Under a mesh the engine serves this rank's shards and empties the
+    params dict it was given (each whole tensor leaves as its shard is
+    cut); its shards are those of an engine given a copy."""
+    from repro_torch.launch.mesh import Mesh
+    lm = TLM(get_arch(arch, smoke=True))
+    params = lm.init(torch.Generator().manual_seed(0))
+    want = {k: v.clone() for k, v in params.items()}
+    mesh = Mesh(("data", "model"), (1, 2), rank=0)
+    eng = TE.Engine(lm, params, None, mesh=mesh)
+    ref = TE.Engine(TLM(get_arch(arch, smoke=True)), dict(want), None,
+                    mesh=mesh)
+    assert params == {} and eng.params.keys() == want.keys()
+    assert all(torch.equal(eng.params[k], ref.params[k]) for k in want)
+    assert sum(v.numel() for v in eng.params.values()) < sum(
+        v.numel() for v in want.values())
 
 
 def test_other_families_raise():
@@ -530,14 +554,35 @@ def test_example_serves_on_cpu(argv, capsys):
                                   ["--speculative", "--tp", "2"],
                                   ["--tp", "2"], ["--devices", "4"],
                                   ["--chunked-prefill", "8", "--tp", "2"]])
-def test_example_later_modes_raise(argv):
-    """The example serves `--tp` / `--devices` on ranks for the dense
-    families; for an MoE or a recurrent arch it raises naming the item
-    that brings them, before starting any rank."""
+def test_example_later_modes_raise(argv, monkeypatch):
+    """The example serves `--tp` / `--devices` on ranks for the MoE and
+    recurrent archs too: it reaches rank start (the start is recorded
+    here, no rank runs) with the rank count asked for; a mode one rank
+    refuses on a recurrent arch (`--speculative`, `--chunked-prefill`)
+    raises that rank's ValueError before any rank starts."""
+    from repro_torch.launch import mesh as meshlib
+    ex = _example()
+    started = []
+    monkeypatch.setattr(meshlib, "spawn", lambda fn, world, device, args:
+                        started.append((fn, world, args.arch)) or [{}])
+    world = 4 if "--devices" in argv else 2
     for arch in ("grok-1-314b", "rwkv6-3b"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 14b"):
-            _example().main(argv + ["--arch", arch, "--device", "cpu"])
+        refused = arch == "rwkv6-3b" and ("--speculative" in argv or
+                                          "--chunked-prefill" in argv)
+        if refused:
+            with pytest.raises(ValueError) as one_rank:
+                TE.build_engine(arch, True, device="cpu",
+                                speculative="--speculative" in argv,
+                                prefill_chunk=8 if "--chunked-prefill" in argv
+                                else None)
+            with pytest.raises(ValueError, match="recurrent state") as e:
+                ex.main(argv + ["--arch", arch, "--device", "cpu"])
+            assert str(e.value) == str(one_rank.value)
+            continue
+        ex.main(argv + ["--arch", arch, "--device", "cpu"])
+        assert started[-1] == (ex.serve, world, arch)
+    assert len(started) == (1 if "--speculative" in argv
+                            or "--chunked-prefill" in argv else 2)
 
 
 @pytest.mark.parametrize("arch", ["musicgen-large", "internvl2-26b"])

@@ -1983,6 +1983,68 @@ def test_moe_smoke_train_step_on_card_matches_cpu(cuda):
                for k in again[0])
 
 
+def _moe_layer_on_card(arch, dtype):
+    """(cfg, layer 0's MoE params on the card in `dtype`, its 8-bit
+    quantizers, a random (2, 8, D) input, the prefix)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import LM
+    lm = LM(get_arch(arch, smoke=True))
+    params = lm.init(torch.Generator().manual_seed(0))
+    qp = {k: type(q)(*(t.cuda() for t in (q.d, q.q_m, q.t)))
+          for k, q in lm.init_qparams(params).items()}
+    lp = {k: v[0].cuda().to(dtype) for k, v in params.items()
+          if k.startswith("blocks.0.moe")}
+    x = torch.randn((2, 8, lm.cfg.d_model), generator=torch.Generator(
+        device="cuda").manual_seed(3), device="cuda").to(dtype)
+    return lm.cfg, lp, qp, x, "blocks.0.moe"
+
+
+def _ep(mesh, pre):
+    """A layer's expert-parallel layout: the stacks split on `model`."""
+    from repro_torch.distributed.sharding import TensorParallel
+    return TensorParallel(mesh, {f"{pre}.{w}": (None, "model", None, None)
+                                 for w in ("we_gate", "we_up", "we_down")})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_expert_parallel_at_tp1_on_card(cuda, arch, dtype):
+    """`moe_apply`'s expert-parallel path on the card at one rank (the
+    rank's local experts are every expert; the combine's ordered sum runs
+    over one rank) is bitwise the plain call."""
+    from repro_torch.launch.mesh import Mesh
+    cfg, lp, qp, x, pre = _moe_layer_on_card(arch, dtype)
+    want = TL.moe_apply(lp, qp, cfg, x, prefix=pre)
+    got = TL.moe_apply(lp, qp, cfg, x, prefix=pre,
+                       tp=_ep(Mesh(("data", "model"), (1, 1), rank=0), pre))
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_moe_expert_parallel_partials_on_card(cuda):
+    """grok's smoke MoE layer (f32) on the card as two ranks of a (1, 2)
+    mesh run it: each rank's local experts (2 of 4) and its partial
+    combine (the collective replaced by the partial itself), summed in
+    rank order, within 1e-6 of the plain call's largest magnitude, and
+    each rank's local stacks its half of the experts."""
+    from repro_torch.distributed.sharding import local_shard
+    from repro_torch.launch.mesh import Mesh
+    cfg, lp, qp, x, pre = _moe_layer_on_card("grok-1-314b", torch.float32)
+    want = TL.moe_apply(lp, qp, cfg, x, prefix=pre)
+    total = None
+    for rank in (0, 1):
+        mesh = Mesh(("data", "model"), (1, 2), rank=rank)
+        tp = _ep(mesh, pre)
+        tp.sum = lambda y: y          # this rank's partial, uncombined
+        local = {k: local_shard(v[None], tp.specs[k], mesh)[0]
+                 if k in tp.specs else v for k, v in lp.items()}
+        assert local[f"{pre}.we_gate"].shape[0] == cfg.moe.n_experts // 2
+        part = TL.moe_apply(local, qp, cfg, x, prefix=pre, tp=tp).float()
+        total = part if total is None else total + part
+    err = (total - want).abs().max().item()
+    assert err <= 1e-6 * want.abs().max().item(), err
+
+
 def test_fake_quant_past_2_31_elements_matches_plain(cuda):
     """The fake-quant kernels on one bf16 tensor of more than 2^31
     elements (an odd count, as a full-width expert stack's 3.2e9 are past

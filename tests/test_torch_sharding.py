@@ -221,6 +221,17 @@ def test_axes_plans_and_specs_match_reference(arch):
                                    for k, v in served.items()})
                 assert got == {k: _jspec(v) for k, v in want.items()}
                 assert plan.fallbacks == jplan.fallbacks
-                assert kv_cache_specs(mesh, arena) == {
-                    k: _jspec(v) for k, v in
-                    JS.kv_cache_specs(jmesh, arena).items()}
+                # the K/V leaves shard as the reference's; the recurrent
+                # state, which the reference replicates, shards with its
+                # mixer's channels (mamba) or heads (rwkv6) where the
+                # model axis divides them
+                got = kv_cache_specs(mesh, arena)
+                for k, v in JS.kv_cache_specs(jmesh, arena).items():
+                    if k.rpartition(".")[2] not in ("h", "conv", "wkv"):
+                        assert got[k] == _jspec(v), k
+                        continue
+                    assert not any(_jspec(v)), k
+                    dim = 3 if k.endswith(".conv") else 2
+                    shard = layout[1] > 1 and arena[k][dim] % layout[1] == 0
+                    assert got[k] == ((None,) * dim + ("model",) if shard
+                                      else ()), k

@@ -211,13 +211,22 @@ def test_kv_cache_specs_head_axis():
               "blocks.0.v": (2, 4, 64, 4, 16),
               "blocks.1.k": (2, 4, 64, 3, 16),       # KVh=3: replicate
               "blocks.0.k_scale": (2, 8, 16, 4),     # paged scale: shard
-              "blocks.0.h": (2, 4, 32, 7)}           # recurrent state
+              # recurrent state shards with its mixer's channels / heads
+              "blocks.0.h": (2, 4, 32, 7),           # mamba h: Di
+              "blocks.0.conv": (2, 4, 3, 32),        # mamba conv: Di
+              "blocks.2.h": (2, 4, 30, 7),           # Di=30: replicate
+              "blocks.1.wkv": (2, 4, 8, 16, 16),     # rwkv6 wkv: heads
+              "blocks.1.tm_shift": (2, 4, 64)}       # token shift: whole
     specs = kv_cache_specs(mesh, shapes)
     assert specs["blocks.0.k"][3] == "model"
     assert specs["blocks.0.v"][3] == "model"
     assert specs["blocks.1.k"] in ((), (None,) * 5)
     assert specs["blocks.0.k_scale"][3] == "model"
-    assert specs["blocks.0.h"] in ((), (None,) * 4)
+    assert specs["blocks.0.h"] == (None, None, "model")
+    assert specs["blocks.0.conv"] == (None, None, None, "model")
+    assert specs["blocks.1.wkv"] == (None, None, "model")
+    assert specs["blocks.2.h"] in ((), (None,) * 4)
+    assert specs["blocks.1.tm_shift"] in ((), (None,) * 3)
 
 
 # ------------------------------------------------------------ engine layer

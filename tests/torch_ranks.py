@@ -7,6 +7,8 @@ Each function builds its mesh inside the rank (SPMD), runs its case and
 returns host values (numpy arrays, numbers), which the tests compare with
 the JAX package's results computed once in the pytest process.
 """
+import contextlib
+
 import numpy as np
 import torch
 
@@ -298,3 +300,256 @@ def restore_sharded(directory: str, n: int):
     example = {"w": torch.zeros(8 // n, 4), "n": 0}
     tree, step = restore_checkpoint(directory, example, shardings=sh)
     return _np(tree["w"].float()), str(tree["w"].dtype), tree["n"], step
+
+
+
+# ------------------------------------------ every family across ranks
+def _block_mesh(n: int, shape: str):
+    """(block index, mesh) of this rank's block of n consecutive ranks:
+    the world cut into world // n blocks, each a (1, n) tensor-parallel
+    (`shape` "tp") or (n, 1) data-parallel ("dp") mesh, so blocks run
+    cases side by side. Every rank builds every block's mesh in one order
+    (process groups are made collectively); None past the blocks."""
+    mine = None
+    for b in range(M.world()[1] // n):
+        mesh = M._build((1, n) if shape == "tp" else (n, 1), M.AXES,
+                        tuple(range(b * n, (b + 1) * n)))
+        if mesh.member:
+            mine = (b, mesh)
+    return mine
+
+
+def on_blocks(cases: list, shape: str, fn, *args) -> dict:
+    """fn(case, mesh, *args) for every case (a tuple whose first entry is
+    its rank count n), the cases of one n dealt over the world's blocks
+    of n ranks: {case: this rank's result} for its blocks' cases."""
+    out = {}
+    for n in sorted({c[0] for c in cases}):
+        mine = _block_mesh(n, shape)
+        if mine is None:
+            continue
+        b, mesh = mine
+        of_n = [c for c in cases if c[0] == n]
+        for case in of_n[b::M.world()[1] // n]:
+            out[case] = fn(case, mesh, *args)
+    return out
+
+
+@contextlib.contextmanager
+def _weights(np_params: dict):
+    """Inside, `LM.init` hands over `np_params` (the JAX package's)."""
+    init = LM.init
+    LM.init = lambda self, gen: convert.params_from_numpy(
+        np_params, device=gen.device)
+    try:
+        yield
+    finally:
+        LM.init = init
+
+
+def _family(arch, np_params: dict):
+    """(the smoke LM of `arch`, `np_params` as its params)."""
+    return (LM(get_arch(arch, smoke=True)),
+            convert.params_from_numpy(np_params))
+
+
+SHARD_KEYS = ("moe.we_gate", "moe.router", "mamba.conv_w", "rwkv.u",
+              "rwkv.wr", "rwkv.cm_k")
+STATE_KEYS = (".h", ".conv", ".wkv", ".tm_shift")
+
+
+def _serve_case(case, mesh, np_params: dict, prompts: dict, gen: int):
+    """One engine case (n, arch, name, kw) on `mesh` (None: one rank):
+    (tokens by request, tp fallbacks, {param or arena leaf: this rank's
+    shape} for the expert, channel, head and state leaves)."""
+    _, arch, name, kw = case
+    lens = [len(p) for p in prompts[arch]]
+    with _weights(np_params[arch]):
+        eng, _ = TE.build_engine(arch, True, max_seq=max(lens) + gen,
+                                 device="cpu", mesh=mesh, **dict(kw))
+    for p in prompts[arch]:
+        eng.submit(np.asarray(p), gen)
+    eng.warmup()
+    out = eng.run()
+    shapes = {k: tuple(v.shape) for k, v in eng.params.items()
+              if k.startswith("blocks.") and k.endswith(SHARD_KEYS)}
+    shapes.update({k: tuple(v.shape) for k, v in eng.caches.items()
+                   if k.endswith(STATE_KEYS)})
+    return ({int(r): np.asarray(t) for r, t in out.items()},
+            sorted({n for n, _, _ in eng.tp_fallbacks}), shapes)
+
+
+def serve_families(np_params: dict, prompts: dict, gen: int, cases: list):
+    """Every engine case (tp, arch, name, engine keywords as a tuple of
+    items) on blocks of tp ranks: {case: this rank's (tokens, fallbacks,
+    shard shapes)}."""
+    return on_blocks(cases, "tp", _serve_case, np_params, prompts, gen)
+
+
+def _layer_case(case, mesh, np_params: dict, x: np.ndarray, states: dict):
+    """One sublayer (n, arch, kind) on the rank's shards of a (1, n) mesh
+    against the whole 1-rank call on the same inputs, 8-bit quantizers:
+    (max |tp - whole| over outputs and states, max |whole|, {leaf: local
+    shape})."""
+    from repro_torch.models import layers as Lyr
+    _, arch, kind = case
+    lm, params = _family(arch, np_params[arch])
+    cfg = lm.cfg
+    qp = lm.init_qparams(params)
+    plan = S.serving_plan(mesh, cfg)
+    specs = S.serving_param_specs(plan, lm.param_axes(), params)
+    tp = S.TensorParallel(mesh, specs)
+    whole = {k: v[0] for k, v in params.items() if k.startswith("blocks.")}
+    local = {k: S.local_shard(v, specs[k], mesh)[0]
+             for k, v in params.items() if k.startswith("blocks.")}
+    pre = {"moe": "blocks.1.moe" if cfg.mamba else "blocks.0.moe",
+           "mamba": "blocks.1.mamba", "rwkv": "blocks.0.rwkv",
+           "chanmix": "blocks.0.rwkv"}[kind]
+    xt = torch.from_numpy(x)
+    # the state before and after the call, sharded as the arena shards it
+    st_full = tuple(torch.from_numpy(s) for s in states.get(kind, ()))
+    names = {"mamba": ("h", "conv"), "rwkv": ("tm_shift", "wkv"),
+             "chanmix": ("cm_shift",)}.get(kind, ())
+    st_specs = list(S.kv_cache_specs(mesh, {
+        f"blocks.0.{n}": (1,) + tuple(s.shape)
+        for n, s in zip(names, st_full)}).values())
+    st_local = tuple(S.local_shard(s[None], sp, mesh)[0]
+                     for s, sp in zip(st_full, st_specs))
+
+    def call(lp, t, state):
+        if kind == "moe":
+            return (Lyr.moe_apply(lp, qp, cfg, xt, prefix=pre, tp=t),)
+        if kind == "chanmix":
+            return Lyr.rwkv_chanmix_apply(lp, qp, cfg, xt, prefix=pre, tp=t,
+                                          state=state[0] if state else None)
+        fn = Lyr.mamba_apply if kind == "mamba" else Lyr.rwkv_timemix_apply
+        out, new = fn(lp, qp, cfg, xt, prefix=pre, tp=t, state=state or None)
+        return (out, *new)
+
+    got = call(local, tp, st_local)
+    want = call(whole, None, st_full)
+    err, big = 0.0, 0.0
+    for g, w, sp in zip(got, want, [()] + st_specs):
+        w = S.local_shard(w[None], sp, mesh)[0]
+        err = max(err, float((g - w).abs().max()))
+        big = max(big, float(w.abs().max()))
+    shapes = {k: tuple(v.shape) for k, v in local.items()
+              if k.startswith(pre) and k.endswith(SHARD_KEYS)}
+    shapes.update({f"state.{i}": tuple(s.shape)
+                   for i, s in enumerate(st_local)})
+    return err, big, shapes
+
+
+def layer_families(np_params: dict, x: np.ndarray, states: dict,
+                   cases: list):
+    """Every sublayer case (tp, arch, kind) on blocks of tp ranks."""
+    return on_blocks(cases, "tp", _layer_case, np_params, x, states)
+
+
+def _train_case(case, mesh, np_params: dict, np_qparams: dict,
+                batches: dict):
+    """One GETA step (n, arch, fsdp, grad_slices) from the reference's
+    params, 16-bit quantizers and batch, under `train.JOINT_STEP0` with
+    the arch's base optimizer, on an (n, 1) mesh (the 1-rank step with
+    grad_slices=k when n is 1): (loss, params gathered whole, qparams,
+    masks, the sharded leaves) and, on one rank, the ordered loss and
+    gradients (loss, gx, gq) the step's QASSO update takes."""
+    from repro_torch.configs import get_overrides
+    n, arch, fsdp, k = case
+    lm, params = _family(arch, np_params[arch])
+    qparams = convert.qparams_from_numpy(np_qparams[arch])
+    _, qasso = T.build_geta(lm, T.JOINT_STEP0, lr=3e-4,
+                            base_optimizer=get_overrides(arch).get(
+                                "base_optimizer", "adamw"))
+    qstate = qasso.init(params, qparams)
+    # the arch's rules, but FSDP only where the case asks for it (the
+    # large archs' rules turn it on)
+    rules = {k_: v for k_, v in get_overrides(arch).items() if k_ != "fsdp"}
+    plan = S.make_plan(mesh, fsdp=fsdp, overrides=rules)
+    p_sh = plan.shardings(lm.param_axes(), {k_: tuple(v.shape)
+                                            for k_, v in params.items()})
+    step, (psh, _, ssh, bsh) = T.make_sharded_geta_train_step(
+        lm, qasso, mesh, params, qparams, param_shardings=p_sh,
+        grad_slices=k)
+    batch = {k_: torch.from_numpy(v) for k_, v in batches[arch].items()}
+    grads = None
+    if n == 1:
+        lg = T.make_ordered_loss_grads(lm, mesh, grad_slices=k)
+        loss, gx, gq = lg(params, qparams, batch)
+        grads = (float(loss), {k_: _np(g) for k_, g in gx.items()},
+                 {k_: (float(q.d), float(q.q_m), float(q.t))
+                  for k_, q in gq.items()})
+    params, qstate = S.place(params, psh), S.place(qstate, ssh)
+    params, qparams, qstate, m = step(params, qparams, qstate,
+                                      S.place(batch, bsh))
+    if mesh.size > 1:
+        for k_, v in {**qstate.redundant, **qstate.keep_mask}.items():
+            C.assert_replicated(v, mesh, k_)
+    sharded = sorted(k_ for k_, v in psh.items() if any(v.spec))
+    params = S.gather_tree(params, psh)
+    return (float(m["loss"]), *_host_state(params, qparams, qstate),
+            sharded, grads)
+
+
+def train_families(np_params: dict, np_qparams: dict, batches: dict,
+                   cases: list):
+    """Every step case (n, arch, fsdp, grad_slices) on blocks of n
+    ranks: {case: this rank's result}."""
+    return on_blocks(cases, "dp", _train_case, np_params, np_qparams,
+                     batches)
+
+
+def _loop_case(case, mesh):
+    """`train_loop` for one step of (n, arch, fsdp) on an (n, 1) mesh
+    from its own init: (the loss, whether the params are finite)."""
+    _, arch, fsdp = case
+    state, _, _, losses = T.train_loop(arch, True, 1, 4, 16, mesh=mesh,
+                                       fsdp=fsdp, verbose=False,
+                                       device="cpu")
+    return losses[0], all(bool(torch.isfinite(v.float()).all())
+                          for v in state["params"].values())
+
+
+def loop_families(cases: list):
+    return on_blocks(cases, "dp", _loop_case)
+
+
+def _family_state(arch: str, n: int, mesh):
+    """The smoke `arch`'s params from `LM.init` (seed 0) and their FSDP
+    shardings on `mesh` (embed over the data axis of n ranks)."""
+    from repro_torch.configs import get_overrides
+    lm = LM(get_arch(arch, smoke=True))
+    params = lm.init(torch.Generator().manual_seed(0))
+    plan = S.make_plan(mesh, fsdp=True, overrides=dict(get_overrides(arch)))
+    return params, plan.shardings(lm.param_axes(), {
+        k: tuple(v.shape) for k, v in params.items()})
+
+
+def save_family(directory: str, n: int, arch: str):
+    """Save at step 1 from the first n ranks the FSDP-sharded params of
+    `arch`: gathered whole, written by the mesh's first rank."""
+    mesh = M.make_subset_mesh(n)
+    if not mesh.member:
+        M.make_host_mesh().barrier()
+        return None
+    params, sh = _family_state(arch, n, mesh)
+    local = S.place(params, sh)
+    whole = S.gather_tree(local, sh)
+    if mesh.rank == 0:
+        save_checkpoint(directory, 1, whole)
+    M.make_host_mesh().barrier()
+    return sorted(k for k, v in sh.items() if any(v.spec))
+
+
+def restore_family(directory: str, n: int, arch: str):
+    """Restore it on the first n ranks under this mesh's FSDP shardings:
+    (every leaf bitwise this rank's shard of the params, the sharded
+    leaves' local shapes)."""
+    mesh = M.make_subset_mesh(n)
+    if not mesh.member:
+        return None
+    params, sh = _family_state(arch, n, mesh)
+    tree, _ = restore_checkpoint(directory, params, shardings=sh)
+    want = S.place(params, sh)
+    return (all(torch.equal(tree[k], want[k]) for k in want),
+            {k: tuple(tree[k].shape) for k, v in sh.items() if any(v.spec)})

@@ -18,7 +18,19 @@ on its own card:
    bytes beside the 1-rank engine's;
 3. internlm2-1.8b at 4 of 24 layers, batch 4 x 512, the DP and FSDP GETA
    steps on N ranks over 3 steps against the 1-rank step with
-   grad_slices=N (chip_smoke phase 15c): bitwise, with step walls.
+   grad_slices=N (chip_smoke phase 15c): bitwise, with step walls;
+4. grok-1 at 1 of 64 layers (expert parallel: 8 experts, 8 / N a rank)
+   and rwkv6-3b at 8 of 32 layers (tensor parallel: 40 heads, 40 / N a
+   rank) at their published widths (bf16), dense fake-quant, at tp N
+   (chip_smoke phase 15d's configs and 4 requests) against the 1-rank
+   engine on card 0: every rank's tokens equal, the first decode step's
+   logits by the bf16 rule (rwkv6 within its one-ulp spread where the
+   rule fails, as phase 13 holds it), token agreement, the decode mode
+   (graphs) and step ms beside the 1-rank engine's eager steps.
+
+Check 4 has not run: no host with several cards has run this script
+since it was added (chip_smoke phase 15d runs the same engines with
+four ranks sharing one card over host-staged gloo).
 
 Prints the card's name and power limit first, one line a check, and
 exits 1 if a check fails.
@@ -119,6 +131,40 @@ def _one_rank(smoke: bool) -> dict:
     return out
 
 
+def _family_checks(pool, n: int) -> list[str]:
+    """Check 4: grok-1 (EP) and rwkv6-3b (TP) at tp n over nccl against
+    the 1-rank engine on card 0; returns the failures."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.engine import synthetic_prompts
+    failures = []
+    for fam in ("grok", "rwkv6"):
+        t0 = time.perf_counter()
+        prompts = synthetic_prompts(C._tp_family_cfg(fam), C.TP_FAMILY_LENS,
+                                    seed=0)
+        one = C._tp_family_one(torch, fam, "dense", prompts)
+        res = [r for r in pool.run(C._tp_family_rank, fam, "dense", prompts,
+                                   n) if r]
+        r0 = res[0]
+        held, line = C._family_logits_held(
+            torch, torch.from_numpy(r0["logits"]), one)
+        same = all(r["tokens"] == r0["tokens"] for r in res)
+        ok = held and same and not r0["fallbacks"]
+        toks = {k: np.asarray(v) for k, v in r0["tokens"].items()}
+        steps = max(r0["decode_steps"], 1)
+        print(f"[tp check] {fam} at tp={n} ({r0['backend']}, decode "
+              f"{r0['decode_mode']}): every rank's tokens "
+              f"{'equal' if same else 'DIFFER'}; vs 1 rank: "
+              f"{C._agreement(toks, one['tokens'])}; first step {line}; "
+              f"step {1e3 * r0['decode_s'] / steps:.2f} ms (1 rank, eager: "
+              f"{1e3 * one['decode_s'] / max(one['decode_steps'], 1):.2f} "
+              f"ms); shards {r0['shards']} "
+              f"({time.perf_counter() - t0:.1f} s) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{fam} at tp={n}")
+    return failures
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ranks", type=int, default=0,
@@ -192,6 +238,7 @@ def main(argv=None) -> int:
                   f"rank {'ok' if same else 'FAIL'}")
             if not same:
                 failures.append(f"{'fsdp' if fsdp else 'dp'} step")
+        failures += _family_checks(pool, n)
     for f in failures:
         print(f"FAIL: {f}", file=sys.stderr)
     return 1 if failures else 0
